@@ -1,0 +1,34 @@
+"""LDT in PyTorch and CUDA for NVIDIA Hopper.
+
+A port of `ldt_tpu` (JAX/flax/Pallas), which stays the reference. The module
+layout and names follow `ldt_tpu` so each part has an obvious counterpart:
+
+  * `configs`                 <- ldt_tpu/configs.py (+ tools/io.py dict2namespace)
+  * `ops.attention`           <- ldt_tpu/ops/pallas_attention.py (CUDA kernels
+                                 in `csrc/attention.cu`, built by `ops._build`)
+  * `nn.layers`               <- ldt_tpu/nn/layers.py
+  * `models.score`            <- ldt_tpu/models/score.py
+  * `models.compressor`       <- ldt_tpu/models/compressor.py (decode half)
+  * `diffusion.sde/sampling`  <- ldt_tpu/diffusion/
+  * `weights`                 flax param trees -> torch state_dicts
+  * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate)
+
+Every entry point takes an explicit `device`, which defaults to "cuda" and
+raises when no card is present; only `device="cpu"` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on; raises instead of drifting to CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ldt_torch: no CUDA device is available; pass device='cpu' to "
+            "run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"ldt_torch: unsupported device {dev}")
+    return dev

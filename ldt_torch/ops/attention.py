@@ -1,0 +1,197 @@
+"""Attention cores: hand-written CUDA kernels K1 and K2, and their plain twins.
+
+K1 `packed_self_attention(qkv, num_heads)` — the attention core of every
+DiT block (24 launches per denoise step).
+  * Replaces `ldt_tpu/ops/pallas_attention.py::_fwd_kernel_packed_phased_multi`
+    (default schedule), `_fwd_kernel_packed_phased` and `_fwd_kernel_packed`:
+    all three compute per head softmax(q_h k_h^T dh^-1/2) v_h from the packed
+    [B, N, 3D] qkv GEMM output.
+  * Bound on an H100: device-memory bytes. At the flagship shape (B=64,
+    N=32, D=1024, 16 heads, bf16) it reads 12.6 MB and writes 4.2 MB for
+    0.27 GFLOP, far below the card's operations-per-byte balance.
+  * Design: one block per (batch element, head) reads its q_h, k_h, v_h
+    column slices straight out of the packed rows (no split copies), keeps
+    them and the [N, N] scores in shared memory, and writes [N, dh] once.
+
+K2 `cross_attention(q, k, v, num_heads)` — the decoder's 2048-point x
+32-latent cross-attention (6 launches per generation).
+  * Replaces `ldt_tpu/ops/pallas_attention.py::_fwd_kernel` and the grouped
+    schedule `_fwd_kernel_grouped` (the same function for N == M).
+  * Bound on an H100: device-memory bytes. At the decode shape (B=64,
+    N=2048, M=32, D=128, 4 heads, bf16) q in and the output out are 33.5 MB
+    each; k and v are 1 MB together.
+  * Design: grid (batch, head, 64-query tile); each block keeps k_h and v_h
+    in shared memory and each warp streams whole query rows through it, so q
+    is read once and every output element is written once.
+
+Both accumulate in f32, run the softmax in f32 and round the weights to the
+input dtype before the AV product, as the Pallas kernels do. They take f32
+and bf16 tensors that are contiguous and lie on one device.
+
+Dispatch: a wrapper computes with its plain version only when its input
+lies on the CPU; for a CUDA tensor it launches the kernel or raises. Each
+wrapper counts its kernel launches in `<wrapper>.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ldt_torch.ops import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Most dynamic shared memory a block may use on sm_90 (bytes).
+SMEM_LIMIT = 232448
+# Warps per K2 block (kCrossWarps in csrc/attention.cu).
+_CROSS_WARPS = 4
+
+
+def self_smem_bytes(n: int, dh: int) -> int:
+    """K1's shared memory: q, k (stride dh+1), v and the [n, n] scores, f32."""
+    return 4 * (n * dh + n * (dh + 1) + n * dh + n * n)
+
+
+def cross_smem_bytes(m: int, dh: int) -> int:
+    """K2's shared memory: k (stride dh+1), v, and per warp a query row and
+    its m weights, f32."""
+    return 4 * (m * (dh + 1) + m * dh + _CROSS_WARPS * (dh + m))
+
+
+def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """Plain PyTorch twin of both kernels: per head
+    softmax(q_h k_h^T dh^-1/2) v_h with f32 products and softmax, weights
+    rounded to the input dtype before AV, output in the input dtype
+    (`ldt_tpu/ops/pallas_attention.py::reference_attention_core`)."""
+    b, n, d = q.shape
+    m = k.shape[1]
+    dh = d // num_heads
+    qh = q.reshape(b, n, num_heads, dh).transpose(1, 2).float()
+    kh = k.reshape(b, m, num_heads, dh).transpose(1, 2).float()
+    vh = v.reshape(b, m, num_heads, dh).transpose(1, 2).float()
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (dh ** -0.5)
+    w = _softmax_rows(s).to(q.dtype).float()
+    out = torch.matmul(w, vh)
+    return out.transpose(1, 2).reshape(b, n, d).to(q.dtype)
+
+
+def packed_self_attention_plain(qkv: torch.Tensor,
+                                num_heads: int) -> torch.Tensor:
+    """Plain twin of K1 on the packed [B, N, 3D] qkv."""
+    d = qkv.shape[-1] // 3
+    return attention_plain(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
+                           num_heads)
+
+
+def _check(name: str, tensors) -> None:
+    first = tensors[0]
+    for t in tensors:
+        if t.dim() != 3:
+            raise ValueError(f"{name}: expected [B, N, C] tensors, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name}: dtype {t.dtype} not supported "
+                            "(float32 or bfloat16)")
+        if t.dtype != first.dtype or t.device != first.device:
+            raise ValueError(f"{name}: inputs differ in dtype or device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {first.device}")
+
+
+def _check_heads(name: str, d: int, num_heads: int) -> None:
+    if num_heads <= 0 or d % num_heads != 0:
+        raise ValueError(f"{name}: width {d} is not divisible by "
+                         f"num_heads={num_heads}")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ldt_packed_self_attention.argtypes = [p, p, i, i, i, i, f, i, p]
+    lib.ldt_packed_self_attention.restype = i
+    lib.ldt_cross_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
+    lib.ldt_cross_attention.restype = i
+    lib.ldt_error_string.argtypes = [i]
+    lib.ldt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        msg = _lib().ldt_error_string(err).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+
+
+def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K1: self-attention on the packed [B, N, 3D] qkv -> [B, N, D]."""
+    name = "packed_self_attention"
+    _check(name, (qkv,))
+    b, n, d3 = qkv.shape
+    if d3 % 3 != 0:
+        raise ValueError(f"{name}: last dim {d3} is not 3 * D")
+    d = d3 // 3
+    _check_heads(name, d, num_heads)
+    dh = d // num_heads
+    if self_smem_bytes(n, dh) > SMEM_LIMIT:
+        raise ValueError(f"{name}: N={n}, dh={dh} need "
+                         f"{self_smem_bytes(n, dh)} B of shared memory, "
+                         f"more than the {SMEM_LIMIT} B a block may use")
+    if qkv.device.type == "cpu":
+        return packed_self_attention_plain(qkv, num_heads)
+    out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _lib().ldt_packed_self_attention(
+            qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, dh ** -0.5,
+            _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, name)
+    packed_self_attention.launches += 1
+    return out
+
+
+packed_self_attention.launches = 0
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """K2: attention of q [B, N, D] over k, v [B, M, D] -> [B, N, D]."""
+    name = "cross_attention"
+    _check(name, (q, k, v))
+    b, n, d = q.shape
+    m = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != d or m == 0:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    _check_heads(name, d, num_heads)
+    dh = d // num_heads
+    if cross_smem_bytes(m, dh) > SMEM_LIMIT:
+        raise ValueError(f"{name}: M={m}, dh={dh} need "
+                         f"{cross_smem_bytes(m, dh)} B of shared memory, "
+                         f"more than the {SMEM_LIMIT} B a block may use")
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, num_heads)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().ldt_cross_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+            m, d, num_heads, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
+    _raise_on(err, name)
+    cross_attention.launches += 1
+    return out
+
+
+cross_attention.launches = 0

@@ -1,0 +1,184 @@
+"""Shared helpers of the ldt_torch port tests, and the package-level checks:
+the port imports neither JAX nor ldt_tpu, and its entry points refuse to run
+without a card unless the CPU is asked for."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ldt_tpu.configs as jax_configs
+import ldt_torch.configs as torch_configs
+from ldt_tpu.tools.io import dict2namespace as jax_ns
+from ldt_torch.configs import dict2namespace as torch_ns
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# tests/test_mods_fastpath.py::small_score_cfg
+SMALL_SCORE = dict(
+    num_steps=10, z_dim=8, z_scale=8, hidden_size=32, num_heads=4,
+    num_blocks=3, num_categorys=1, t_dim=16, dropout=0.0,
+    norm="layer_norm", learn_sigma=False, act="swish", unet=False,
+    AdaLN=True, condition=False)
+
+# tests/test_pallas_attention.py::test_compressor_fused_forward_and_grads_match
+SMALL_COMPRESSOR = dict(
+    outsize=64, max_outputs=64, input_dim=3, z_dim=4, z_scales=8,
+    p_dim=16, n_layers=2, hidden_dim=32, num_heads=2, activation="swish",
+    encoder_dropout_p=0.0, decoder_dropout_p=0.0, norm="layer_norm",
+    neighbors=8, encoder_layers=1, mlp_ratio=2.0, min_sigma=-30,
+    cluster_norm="anchor", norm_input=False, pre_group=False,
+    decoder_act=None, ActNorm=True, AdaLN=True, pos_embedding="center",
+    class_condition=False, num_categorys=1, pretrain_path=None)
+
+SDE = dict(beta_start=0.1, beta_end=20.0, sde_type="vpsde", sigma2_0=0.0,
+           time_eps=0.01, sample_time_eps=1e-6, sample_mode="discrete",
+           train_N=1000, sample_N=64)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+# f32: the same arithmetic in another order. bf16: JAX and PyTorch round to
+# bf16 at different places (a GEMM's bias add, GELU's inner ops), so a few
+# bf16 ulps (2^-8 relative each) of the largest |value|.
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_REL = 3e-2
+
+
+def cfgs(d):
+    """The same config dict as a JAX-side and a torch-side namespace."""
+    return jax_ns(dict(d)), torch_ns(dict(d))
+
+
+def params_np(variables):
+    """flax variables -> numpy params tree (the weight converter's input)."""
+    return jax.tree_util.tree_map(np.asarray, variables["params"])
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def assert_close(got, want, dtype: str, rel: float = BF16_REL) -> None:
+    got, want = to_np(got), to_np(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **F32_TOL)
+    else:
+        err = np.abs(got - want).max()
+        scale = max(1.0, float(np.abs(want).max()))
+        assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("name", ["score_cfg", "compressor_cfg", "sde_cfg"])
+def test_config_defaults_match_ldt_tpu(name):
+    assert vars(getattr(torch_configs, name)()) == vars(
+        getattr(jax_configs, name)())
+    over = dict(num_heads=2, extra={"k": 1})
+    got = getattr(torch_configs, name)(**over)
+    want = getattr(jax_configs, name)(**over)
+    assert got.num_heads == want.num_heads == 2 and got.extra.k == 1
+
+
+def test_dict2namespace_matches_ldt_tpu():
+    d = {"a": 1, "b": {"c": [1, 2], "d": {"e": None}}}
+    got, want = torch_ns(d), jax_ns(d)
+    assert got.a == want.a and got.b.c == want.b.c
+    assert got.b.d.e is want.b.d.e is None
+    assert vars(got.b.d) == vars(want.b.d)
+
+
+def _port_sources():
+    return sorted((ROOT / "ldt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    """No import of jax, flax or ldt_tpu anywhere in the port, lazy or not."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax",
+                                              "ldt_tpu"), (path, name)
+
+
+def test_import_leaves_jax_and_ldt_tpu_unloaded():
+    mods = ["ldt_torch", "ldt_torch.configs", "ldt_torch.ops.attention",
+            "ldt_torch.nn.layers", "ldt_torch.models", "ldt_torch.diffusion",
+            "ldt_torch.diffusion.sampling", "ldt_torch.weights",
+            "ldt_torch.generate", "chip_smoke"]
+    code = (f"import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'ldt_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _entry_points():
+    from ldt_torch import resolve_device
+    from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.diffusion.sampling import sample_discrete
+    from ldt_torch.generate import generate, sample_latents
+    from ldt_torch.models import Compressor, Score
+
+    small = torch_ns(dict(SMALL_SCORE))
+    small_c = torch_ns(dict(SMALL_COMPRESSOR))
+
+    def gen(**kw):
+        s = Score(small, device="cpu")
+        c = Compressor(small_c, device="cpu")
+        d = make_diffusion(torch_ns(dict(SDE)), device="cpu")
+        return generate(s, c, d, 2, 64, **kw)
+
+    def latents(**kw):
+        s = Score(small, device="cpu")
+        d = make_diffusion(torch_ns(dict(SDE)), device="cpu")
+        return sample_latents(s, d, 2, 64, **kw)
+
+    def sampler(**kw):
+        d = make_diffusion(torch_ns(dict(SDE)), device="cpu")
+        return sample_discrete(d, lambda t, x, i: (-x, x), 2, (3,), 64, **kw)
+
+    return {
+        "resolve_device": lambda **kw: resolve_device(**kw),
+        "Score": lambda **kw: Score(score_cfg(num_blocks=1), **kw),
+        "Compressor": lambda **kw: Compressor(compressor_cfg(), **kw),
+        "make_diffusion": lambda **kw: make_diffusion(sde_cfg(), **kw),
+        "sample_discrete": sampler,
+        "generate": gen,
+        "sample_latents": latents,
+    }
+
+
+@pytest.mark.parametrize("name", ["resolve_device", "Score", "Compressor",
+                                  "make_diffusion", "sample_discrete",
+                                  "generate", "sample_latents"])
+def test_entry_points_need_a_card_unless_cpu_is_asked(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    fn = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")

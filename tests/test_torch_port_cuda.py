@@ -1,0 +1,124 @@
+"""The CUDA kernels K1 and K2 against their plain twins, on the card.
+
+These tests need an NVIDIA GPU (sm_90a) and nvcc; without a card they skip.
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+"""
+
+from unittest import mock
+
+import pytest
+import torch
+
+from ldt_torch.ops import attention as ops
+
+pytestmark = pytest.mark.cuda
+
+# (max, mean) of |kernel - plain|, the limits of chip_smoke.py's phase 2
+# (PERF.md gives the readings they were set from): a right answer that rounds
+# elsewhere stays 5x below both; a kernel that rounds the weights in the
+# wrong dtype lands 2x above the max in bf16 and 30x above the mean.
+TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (8e-3, 1e-5)}
+# The sampler's latents and the decoder's clouds, kernels vs plain
+# attention, relative to their largest |value| (chip_smoke.py's phase 3).
+PATH_TOL = ((5e-3, 5e-4), (1e-2, 6e-5))
+
+
+def _assert_within(got, want, tol, scale=1.0):
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= tol[0] * scale, diff.max().item()
+    assert diff.mean().item() <= tol[1] * scale, diff.mean().item()
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, *shape, dtype):
+    return torch.randn(*shape, device="cuda", dtype=dtype, generator=gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", [(8, 32, 16, 64),   # the DiT's shape
+                                      (3, 17, 3, 24),    # ragged sizes
+                                      (2, 64, 2, 128)])  # > 48 KB smem
+def test_packed_self_attention_kernel(card, b, n, h, dh, dtype):
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
+    before = ops.packed_self_attention.launches
+    got = ops.packed_self_attention(qkv, h)
+    torch.cuda.synchronize()
+    assert ops.packed_self_attention.launches == before + 1
+    want = ops.packed_self_attention_plain(qkv, h)
+    assert got.dtype == dtype and got.shape == (b, n, h * dh)
+    _assert_within(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,d,h", [(4, 2048, 32, 128, 4),  # decode
+                                       (2, 100, 45, 96, 2),    # M, dh > 32
+                                       (1, 70, 512, 64, 2)])   # > 48 KB
+def test_cross_attention_kernel(card, b, n, m, d, h, dtype):
+    q = _randn(card, b, n, d, dtype=dtype)
+    k = _randn(card, b, m, d, dtype=dtype)
+    v = _randn(card, b, m, d, dtype=dtype)
+    before = ops.cross_attention.launches
+    got = ops.cross_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    assert ops.cross_attention.launches == before + 1
+    want = ops.attention_plain(q, k, v, h)
+    _assert_within(got, want, TOL[dtype])
+
+
+def test_a_refused_launch_raises(card):
+    """The C entry points return the CUDA error; the wrapper's check turns
+    it into an exception (here: an unknown dtype code)."""
+    qkv = _randn(card, 1, 4, 24, dtype=torch.float32)
+    out = torch.empty(1, 4, 8, device="cuda")
+    err = ops._lib().ldt_packed_self_attention(
+        qkv.data_ptr(), out.data_ptr(), 1, 4, 8, 2, 0.5, 7,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops._raise_on(err, "packed_self_attention")
+
+
+def test_small_generate_through_the_kernels(card):
+    from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import generate, sample_latents
+    from ldt_torch.models import Compressor, Score
+
+    score = Score(score_cfg(num_blocks=2), dtype=torch.bfloat16,
+                  generator=card)
+    comp = Compressor(compressor_cfg(), dtype=torch.bfloat16,
+                      generator=card)
+    sde = make_diffusion(sde_cfg(sample_N=32))
+    shape = (4, 32, 120)
+    x0 = torch.randn(shape, device="cuda", generator=card)
+    noise = torch.randn((32,) + shape, device="cuda", generator=card)
+    k1, k2 = ops.packed_self_attention.launches, ops.cross_attention.launches
+    got = generate(score, comp, sde, 4, 32, x0=x0, noise=noise).float()
+    assert ops.packed_self_attention.launches - k1 == 2 * 32
+    assert ops.cross_attention.launches - k2 == 6
+    assert got.shape == (4, 2048, 3) and torch.isfinite(got).all()
+    # the decoder is chaotic at the random sampler's |latent| ~ 1e3: hold
+    # the sampler, and the decoder on N(0, 1) latents, apart
+    eps = torch.randn(shape, device="cuda", generator=card)
+
+    def halves():
+        lat = sample_latents(score, sde, 4, 32, x0=x0, noise=noise)
+        with torch.inference_mode():
+            return lat, comp.sample((4, 2048), eps)
+
+    got = halves()
+    with mock.patch.object(ops, "packed_self_attention",
+                           ops.packed_self_attention_plain), \
+            mock.patch.object(ops, "cross_attention", ops.attention_plain):
+        want = halves()
+    for g, w, tol in zip(got, want, PATH_TOL):
+        _assert_within(g, w, tol, w.float().abs().max().item())
