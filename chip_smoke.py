@@ -23,6 +23,22 @@ Phases (each raises on failure, so the process exits non-zero):
      and the decoder on the card against the CPU run of the port (the path
      the CPU tests hold against ldt_tpu) on the same inputs. It runs last,
      so that its CPU work does not share the host with the timed phases.
+The int8 serving path (W8A8, `generate(..., int8=True)`; bench.py's
+default), in this order among the phases above:
+  7. (after 2) Kernel K8 against its plain twin on the card and on the CPU
+     at the main path's shape, and against wrong variants that must fail
+     (scales per batch element, weights left unquantized before AV, k and
+     v swapped); its time, bound and twin time.
+  8. (after 7) The int8 GEMMs at the DiT's four block shapes: `_int_mm`,
+     the whole dynamic `int8_matmul` and a bf16 matmul, timed; the int8
+     product on the card equal to the CPU's bit for bit.
+  9. (after 4) Two full int8 generations, 1000 steps + decode at B=64:
+     attention through K1 (bench.py's default), then through K8; launch
+     counts checked, clouds/min printed.
+ 10. (after 9) A 32-step DDIM generation through the int8 path and K8.
+     Phase 5 then profiles the bf16 and the int8 (K8) paths.
+ 11. (before 6) One int8 step at flagship width cut to two blocks, on the
+     card against the CPU run of the port, and against wrong variants.
 
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
@@ -39,9 +55,10 @@ import time
 from unittest import mock
 
 # H100 SXM data-sheet peaks (dense): device memory 3.35 TB/s; bf16 tensor
-# cores 989 TFLOP/s; f32 outside the tensor cores 67 TFLOP/s.
+# cores 989 TFLOP/s, int8 1979 TOP/s; f32 outside the tensor cores 67
+# TFLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 # Every limit below is read in each run against the value it holds the
 # port to, against right answers that round elsewhere ("f64": the plain
 # attention with f64 products, the weights rounded to the input dtype as the
@@ -65,6 +82,20 @@ PATH_TOL = {"sampler": ((5e-3, 5e-4), ("kv swapped",)),
 # Phase 6, card vs CPU in f32, (max, mean) relative to the largest |value|,
 # for the sampler and the decoder: the sums run in other orders.
 REF_TOL = {"sampler": (1e-5, 1.2e-7), "decoder": (1e-5, 2e-6)}
+# Phase 7, K8 vs its twin, (max, mean) of |kernel - twin|, f32 and bf16:
+# a right answer differs only where exp or the row sum rounds a weight code
+# to its neighbour, moving one (element, row, head) slice by at most one v
+# code step (max|v| / 127, ~0.04 for N(0, 1) inputs) plus an output ulp.
+# Wrong: "E=1" (scales per batch element, not per group of 4), "w
+# unquantized" (f32 weights into AV), "kv swapped".
+K8_TOL = (0.08, 1e-5)
+# Phase 11, one int8 step at flagship width (two blocks, bf16, K8), card vs
+# CPU, (max, mean) relative to the largest |value|: the bf16 GEMMs and the
+# LayerNorm sums round differently on the two devices, and an int8 code
+# downstream can follow (read 6.1e-3 / 6.1e-5). Wrong: "E=1" (K8's scales
+# per batch element, 6.1e-3 / 2.7e-4), "bf16 weights" (no weight
+# quantization, 6.1e-3 / 3.2e-4), "kv swapped". The mean tells them apart.
+INT8_STEP_TOL = (1e-2, 1.3e-4)
 BATCH = 64         # clouds per generation, as bench.py
 STEPS = 1000       # ancestral steps of the main path
 CHECK_STEPS = 32   # phases 3, 5 and 6 (beta_end / N must stay below 1)
@@ -112,9 +143,11 @@ def phase_build() -> None:
             print(f"    nvcc: {line.strip()}")
 
 
-def _bound(nbytes: int, flops: int, dtype: str):
+def _bound(nbytes: int, ops: dict):
+    """(ms, "bytes" or "operations"): the bytes over the memory rate
+    against `ops` {type: count} over each type's peak."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = sum(n / PEAK_FLOPS[t] for t, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -250,7 +283,7 @@ def phase_kernels(batch: int, gen) -> dict:
             ms = cuda_ms(c["kernel"])
             plain_ms = cuda_ms(c["plain"], iters=20)
             library_ms = cuda_ms(c["library"])
-            bound_ms, bound_by = _bound(c["nbytes"], c["flops"], dn)
+            bound_ms, bound_by = _bound(c["nbytes"], {dn: c["flops"]})
             print(f"[2] {name} {dn} {c['shape']}: max_abs_err {err:.3e}, "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -268,24 +301,144 @@ def phase_kernels(batch: int, gen) -> dict:
     return rows
 
 
+def k8_weights_unquantized(qkv, num_heads: int, elems: int = 4):
+    """K8's twin with the f32 softmax weights in the AV product instead of
+    their codes / 127: a wrong variant of phase 7."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    b, n, d3 = qkv.shape
+    dh = d3 // 3 // num_heads
+    x = qkv.float().reshape(b // elems, elems, n, 3, num_heads, dh)
+    x = x.permute(0, 3, 1, 4, 2, 5)
+    s = attn_ops.true_divide(x.abs().amax(dim=(2, 3, 4, 5), keepdim=True),
+                             127.0) + 1e-20
+    q8, k8, v8 = (attn_ops._int8_codes(x[:, i], s[:, i]) for i in range(3))
+    w = attn_ops._softmax_rows(torch.matmul(q8, k8.transpose(-1, -2)).float()
+                               * ((s[:, 0] * s[:, 1]) * dh ** -0.5))
+    out = torch.matmul(w.double(), v8).float() * s[:, 2]
+    return out.permute(0, 1, 3, 2, 4).reshape(b, n, d3 // 3).to(qkv.dtype)
+
+
+def phase_k8(batch: int, gen) -> dict:
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    n, d, h = 32, 1024, 16            # DiT self-attention (score_cfg)
+    dh = d // h
+    row = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        qkv = torch.randn(batch, n, 3 * d, device="cuda", dtype=dtype,
+                          generator=gen)
+        swapped = torch.cat([qkv[..., :d], qkv[..., 2 * d:],
+                             qkv[..., d:2 * d]], dim=-1).contiguous()
+
+        def kernel():
+            return attn_ops.packed_self_attention_int8(qkv, h)
+
+        def plain():
+            return attn_ops.packed_self_attention_int8_plain(qkv, h)
+
+        got = kernel()
+        readings = {
+            "twin": errs(got, plain()),
+            "cpu twin": errs(got, attn_ops.packed_self_attention_int8_plain(
+                qkv.cpu(), h)),
+            "E=1": errs(got, attn_ops.packed_self_attention_int8_plain(
+                qkv, h, 1)),
+            "w unquantized": errs(got, k8_weights_unquantized(qkv, h)),
+            "kv swapped": errs(got, attn_ops.packed_self_attention_int8_plain(
+                swapped, h))}
+        diff = (got.float() - plain().float()).abs().reshape(batch, n, h, dh)
+        flips = int((diff.amax(dim=-1) > 0).sum())
+        step = qkv[..., 2 * d:].float().abs().amax().item() / 127
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain, iters=20)
+        nbytes = qkv.numel() * qkv.element_size() \
+            + batch * n * d * qkv.element_size()
+        ops = {"int8": batch * h * 4 * n * n * dh,
+               "float32": batch * h * (5 * n * n + 9 * n * dh)}
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"[7] packed_self_attention_int8 (K8) {dn} qkv "
+              f"{list(qkv.shape)}, H={h}, E=4: max_abs_err "
+              f"{readings['twin'][0]:.3e}, (element, row, head) slices off "
+              f"the twin {flips} of {batch * n * h} (v code step "
+              f"{step:.4f}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{ops['int8'] / 1e9:.3f} G int8 ops, "
+              f"{ops['float32'] / 1e9:.3f} GFLOP f32); library: none")
+        held(f"K8 {dn} vs", readings, K8_TOL, right=("twin", "cpu twin"),
+             wrong=("E=1", "w unquantized", "kv swapped"))
+        if dtype == torch.bfloat16:  # the main path's dtype
+            row = {"packed_self_attention_int8": {
+                "name": "packed_self_attention_int8", "route": "cuda",
+                "source": "ldt_torch/csrc/attention.cu",
+                "replaces": "ldt_tpu/ops/pallas_attention.py:253",
+                "launches": 0, "max_abs_err": readings["twin"][0], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}}
+    return row
+
+
+def phase_int8_gemms(gen) -> None:
+    """The four GEMMs of an int8 block at M = 2048 (B=64 x 32 tokens)."""
+    import torch
+
+    from ldt_torch.serving import int8 as int8_serving
+
+    m = 2048
+    for k, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+        w = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+        w_i8, w_s = int8_serving.quantize_weight(w)
+        x_i8 = torch.clamp(torch.round(x.float() * 40), -127, 127).to(
+            torch.int8)
+        w_bf16 = w.bfloat16().t()
+        got = int8_serving.int8_matmul(x[:256], w_i8, w_s)
+        want = int8_serving.int8_matmul(
+            x[:256].cpu(), *int8_serving.quantize_weight(w.cpu()))
+        if not torch.equal(got.cpu(), want):
+            fail(f"int8_matmul [{m}, {k}] x [{k}, {n}]: card and CPU differ "
+                 f"(max {errs(got, want)[0]:.3e})")
+        int_mm = cuda_ms(lambda: torch._int_mm(x_i8, w_i8.t()))
+        whole = cuda_ms(lambda: int8_serving.int8_matmul(x, w_i8, w_s))
+        bf16 = cuda_ms(lambda: x @ w_bf16)
+        int8_bound, _ = _bound(m * k + n * k + 4 * m * n,
+                               {"int8": 2 * m * k * n})
+        bf16_bound, _ = _bound(2 * (m * k + n * k + m * n),
+                               {"bfloat16": 2 * m * k * n})
+        print(f"[8] GEMM M={m} K={k} N={n}: _int_mm {int_mm:.4f} ms "
+              f"(bound {int8_bound:.4f}), int8_matmul (dynamic quantize + "
+              f"_int_mm + dequantize) {whole:.4f} ms, bf16 matmul "
+              f"{bf16:.4f} ms (bound {bf16_bound:.4f}); int8_matmul card == "
+              "CPU bit for bit on 256 rows")
+
+
 def build_models(gen):
+    """The flagship Score in f32 (the source the int8 path quantizes) and in
+    bf16 from the same weights, and the bf16 decoder."""
     import torch
 
     from ldt_torch.configs import compressor_cfg, score_cfg
     from ldt_torch.models import Compressor, Score
 
     t0 = time.perf_counter()
-    score = Score(score_cfg(), dtype=torch.bfloat16, device="cuda",
-                  generator=gen).eval()
+    weights = Score(score_cfg(), device="cuda", generator=gen).state_dict()
+    score = Score(score_cfg(), dtype=torch.bfloat16, device="cuda").eval()
+    score.load_state_dict(weights)
     comp = Compressor(compressor_cfg(), dtype=torch.bfloat16, device="cuda",
                       generator=gen).eval()
     torch.cuda.synchronize()
     n_score = sum(p.numel() for p in score.parameters())
     n_comp = sum(p.numel() for p in comp.parameters())
     print(f"[3] flagship Score {n_score / 1e6:.2f}M params (24 blocks, "
-          f"hidden 1024, bf16), decoder {n_comp / 1e6:.3f}M params, "
-          f"random init from seed 0: {time.perf_counter() - t0:.2f} s")
-    return score, comp
+          f"hidden 1024; f32 weights, bf16 copy), decoder "
+          f"{n_comp / 1e6:.3f}M params, random init from seed 0: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return score, comp, weights
 
 
 def phase_path(score, comp, batch: int, steps: int, gen) -> None:
@@ -351,41 +504,105 @@ def phase_path(score, comp, batch: int, steps: int, gen) -> None:
              tol, wrong=wrong)
 
 
-def phase_generate(score, comp, batch: int, steps: int, gen) -> dict:
+def counted(fn):
+    """Run `fn` with every kernel's launch count set to 0 just before and
+    read just after: (its output, wall seconds, {kernel: launches})."""
     import torch
 
-    from ldt_torch.configs import sde_cfg
-    from ldt_torch.diffusion import make_diffusion
-    from ldt_torch.generate import generate
     from ldt_torch.ops import attention as attn_ops
 
-    sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
-    attn_ops.packed_self_attention.launches = 0
-    attn_ops.cross_attention.launches = 0
+    wrappers = {"packed_self_attention": attn_ops.packed_self_attention,
+                "cross_attention": attn_ops.cross_attention,
+                "packed_self_attention_int8":
+                attn_ops.packed_self_attention_int8}
+    for w in wrappers.values():
+        w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = generate(score, comp, sde, batch, steps, device="cuda",
-                   generator=gen)
+    out = fn()
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"packed_self_attention":
-                attn_ops.packed_self_attention.launches,
-                "cross_attention": attn_ops.cross_attention.launches}
-    expect = {"packed_self_attention": score.cfg.num_blocks * steps,
-              "cross_attention": comp.cfg.n_layers}
+    return (out, time.perf_counter() - t0,
+            {k: w.launches for k, w in wrappers.items()})
+
+
+def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
+    """A counted generation whose output must be finite [batch, 2048, 3]
+    and whose launch counts must be `expect`; returns the counts."""
+    import torch
+
+    out, dt, launches = counted(fn)
     finite = bool(torch.isfinite(out).all())
-    print(f"[4] generate: {steps} steps + decode, B={batch}: out "
-          f"{list(out.shape)} {out.dtype}, finite {finite}, {dt:.3f} s, "
-          f"{batch / dt * 60.0:.2f} clouds/min, launches {launches} "
-          f"(expected {expect})")
+    print(f"[{tag}] {what}, B={batch}: out {list(out.shape)} {out.dtype}, "
+          f"finite {finite}, {dt:.3f} s, {batch / dt * 60.0:.2f} clouds/min, "
+          f"launches {launches} (expected {expect})")
     if tuple(out.shape) != (batch, 2048, 3) or not finite:
-        fail("generate output has the wrong shape or is not finite")
+        fail(f"{what}: output has the wrong shape or is not finite")
     if launches != expect:
-        fail(f"launch counts {launches} differ from the path's {expect}")
+        fail(f"{what}: launch counts {launches} differ from the path's "
+             f"{expect}")
     return launches
 
 
-def phase_profile(score, comp, batch: int, steps: int, gen) -> None:
+def expected_launches(score, comp, steps: int, k1: bool, k8: bool) -> dict:
+    per_run = score.cfg.num_blocks * steps
+    return {"packed_self_attention": per_run if k1 else 0,
+            "cross_attention": comp.cfg.n_layers,
+            "packed_self_attention_int8": per_run if k8 else 0}
+
+
+def phase_generate(score, comp, batch: int, steps: int, gen) -> dict:
+    from ldt_torch.configs import sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import generate
+
+    sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
+    return checked_generation(
+        "4", f"generate (bf16): {steps} steps + decode",
+        lambda: generate(score, comp, sde, batch, steps, device="cuda",
+                         generator=gen),
+        batch, expected_launches(score, comp, steps, True, False))
+
+
+def phase_int8_generate(score, comp, weights, batch: int, steps: int,
+                        gen) -> dict:
+    """The int8 serving path at full width: W8A8 dynamic with K1, then with
+    K8. Returns the launch counts of the K8 run."""
+    from ldt_torch.configs import sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import generate
+
+    sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
+    for attn_int8 in (False, True):
+        launches = checked_generation(
+            "9", f"generate (int8 W8A8, attention "
+            f"{'K8' if attn_int8 else 'K1'}): {steps} steps + decode",
+            lambda: generate(score, comp, sde, batch, steps, device="cuda",
+                             generator=gen, int8=True, int8_weights=weights,
+                             attn_int8=attn_int8),
+            batch, expected_launches(score, comp, steps, not attn_int8,
+                                     attn_int8))
+    return launches
+
+
+def phase_ddim_int8(score, comp, weights, batch: int, steps: int,
+                    gen) -> None:
+    from ldt_torch.configs import sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import generate
+
+    sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
+    checked_generation(
+        "10", f"generate (int8 W8A8, K8, DDIM): {steps} steps + decode",
+        lambda: generate(score, comp, sde, batch, steps, device="cuda",
+                         generator=gen, int8=True, int8_weights=weights,
+                         attn_int8=True, predictor="ddim"),
+        batch, expected_launches(score, comp, steps, False, True))
+
+
+def phase_profile(score, comp, batch: int, steps: int, gen, label: str,
+                  **kw) -> None:
+    """Device time by kernel and the idle share of a short `generate(**kw)`
+    under torch.profiler, and its wall time without the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,18 +611,20 @@ def phase_profile(score, comp, batch: int, steps: int, gen) -> None:
     from ldt_torch.generate import generate
 
     sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
-    generate(score, comp, sde, batch, steps, device="cuda", generator=gen)
-    torch.cuda.synchronize()
+
+    def run():
+        generate(score, comp, sde, batch, steps, device="cuda",
+                 generator=gen, **kw)
+        torch.cuda.synchronize()
+
+    run()
     t0 = time.perf_counter()
-    generate(score, comp, sde, batch, steps, device="cuda", generator=gen)
-    torch.cuda.synchronize()
+    run()
     plain_wall_us = (time.perf_counter() - t0) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(score, comp, sde, batch, steps, device="cuda",
-                 generator=gen)
-        torch.cuda.synchronize()
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = {}
     for e in prof.key_averages():
@@ -414,30 +633,95 @@ def phase_profile(score, comp, batch: int, steps: int, gen) -> None:
             kernels[e.key] = kernels.get(e.key, 0.0) + us
     busy = sum(kernels.values())
     if busy == 0:
-        print("[5] profile: the profiler recorded no device time "
+        print(f"[5] profile ({label}): the profiler recorded no device time "
               "(not measured)")
         return
     groups = {"K1 packed_self_attention": 0.0, "K2 cross_attention": 0.0,
-              "GEMM": 0.0, "other": 0.0}
+              "K8 packed_self_attention_int8": 0.0, "GEMM": 0.0,
+              "other": 0.0}
     for key, us in kernels.items():
         low = key.lower()
-        if "packed_self_attention" in low:
+        if "int8_group_scales" in low or "self_attention_int8" in low:
+            groups["K8 packed_self_attention_int8"] += us
+        elif "packed_self_attention" in low:
             groups["K1 packed_self_attention"] += us
         elif "cross_attention" in low:
             groups["K2 cross_attention"] += us
-        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")):
+        elif any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma",
+                                    "imma")):
             groups["GEMM"] += us
         else:
             groups["other"] += us
-    print(f"[5] profile of generate ({steps} steps + decode, B={batch}): "
-          f"device busy {busy / 1e3:.2f} ms; wall {wall_us / 1e3:.2f} ms "
-          f"profiled (idle share {1 - busy / wall_us:.3f}), "
-          f"{plain_wall_us / 1e3:.2f} ms not profiled (idle share "
-          f"{1 - busy / plain_wall_us:.3f})")
+    print(f"[5] profile of generate ({label}, {steps} steps + decode, "
+          f"B={batch}): device busy {busy / 1e3:.2f} ms; wall "
+          f"{wall_us / 1e3:.2f} ms profiled (idle share "
+          f"{1 - busy / wall_us:.3f}), {plain_wall_us / 1e3:.2f} ms not "
+          f"profiled (idle share {1 - busy / plain_wall_us:.3f})")
     for g, us in groups.items():
         print(f"    {g}: {us / 1e3:.2f} ms ({us / busy:.3f} of busy)")
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:9.2f} ms  {key[:110]}")
+
+
+def phase_int8_step(steps: int) -> None:
+    """One int8 denoise step (K8 attention) at flagship width cut to two
+    blocks, B=4, the same f32 weights, modulations and input on the card
+    and on the CPU (the path the CPU tests hold against ldt_tpu)."""
+    import torch
+
+    from ldt_torch.configs import score_cfg
+    from ldt_torch.diffusion.sampling import timesteps
+    from ldt_torch.generate import TIME_EPS
+    from ldt_torch.models import Score
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.serving import int8 as int8_serving
+
+    batch, step = 4, steps // 2
+    g = torch.Generator().manual_seed(SEED)
+    cfg = score_cfg(num_blocks=2)
+    weights = Score(cfg, device="cpu", generator=g).state_dict()
+    score = Score(cfg, dtype=torch.bfloat16, device="cpu")
+    score.load_state_dict(weights)
+    x = torch.randn((batch, cfg.z_scale, cfg.z_dim), generator=g)
+    with torch.inference_mode():
+        mods = score.precompute_mods(timesteps(steps, TIME_EPS))
+    mods = {k: v[step] for k, v in mods.items()}
+
+    def run(dev, bf16_tail=0):
+        q = int8_serving.quantize_score_params(weights, cfg.num_blocks,
+                                               bf16_tail, device=dev)
+        with torch.inference_mode():
+            return int8_serving.denoise_with_mods_int8(
+                x.to(dev), {k: v.to(dev) for k, v in mods.items()}, q,
+                cfg.num_heads, attn_int8=True).float().cpu()
+
+    out = {"cpu": run("cpu")}
+    k8 = attn_ops.packed_self_attention_int8.launches
+    out["card"] = run("cuda")
+    if attn_ops.packed_self_attention_int8.launches - k8 != cfg.num_blocks:
+        fail("phase 11: the card's int8 step did not go through K8")
+    with mock.patch.object(
+            attn_ops, "packed_self_attention_int8",
+            lambda qkv, h, elems=4: attn_ops.packed_self_attention_int8_plain(
+                qkv, h, 1)):
+        out["E=1"] = run("cuda")
+    d = cfg.hidden_size
+    with mock.patch.object(
+            attn_ops, "packed_self_attention_int8",
+            lambda qkv, h, elems=4: attn_ops.packed_self_attention_int8_plain(
+                torch.cat([qkv[..., :d], qkv[..., 2 * d:], qkv[..., d:2 * d]],
+                          dim=-1), h, elems)):
+        out["kv swapped"] = run("cuda")
+    out["bf16 weights"] = run("cuda", bf16_tail=cfg.num_blocks)
+    if not torch.isfinite(out["card"]).all():
+        fail("phase 11: the int8 step is not finite")
+    print(f"[11] one int8 step (K8) at flagship width, 2 blocks, B={batch}, "
+          f"step {step} of {steps}, card vs CPU; max|out| "
+          f"{out['cpu'].abs().max().item():.4f}")
+    held("int8 step (relative), CPU vs",
+         {k: errs(v, out["cpu"], rel=True) for k, v in out.items()
+          if k != "cpu"}, INT8_STEP_TOL, right=("card",),
+         wrong=("E=1", "kv swapped", "bf16 weights"))
 
 
 def phase_reference(steps: int) -> None:
@@ -506,14 +790,26 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(BATCH, gen)
-    score, comp = build_models(gen)
+    rows.update(phase_k8(BATCH, gen))
+    phase_int8_gemms(gen)
+    score, comp, weights = build_models(gen)
     phase_path(score, comp, BATCH, CHECK_STEPS, gen)
     launches = phase_generate(score, comp, BATCH, STEPS, gen)
-    phase_profile(score, comp, BATCH, CHECK_STEPS, gen)
-    del score, comp
+    k8_launches = phase_int8_generate(score, comp, weights, BATCH, STEPS,
+                                      gen)
+    phase_ddim_int8(score, comp, weights, BATCH, CHECK_STEPS, gen)
+    phase_profile(score, comp, BATCH, CHECK_STEPS, gen, "bf16")
+    phase_profile(score, comp, BATCH, CHECK_STEPS, gen, "int8 W8A8, K8",
+                  int8=True, int8_weights=weights, attn_int8=True)
+    del score, comp, weights
+    phase_int8_step(CHECK_STEPS)
     phase_reference(CHECK_STEPS)
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    # each kernel's count from the run of its own path: K1 and K2 from the
+    # bf16 generation, K8 from the int8 generation through K8
+    launches["packed_self_attention_int8"] = k8_launches[
+        "packed_self_attention_int8"]
+    for name, row in rows.items():
+        row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

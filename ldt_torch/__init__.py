@@ -10,8 +10,10 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
   * `models.score`            <- ldt_tpu/models/score.py
   * `models.compressor`       <- ldt_tpu/models/compressor.py (decode half)
   * `diffusion.sde/sampling`  <- ldt_tpu/diffusion/
+  * `serving.int8`            <- ldt_tpu/serving/int8.py (unconditional W8A8)
   * `weights`                 flax param trees -> torch state_dicts
-  * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate)
+  * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate,
+                                 bf16 or int8 serving)
 
 Every entry point takes an explicit `device`, which defaults to "cuda" and
 raises when no card is present; only `device="cpu"` runs on the CPU.

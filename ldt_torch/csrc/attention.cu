@@ -9,16 +9,29 @@
 //    k, v [B, M, D], any M up to the shared-memory bound.
 //    Replaces ldt_tpu/ops/pallas_attention.py::_fwd_kernel (and the grouped
 //    schedule _fwd_kernel_grouped, which computes the same).
+// K8 ldt_packed_self_attention_int8: K1 with int8 operands. q, k and v are
+//    quantized to int8 with one symmetric scale each per group of `elems`
+//    consecutive batch elements (max|x| / 127 + 1e-20 over the group's rows
+//    and all heads), the scores and the AV product are int32 dots, and the
+//    f32 softmax weights are quantized at the static scale 127 before AV.
+//    Replaces ldt_tpu/ops/pallas_attention.py::
+//    _fwd_kernel_packed_phased_multi_int8. Two launches: one block per
+//    (group, q|k|v) reduces the scales, then one block per (element, head)
+//    as in K1 (a group is 4 x 32 x 3072 values, more than a block holds).
 //
-// Numerics follow the TPU kernels: products accumulate in f32, the softmax
-// runs in f32 (max-shifted, exp, divide by the row sum), and the weights are
-// rounded to the input dtype before the AV product.
+// Numerics of K1 and K2 follow the TPU kernels: products accumulate in f32,
+// the softmax runs in f32 (max-shifted, exp, divide by the row sum), and the
+// weights are rounded to the input dtype before the AV product. K8 rounds
+// half to even (rintf, as jnp.round) and divides exactly: the build has no
+// --use_fast_math, which would make `/` approximate.
 //
-// Both are memory-bound at the shapes the sampler gives them (K1: N=32,
-// dh=64, 16 heads; K2: N=2048, M=32, dh=32, 4 heads), so each block reads its
-// head's operands from device memory once, keeps them and the scores in
-// shared memory, and writes each output element once. The arithmetic runs on
-// the CUDA cores in f32; tensor cores (wgmma) and TMA are later work.
+// All three are memory-bound at the shapes the sampler gives them (K1 and
+// K8: N=32, dh=64, 16 heads; K2: N=2048, M=32, dh=32, 4 heads), so each
+// block reads its head's operands from device memory once, keeps them and the
+// scores in shared memory, and writes each output element once (K8 reads the
+// packed qkv twice: once for the group scales). The arithmetic runs on the
+// CUDA cores, in f32 (K1, K2) or int32 (K8's dots); tensor cores (wgmma) and
+// TMA are later work.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // the launch (0 on success). dtype: 0 = float32, 1 = bfloat16.
@@ -38,6 +51,8 @@ constexpr size_t kMaxSmem = 232448;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 constexpr int kSelfThreads = 256;
+// K8's scale reduction: threads per (group, q|k|v) block.
+constexpr int kScaleThreads = 512;
 // K2: warps per block and query rows per warp. ldt_torch/ops/attention.py
 // mirrors kCrossWarps in its shared-memory bound.
 constexpr int kCrossWarps = 4;
@@ -220,6 +235,142 @@ cross_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// q8(x, s) = clip(round_half_even(x / s), -127, 127).
+__device__ __forceinline__ int quantize_int8(float x, float s) {
+  return (int)fminf(fmaxf(rintf(x / s), -127.f), 127.f);
+}
+
+// K8, first launch: grid (group, part), part 0/1/2 = q/k/v. Writes
+// scales[group * 3 + part] = max|x| / 127 + 1e-20 over the `rows` rows of
+// the group and the part's d columns.
+template <typename T>
+__global__ void __launch_bounds__(kScaleThreads)
+int8_group_scales_kernel(const T* __restrict__ qkv, float* __restrict__ scales,
+                         int rows, int d) {
+  __shared__ float part_max[kScaleThreads / 32];
+  const size_t row = 3 * (size_t)d;
+  const T* base = qkv + (size_t)blockIdx.x * rows * row +
+                  (size_t)blockIdx.y * d;
+  float mx = 0.f;
+  for (int r = 0; r < rows; ++r)
+    for (int c = threadIdx.x; c < d; c += blockDim.x)
+      mx = fmaxf(mx, fabsf(to_f32(base[(size_t)r * row + c])));
+  mx = warp_max(mx);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) part_max[warp] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+      mx = fmaxf(mx, part_max[w]);
+    scales[(size_t)blockIdx.x * 3 + blockIdx.y] = mx / 127.0f + 1e-20f;
+  }
+}
+
+// K8, second launch: one block per (batch element, head), K1's layout with
+// int32 copies of the int8 codes: q [n, dh], k [n, dh+1], v [n, dh], and the
+// [n, n] scores (later the weight codes) as f32.
+template <typename T>
+__global__ void __launch_bounds__(kSelfThreads)
+packed_self_attention_int8_kernel(const T* __restrict__ qkv,
+                                  const float* __restrict__ scales,
+                                  T* __restrict__ out, int n, int d, int dh,
+                                  int elems, float scale) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int ldk = dh + 1;
+  int* qs = reinterpret_cast<int*>(smem);
+  int* ks = qs + (size_t)n * dh;
+  int* vs = ks + (size_t)n * ldk;
+  float* ss = reinterpret_cast<float*>(vs + (size_t)n * dh);
+  const float* sc = scales + (size_t)(b / elems) * 3;
+  const float sq = sc[0], sk = sc[1], sv = sc[2];
+
+  const size_t row = 3 * (size_t)d;
+  const T* base = qkv + (size_t)b * n * row + (size_t)h * dh;
+  for (int i = threadIdx.x; i < n * dh; i += blockDim.x) {
+    const int r = i / dh;
+    const int c = i - r * dh;
+    const T* p = base + r * row + c;
+    qs[i] = quantize_int8(to_f32(p[0]), sq);
+    ks[r * ldk + c] = quantize_int8(to_f32(p[d]), sk);
+    vs[i] = quantize_int8(to_f32(p[2 * (size_t)d]), sv);
+  }
+  __syncthreads();
+
+  // scores: int32 dot * ((sq * sk) * dh^-1/2), as the TPU kernel orders it
+  const float qk_scale = (sq * sk) * scale;
+  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
+    const int r = i / n;
+    const int c = i - r * n;
+    const int* q = qs + (size_t)r * dh;
+    const int* k = ks + (size_t)c * ldk;
+    int acc = 0;
+    for (int j = 0; j < dh; ++j) acc += q[j] * k[j];
+    ss[i] = (float)acc * qk_scale;
+  }
+  __syncthreads();
+
+  // f32 row softmax, one warp per row, then the weight codes
+  // clip(round(w * 127), 0, 127) kept as exact small floats
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < n; r += nwarps) {
+    float* s = ss + (size_t)r * n;
+    float mx = -INFINITY;
+    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, s[c]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int c = lane; c < n; c += 32) {
+      const float e = expf(s[c] - mx);
+      s[c] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int c = lane; c < n; c += 32)
+      s[c] = fminf(fmaxf(rintf((s[c] / sum) * 127.0f), 0.f), 127.f);
+  }
+  __syncthreads();
+
+  // AV: int32 dot of weight codes and v codes, times sv / 127
+  const float out_scale = sv / 127.0f;
+  T* obase = out + (size_t)b * n * d + (size_t)h * dh;
+  for (int i = threadIdx.x; i < n * dh; i += blockDim.x) {
+    const int r = i / dh;
+    const int c = i - r * dh;
+    const float* w = ss + (size_t)r * n;
+    int acc = 0;
+    for (int m = 0; m < n; ++m) acc += (int)w[m] * vs[(size_t)m * dh + c];
+    obase[(size_t)r * d + c] = from_f32<T>((float)acc * out_scale);
+  }
+}
+
+template <typename T>
+cudaError_t launch_self_int8(const void* qkv, void* scales, void* out, int b,
+                             int n, int d, int h, int elems, float scale,
+                             cudaStream_t stream) {
+  const int dh = d / h;
+  const size_t smem = self_smem_bytes(n, dh);
+  if (smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        packed_self_attention_int8_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  int8_group_scales_kernel<T><<<dim3(b / elems, 3), kScaleThreads, 0,
+                                stream>>>(static_cast<const T*>(qkv),
+                                          static_cast<float*>(scales),
+                                          elems * n, d);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  packed_self_attention_int8_kernel<T>
+      <<<dim3(b, h), kSelfThreads, smem, stream>>>(
+          static_cast<const T*>(qkv), static_cast<const float*>(scales),
+          static_cast<T*>(out), n, d, dh, elems, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_self(const void* qkv, void* out, int b, int n, int d,
                         int h, float scale, cudaStream_t stream) {
@@ -274,6 +425,24 @@ int ldt_packed_self_attention(const void* qkv, void* out, int b, int n, int d,
     return (int)launch_self<float>(qkv, out, b, n, d, h, scale, s);
   if (dtype == kDtypeBF16)
     return (int)launch_self<__nv_bfloat16>(qkv, out, b, n, d, h, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// scales: f32 scratch of b / elems * 3 values (the group scales).
+int ldt_packed_self_attention_int8(const void* qkv, void* scales, void* out,
+                                   int b, int n, int d, int h, int elems,
+                                   float scale, int dtype, void* stream) {
+  if (bad_shape(b, n, d, h) || elems <= 0 || b % elems != 0 ||
+      self_smem_bytes(n, d / h) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || n == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kDtypeF32)
+    return (int)launch_self_int8<float>(qkv, scales, out, b, n, d, h, elems,
+                                        scale, s);
+  if (dtype == kDtypeBF16)
+    return (int)launch_self_int8<__nv_bfloat16>(qkv, scales, out, b, n, d, h,
+                                                elems, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-"""Attention cores: hand-written CUDA kernels K1 and K2, and their plain twins.
+"""Attention cores: hand-written CUDA kernels K1, K2 and K8, and their plain
+twins.
 
 K1 `packed_self_attention(qkv, num_heads)` — the attention core of every
 DiT block (24 launches per denoise step).
@@ -28,6 +29,25 @@ Both accumulate in f32, run the softmax in f32 and round the weights to the
 input dtype before the AV product, as the Pallas kernels do. They take f32
 and bf16 tensors that are contiguous and lie on one device.
 
+K8 `packed_self_attention_int8(qkv, num_heads, elems=4)` — K1 with int8
+operands, the attention core of the int8 serving step when its int8
+attention is on (24 launches per denoise step).
+  * Replaces `ldt_tpu/ops/pallas_attention.py::
+    _fwd_kernel_packed_phased_multi_int8`. Per group of `elems` consecutive
+    batch elements, q, k and v each get one scale max|x| / 127 + 1e-20 over
+    the group's rows and all heads; q8(a, s) = clip(round(a / s), -127, 127)
+    (half to even); scores int32(q8 k8^T) * ((sq sk) dh^-1/2) in f32; an f32
+    row softmax; weight codes clip(round(w * 127), 0, 127); output
+    int32(w8 v8) * (sv / 127) in the input dtype.
+  * Bound on an H100: device-memory bytes, as K1 (the same 16.8 MB at the
+    flagship shape; its dots are int8).
+  * Design: two CUDA launches, which together count as ONE launch of K8 in
+    `.launches`: one block per (group, q|k|v) reduces the scales, then one
+    block per (element, head) quantizes its slices into shared memory and
+    runs K1's schedule with int32 dots.
+  The plain twin takes its integer dots in f64, which is exact here
+  (|sum| <= 127^2 * dh) on both devices.
+
 Dispatch: a wrapper computes with its plain version only when its input
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Each
 wrapper counts its kernel launches in `<wrapper>.launches`.
@@ -50,7 +70,8 @@ _CROSS_WARPS = 4
 
 
 def self_smem_bytes(n: int, dh: int) -> int:
-    """K1's shared memory: q, k (stride dh+1), v and the [n, n] scores, f32."""
+    """K1's and K8's shared memory: q, k (stride dh+1), v and the [n, n]
+    scores, 4 bytes each (f32, or K8's int32 codes)."""
     return 4 * (n * dh + n * (dh + 1) + n * dh + n * n)
 
 
@@ -92,6 +113,47 @@ def packed_self_attention_plain(qkv: torch.Tensor,
                            num_heads)
 
 
+def true_divide(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b correctly rounded on every device. PyTorch's CUDA division by a
+    Python number multiplies by its f32 reciprocal, which is off by an ulp
+    for some a (e.g. b = 127); a 0-d tensor on a's device divides."""
+    return a / a.new_tensor(b)
+
+
+def _int8_codes(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """q8(a, s) = clip(round(a / s), -127, 127), as f64 (exact integers)."""
+    return torch.clamp(torch.round(a / s), -127.0, 127.0).double()
+
+
+def packed_self_attention_int8_plain(qkv: torch.Tensor, num_heads: int,
+                                     elems: int = 4) -> torch.Tensor:
+    """Plain twin of K8 on the packed [B, N, 3D] qkv (B a multiple of
+    `elems`), its integer dots in f64."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    _check_elems("packed_self_attention_int8_plain", b, elems)
+    # [groups, q|k|v, elems, heads, n, dh]
+    x = qkv.float().reshape(b // elems, elems, n, 3, num_heads, dh)
+    x = x.permute(0, 3, 1, 4, 2, 5)
+    s = true_divide(x.abs().amax(dim=(2, 3, 4, 5), keepdim=True), 127.0) \
+        + 1e-20
+    sq, sk, sv = s[:, 0], s[:, 1], s[:, 2]
+    q8, k8, v8 = (_int8_codes(x[:, i], s[:, i]) for i in range(3))
+    scores = torch.matmul(q8, k8.transpose(-1, -2)).float() * (
+        (sq * sk) * (dh ** -0.5))
+    w8 = torch.clamp(torch.round(_softmax_rows(scores) * 127.0), 0.0, 127.0)
+    out = torch.matmul(w8.double(), v8).float() * true_divide(sv, 127.0)
+    # [groups, elems, heads, n, dh] -> [B, N, D]
+    return out.permute(0, 1, 3, 2, 4).reshape(b, n, d).to(qkv.dtype)
+
+
+def _check_elems(name: str, b: int, elems: int) -> None:
+    if elems <= 0 or b % elems != 0:
+        raise ValueError(f"{name}: batch {b} is not a multiple of "
+                         f"elems={elems}")
+
+
 def _check(name: str, tensors) -> None:
     first = tensors[0]
     for t in tensors:
@@ -123,6 +185,9 @@ def _lib() -> ctypes.CDLL:
     lib.ldt_packed_self_attention.restype = i
     lib.ldt_cross_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
     lib.ldt_cross_attention.restype = i
+    lib.ldt_packed_self_attention_int8.argtypes = [p, p, p, i, i, i, i, i, f,
+                                                   i, p]
+    lib.ldt_packed_self_attention_int8.restype = i
     lib.ldt_error_string.argtypes = [i]
     lib.ldt_error_string.restype = ctypes.c_char_p
     return lib
@@ -138,19 +203,11 @@ def _raise_on(err: int, name: str) -> None:
 def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """K1: self-attention on the packed [B, N, 3D] qkv -> [B, N, D]."""
     name = "packed_self_attention"
-    _check(name, (qkv,))
-    b, n, d3 = qkv.shape
-    if d3 % 3 != 0:
-        raise ValueError(f"{name}: last dim {d3} is not 3 * D")
-    d = d3 // 3
-    _check_heads(name, d, num_heads)
-    dh = d // num_heads
-    if self_smem_bytes(n, dh) > SMEM_LIMIT:
-        raise ValueError(f"{name}: N={n}, dh={dh} need "
-                         f"{self_smem_bytes(n, dh)} B of shared memory, "
-                         f"more than the {SMEM_LIMIT} B a block may use")
+    dh = _check_packed(name, qkv, num_heads)
     if qkv.device.type == "cpu":
         return packed_self_attention_plain(qkv, num_heads)
+    b, n, d3 = qkv.shape
+    d = d3 // 3
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -163,6 +220,49 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 
 packed_self_attention.launches = 0
+
+
+def _check_packed(name: str, qkv: torch.Tensor, num_heads: int) -> int:
+    """Checks of K1 and K8 on the packed qkv; returns dh."""
+    _check(name, (qkv,))
+    n, d3 = qkv.shape[1:]
+    if d3 % 3 != 0:
+        raise ValueError(f"{name}: last dim {d3} is not 3 * D")
+    _check_heads(name, d3 // 3, num_heads)
+    dh = d3 // 3 // num_heads
+    if self_smem_bytes(n, dh) > SMEM_LIMIT:
+        raise ValueError(f"{name}: N={n}, dh={dh} need "
+                         f"{self_smem_bytes(n, dh)} B of shared memory, "
+                         f"more than the {SMEM_LIMIT} B a block may use")
+    return dh
+
+
+def packed_self_attention_int8(qkv: torch.Tensor, num_heads: int,
+                               elems: int = 4) -> torch.Tensor:
+    """K8: int8 self-attention on the packed [B, N, 3D] qkv -> [B, N, D],
+    scales per group of `elems` batch elements (B must be a multiple).
+    One call is one count in `.launches` (two CUDA launches)."""
+    name = "packed_self_attention_int8"
+    dh = _check_packed(name, qkv, num_heads)
+    b, n, d3 = qkv.shape
+    _check_elems(name, b, elems)
+    if qkv.device.type == "cpu":
+        return packed_self_attention_int8_plain(qkv, num_heads, elems)
+    d = d3 // 3
+    out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
+    scales = torch.empty((b // elems, 3), dtype=torch.float32,
+                         device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _lib().ldt_packed_self_attention_int8(
+            qkv.data_ptr(), scales.data_ptr(), out.data_ptr(), b, n, d,
+            num_heads, elems, dh ** -0.5, _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, name)
+    packed_self_attention_int8.launches += 1
+    return out
+
+
+packed_self_attention_int8.launches = 0
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -122,7 +122,8 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
     mods = ["ldt_torch", "ldt_torch.configs", "ldt_torch.ops.attention",
             "ldt_torch.nn.layers", "ldt_torch.models", "ldt_torch.diffusion",
             "ldt_torch.diffusion.sampling", "ldt_torch.weights",
-            "ldt_torch.generate", "chip_smoke"]
+            "ldt_torch.generate", "ldt_torch.serving",
+            "ldt_torch.serving.int8", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -139,9 +140,13 @@ def _entry_points():
     from ldt_torch import resolve_device
     from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
     from ldt_torch.diffusion import make_diffusion
-    from ldt_torch.diffusion.sampling import sample_discrete
+    from ldt_torch.diffusion.sampling import sample_discrete, timesteps
     from ldt_torch.generate import generate, sample_latents
     from ldt_torch.models import Compressor, Score
+    from ldt_torch.serving.int8 import (
+        calibrate_act_scales,
+        quantize_score_params,
+    )
 
     small = torch_ns(dict(SMALL_SCORE))
     small_c = torch_ns(dict(SMALL_COMPRESSOR))
@@ -161,6 +166,15 @@ def _entry_points():
         d = make_diffusion(torch_ns(dict(SDE)), device="cpu")
         return sample_discrete(d, lambda t, x, i: (-x, x), 2, (3,), 64, **kw)
 
+    def calibrate(**kw):
+        s = Score(small, device="cpu")
+        d = make_diffusion(torch_ns(dict(SDE)), device="cpu")
+        with torch.inference_mode():
+            mods = s.precompute_mods(timesteps(64, 1e-6))
+        return calibrate_act_scales(
+            d, mods, quantize_score_params(s, small.num_blocks),
+            small.num_heads, 2, (small.z_scale, small.z_dim), 64, **kw)
+
     return {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "Score": lambda **kw: Score(score_cfg(num_blocks=1), **kw),
@@ -168,13 +182,16 @@ def _entry_points():
         "make_diffusion": lambda **kw: make_diffusion(sde_cfg(), **kw),
         "sample_discrete": sampler,
         "generate": gen,
+        "generate_int8": lambda **kw: gen(int8=True, attn_int8=True, **kw),
         "sample_latents": latents,
+        "calibrate_act_scales": calibrate,
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "Score", "Compressor",
                                   "make_diffusion", "sample_discrete",
-                                  "generate", "sample_latents"])
+                                  "generate", "generate_int8",
+                                  "sample_latents", "calibrate_act_scales"])
 def test_entry_points_need_a_card_unless_cpu_is_asked(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 against their plain twins, on the card.
+"""The CUDA kernels K1, K2 and K8 against their plain twins, on the card.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; without a card they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -23,6 +23,10 @@ TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (8e-3, 1e-5)}
 # The sampler's latents and the decoder's clouds, kernels vs plain
 # attention, relative to their largest |value| (chip_smoke.py's phase 3).
 PATH_TOL = ((5e-3, 5e-4), (1e-2, 6e-5))
+# K8 vs its twin, (max, mean) of |kernel - twin| (chip_smoke.py's phase 7):
+# only a weight code that exp or the row sum rounds to its neighbour
+# differs, by at most one v code step (max|v| / 127) plus an output ulp.
+K8_TOL = (0.08, 1e-5)
 
 
 def _assert_within(got, want, tol, scale=1.0):
@@ -122,3 +126,71 @@ def test_small_generate_through_the_kernels(card):
         want = halves()
     for g, w, tol in zip(got, want, PATH_TOL):
         _assert_within(g, w, tol, w.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", [(64, 32, 16, 64),  # the DiT's shape
+                                      (8, 17, 3, 24),    # ragged sizes
+                                      (4, 64, 2, 128)])  # > 48 KB smem
+def test_packed_self_attention_int8_kernel(card, b, n, h, dh, dtype):
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
+    before = ops.packed_self_attention_int8.launches
+    got = ops.packed_self_attention_int8(qkv, h)
+    torch.cuda.synchronize()
+    assert ops.packed_self_attention_int8.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, n, h * dh)
+    _assert_within(got, ops.packed_self_attention_int8_plain(qkv, h), K8_TOL)
+    _assert_within(got.cpu(), ops.packed_self_attention_int8_plain(
+        qkv.cpu(), h), K8_TOL)
+    wrong = ops.packed_self_attention_int8_plain(qkv, h, 1)
+    with pytest.raises(AssertionError):
+        _assert_within(got, wrong, K8_TOL)
+
+
+def test_k8_refuses_a_batch_not_a_multiple_of_its_group(card):
+    qkv = _randn(card, 6, 32, 3 * 1024, dtype=torch.bfloat16)
+    before = ops.packed_self_attention_int8.launches
+    with pytest.raises(ValueError, match="multiple"):
+        ops.packed_self_attention_int8(qkv, 16)
+    assert ops.packed_self_attention_int8.launches == before
+    assert ops.packed_self_attention_int8(qkv, 16, elems=2).shape == (
+        6, 32, 1024)
+
+
+def test_int8_matmul_on_the_card_equals_the_cpu(card):
+    """The dynamic and static int8 GEMM: exact integer products and the
+    same IEEE scaling on both devices; `_int_mm`'s limits raise."""
+    from ldt_torch.serving import int8 as int8_serving
+
+    x = _randn(card, 4, 32, 1024, dtype=torch.bfloat16)
+    w = _randn(card, 3072, 1024, dtype=torch.float32) * 0.03
+    w_i8, w_s = int8_serving.quantize_weight(w)
+    c_i8, c_s = int8_serving.quantize_weight(w.cpu())
+    assert torch.equal(w_i8.cpu(), c_i8) and torch.equal(w_s.cpu(), c_s)
+    for x_scale in (None, torch.tensor(0.02)):
+        got = int8_serving.int8_matmul(
+            x, w_i8, w_s, x_scale=None if x_scale is None
+            else x_scale.cuda())
+        want = int8_serving.int8_matmul(x.cpu(), c_i8, c_s, x_scale=x_scale)
+        assert torch.equal(got.cpu(), want)
+    with pytest.raises(ValueError, match="_int_mm"):
+        int8_serving.int8_matmul(x[:, :4], w_i8, w_s)  # M = 16
+
+
+def test_small_int8_generate_through_k8(card):
+    from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import generate
+    from ldt_torch.models import Compressor, Score
+
+    score = Score(score_cfg(num_blocks=2), generator=card)
+    comp = Compressor(compressor_cfg(), dtype=torch.bfloat16,
+                      generator=card)
+    sde = make_diffusion(sde_cfg(sample_N=32))
+    k1, k8 = (ops.packed_self_attention.launches,
+              ops.packed_self_attention_int8.launches)
+    got = generate(score, comp, sde, 4, 32, int8=True, attn_int8=True,
+                   generator=card)
+    assert ops.packed_self_attention.launches == k1
+    assert ops.packed_self_attention_int8.launches - k8 == 2 * 32
+    assert got.shape == (4, 2048, 3) and torch.isfinite(got.float()).all()
