@@ -39,6 +39,19 @@ default), in this order among the phases above:
      Phase 5 then profiles the bf16 and the int8 (K8) paths.
  11. (before 6) One int8 step at flagship width cut to two blocks, on the
      card against the CPU run of the port, and against wrong variants.
+Stage-2 training (`ldt_torch.training.latent_sde_trainer.Trainer.update`):
+ 12. (after 8) K3 (the backward of K1) at the train step's shape and K2's
+     tiled schedule at the posterior's shape (M=2048) against their plain
+     twins on the card and on the CPU and against wrong variants; their
+     times, bounds, twin times and the SDPA yardsticks.
+ 13. (after 10) The flagship train step at B=64, f32: the frozen full
+     Compressor encodes synthetic [64, 2048, 3] clouds, then loss, K1
+     forward / K3 backward through the 24-block Score, clip, Adam, EMA;
+     launch counts K1 24, K3 24, K2 24 per step; ms per step; one step
+     under torch.profiler by kernel class.
+ 14. (after 11) One train step at flagship width cut to two Score blocks,
+     f32, same weights, clouds and pinned draws, on the card against the
+     CPU, and against a K3 with dq and dk swapped.
 
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
@@ -96,6 +109,24 @@ K8_TOL = (0.08, 1e-5)
 # per batch element, 6.1e-3 / 2.7e-4), "bf16 weights" (no weight
 # quantization, 6.1e-3 / 3.2e-4), "kv swapped". The mean tells them apart.
 INT8_STEP_TOL = (1e-2, 1.3e-4)
+# Phase 12, K3 vs its plain twin, (max, mean) of |kernel - twin| relative to
+# the largest |twin|: in f32 the sums run in other orders; in bf16 a ds or
+# gradient element can round to its neighbour (one bf16 ulp, 2^-8 of its
+# value). Wrong: "no rowsum" (ds = w * dw), "dv unrounded" (bf16: dv from
+# the f32 weights, read 4.4e-3 / 3.1e-5 against a right 1.1e-3 / 1.1e-8:
+# the mean tells them apart), "dq dk swapped".
+K3_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (8e-3, 1e-5)}
+# Phase 12, K2's tiled schedule (M=2048): phase 2's limits (the outputs are
+# means over 2048 values, so |out| is smaller and the same limits stricter;
+# the weights rounded in the wrong dtype read 5.7e-4 / 4.8e-5 in f32 and
+# 9.8e-4 / 4.8e-5 in bf16, and fail).
+# Phase 14, one train step, card vs CPU, (max, mean) relative to the largest
+# |value| of each of loss, gradients, params, EMA and Adam's mu: f32 GEMMs
+# and sums in other orders (gradients read 1.5e-5 / 1.1e-8). Wrong: "dq dk
+# swapped" (K3's dq and dk exchanged: gradients 1.5e-3 / 1.3e-5; at the
+# first step's warm-up lr it cannot move the params past the limit).
+TRAIN_STEP_TOL = (1e-4, 1e-6)
+TRAIN_STEPS = 10   # timed flagship train steps (phase 13)
 BATCH = 64         # clouds per generation, as bench.py
 STEPS = 1000       # ancestral steps of the main path
 CHECK_STEPS = 32   # phases 3, 5 and 6 (beta_end / N must stay below 1)
@@ -417,6 +448,177 @@ def phase_int8_gemms(gen) -> None:
               "CPU bit for bit on 256 rows")
 
 
+def k3_variant(qkv, g, num_heads: int, acc=None, rowsum: bool = True,
+               round_dv: bool = True, swap_dq_dk: bool = False):
+    """K3's plain twin with its products in `acc` (the "f64" reading) or one
+    step changed (the wrong readings of phases 12 and 14)."""
+    import torch
+
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    scale = dh ** -0.5
+    dt, acc = qkv.dtype, acc or torch.float32
+
+    def heads(t):
+        return t.reshape(b, n, num_heads, dh).transpose(1, 2).to(acc)
+
+    q, k, v = (heads(qkv[..., i * d:(i + 1) * d]) for i in range(3))
+    gh = heads(g)
+    w = (q @ k.transpose(-1, -2) * scale).softmax(dim=-1)
+    dv = (w.to(dt).to(acc) if round_dv else w).transpose(-1, -2) @ gh
+    dw = gh @ v.transpose(-1, -2)
+    ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True)) if rowsum else w * dw
+    ds = ds.to(dt).to(acc)
+    dq = ds @ k * scale
+    dk = ds.transpose(-1, -2) @ q * scale
+    if swap_dq_dk:
+        dq, dk = dk, dq
+    return torch.cat([t.to(dt).transpose(1, 2).reshape(b, n, d)
+                      for t in (dq, dk, dv)], dim=-1)
+
+
+def sdpa_backward_ms(q, k, v, g) -> float:
+    """One `scaled_dot_product_attention` backward on [B, H, N, dh] heads:
+    forward + backward time minus forward time (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v)
+
+    def fwd_bwd():
+        fwd().backward(g)
+
+    with torch.enable_grad():
+        return cuda_ms(fwd_bwd, iters=50) - cuda_ms(fwd, iters=50)
+
+
+def phase_train_kernels(batch: int, gen) -> dict:
+    """K3 at the train step's shape and K2's tiled schedule at the
+    posterior's, against their twins and wrong variants; rows for f32, the
+    train step's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldt_torch.ops import attention as attn_ops
+
+    n, d, h = 32, 1024, 16            # DiT self-attention (score_cfg)
+    nq, m, dc, hc = 32, 2048, 128, 4  # posterior: 32 tokens over 2048 points
+    rows = {}
+
+    def heads(t, hh):
+        return t.unflatten(-1, (hh, -1)).transpose(1, 2)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        qkv = torch.randn(batch, n, 3 * d, device="cuda", dtype=dtype,
+                          generator=gen)
+        g = torch.randn(batch, n, d, device="cuda", dtype=dtype,
+                        generator=gen)
+
+        def k3():
+            return attn_ops.packed_self_attention_bwd(qkv, g, h)
+
+        def k3_plain():
+            return attn_ops.packed_self_attention_bwd_plain(qkv, g, h)
+
+        got = k3()
+        twin = k3_plain()
+        readings = {
+            "twin": errs(got, twin, rel=True),
+            "cpu twin": errs(got, attn_ops.packed_self_attention_bwd_plain(
+                qkv.cpu(), g.cpu(), h), rel=True),
+            "f64": errs(got, k3_variant(qkv, g, h, acc=torch.float64),
+                        rel=True),
+            "no rowsum": errs(got, k3_variant(qkv, g, h, rowsum=False),
+                              rel=True),
+            "dq dk swapped": errs(got, k3_variant(qkv, g, h,
+                                                  swap_dq_dk=True),
+                                  rel=True)}
+        wrong = ("no rowsum", "dq dk swapped")
+        if dtype == torch.bfloat16:
+            readings["dv unrounded"] = errs(
+                got, k3_variant(qkv, g, h, round_dv=False), rel=True)
+            wrong += ("dv unrounded",)
+        ms = cuda_ms(k3)
+        plain_ms = cuda_ms(k3_plain, iters=20)
+        library_ms = sdpa_backward_ms(
+            *(heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3)),
+            heads(g, h))
+        nbytes = (2 * qkv.numel() + g.numel()) * qkv.element_size()
+        flops = batch * h * (10 * n * n * (d // h) + 8 * n * n)
+        bound_ms, bound_by = _bound(nbytes, {dn: flops})
+        print(f"[12] packed_self_attention_bwd (K3) {dn} qkv "
+              f"{list(qkv.shape)}, g {list(g.shape)}, H={h}: max|twin| "
+              f"{twin.float().abs().max().item():.4f}, kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)")
+        held(f"K3 {dn} (relative) vs", readings, K3_TOL[dn],
+             right=("twin", "cpu twin", "f64"), wrong=wrong)
+        if dtype == torch.float32:  # the train step's dtype
+            rows["packed_self_attention_bwd"] = {
+                "name": "packed_self_attention_bwd", "route": "cuda",
+                "source": "ldt_torch/csrc/attention.cu",
+                "replaces": "ldt_tpu/ops/pallas_attention.py:312",
+                "launches": 0, "max_abs_err": errs(got, twin)[0], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+        q = torch.randn(batch, nq, dc, device="cuda", dtype=dtype,
+                        generator=gen)
+        k = torch.randn(batch, m, dc, device="cuda", dtype=dtype,
+                        generator=gen)
+        v = torch.randn(batch, m, dc, device="cuda", dtype=dtype,
+                        generator=gen)
+
+        def k2():
+            return attn_ops.cross_attention(q, k, v, hc)
+
+        def k2_plain():
+            return attn_ops.attention_plain(q, k, v, hc)
+
+        tiled = attn_ops.cross_attention.tiled_launches
+        got = k2()
+        if attn_ops.cross_attention.tiled_launches != tiled + 1:
+            fail("phase 12: K2 at M=2048 did not take its tiled schedule")
+        readings = {"twin": errs(got, k2_plain()),
+                    "cpu twin": errs(got, attn_ops.attention_plain(
+                        q.cpu(), k.cpu(), v.cpu(), hc)),
+                    "kv swapped": errs(got, attention_variant(
+                        q, v, k, hc, torch.float32, dtype))}
+        for vname, (acc, w) in variants(dtype).items():
+            readings[vname] = errs(got, attention_variant(q, k, v, hc, acc,
+                                                          w))
+        ms = cuda_ms(k2)
+        plain_ms = cuda_ms(k2_plain, iters=20)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            heads(q, hc), heads(k, hc), heads(v, hc)))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = batch * hc * (4 * nq * m * (dc // hc) + 5 * nq * m)
+        bound_ms, bound_by = _bound(nbytes, {dn: flops})
+        print(f"[12] cross_attention, tiled schedule (K2) {dn} q "
+              f"{list(q.shape)}, k/v {list(k.shape)}, H={hc}: max|twin| "
+              f"{k2_plain().float().abs().max().item():.4f}, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        held(f"K2 tiled {dn} vs", readings, KERNEL_TOL[dn],
+             right=("twin", "cpu twin", "f64"), wrong=("wrong", "kv swapped"))
+        if dtype == torch.float32:
+            rows["cross_attention_tiled"] = {
+                "name": "cross_attention_tiled", "route": "cuda",
+                "source": "ldt_torch/csrc/attention.cu",
+                "replaces": "ldt_tpu/ops/pallas_attention.py:49",
+                "launches": 0, "max_abs_err": readings["twin"][0], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+    return rows
+
+
 def build_models(gen):
     """The flagship Score in f32 (the source the int8 path quantizes) and in
     bf16 from the same weights, and the bf16 decoder."""
@@ -424,6 +626,7 @@ def build_models(gen):
 
     from ldt_torch.configs import compressor_cfg, score_cfg
     from ldt_torch.models import Compressor, Score
+    from ldt_torch.weights import is_decode_key
 
     t0 = time.perf_counter()
     weights = Score(score_cfg(), device="cuda", generator=gen).state_dict()
@@ -433,7 +636,8 @@ def build_models(gen):
                       generator=gen).eval()
     torch.cuda.synchronize()
     n_score = sum(p.numel() for p in score.parameters())
-    n_comp = sum(p.numel() for p in comp.parameters())
+    n_comp = sum(p.numel() for k, p in comp.named_parameters()
+                 if is_decode_key(k))
     print(f"[3] flagship Score {n_score / 1e6:.2f}M params (24 blocks, "
           f"hidden 1024; f32 weights, bf16 copy), decoder "
           f"{n_comp / 1e6:.3f}M params, random init from seed 0: "
@@ -514,15 +718,19 @@ def counted(fn):
     wrappers = {"packed_self_attention": attn_ops.packed_self_attention,
                 "cross_attention": attn_ops.cross_attention,
                 "packed_self_attention_int8":
-                attn_ops.packed_self_attention_int8}
+                attn_ops.packed_self_attention_int8,
+                "packed_self_attention_bwd":
+                attn_ops.packed_self_attention_bwd}
     for w in wrappers.values():
         w.launches = 0
+    attn_ops.cross_attention.tiled_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return (out, time.perf_counter() - t0,
-            {k: w.launches for k, w in wrappers.items()})
+    launches = {k: w.launches for k, w in wrappers.items()}
+    launches["cross_attention_tiled"] = attn_ops.cross_attention.tiled_launches
+    return out, time.perf_counter() - t0, launches
 
 
 def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
@@ -547,7 +755,8 @@ def expected_launches(score, comp, steps: int, k1: bool, k8: bool) -> dict:
     per_run = score.cfg.num_blocks * steps
     return {"packed_self_attention": per_run if k1 else 0,
             "cross_attention": comp.cfg.n_layers,
-            "packed_self_attention_int8": per_run if k8 else 0}
+            "packed_self_attention_int8": per_run if k8 else 0,
+            "packed_self_attention_bwd": 0, "cross_attention_tiled": 0}
 
 
 def phase_generate(score, comp, batch: int, steps: int, gen) -> dict:
@@ -599,6 +808,18 @@ def phase_ddim_int8(score, comp, weights, batch: int, steps: int,
         batch, expected_launches(score, comp, steps, False, True))
 
 
+def device_time_by_kernel(prof) -> dict:
+    """{kernel: device us} of a torch.profiler run."""
+    import torch
+
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us
+    return kernels
+
+
 def phase_profile(score, comp, batch: int, steps: int, gen, label: str,
                   **kw) -> None:
     """Device time by kernel and the idle share of a short `generate(**kw)`
@@ -626,11 +847,7 @@ def phase_profile(score, comp, batch: int, steps: int, gen, label: str,
         t0 = time.perf_counter()
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0.0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = kernels.get(e.key, 0.0) + us
+    kernels = device_time_by_kernel(prof)
     busy = sum(kernels.values())
     if busy == 0:
         print(f"[5] profile ({label}): the profiler recorded no device time "
@@ -724,6 +941,171 @@ def phase_int8_step(steps: int) -> None:
          wrong=("E=1", "kv swapped", "bf16 weights"))
 
 
+TRAIN_CLASSES = (
+    ("K3 packed_self_attention_bwd", ("packed_self_attention_bwd",)),
+    ("K1 packed_self_attention", ("packed_self_attention",)),
+    ("K2 cross_attention", ("cross_attention",)),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")),
+    ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
+    ("FPS / kNN / gather", ("topk", "sort", "radix", "bitonic", "argmax",
+                            "gather", "index")),
+)
+
+
+def phase_train(batch: int, steps: int, gen) -> dict:
+    """The flagship stage-2 train step: returns the launch counts of the
+    timed steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    cfg = latent_trainer_cfg()
+    trainer = Trainer(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(SEED))
+    data = {"tr_points": torch.randn(batch, cfg.data.tr_max_sample_points,
+                                     3, device="cuda", generator=gen)}
+    t0 = time.perf_counter()
+    trainer.maybe_init(data)
+    torch.cuda.synchronize()
+    n_score = sum(p.numel() for p in trainer.score.parameters())
+    n_comp = sum(p.numel() for p in trainer.compressor.parameters())
+    print(f"[13] stage-2 trainer: Score {n_score / 1e6:.2f}M params (f32), "
+          f"frozen Compressor {n_comp / 1e6:.3f}M params, random init from "
+          f"seed {SEED} (ActNorm from the first 2 clouds): "
+          f"{time.perf_counter() - t0:.2f} s")
+    for _ in range(2):  # warm-up
+        trainer.update(data)
+    torch.cuda.reset_peak_memory_stats()
+    losses, dt, launches = counted(
+        lambda: torch.stack([trainer.update(data) for _ in range(steps)]))
+    losses = losses.cpu()
+    per_step = {"packed_self_attention": 24, "packed_self_attention_bwd": 24,
+                "cross_attention": 24, "cross_attention_tiled": 5,
+                "packed_self_attention_int8": 0}
+    expect = {k: v * steps for k, v in per_step.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[13] {steps} train steps at B={batch}, f32: {dt * 1e3 / steps:.2f}"
+          f" ms/step, {steps / dt:.3f} steps/s ({smi_name_and_power()}); "
+          f"losses {[round(x, 4) for x in losses.tolist()]}; peak memory "
+          f"{peak:.2f} GiB; launches {launches} (expected {expect})")
+    if not torch.isfinite(losses).all():
+        fail("phase 13: a loss is not finite")
+    if launches != expect:
+        fail(f"phase 13: launch counts {launches} differ from the train "
+             f"step's {expect}")
+
+    # the encode and the rest of the step apart, by CUDA events
+    pts = trainer._points(data["tr_points"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    eps = trainer.encode(pts)
+    ev[1].record()
+    trainer.train_step(eps, trainer.current_lr())
+    ev[2].record()
+    ev[2].synchronize()
+    print(f"[13] one step by CUDA events: encode {ev[0].elapsed_time(ev[1]):.2f}"
+          f" ms, loss + backward + clip + Adam + EMA "
+          f"{ev[1].elapsed_time(ev[2]):.2f} ms")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.update(data)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_time_by_kernel(prof)
+    busy = sum(kernels.values())
+    if busy == 0:
+        print("[13] profile: the profiler recorded no device time (not "
+              "measured)")
+        return launches
+    groups = {name: 0.0 for name, _ in TRAIN_CLASSES}
+    groups["elementwise and other"] = 0.0
+    for key, us in kernels.items():
+        low = key.lower()
+        name = next((n for n, words in TRAIN_CLASSES
+                     if any(w in low for w in words)),
+                    "elementwise and other")
+        groups[name] += us
+    print(f"[13] profile of one train step (B={batch}): device busy "
+          f"{busy / 1e3:.2f} ms; wall {wall_us / 1e3:.2f} ms profiled (idle "
+          f"share {1 - busy / wall_us:.3f})")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {name}: {us / 1e3:.2f} ms ({us / busy:.3f} of busy)")
+    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {us / 1e3:9.2f} ms  {key[:110]}")
+    return launches
+
+
+def phase_train_reference() -> None:
+    """One stage-2 train step at flagship width cut to two Score blocks,
+    f32, B=4: the same weights, clouds and pinned draws on the card and on
+    the CPU (the path the CPU tests hold against ldt_tpu)."""
+    import torch
+
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.models import Compressor, Score
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    batch = 4
+    cfg = latent_trainer_cfg(score=dict(num_blocks=2))
+    g = torch.Generator().manual_seed(SEED)
+    score_w = Score(cfg.score, device="cpu", generator=g).state_dict()
+    comp = Compressor(cfg.compressor, device="cpu", generator=g)
+    pts = torch.randn(batch, 2048, 3, generator=g)
+    comp.init_actnorm(pts[:2])
+    comp_w = comp.state_dict()
+    pins = dict(
+        t_idx=torch.randint(0, cfg.sde.train_N, (batch,), generator=g),
+        eta=torch.randn(batch, cfg.score.z_scale, cfg.score.z_dim,
+                        generator=g),
+        enc_noise=[torch.randn(batch, cfg.compressor.z_scales,
+                               cfg.compressor.z_dim, generator=g)
+                   for _ in range(cfg.compressor.n_layers)])
+
+    def run(dev):
+        tr = Trainer(cfg, device=dev)
+        tr.maybe_init({"tr_points": pts}, score_weights=score_w,
+                      compressor_weights=comp_w)
+        loss = tr.update({"tr_points": pts}, **pins)
+        st = tr.state
+
+        def flat(tree):
+            return torch.cat([t.detach().reshape(-1).cpu()
+                              for t in tree.values()])
+
+        return {"loss": loss.reshape(1).cpu(),
+                "gradients": flat({k: p.grad for k, p in st.params.items()}),
+                "params": flat(st.params), "EMA": flat(st.ema_params),
+                "Adam mu": flat(st.opt_state.mu)}
+
+    out = {"cpu": run("cpu")}
+    k3 = attn_ops.packed_self_attention_bwd.launches
+    out["card"] = run("cuda")
+    if attn_ops.packed_self_attention_bwd.launches - k3 != 2:
+        fail("phase 14: the card's step did not go through K3")
+    with mock.patch.object(
+            attn_ops, "packed_self_attention_bwd",
+            lambda qkv, gg, h: k3_variant(qkv, gg, h, swap_dq_dk=True)):
+        out["dq dk swapped"] = run("cuda")
+    print(f"[14] one train step at flagship width, 2 Score blocks, f32, "
+          f"B={batch}, card vs CPU: loss {out['cpu']['loss'].item():.6f}")
+    for part in out["cpu"]:
+        if not torch.isfinite(out["card"][part]).all():
+            fail(f"phase 14: {part} on the card is not finite")
+        held(f"{part} (relative), CPU vs",
+             {k: errs(out[k][part], out["cpu"][part], rel=True)
+              for k in ("card", "dq dk swapped")}, TRAIN_STEP_TOL,
+             right=("card",),
+             wrong=("dq dk swapped",) if part in ("gradients", "Adam mu")
+             else ())
+
+
 def phase_reference(steps: int) -> None:
     """Flagship width cut to two blocks, f32, a small batch: the card
     (kernels, cuBLAS) against the CPU (plain twins, the path the CPU tests
@@ -792,6 +1174,7 @@ def main() -> int:
     rows = phase_kernels(BATCH, gen)
     rows.update(phase_k8(BATCH, gen))
     phase_int8_gemms(gen)
+    rows.update(phase_train_kernels(BATCH, gen))
     score, comp, weights = build_models(gen)
     phase_path(score, comp, BATCH, CHECK_STEPS, gen)
     launches = phase_generate(score, comp, BATCH, STEPS, gen)
@@ -802,12 +1185,17 @@ def main() -> int:
     phase_profile(score, comp, BATCH, CHECK_STEPS, gen, "int8 W8A8, K8",
                   int8=True, int8_weights=weights, attn_int8=True)
     del score, comp, weights
+    train_launches = phase_train(BATCH, TRAIN_STEPS, gen)
     phase_int8_step(CHECK_STEPS)
+    phase_train_reference()
     phase_reference(CHECK_STEPS)
     # each kernel's count from the run of its own path: K1 and K2 from the
-    # bf16 generation, K8 from the int8 generation through K8
+    # bf16 generation, K8 from the int8 generation through K8, K3 and the
+    # tiled K2 from the timed train steps
     launches["packed_self_attention_int8"] = k8_launches[
         "packed_self_attention_int8"]
+    for name in ("packed_self_attention_bwd", "cross_attention_tiled"):
+        launches[name] = train_launches[name]
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

@@ -2,7 +2,10 @@
 
 `score_cfg()` is the 457M-param flagship DiT (24 blocks, hidden 1024, 16
 heads, 32 latent tokens x 120 dims); `compressor_cfg()` the 8.06M-param
-set-VAE whose decoder turns those latents into 2048-point clouds.
+set-VAE whose decoder turns those latents into 2048-point clouds; `opt_cfg()`
+the stage-2 optimizer and `latent_trainer_cfg()` the whole stage-2 config,
+the values of `experiments/Latent_Diffusion_Trainer/airplane/config.yaml`
+(there is no YAML loader: the card's machine has no PyYAML).
 """
 
 from __future__ import annotations
@@ -57,4 +60,31 @@ def sde_cfg(**over):
         denoise=True, probability_flow=False, alpha=1.0,
     )
     cfg.update(over)
+    return dict2namespace(cfg)
+
+
+def opt_cfg(**over):
+    """The `opt:` section of the stage-2 config (batch 64 is `data:`)."""
+    cfg = dict(
+        adj_lr="warm_up", warmup_iters=2000, lr=0.0001,
+        grad_norm_clip_value=1.0, ema_decay=0.9999, beta1=0.9, beta2=0.999,
+        vae_beta1=0.9, vae_beta2=0.999, loss_type="l2", weight_decay=0.0,
+        discrete=True,
+    )
+    cfg.update(over)
+    return dict2namespace(cfg)
+
+
+def latent_trainer_cfg(**sections):
+    """The stage-2 config: {score, compressor, sde, opt, common, data}; each
+    keyword replaces or updates a section (a dict updates its defaults)."""
+    cfg = dict(
+        score=vars(score_cfg()), compressor=vars(compressor_cfg()),
+        sde=vars(sde_cfg()), opt=vars(opt_cfg()),
+        common=dict(epochs=6000, num_points=2048, seed=0),
+        data=dict(batch_size=64, tr_max_sample_points=2048,
+                  te_max_sample_points=2048, num_categorys=1),
+    )
+    for name, over in sections.items():
+        cfg[name] = {**cfg.get(name, {}), **over}
     return dict2namespace(cfg)

@@ -3,8 +3,10 @@
 Every method is a plain tensor function of `t`. The discrete tables used by
 the ancestral sampler (`betas`, `alphas_cump`) are built in f32 on the CPU
 (`torch.linspace` differs from `jnp.linspace` by at most an ulp or two),
-and then moved to the SDE's device. The geometric, sub-VP and VE SDEs and
-the importance-sampling quantities of training are later work.
+and then moved to the SDE's device. `e2int_f` and `var` give the discrete-t
+training objective its mean and variance. The geometric, sub-VP and VE SDEs
+and the importance-sampling quantities of continuous-t training are later
+work.
 """
 
 from __future__ import annotations
@@ -51,3 +53,8 @@ class DiffusionVPSDE:
 
     def std(self, t: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(self.var(t))
+
+    def e2int_f(self, t: torch.Tensor) -> torch.Tensor:
+        """exp(-integral of f from 0 to t): the mean factor of x_t."""
+        return torch.exp(-0.5 * self.beta_start * t
+                         - 0.25 * (self.beta_end - self.beta_start) * t * t)

@@ -1,4 +1,4 @@
-"""The latent DiT and the set-VAE decoder (counterpart of ldt_tpu/models)."""
+"""The latent DiT and the set-VAE (counterpart of ldt_tpu/models)."""
 
 from ldt_torch.models.compressor import Compressor
 from ldt_torch.models.score import Score

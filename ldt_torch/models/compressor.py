@@ -1,21 +1,173 @@
-"""Set-VAE decode half, counterpart of `ldt_tpu/models/compressor.py`.
+"""Hierarchical attention set-VAE ("Compressor"), counterpart of
+`ldt_tpu/models/compressor.py`.
 
-`Compressor.sample` turns [B, z_scales, n_layers * z_dim] latents into
-[B, num_points, 3] clouds: a learned 2048-seed set cross-attends, block by
-block, to each layer's projected latents. The encoder, `compute_posterior`,
-the random seed subset and the mixture-of-Gaussians seeds are later work and
-raise here.
+Encode (`forward`, the JAX module's `__call__`): a [B, N, 3] cloud is
+grouped by FPS + kNN into `z_scales` tokens (`LocalGrouper`), normalized per
+token (`ActNorm`), and run through `n_layers` encoder stages whose taps give,
+top-down, a hierarchy of Gaussian posteriors; their reparameterized samples
+are the latents `all_eps` [B, z_scales, n_layers * z_dim], decode-order layer
+i at channels [i * z_dim, (i + 1) * z_dim). Decode (`sample`): a learned
+2048-seed set cross-attends, block by block, to each layer's projected
+latents.
+
+The encoder's BatchNorms take their running statistics (the frozen
+Compressor of stage-2 training); BatchNorm in training mode, the random seed
+subset, the mixture-of-Gaussians seeds, `pre_group`, the MLP position
+embedding and class conditioning are later work and raise here.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ldt_torch import resolve_device
-from ldt_torch.nn.layers import Dense, ResidualBlock, init_weights_
+from ldt_torch.nn.layers import (
+    ActNorm,
+    BatchNorm,
+    Dense,
+    FinalLayer,
+    ResidualBlock,
+    get_activation,
+    init_weights_,
+)
+from ldt_torch.ops.geometry import cluster, index_points
+
+LOG_SQRT_2PI = 0.9189385332  # the reference's truncated constant
+
+
+def log_p_var_normal(samples: torch.Tensor, mu: torch.Tensor,
+                     logvar: torch.Tensor) -> torch.Tensor:
+    """Gaussian log-density."""
+    return (-0.5 * torch.square(samples - mu) / torch.exp(logvar)
+            - 0.5 * logvar - LOG_SQRT_2PI)
+
+
+def log_p_normal(samples: torch.Tensor) -> torch.Tensor:
+    """Standard-normal log-density."""
+    return -0.5 * torch.square(samples) - LOG_SQRT_2PI
+
+
+def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
+                   noise: torch.Tensor) -> torch.Tensor:
+    """mu + exp(logvar / 2) * noise, noise ~ N(0, 1) of mu's shape."""
+    return mu + torch.exp(logvar / 2.0) * noise
+
+
+class MiniPointnet(nn.Module):
+    """[B, N, 3] -> [B, output_dim]: Dense/BN/ReLU x2, max over the points,
+    Dense."""
+
+    def __init__(self, in_dim: int, output_dim: int, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = Dense(in_dim, 128, **kw)
+        self.bn1 = BatchNorm(128, **kw)
+        self.conv2 = Dense(128, 256, **kw)
+        self.bn2 = BatchNorm(256, **kw)
+        self.fc = Dense(256, output_dim, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x)))
+        h = F.relu(self.bn2(self.conv2(h)))
+        return self.fc(h.amax(dim=1))
+
+
+class ConvBNReLURes1D(nn.Module):
+    """Residual Dense/BN block: act(net2(act(bn(net1(x)))) + x)."""
+
+    def __init__(self, channel: int, res_expansion: float = 1.0,
+                 activation: str = "relu", *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        mid = int(channel * res_expansion)
+        self.act = get_activation(activation)
+        self.net1_dense = Dense(channel, mid, **kw)
+        self.net1_bn = BatchNorm(mid, **kw)
+        self.net2_dense = Dense(mid, channel, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.act(self.net1_bn(self.net1_dense(x)))
+        return self.act(self.net2_dense(h) + x)
+
+
+class PreExtraction(nn.Module):
+    """Per-group features, max-pooled over the group:
+    [B, S, K, D_in] -> [B, S, out_channels]."""
+
+    def __init__(self, in_channels: int, out_channels: int, blocks: int = 1,
+                 res_expansion: float = 1.0, activation: str = "relu", *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.act = get_activation(activation)
+        self.transfer_dense = Dense(in_channels, out_channels, **kw)
+        self.transfer_bn = BatchNorm(out_channels, **kw)
+        self.ops = nn.ModuleList(
+            ConvBNReLURes1D(out_channels, res_expansion, activation, **kw)
+            for _ in range(blocks))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, k, d = x.shape
+        h = self.act(self.transfer_bn(self.transfer_dense(
+            x.reshape(b * s, k, d))))
+        for op in self.ops:
+            h = op(h)
+        return h.amax(dim=1).reshape(b, s, -1)
+
+
+class LocalGrouper(nn.Module):
+    """FPS centers + kNN groups + normalized grouped features.
+
+    forward(xyz [B, N, 3], feature [B, N, D], groups S, k) ->
+        (new_xyz [B, S, 3], features [B, S, D]).
+    Each group's features carry its points' xyz (the JAX module's
+    `use_xyz=True`, the only setting its callers use). `normalize`
+    "anchor" (the shipped `cluster_norm`) subtracts each group's center
+    point and feature, "center" the group mean; then one unbiased std over
+    each cloud's flattened residuals, and the affine alpha/beta.
+    """
+
+    def __init__(self, in_channels: int,
+                 normalize: Optional[str] = "anchor", *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        mode = normalize.lower() if normalize else None
+        self.normalize = mode if mode in ("center", "anchor") else None
+        if self.normalize is not None:
+            kw = dict(dtype=torch.float32, device=device)
+            self.affine_alpha = nn.Parameter(
+                torch.ones(1, 1, 1, in_channels + 3, **kw))
+            self.affine_beta = nn.Parameter(
+                torch.zeros(1, 1, 1, in_channels + 3, **kw))
+        self.extraction = PreExtraction(2 * in_channels + 3, in_channels,
+                                        dtype=dtype, device=device)
+
+    def forward(self, xyz: torch.Tensor, feature: torch.Tensor, groups: int,
+                k: int):
+        b = xyz.shape[0]
+        new_xyz, fps_idx, idx = cluster(xyz, groups, k)
+        new_feature = index_points(feature, fps_idx)        # [B, S, D]
+        grouped = torch.cat([index_points(feature, idx),
+                             index_points(xyz, idx)], dim=-1)  # [B,S,k,D+3]
+        if self.normalize is not None:
+            if self.normalize == "center":
+                mean = grouped.mean(dim=2, keepdim=True)
+            else:
+                mean = torch.cat([new_feature, new_xyz],
+                                 dim=-1)[:, :, None, :]
+            resid = grouped - mean
+            std = resid.reshape(b, -1).std(dim=-1)[:, None, None, None]
+            grouped = (self.affine_alpha * (resid / (std + 1e-5))
+                       + self.affine_beta)
+        anchor = new_feature[:, :, None, :].expand(-1, -1, k, -1)
+        x = torch.cat([grouped, anchor], dim=-1)
+        return new_xyz, self.extraction(x)
 
 
 class InitialSet(nn.Module):
@@ -40,47 +192,184 @@ class InitialSet(nn.Module):
             "not ported yet")
 
 
+class Encoder(nn.Module):
+    """`num_layers` AdaLN blocks conditioned on `pos`, then a FinalLayer
+    tap. Keys and values are the raw pre-norm x (the reference's
+    `layer(x, x, c)`), so the attention is K2 at N = M = z_scales."""
+
+    def __init__(self, dim_in: int, p_dim: int, num_heads: int,
+                 norm: Optional[str], mlp_ratio: float = 4.0,
+                 num_layers: int = 1, *, dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        for i in range(num_layers):
+            self.add_module(f"att{i}", ResidualBlock(
+                dim_in, dim_c=p_dim, num_heads=num_heads, norm=norm,
+                mlp_ratio=mlp_ratio, **kw))
+        self.num_layers = num_layers
+        self.conv_out = FinalLayer(dim_in, dim_in, dim_c=p_dim, norm=norm,
+                                   **kw)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor):
+        for i in range(self.num_layers):
+            x = getattr(self, f"att{i}")(x, x, pos)
+        return x, self.conv_out(x, pos)
+
+
 class DecoderBlock(nn.Module):
-    """Attentive bottleneck layer, generation half: the decoded set
+    """Attentive bottleneck layer. `compute_posterior(x, o)`: the encoder
+    tap's tokens attend to the decoded set `o` (or, with `o` None, to their
+    raw selves) -> (mu, logvar); `forward(o, eps)`: the decoded set
     cross-attends to the projected latents, `att1(o, ln(eps))`."""
 
     def __init__(self, dim_in: int, dim_z: int, num_heads: int,
                  norm: Optional[str], mlp_ratio: float = 4.0,
-                 act: Optional[str] = None, *, dtype=torch.float32,
-                 device=None):
+                 min_sigma: float = -30.0, act: Optional[str] = None, *,
+                 dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.att1 = ResidualBlock(dim_in, None, num_heads=num_heads, norm=norm,
-                                  mlp_ratio=mlp_ratio, act=act, **kw)
+        block = dict(num_heads=num_heads, norm=norm, mlp_ratio=mlp_ratio,
+                     act=act, **kw)
+        self.dim_z = dim_z
+        self.min_sigma = min_sigma
+        self.att = ResidualBlock(dim_in, None, **block)
+        self.prior_dense = Dense(dim_in, 2 * dim_z, **kw)
+        self.att1 = ResidualBlock(dim_in, None, **block)
         self.ln = Dense(dim_z, dim_in, **kw)
+
+    def compute_posterior(self, x: torch.Tensor,
+                          o: Optional[torch.Tensor] = None):
+        x = self.att(x, o if o is not None else x)
+        posterior = self.prior_dense(F.silu(x))
+        mu = posterior[..., :self.dim_z]
+        logvar = torch.clamp(posterior[..., self.dim_z:], self.min_sigma,
+                             10.0)
+        return mu, logvar
 
     def forward(self, o: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         return self.att1(o, self.ln(eps))
 
 
 class Compressor(nn.Module):
-    """Decode half of the set-VAE. `cfg` is the `model:` config section
-    (`configs.compressor_cfg`)."""
+    """The set-VAE. `cfg` is the `model:` config section
+    (`configs.compressor_cfg`). Weights are drawn from `generator` with the
+    JAX package's initializers; call `init_actnorm` with a batch for the
+    data-dependent ActNorm, or load converted weights
+    (`ldt_torch.weights.load_compressor`)."""
 
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.class_condition:
-            raise NotImplementedError(
-                "the class-conditional Compressor is not ported yet")
+        for flag, what in ((cfg.class_condition, "the class-conditional "
+                            "Compressor"),
+                           (cfg.pre_group, "pre_group"),
+                           (cfg.pos_embedding == "mlp",
+                            "the MLP position embedding")):
+            if flag:
+                raise NotImplementedError(f"{what} is not ported yet")
         dev = resolve_device(device)
         kw = dict(dtype=dtype, device=dev)
         self.cfg = cfg
+        self.input_dense = Dense(cfg.input_dim, cfg.hidden_dim, **kw)
+        if cfg.ActNorm is not None and cfg.ActNorm is not False:
+            # `ActNorm: True` selects per-token statistics (PARITY #5)
+            self.conv_in = ActNorm(
+                cfg.hidden_dim, cfg.z_scales,
+                feature_type="set" if cfg.ActNorm == "set" else "token",
+                device=dev)
+        self.group = LocalGrouper(cfg.hidden_dim, normalize=cfg.cluster_norm,
+                                  **kw)
+        self.pos_embedding = MiniPointnet(3, cfg.p_dim, **kw)
+        self.encoder = nn.ModuleList(
+            Encoder(cfg.hidden_dim, cfg.p_dim, cfg.num_heads, norm=cfg.norm,
+                    mlp_ratio=cfg.mlp_ratio, num_layers=cfg.encoder_layers,
+                    **kw)
+            for _ in range(cfg.n_layers))
         self.decoder = nn.ModuleList(
             DecoderBlock(cfg.hidden_dim, cfg.z_dim, cfg.num_heads,
                          norm=cfg.norm, mlp_ratio=cfg.mlp_ratio,
-                         act=cfg.decoder_act, **kw)
+                         min_sigma=cfg.min_sigma, act=cfg.decoder_act, **kw)
             for _ in range(cfg.n_layers))
         self.output_dense = Dense(cfg.hidden_dim, 3, **kw)
         self.init_set = InitialSet(cfg.hidden_dim, cfg.max_outputs, device=dev)
         init_weights_(self, generator)
         with torch.no_grad():
             self.init_set.prior.uniform_(0.0, 1.0, generator=generator)
+
+    @staticmethod
+    def norm_pts(pts: torch.Tensor) -> torch.Tensor:
+        """Per-cloud standardization (unbiased std)."""
+        mean = pts.mean(dim=1, keepdim=True)
+        return (pts - mean) / pts.std(dim=1, keepdim=True)
+
+    def _grouped(self, pts: torch.Tensor):
+        """(centers [B, S, 3], token features [B, S, hidden]) before
+        ActNorm."""
+        if self.cfg.norm_input:
+            pts = self.norm_pts(pts)
+        n = pts.shape[1]
+        return self.group(pts, self.input_dense(pts), self.cfg.z_scales,
+                          n // self.cfg.z_scales * 2)
+
+    @torch.no_grad()
+    def init_actnorm(self, pts: torch.Tensor) -> None:
+        """Data-dependent ActNorm init from the clouds `pts` [B, N, 3], as
+        the JAX module initializes it at `Module.init`."""
+        if hasattr(self, "conv_in"):
+            self.conv_in.data_init(self._grouped(pts)[1])
+
+    def bottom_up(self, pts: torch.Tensor) -> dict:
+        """Encode [B, N, 3] -> {'outputs': the n_layers taps [B, S, hidden],
+        'max': max of the last stage's tokens}."""
+        center, x = self._grouped(pts)
+        pos = self.pos_embedding(center)
+        if hasattr(self, "conv_in"):
+            x = self.conv_in(x)
+        outputs = []
+        for layer in self.encoder:
+            x, o = layer(x, pos)
+            outputs.append(o)
+        return {"outputs": outputs, "max": x.max()}
+
+    def top_down(self, encoder_out: Sequence[torch.Tensor],
+                 noise: Optional[Sequence[torch.Tensor]] = None,
+                 generator: Optional[torch.Generator] = None) -> dict:
+        """Top-down posterior sampling and decoding of `outsize` points.
+        `noise[idx]` [B, S, z_dim] pins the reparameterization draw of decode
+        step idx; else it is N(0, 1) from `generator`."""
+        cfg = self.cfg
+        b = encoder_out[0].shape[0]
+        o = self.init_set(b, cfg.outsize)
+        posteriors, all_eps, kls, all_logqz = [(o, None, None)], [], [], []
+        for idx in range(cfg.n_layers):
+            layer = self.decoder[cfg.n_layers - 1 - idx]
+            mu, logvar = layer.compute_posterior(
+                encoder_out[-idx - 1], o if idx != 0 else None)
+            e = noise[idx] if noise is not None else torch.randn(
+                mu.shape, dtype=mu.dtype, device=mu.device,
+                generator=generator)
+            eps = reparameterize(mu, logvar,
+                                 e.to(device=mu.device, dtype=mu.dtype))
+            logqz = log_p_var_normal(eps, mu, logvar)
+            kls.append(logqz - log_p_normal(eps))
+            o = layer(o, eps)
+            all_eps.append(eps)
+            posteriors.append((eps, mu, logvar))
+            all_logqz.append(logqz)
+        return {"set": self.output_dense(o), "posteriors": posteriors,
+                "kls": kls, "all_logqz": all_logqz, "all_eps": all_eps}
+
+    def forward(self, x: torch.Tensor,
+                noise: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """Bidirectional inference on x [B, N, 3]; 'all_eps' is
+        [B, z_scales, n_layers * z_dim] in the JAX package's layout."""
+        bup = self.bottom_up(x)
+        tdn = self.top_down(bup["outputs"], noise, generator)
+        return {"set": self.postprocess(tdn["set"]),
+                "posteriors": tdn["posteriors"], "kls": tdn["kls"],
+                "all_eps": torch.cat(tdn["all_eps"], dim=-1),
+                "all_logqz": tdn["all_logqz"], "max": bup["max"]}
 
     def sample(self, shape, given_eps: torch.Tensor) -> torch.Tensor:
         """Top-down generation. shape: (B, num_points); given_eps:

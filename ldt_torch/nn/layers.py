@@ -7,8 +7,10 @@ epsilon 1e-6 and returns the module dtype, GELU is the tanh approximation
 (`jax.nn.gelu`'s default), and residual sums follow PyTorch's type promotion,
 which is JAX's for these dtypes (bf16 + f32 -> f32).
 
-Inference only: dropout is the identity here, as in the JAX package's
-deterministic calls.
+Dropout is the identity here, as in the JAX package's deterministic calls
+(every shipped config sets its rate to 0). With grad mode on, self-attention
+differentiates through `ops.attention.PackedSelfAttention` (K1 forward, K3
+backward); `BatchNorm` is the inference form (running statistics).
 """
 
 from __future__ import annotations
@@ -73,6 +75,65 @@ def init_weights_(module: nn.Module,
                 m.weight.fill_(1.0)
                 m.bias.zero_()
     return module
+
+
+class ActNorm(nn.Module):
+    """Activation normalization `(x - shift) * exp(-log_scale)` over the
+    feature (last) axis (`ldt_tpu/nn/layers.py::ActNorm`).
+
+    `feature_type` "set" keeps one [1, 1, F] shift and log-scale; anything
+    else (the shipped `ActNorm: True`, PARITY #5) keeps per-token [1, S, F]
+    ones. `data_init(x)` sets them from a batch's statistics, as the JAX
+    module's initializers do at `Module.init`: the mean, and log(std + eps)
+    with the unbiased std, in f32, over the batch (and the tokens for
+    "set").
+    """
+
+    def __init__(self, num_features: int, z_scale: int = 1,
+                 eps: float = 1e-6, feature_type: str = "set", *,
+                 device=None):
+        super().__init__()
+        self.feature_type = feature_type
+        self.eps = eps
+        shape = ((1, 1, num_features) if feature_type == "set"
+                 else (1, z_scale, num_features))
+        kw = dict(dtype=torch.float32, device=device)
+        self.shift = nn.Parameter(torch.zeros(shape, **kw))
+        self.log_scale = nn.Parameter(torch.zeros(shape, **kw))
+
+    @torch.no_grad()
+    def data_init(self, x: torch.Tensor) -> None:
+        dims = (0, 1) if self.feature_type == "set" else (0,)
+        x = x.float()
+        self.shift.copy_(x.mean(dim=dims, keepdim=True))
+        self.log_scale.copy_(torch.log(x.std(dim=dims, keepdim=True)
+                                       + self.eps))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (x - self.shift) * torch.exp(-self.log_scale)
+
+
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(use_running_average=True)` over the last axis:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, from the running
+    statistics (flax `batch_stats` mean and var; eps 1e-5), in f32, the
+    result in `dtype`."""
+
+    def __init__(self, features: int, eps: float = 1e-5, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        kw = dict(dtype=torch.float32, device=device)
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, **kw))
+        self.bias = nn.Parameter(torch.zeros(features, **kw))
+        self.register_buffer("running_mean", torch.zeros(features, **kw))
+        self.register_buffer("running_var", torch.ones(features, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean) * mul + self.bias).to(
+            self.dtype)
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
@@ -186,7 +247,11 @@ class Attention(nn.Module):
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = self.dim
         if y is None:
-            att = attn_ops.packed_self_attention(self.qkv(x), self.num_heads)
+            qkv = self.qkv(x)
+            if torch.is_grad_enabled():
+                att = attn_ops.PackedSelfAttention.apply(qkv, self.num_heads)
+            else:
+                att = attn_ops.packed_self_attention(qkv, self.num_heads)
         else:
             w, b = self.qkv.weight, self.qkv.bias
             q = F.linear(x.to(w.dtype), w[:d], b[:d])

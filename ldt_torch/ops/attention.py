@@ -1,5 +1,5 @@
-"""Attention cores: hand-written CUDA kernels K1, K2 and K8, and their plain
-twins.
+"""Attention cores: hand-written CUDA kernels K1, K2, K3 and K8, and their
+plain twins.
 
 K1 `packed_self_attention(qkv, num_heads)` — the attention core of every
 DiT block (24 launches per denoise step).
@@ -14,20 +14,46 @@ DiT block (24 launches per denoise step).
     column slices straight out of the packed rows (no split copies), keeps
     them and the [N, N] scores in shared memory, and writes [N, dh] once.
 
-K2 `cross_attention(q, k, v, num_heads)` — the decoder's 2048-point x
-32-latent cross-attention (6 launches per generation).
+K3 `packed_self_attention_bwd(qkv, g, num_heads)` — the backward of K1: the
+packed [B, N, 3D] gradient of the qkv from the output's gradient g [B, N, D]
+(24 launches per stage-2 train step). `PackedSelfAttention` is the
+autograd.Function whose forward is K1 and whose backward is K3; it saves
+only qkv, as the JAX VJP does.
+  * Replaces `ldt_tpu/ops/pallas_attention.py::_bwd_kernel_packed_phased`
+    (and `_bwd_kernel_packed`, the same function): recompute the f32 weights
+    w, then dv = round(w)^T g, dw = g v^T, ds = w (dw - rowsum(dw w)),
+    dq = round(ds) k dh^-1/2, dk = round(ds)^T q dh^-1/2, round() to the
+    input dtype, products in f32.
+  * Bound on an H100: device-memory bytes. At the train step's shape (B=64,
+    N=32, D=1024, 16 heads, f32) it reads 33.6 MB and writes 25.2 MB for
+    0.67 GFLOP.
+  * Design: K1's, one block per (batch element, head) with q_h, k_h, v_h,
+    g_h and the [N, N] weights and their gradient in shared memory (41 KB at
+    the train step's shape); every gradient element is written once.
+
+K2 `cross_attention(q, k, v, num_heads)` — the set-VAE's cross-attention:
+the decoder's 2048 points over 32 latents (6 launches per generation), and
+in the encode the 32 tokens over themselves (13) and over the 2048-point
+decoded set (5).
   * Replaces `ldt_tpu/ops/pallas_attention.py::_fwd_kernel` and the grouped
     schedule `_fwd_kernel_grouped` (the same function for N == M).
   * Bound on an H100: device-memory bytes. At the decode shape (B=64,
     N=2048, M=32, D=128, 4 heads, bf16) q in and the output out are 33.5 MB
-    each; k and v are 1 MB together.
-  * Design: grid (batch, head, 64-query tile); each block keeps k_h and v_h
-    in shared memory and each warp streams whole query rows through it, so q
-    is read once and every output element is written once.
+    each; k and v are 1 MB together. At the posterior shape (N=32, M=2048,
+    f32) k and v are 134 MB.
+  * Design: where a head's k_h and v_h fit in shared memory (M=32), grid
+    (batch, head, 64-query tile), each block keeps them whole and each warp
+    streams whole query rows through them, so q is read once and every
+    output element is written once. Longer key sets (M=2048) stream through
+    shared memory in 256-key tiles, twice, for blocks of up to 8 query rows:
+    the first pass keeps the rows' scores in shared memory for the f32
+    softmax, the second accumulates AV in key order. Both schedules give the
+    same bits; the second rounds the weights before AV as the TPU kernel
+    does, which an online-softmax rescale would not.
 
-Both accumulate in f32, run the softmax in f32 and round the weights to the
-input dtype before the AV product, as the Pallas kernels do. They take f32
-and bf16 tensors that are contiguous and lie on one device.
+K1, K2 and K3 accumulate in f32, run the softmax in f32 and round the weights
+to the input dtype before the AV product, as the Pallas kernels do. They take
+f32 and bf16 tensors that are contiguous and lie on one device.
 
 K8 `packed_self_attention_int8(qkv, num_heads, elems=4)` — K1 with int8
 operands, the attention core of the int8 serving step when its int8
@@ -50,7 +76,10 @@ attention is on (24 launches per denoise step).
 
 Dispatch: a wrapper computes with its plain version only when its input
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Each
-wrapper counts its kernel launches in `<wrapper>.launches`.
+wrapper counts its kernel launches in `<wrapper>.launches`. K2 and K8 have no
+backward in the port yet, and K1 differentiates only through
+`PackedSelfAttention`: their wrappers raise when grad mode is on and an
+input requires grad, rather than return an output with no `grad_fn`.
 """
 
 from __future__ import annotations
@@ -67,6 +96,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448
 # Warps per K2 block (kCrossWarps in csrc/attention.cu).
 _CROSS_WARPS = 4
+# Keys per tile of K2's tiled schedule (kTiledKeys in csrc/attention.cu).
+_TILED_KEYS = 256
 
 
 def self_smem_bytes(n: int, dh: int) -> int:
@@ -81,10 +112,36 @@ def cross_smem_bytes(m: int, dh: int) -> int:
     return 4 * (m * (dh + 1) + m * dh + _CROSS_WARPS * (dh + m))
 
 
+def cross_tiled_smem_bytes(m: int, dh: int, rows: int) -> int:
+    """K2's tiled schedule with `rows` query rows per block: one tile (stride
+    dh+1; k in the first pass, v in the second), the rows' q and AV sums,
+    and their m weights, f32."""
+    return 4 * (_TILED_KEYS * (dh + 1) + 2 * rows * dh + rows * m)
+
+
+def cross_fits(m: int, dh: int) -> bool:
+    """Whether K2 takes m keys of width dh: whole in shared memory, or one
+    query row's scores beside a tile."""
+    return (cross_smem_bytes(m, dh) <= SMEM_LIMIT
+            or cross_tiled_smem_bytes(m, dh, 1) <= SMEM_LIMIT)
+
+
+def self_bwd_smem_bytes(n: int, dh: int) -> int:
+    """K3's shared memory: q and g [n, dh], k and v (stride dh+1), the [n, n]
+    weights and their gradient, f32."""
+    return 4 * (2 * n * dh + 2 * n * (dh + 1) + 2 * n * n)
+
+
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     return e / e.sum(dim=-1, keepdim=True)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, N, D] -> [B, H, N, dh] in f32."""
+    b, n, d = t.shape
+    return t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2).float()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,11 +151,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded to the input dtype before AV, output in the input dtype
     (`ldt_tpu/ops/pallas_attention.py::reference_attention_core`)."""
     b, n, d = q.shape
-    m = k.shape[1]
     dh = d // num_heads
-    qh = q.reshape(b, n, num_heads, dh).transpose(1, 2).float()
-    kh = k.reshape(b, m, num_heads, dh).transpose(1, 2).float()
-    vh = v.reshape(b, m, num_heads, dh).transpose(1, 2).float()
+    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
     s = torch.matmul(qh, kh.transpose(-1, -2)) * (dh ** -0.5)
     w = _softmax_rows(s).to(q.dtype).float()
     out = torch.matmul(w, vh)
@@ -111,6 +165,32 @@ def packed_self_attention_plain(qkv: torch.Tensor,
     d = qkv.shape[-1] // 3
     return attention_plain(qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:],
                            num_heads)
+
+
+def packed_self_attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
+                                    num_heads: int) -> torch.Tensor:
+    """Plain twin of K3: the packed [B, N, 3D] gradient of K1's qkv from the
+    output's gradient g [B, N, D], written out step by step as
+    `ldt_tpu/ops/pallas_attention.py::_bwd_kernel_packed_phased` computes it
+    (not by autograd through the forward): f32 products and softmax, the
+    weights rounded to the input dtype before dv, ds rounded before dq and
+    dk, each gradient in the input dtype."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // num_heads
+    scale = dh ** -0.5
+    dt = qkv.dtype
+    q, k, v = (_heads(qkv[..., i * d:(i + 1) * d], num_heads)
+               for i in range(3))
+    gh = _heads(g, num_heads)
+    w = _softmax_rows(torch.matmul(q, k.transpose(-1, -2)) * scale)
+    dv = torch.matmul(w.to(dt).float().transpose(-1, -2), gh)
+    dw = torch.matmul(gh, v.transpose(-1, -2))
+    ds = (w * (dw - (dw * w).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return torch.cat([t.to(dt).transpose(1, 2).reshape(b, n, d)
+                      for t in (dq, dk, dv)], dim=-1)
 
 
 def true_divide(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -177,6 +257,16 @@ def _check_heads(name: str, d: int, num_heads: int) -> None:
                          f"num_heads={num_heads}")
 
 
+def _check_no_grad(name: str, tensors) -> None:
+    """Refuse to drop a gradient silently: K2 and K8 have no backward yet,
+    and K1 differentiates only through `PackedSelfAttention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel's output would carry no gradient (K2 and "
+            "K8 have no backward in ldt_torch yet; K1 differentiates through "
+            "PackedSelfAttention); call it under torch.no_grad()")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
@@ -185,6 +275,9 @@ def _lib() -> ctypes.CDLL:
     lib.ldt_packed_self_attention.restype = i
     lib.ldt_cross_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
     lib.ldt_cross_attention.restype = i
+    lib.ldt_packed_self_attention_bwd.argtypes = [p, p, p, i, i, i, i, f, i,
+                                                  p]
+    lib.ldt_packed_self_attention_bwd.restype = i
     lib.ldt_packed_self_attention_int8.argtypes = [p, p, p, i, i, i, i, i, f,
                                                    i, p]
     lib.ldt_packed_self_attention_int8.restype = i
@@ -204,6 +297,7 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """K1: self-attention on the packed [B, N, 3D] qkv -> [B, N, D]."""
     name = "packed_self_attention"
     dh = _check_packed(name, qkv, num_heads)
+    _check_no_grad(name, (qkv,))
     if qkv.device.type == "cpu":
         return packed_self_attention_plain(qkv, num_heads)
     b, n, d3 = qkv.shape
@@ -246,6 +340,7 @@ def packed_self_attention_int8(qkv: torch.Tensor, num_heads: int,
     dh = _check_packed(name, qkv, num_heads)
     b, n, d3 = qkv.shape
     _check_elems(name, b, elems)
+    _check_no_grad(name, (qkv,))
     if qkv.device.type == "cpu":
         return packed_self_attention_int8_plain(qkv, num_heads, elems)
     d = d3 // 3
@@ -277,10 +372,12 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     _check_heads(name, d, num_heads)
     dh = d // num_heads
-    if cross_smem_bytes(m, dh) > SMEM_LIMIT:
+    if not cross_fits(m, dh):
         raise ValueError(f"{name}: M={m}, dh={dh} need "
-                         f"{cross_smem_bytes(m, dh)} B of shared memory, "
-                         f"more than the {SMEM_LIMIT} B a block may use")
+                         f"{cross_tiled_smem_bytes(m, dh, 1)} B of shared "
+                         f"memory for one query row, more than the "
+                         f"{SMEM_LIMIT} B a block may use")
+    _check_no_grad(name, (q, k, v))
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads)
     out = torch.empty_like(q)
@@ -291,7 +388,62 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             m, d, num_heads, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, name)
     cross_attention.launches += 1
+    if cross_smem_bytes(m, dh) > SMEM_LIMIT:
+        cross_attention.tiled_launches += 1
     return out
 
 
 cross_attention.launches = 0
+# the launches (counted in `launches` too) that took the tiled schedule
+cross_attention.tiled_launches = 0
+
+
+def packed_self_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
+                              num_heads: int) -> torch.Tensor:
+    """K3: the packed [B, N, 3D] gradient of K1's qkv from the output's
+    gradient g [B, N, D]."""
+    name = "packed_self_attention_bwd"
+    dh = _check_packed(name, qkv, num_heads)
+    _check(name, (qkv, g))
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    if tuple(g.shape) != (b, n, d):
+        raise ValueError(f"{name}: g {tuple(g.shape)} is not the output "
+                         f"shape {(b, n, d)}")
+    if self_bwd_smem_bytes(n, dh) > SMEM_LIMIT:
+        raise ValueError(f"{name}: N={n}, dh={dh} need "
+                         f"{self_bwd_smem_bytes(n, dh)} B of shared memory, "
+                         f"more than the {SMEM_LIMIT} B a block may use")
+    if qkv.device.type == "cpu":
+        return packed_self_attention_bwd_plain(qkv, g, num_heads)
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = _lib().ldt_packed_self_attention_bwd(
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, n, d,
+            num_heads, dh ** -0.5, _DTYPE_CODES[qkv.dtype], stream)
+    _raise_on(err, name)
+    packed_self_attention_bwd.launches += 1
+    return dqkv
+
+
+packed_self_attention_bwd.launches = 0
+
+
+class PackedSelfAttention(torch.autograd.Function):
+    """K1 forward, K3 backward (on CPU tensors: their plain twins). Saves
+    only qkv and recomputes the weights in the backward, as the JAX VJP
+    (`ldt_tpu/ops/pallas_attention.py::fused_attention_packed`) does. The
+    kernels are looked up in this module at each call."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return packed_self_attention(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        return (packed_self_attention_bwd(qkv, g.contiguous(),
+                                          ctx.num_heads), None)

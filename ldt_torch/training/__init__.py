@@ -1,0 +1,2 @@
+"""Training (counterpart of ldt_tpu/training): the optimizer state, the
+base trainer and the stage-2 latent-diffusion trainer."""

@@ -112,9 +112,10 @@ def _bad_cross_inputs():
         "heads_do_not_divide": (ValueError, (q, kv, kv), 3),
         "non_contiguous": (ValueError, (torch.zeros(2, 16, 8).transpose(1, 2),
                                         kv, kv), 2),
-        "beyond_shared_memory": (ValueError, (torch.zeros(1, 8, 64),
-                                              torch.zeros(1, 2048, 64),
-                                              torch.zeros(1, 2048, 64)), 1),
+        # one query row's scores beside a tile of keys 32768 wide
+        "beyond_shared_memory": (ValueError, (torch.zeros(1, 8, 32768),
+                                              torch.zeros(1, 2, 32768),
+                                              torch.zeros(1, 2, 32768)), 1),
     }
 
 
@@ -131,3 +132,9 @@ def test_shared_memory_bounds_admit_the_main_path_shapes():
     # K2 takes other M up to its bound (the conditional Score's
     # cross-attention will give it other key counts)
     assert ops.cross_smem_bytes(512, 32) <= ops.SMEM_LIMIT
+    # the posterior's 2048 keys stream through the tiled schedule, 8 query
+    # rows per block; K3 at the DiT's shape
+    assert ops.cross_smem_bytes(2048, 32) > ops.SMEM_LIMIT
+    assert ops.cross_tiled_smem_bytes(2048, 32, 8) <= ops.SMEM_LIMIT
+    assert ops.cross_fits(2048, 32) and ops.cross_fits(40000, 32)
+    assert ops.self_bwd_smem_bytes(32, 64) <= 48 * 1024

@@ -123,7 +123,9 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.nn.layers", "ldt_torch.models", "ldt_torch.diffusion",
             "ldt_torch.diffusion.sampling", "ldt_torch.weights",
             "ldt_torch.generate", "ldt_torch.serving",
-            "ldt_torch.serving.int8", "chip_smoke"]
+            "ldt_torch.serving.int8", "ldt_torch.ops.geometry",
+            "ldt_torch.training.state", "ldt_torch.training.base",
+            "ldt_torch.training.latent_sde_trainer", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -175,8 +177,17 @@ def _entry_points():
             d, mods, quantize_score_params(s, small.num_blocks),
             small.num_heads, 2, (small.z_scale, small.z_dim), 64, **kw)
 
+    def trainer(**kw):
+        from ldt_torch.configs import latent_trainer_cfg
+        from ldt_torch.training.latent_sde_trainer import Trainer
+
+        return Trainer(latent_trainer_cfg(score=SMALL_SCORE,
+                                          compressor=SMALL_COMPRESSOR,
+                                          sde=SDE), **kw)
+
     return {
         "resolve_device": lambda **kw: resolve_device(**kw),
+        "Trainer": trainer,
         "Score": lambda **kw: Score(score_cfg(num_blocks=1), **kw),
         "Compressor": lambda **kw: Compressor(compressor_cfg(), **kw),
         "make_diffusion": lambda **kw: make_diffusion(sde_cfg(), **kw),
@@ -191,7 +202,8 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["resolve_device", "Score", "Compressor",
                                   "make_diffusion", "sample_discrete",
                                   "generate", "generate_int8",
-                                  "sample_latents", "calibrate_act_scales"])
+                                  "sample_latents", "calibrate_act_scales",
+                                  "Trainer"])
 def test_entry_points_need_a_card_unless_cpu_is_asked(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

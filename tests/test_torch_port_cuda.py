@@ -1,4 +1,5 @@
-"""The CUDA kernels K1, K2 and K8 against their plain twins, on the card.
+"""The CUDA kernels K1, K2, K3 and K8 against their plain twins, and a small
+stage-2 train step, on the card.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; without a card they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -27,6 +28,9 @@ PATH_TOL = ((5e-3, 5e-4), (1e-2, 6e-5))
 # only a weight code that exp or the row sum rounds to its neighbour
 # differs, by at most one v code step (max|v| / 127) plus an output ulp.
 K8_TOL = (0.08, 1e-5)
+# K3 vs its twin, (max, mean) of |kernel - twin| relative to the largest
+# |twin| (chip_smoke.py's phase 12).
+K3_TOL = {torch.float32: (1e-5, 1e-7), torch.bfloat16: (8e-3, 1e-5)}
 
 
 def _assert_within(got, want, tol, scale=1.0):
@@ -194,3 +198,101 @@ def test_small_int8_generate_through_k8(card):
     assert ops.packed_self_attention.launches == k1
     assert ops.packed_self_attention_int8.launches - k8 == 2 * 32
     assert got.shape == (4, 2048, 3) and torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", [(8, 32, 16, 64),   # the DiT's shape
+                                      (3, 17, 3, 24),    # ragged sizes
+                                      (2, 64, 2, 96)])   # > 48 KB smem
+def test_packed_self_attention_bwd_kernel(card, b, n, h, dh, dtype):
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
+    g = _randn(card, b, n, h * dh, dtype=dtype)
+    before = ops.packed_self_attention_bwd.launches
+    got = ops.packed_self_attention_bwd(qkv, g, h)
+    torch.cuda.synchronize()
+    assert ops.packed_self_attention_bwd.launches == before + 1
+    want = ops.packed_self_attention_bwd_plain(qkv, g, h)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    _assert_within(got, want, K3_TOL[dtype], want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,d,h", [(4, 32, 2048, 128, 4),   # posterior
+                                       (2, 45, 3000, 96, 2),    # ragged
+                                       (1, 5, 20000, 64, 1)])   # 2 rows/block
+def test_cross_attention_tiled_kernel(card, b, n, m, d, h, dtype):
+    q = _randn(card, b, n, d, dtype=dtype)
+    k = _randn(card, b, m, d, dtype=dtype)
+    v = _randn(card, b, m, d, dtype=dtype)
+    before = (ops.cross_attention.launches,
+              ops.cross_attention.tiled_launches)
+    got = ops.cross_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (ops.cross_attention.launches,
+            ops.cross_attention.tiled_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    _assert_within(got, ops.attention_plain(q, k, v, h), TOL[dtype])
+
+
+def test_k2_takes_the_tiled_schedule_past_its_bound(card):
+    """At M=512 K2 keeps a head's k and v whole at dh=32 and streams them
+    at dh=64; both agree with the twin."""
+    q = _randn(card, 2, 40, 64, dtype=torch.float32)
+    k = _randn(card, 2, 512, 64, dtype=torch.float32)
+    v = _randn(card, 2, 512, 64, dtype=torch.float32)
+    assert ops.cross_smem_bytes(512, 32) <= ops.SMEM_LIMIT
+    assert ops.cross_smem_bytes(512, 64) > ops.SMEM_LIMIT
+    whole = ops.cross_attention(q, k, v, 2)
+    tiled_before = ops.cross_attention.tiled_launches
+    tiled = ops.cross_attention(q, k, v, 1)
+    assert ops.cross_attention.tiled_launches == tiled_before + 1
+    _assert_within(whole, ops.attention_plain(q, k, v, 2), TOL[torch.float32])
+    _assert_within(tiled, ops.attention_plain(q, k, v, 1), TOL[torch.float32])
+
+
+def test_packed_self_attention_function_on_the_card(card):
+    h = 4
+    qkv = _randn(card, 4, 32, 3 * 256, dtype=torch.float32)
+    g = _randn(card, 4, 32, 256, dtype=torch.float32)
+    x = qkv.clone().requires_grad_(True)
+    k1, k3 = (ops.packed_self_attention.launches,
+              ops.packed_self_attention_bwd.launches)
+    out = ops.PackedSelfAttention.apply(x, h)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (ops.packed_self_attention.launches - k1,
+            ops.packed_self_attention_bwd.launches - k3) == (1, 1)
+    _assert_within(out.detach(), ops.packed_self_attention_plain(qkv, h),
+                   TOL[torch.float32])
+    want = ops.packed_self_attention_bwd_plain(qkv, g, h)
+    _assert_within(x.grad, want, K3_TOL[torch.float32],
+                   want.abs().max().item())
+
+
+def test_small_train_step_through_the_kernels(card):
+    """Two stage-2 steps at a small width: K1 and K3 once per Score block,
+    K2 in every Compressor attention; finite losses."""
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    cfg = latent_trainer_cfg(
+        score=dict(num_blocks=2, hidden_size=64, t_dim=64, num_heads=4,
+                   z_dim=40),
+        compressor=dict(outsize=256, max_outputs=256, n_layers=2,
+                        hidden_dim=32, p_dim=32, num_heads=2,
+                        encoder_layers=1), sde=dict(sample_N=64))
+    trainer = Trainer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    data = {"tr_points": _randn(card, 4, 256, 3, dtype=torch.float32)}
+    counts = (ops.packed_self_attention.launches,
+              ops.packed_self_attention_bwd.launches,
+              ops.cross_attention.launches)
+    losses = torch.stack([trainer.update(data) for _ in range(2)])
+    torch.cuda.synchronize()
+    assert torch.isfinite(losses).all()
+    # per step: 2 blocks of K1 and K3; K2: 2 encoder blocks, 2 posteriors,
+    # 2 decoder blocks
+    assert (ops.packed_self_attention.launches - counts[0],
+            ops.packed_self_attention_bwd.launches - counts[1],
+            ops.cross_attention.launches - counts[2]) == (4, 4, 12)
+    clouds, _ = trainer.sample(2, 256)
+    assert clouds.shape == (2, 256, 3) and torch.isfinite(clouds).all()
