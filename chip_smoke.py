@@ -52,6 +52,22 @@ Stage-2 training (`ldt_torch.training.latent_sde_trainer.Trainer.update`):
  14. (after 11) One train step at flagship width cut to two Score blocks,
      f32, same weights, clouds and pinned draws, on the card against the
      CPU, and against a K3 with dq and dk swapped.
+Stage-1 training (`ldt_torch.training.compressor_trainer.Trainer.update`):
+ 15. (after 12) K4 (the backward of K2) at the stage-1 step's three shapes
+     (B=16, 32x32, 32x2048 long-key, 2048x32 long-query) against its plain
+     twin on the card and on the CPU and against wrong variants (no rowsum;
+     dk/dv or dq/dk swapped; one dk/dv partial tile dropped; bf16: ds from
+     the rounded weights), f32 and bf16; its times, bounds, twin times and
+     the SDPA backward yardstick.
+ 16. (after 13) The flagship stage-1 train step (B=16, 2048 points, 6
+     layers, f32) on synthetic clouds: 10 steps timed, launch counts K2 24
+     (5 tiled) and K4 24 (5 long-key, 6 long-query) per step, one step's
+     parts by CUDA events, one step under torch.profiler by class, and the
+     chamfer and auction-EMD losses alone under it.
+ 17. (after 14) One stage-1 step at flagship width cut to two layers, f32,
+     same weights, clouds, pinned noise, chamfer neighbours and EMD
+     assignment, on the card against the CPU, and against a K4 with dq and
+     dk swapped; the auction alone on dyadic-grid clouds, card == CPU.
 
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
@@ -126,7 +142,18 @@ K3_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (8e-3, 1e-5)}
 # swapped" (K3's dq and dk exchanged: gradients 1.5e-3 / 1.3e-5; at the
 # first step's warm-up lr it cannot move the params past the limit).
 TRAIN_STEP_TOL = (1e-4, 1e-6)
-TRAIN_STEPS = 10   # timed flagship train steps (phase 13)
+# Phase 15, K4 vs its twin, (max, mean) of |kernel - twin| relative to the
+# largest |twin|, the largest over dq, dk and dv, at the three shapes: in f32
+# the dk and dv sums over 2048 query rows (and the long-key schedule's
+# softmax sums) run in other orders (right readings up to 2.5e-6 / 1.2e-7);
+# in bf16 a rounded w, ds or gradient can land one ulp away (up to 3.0e-3 /
+# 5.4e-7). Wrong: "no rowsum", "dk dv swapped", "dq dk swapped" (N = M),
+# "one dk/dv partial tile dropped" (the long-query reduction), all >= 0.2 /
+# 1.1e-2; bf16 "ds from rounded w" 3.2e-3-7.8e-3 / 1.9e-4-3.8e-4: the mean
+# tells it.
+K4_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (8e-3, 1e-5)}
+TRAIN_STEPS = 10   # timed flagship train steps (phases 13, 16)
+STAGE1_BATCH = 16  # the stage-1 config's batch (phase 15's K4 shapes)
 BATCH = 64         # clouds per generation, as bench.py
 STEPS = 1000       # ancestral steps of the main path
 CHECK_STEPS = 32   # phases 3, 5 and 6 (beta_end / N must stay below 1)
@@ -619,6 +646,150 @@ def phase_train_kernels(batch: int, gen) -> dict:
     return rows
 
 
+def k4_variant(q, k, v, g, num_heads: int, acc=None, rowsum: bool = True,
+               ds_from_rounded_w: bool = False, drop_rows=None,
+               swap: str = ""):
+    """K4's plain twin with its products in `acc` (the "f64" reading) or one
+    step changed (the wrong readings of phases 15 and 17): no rowsum; ds
+    from the rounded weights; the dk/dv contributions of the query rows
+    `drop_rows` (a slice) dropped; two outputs swapped ("dq dk", "dk dv")."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    dh = q.shape[-1] // num_heads
+    scale = dh ** -0.5
+    dt, acc = q.dtype, acc or torch.float32
+
+    def heads(t):
+        return t.unflatten(-1, (num_heads, dh)).transpose(1, 2).to(acc)
+
+    qh, kh, vh, gh = (heads(t) for t in (q, k, v, g))
+    w = (qh @ kh.transpose(-1, -2) * scale).softmax(dim=-1)
+    wr = w.to(dt).to(acc)
+    dw = gh @ vh.transpose(-1, -2)
+    wd = wr if ds_from_rounded_w else w
+    ds = wd * (dw - (dw * wd).sum(dim=-1, keepdim=True)) if rowsum \
+        else wd * dw
+    ds = ds.to(dt).to(acc)
+    dq = ds @ kh * scale
+    if drop_rows is not None:
+        ds, wr = ds.clone(), wr.clone()
+        ds[..., drop_rows, :] = 0
+        wr[..., drop_rows, :] = 0
+    out = [attn_ops._merge(t, dt) for t in (
+        dq, ds.transpose(-1, -2) @ qh * scale, wr.transpose(-1, -2) @ gh)]
+    if swap == "dq dk":
+        out[0], out[1] = out[1], out[0]
+    elif swap == "dk dv":
+        out[1], out[2] = out[2], out[1]
+    return tuple(out)
+
+
+def errs3(got, want):
+    """`errs` of (dq, dk, dv), each relative to its largest |want|: the
+    largest of the three maxima and of the three means."""
+    e = [errs(a, b, rel=True) for a, b in zip(got, want)]
+    return max(x[0] for x in e), max(x[1] for x in e)
+
+
+# Phase 15 (and tests/test_torch_port_cuda.py): the cross-attention
+# backward's three shapes in the stage-1 step, (N queries, M keys), at B=16,
+# D=128, 4 heads.
+K4_SHAPES = {"encoder": (32, 32), "posterior": (32, 2048),
+             "decoder": (2048, 32)}
+K4_ROWS = {"encoder": "cross_attention_bwd",
+           "posterior": "cross_attention_bwd_long_key",
+           "decoder": "cross_attention_bwd_long_query"}
+
+
+def phase_k4(batch: int, gen) -> dict:
+    """K4 at the stage-1 step's three shapes against its twin, f64 products
+    and wrong variants, in f32 and bf16; rows for f32, the step's dtype."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    d, h = 128, 4
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for shape, (n, m) in K4_SHAPES.items():
+            q, g = (torch.randn(batch, n, d, device="cuda", dtype=dtype,
+                                generator=gen) for _ in range(2))
+            k, v = (torch.randn(batch, m, d, device="cuda", dtype=dtype,
+                                generator=gen) for _ in range(2))
+            sched = attn_ops.cross_bwd_schedule(n, m, d // h)
+
+            def k4():
+                return attn_ops.cross_attention_bwd(q, k, v, g, h)
+
+            def plain():
+                return attn_ops.cross_attention_bwd_plain(q, k, v, g, h)
+
+            got = k4()
+            twin = plain()
+            readings = {
+                "twin": errs3(got, twin),
+                "cpu twin": errs3(got, attn_ops.cross_attention_bwd_plain(
+                    q.cpu(), k.cpu(), v.cpu(), g.cpu(), h)),
+                "f64": errs3(got, k4_variant(q, k, v, g, h,
+                                             acc=torch.float64)),
+                "no rowsum": errs3(got, k4_variant(q, k, v, g, h,
+                                                   rowsum=False)),
+                "dk dv swapped": errs3(got, k4_variant(q, k, v, g, h,
+                                                       swap="dk dv"))}
+            wrong = ("no rowsum", "dk dv swapped")
+            if n == m:
+                readings["dq dk swapped"] = errs3(
+                    got, k4_variant(q, k, v, g, h, swap="dq dk"))
+                wrong += ("dq dk swapped",)
+            if sched and n > sched:  # the long-query reduction
+                readings["one dk/dv partial tile dropped"] = errs3(
+                    got, k4_variant(q, k, v, g, h,
+                                    drop_rows=slice(sched, 2 * sched)))
+                wrong += ("one dk/dv partial tile dropped",)
+            if dtype == torch.bfloat16:
+                readings["ds from rounded w"] = errs3(
+                    got, k4_variant(q, k, v, g, h, ds_from_rounded_w=True))
+                wrong += ("ds from rounded w",)
+            ms = cuda_ms(k4)
+            plain_ms = cuda_ms(plain, iters=20)
+            library_ms = sdpa_backward_ms(*(
+                t.unflatten(-1, (h, -1)).transpose(1, 2) for t in (q, k, v,
+                                                                   g)))
+            nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size()
+            flops = batch * h * (10 * n * m * (d // h) + 8 * n * m)
+            bound_ms, bound_by = _bound(nbytes, {dn: flops})
+            what = ("long-key" if sched == 0 else
+                    f"long-query, {sched} rows x {-(-n // sched)} tiles")
+            scales = ", ".join(f"{t.float().abs().max().item():.4f}"
+                               for t in twin)
+            print(f"[15] cross_attention_bwd (K4, {what}) {dn} {shape}: q "
+                  f"{list(q.shape)}, k/v {list(k.shape)}, H={h}: max|twin| "
+                  f"dq/dk/dv {scales}, "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP)")
+            held(f"K4 {dn} {shape} (relative) vs", readings, K4_TOL[dn],
+                 right=("twin", "cpu twin", "f64"), wrong=wrong)
+            if not all(torch.equal(a, b) for a, b in zip(got, k4())):
+                fail(f"phase 15: K4 {dn} {shape} did not repeat its bits")
+            if dtype == torch.float32:
+                name = K4_ROWS[shape]
+                rows[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "ldt_torch/csrc/attention.cu",
+                    "replaces": "ldt_tpu/ops/pallas_attention.py:72",
+                    "launches": 0,
+                    "max_abs_err": max(errs(a, b)[0]
+                                       for a, b in zip(got, twin)),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms}
+    return rows
+
+
 def build_models(gen):
     """The flagship Score in f32 (the source the int8 path quantizes) and in
     bf16 from the same weights, and the bf16 decoder."""
@@ -720,17 +891,36 @@ def counted(fn):
                 "packed_self_attention_int8":
                 attn_ops.packed_self_attention_int8,
                 "packed_self_attention_bwd":
-                attn_ops.packed_self_attention_bwd}
+                attn_ops.packed_self_attention_bwd,
+                "cross_attention_bwd": attn_ops.cross_attention_bwd}
+    # the schedule counts (each launch is counted in its wrapper's too)
+    schedules = {"cross_attention_tiled": (attn_ops.cross_attention,
+                                           "tiled_launches"),
+                 "cross_attention_bwd_long_key": (
+                     attn_ops.cross_attention_bwd, "long_key_launches"),
+                 "cross_attention_bwd_long_query": (
+                     attn_ops.cross_attention_bwd, "long_query_launches")}
     for w in wrappers.values():
         w.launches = 0
-    attn_ops.cross_attention.tiled_launches = 0
+    for w, attr in schedules.values():
+        setattr(w, attr, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    launches["cross_attention_tiled"] = attn_ops.cross_attention.tiled_launches
+    launches.update({k: getattr(w, attr)
+                     for k, (w, attr) in schedules.items()})
     return out, time.perf_counter() - t0, launches
+
+
+def per_step_launches(**counts) -> dict:
+    """Every kernel's launch count in one step: `counts`, else 0."""
+    names = ("packed_self_attention", "cross_attention",
+             "packed_self_attention_int8", "packed_self_attention_bwd",
+             "cross_attention_bwd", "cross_attention_tiled",
+             "cross_attention_bwd_long_key", "cross_attention_bwd_long_query")
+    return {k: counts.get(k, 0) for k in names}
 
 
 def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
@@ -753,10 +943,10 @@ def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
 
 def expected_launches(score, comp, steps: int, k1: bool, k8: bool) -> dict:
     per_run = score.cfg.num_blocks * steps
-    return {"packed_self_attention": per_run if k1 else 0,
-            "cross_attention": comp.cfg.n_layers,
-            "packed_self_attention_int8": per_run if k8 else 0,
-            "packed_self_attention_bwd": 0, "cross_attention_tiled": 0}
+    return per_step_launches(
+        packed_self_attention=per_run if k1 else 0,
+        cross_attention=comp.cfg.n_layers,
+        packed_self_attention_int8=per_run if k8 else 0)
 
 
 def phase_generate(score, comp, batch: int, steps: int, gen) -> dict:
@@ -944,6 +1134,7 @@ def phase_int8_step(steps: int) -> None:
 TRAIN_CLASSES = (
     ("K3 packed_self_attention_bwd", ("packed_self_attention_bwd",)),
     ("K1 packed_self_attention", ("packed_self_attention",)),
+    ("K4 cross_attention_bwd", ("cross_attention_bwd",)),
     ("K2 cross_attention", ("cross_attention",)),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_", "sm80_")),
     ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
@@ -956,7 +1147,6 @@ def phase_train(batch: int, steps: int, gen) -> dict:
     """The flagship stage-2 train step: returns the launch counts of the
     timed steps."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ldt_torch.configs import latent_trainer_cfg
     from ldt_torch.training.latent_sde_trainer import Trainer
@@ -981,9 +1171,9 @@ def phase_train(batch: int, steps: int, gen) -> dict:
     losses, dt, launches = counted(
         lambda: torch.stack([trainer.update(data) for _ in range(steps)]))
     losses = losses.cpu()
-    per_step = {"packed_self_attention": 24, "packed_self_attention_bwd": 24,
-                "cross_attention": 24, "cross_attention_tiled": 5,
-                "packed_self_attention_int8": 0}
+    per_step = per_step_launches(
+        packed_self_attention=24, packed_self_attention_bwd=24,
+        cross_attention=24, cross_attention_tiled=5)
     expect = {k: v * steps for k, v in per_step.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[13] {steps} train steps at B={batch}, f32: {dt * 1e3 / steps:.2f}"
@@ -1010,19 +1200,29 @@ def phase_train(batch: int, steps: int, gen) -> dict:
           f" ms, loss + backward + clip + Adam + EMA "
           f"{ev[1].elapsed_time(ev[2]):.2f} ms")
 
+    profile_step("13", lambda: trainer.update(data), batch)
+    return launches
+
+
+def profile_step(tag: str, step, batch: int) -> None:
+    """One `step()` under torch.profiler: device time by kernel class
+    (TRAIN_CLASSES), the top kernels, and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.update(data)
+        step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = device_time_by_kernel(prof)
     busy = sum(kernels.values())
     if busy == 0:
-        print("[13] profile: the profiler recorded no device time (not "
+        print(f"[{tag}] profile: the profiler recorded no device time (not "
               "measured)")
-        return launches
+        return
     groups = {name: 0.0 for name, _ in TRAIN_CLASSES}
     groups["elementwise and other"] = 0.0
     for key, us in kernels.items():
@@ -1031,14 +1231,233 @@ def phase_train(batch: int, steps: int, gen) -> dict:
                      if any(w in low for w in words)),
                     "elementwise and other")
         groups[name] += us
-    print(f"[13] profile of one train step (B={batch}): device busy "
+    print(f"[{tag}] profile of one train step (B={batch}): device busy "
           f"{busy / 1e3:.2f} ms; wall {wall_us / 1e3:.2f} ms profiled (idle "
           f"share {1 - busy / wall_us:.3f})")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"    {name}: {us / 1e3:.2f} ms ({us / busy:.3f} of busy)")
     for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         print(f"    {us / 1e3:9.2f} ms  {key[:110]}")
+
+
+def phase_stage1_train(steps: int, gen) -> dict:
+    """The flagship stage-1 train step (`compressor_trainer_cfg()`: B=16,
+    2048 points, 6 layers, f32) on synthetic clouds: returns the launch
+    counts of the timed steps."""
+    import torch
+
+    from ldt_torch.configs import compressor_trainer_cfg
+    from ldt_torch.training import compressor_trainer as ct
+
+    cfg = compressor_trainer_cfg()
+    batch = cfg.data.batch_size
+    trainer = ct.Trainer(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(SEED))
+    data = {"tr_points": torch.randn(batch, cfg.data.tr_max_sample_points,
+                                     3, device="cuda", generator=gen)}
+    t0 = time.perf_counter()
+    trainer.maybe_init(data)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[16] stage-1 trainer: Compressor {n_params / 1e6:.3f}M params "
+          f"(f32), random init from seed {SEED}, ActNorm from the batch "
+          f"after train-mode BatchNorms: {time.perf_counter() - t0:.2f} s")
+    for _ in range(2):  # warm-up
+        trainer.update(data)
+    torch.cuda.reset_peak_memory_stats()
+    losses, dt, launches = counted(lambda: torch.stack(
+        [torch.stack(trainer.update(data)) for _ in range(steps)]))
+    losses = losses.cpu()
+    per_step = per_step_launches(
+        cross_attention=24, cross_attention_tiled=5, cross_attention_bwd=24,
+        cross_attention_bwd_long_key=5, cross_attention_bwd_long_query=6)
+    expect = {k: v * steps for k, v in per_step.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[16] {steps} stage-1 train steps at B={batch}, f32: "
+          f"{dt * 1e3 / steps:.2f} ms/step, {steps / dt:.3f} steps/s "
+          f"({smi_name_and_power()}); (loss, kl, rec, max) first "
+          f"{[round(x, 4) for x in losses[0].tolist()]}, last "
+          f"{[round(x, 4) for x in losses[-1].tolist()]}; peak memory "
+          f"{peak:.2f} GiB; launches {launches} (expected {expect})")
+    if not torch.isfinite(losses).all():
+        fail("phase 16: a loss is not finite")
+    if launches != expect:
+        fail(f"phase 16: launch counts {launches} differ from the stage-1 "
+             f"step's {expect}")
+
+    # one step's parts by CUDA events around the objective's pieces
+    ev = {}
+
+    def mark(name):
+        ev[name] = torch.cuda.Event(enable_timing=True)
+        ev[name].record()
+
+    def marked(fn, before, after):
+        def run(*a, **kw):
+            mark(before)
+            out = fn(*a, **kw)
+            mark(after)
+            return out
+        return run
+
+    with mock.patch.object(ct, "CD_loss", marked(ct.CD_loss, "cd0", "cd1")), \
+            mock.patch.object(ct, "EMD_loss", marked(ct.EMD_loss, "emd0",
+                                                     "emd1")), \
+            mock.patch.object(ct, "apply_update",
+                              marked(ct.apply_update, "opt0", "opt1")):
+        torch.cuda.synchronize()
+        mark("start")
+        trainer.update(data)
+        mark("end")
+    ev["end"].synchronize()
+    parts = {"forward (train-mode encode + decode)": ("start", "cd0"),
+             "chamfer": ("cd0", "cd1"), "auction EMD": ("emd0", "emd1"),
+             "backward (K4 in every attention)": ("emd1", "opt0"),
+             "clip + Adam + batch stats": ("opt0", "opt1")}
+    print(f"[16] one step by CUDA events: total "
+          f"{ev['start'].elapsed_time(ev['end']):.2f} ms; " + ", ".join(
+              f"{k} {ev[a].elapsed_time(ev[b]):.2f} ms"
+              for k, (a, b) in parts.items()))
+    profile_step("16", lambda: trainer.update(data), batch)
+    # the two losses alone, on the step's decoded set: their kernels' time
+    from torch.profiler import ProfilerActivity, profile
+
+    pts = trainer._points(data["tr_points"])
+    rec = trainer.encode(pts)["set"]
+    busy = {}
+    for name, loss in (("chamfer", ct.CD_loss), ("auction EMD", ct.EMD_loss)):
+        loss(rec, pts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            loss(rec, pts)
+            torch.cuda.synchronize()
+        busy[name] = sum(device_time_by_kernel(prof).values()) / 1e3
+    print("[16] device busy of each loss alone on the decoded set: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in busy.items()))
     return launches
+
+
+def pinned_rec(rec: "torch.Tensor", pts: "torch.Tensor"):
+    """(CD_loss, EMD_loss) stand-ins that take the chamfer neighbours and
+    the EMD assignment of the decoded set `rec` against `pts`, computed
+    here once (on the CPU), and otherwise compute as the losses do: two
+    devices' decoded sets differ in their last bits, and a discrete choice
+    could flip between them."""
+    import torch
+
+    from ldt_torch.ops.chamfer import chamfer_distance
+    from ldt_torch.ops.emd import auction_emd
+    from ldt_torch.ops.geometry import index_points, sum_square_diff
+
+    _, _, idx1, idx2 = chamfer_distance(rec, pts)
+    assignment = auction_emd(rec, pts)[1]
+
+    def l1(d):
+        return torch.mean(torch.sqrt(torch.clamp(d, min=1e-12)))
+
+    def cd(s, p):
+        return (l1(sum_square_diff(s, index_points(p, idx1.to(s.device))))
+                + l1(sum_square_diff(p, index_points(s, idx2.to(s.device)))))
+
+    def emd(s, p):
+        return l1(sum_square_diff(s, index_points(p.detach(),
+                                           assignment.to(s.device))))
+
+    return cd, emd
+
+
+def phase_stage1_reference() -> None:
+    """One stage-1 step at flagship width cut to two layers, f32, B=4: the
+    same weights, clouds, pinned noise, chamfer neighbours and EMD
+    assignment on the card and on the CPU (the path the CPU tests hold
+    against ldt_tpu), and against a K4 with dq and dk swapped; then the
+    auction alone on clouds on a dyadic grid, card against CPU."""
+    import torch
+
+    from ldt_torch.configs import compressor_trainer_cfg
+    from ldt_torch.models import Compressor
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.ops.emd import auction_emd
+    from ldt_torch.training import compressor_trainer as ct
+
+    batch = 4
+    cfg = compressor_trainer_cfg(model=dict(n_layers=2))
+    mc = cfg.model
+    g = torch.Generator().manual_seed(SEED)
+    comp = Compressor(mc, device="cpu", generator=g)
+    pts = torch.randn(batch, 2048, 3, generator=g)
+    comp.init_actnorm(pts, train=True)
+    weights = comp.state_dict()
+    noise = [torch.randn(batch, mc.z_scales, mc.z_dim, generator=g)
+             for _ in range(mc.n_layers)]
+    with torch.no_grad():
+        rec = comp(pts, noise=noise, train=True)["set"]
+    cd, emd = pinned_rec(rec, pts)
+    k4 = attn_ops.cross_attention_bwd
+
+    def k4_dq_dk_swapped(q, k, v, gg, h):
+        dq, dk, dv = k4(q, k, v, gg, h)
+        return (dk, dq, dv) if q.shape == k.shape else (dq, dk, dv)
+
+    # K4 counts its launches on whatever its module name holds
+    for attr in ("launches", "long_key_launches", "long_query_launches"):
+        setattr(k4_dq_dk_swapped, attr, 0)
+
+    def run(dev):
+        tr = ct.Trainer(cfg, device=dev)
+        tr.maybe_init({"tr_points": pts}, weights=weights)
+        with mock.patch.object(ct, "CD_loss", cd), \
+                mock.patch.object(ct, "EMD_loss", emd):
+            loss = tr.update({"tr_points": pts}, noise=noise)[0]
+        st = tr.state
+
+        def flat(tree):
+            return torch.cat([t.detach().reshape(-1).cpu()
+                              for t in tree.values()])
+
+        return {"loss": loss.reshape(1).cpu(),
+                "gradients": flat({k: p.grad for k, p in st.params.items()}),
+                "params": flat(st.params),
+                "batch stats": flat(st.batch_stats),
+                "Adam mu": flat(st.opt_state.mu)}
+
+    out = {"cpu": run("cpu")}
+    before = k4.launches
+    out["card"] = run("cuda")
+    # per layer: 2 encoder blocks, a posterior and a decoder block
+    if k4.launches - before != 4 * mc.n_layers:
+        fail("phase 17: the card's step did not go through K4")
+    with mock.patch.object(attn_ops, "cross_attention_bwd",
+                           k4_dq_dk_swapped):
+        out["dq dk swapped"] = run("cuda")
+    print(f"[17] one stage-1 step at flagship width, {mc.n_layers} layers, "
+          f"f32, B={batch}, card vs CPU (chamfer neighbours and EMD "
+          f"assignment from the CPU): loss {out['cpu']['loss'].item():.6f}")
+    for part in out["cpu"]:
+        if not torch.isfinite(out["card"][part]).all():
+            fail(f"phase 17: {part} on the card is not finite")
+        held(f"{part} (relative), CPU vs",
+             {k: errs(out[k][part], out["cpu"][part], rel=True)
+              for k in ("card", "dq dk swapped")}, TRAIN_STEP_TOL,
+             right=("card",),
+             wrong=("dq dk swapped",) if part in ("gradients", "Adam mu")
+             else ())
+
+    # the auction alone: distances exact in f32 on a grid of eighths
+    x, y = (torch.randint(-8, 9, (2, 2048, 3), generator=g).float() / 8
+            for _ in range(2))
+    cpu = auction_emd(x, y)[1]
+    card = auction_emd(x.cuda(), y.cuda())[1].cpu()
+    d = ((x[:, :, None] - y[:, None]) ** 2).sum(-1)
+    ties = int(((d == d.amin(dim=2, keepdim=True)).sum(-1) > 1).sum())
+    bijective = all(len(set(a.tolist())) == a.numel() for a in cpu)
+    print(f"[17] auction EMD on dyadic-grid clouds [2, 2048, 3], card vs "
+          f"CPU: assignments equal {torch.equal(cpu, card)} (rows whose "
+          f"nearest column ties: {ties} of 4096; a bijection: {bijective})")
+    if not torch.equal(cpu, card):
+        fail(f"phase 17: the auction's assignments differ in "
+             f"{int((cpu != card).sum())} rows")
 
 
 def phase_train_reference() -> None:
@@ -1175,6 +1594,7 @@ def main() -> int:
     rows.update(phase_k8(BATCH, gen))
     phase_int8_gemms(gen)
     rows.update(phase_train_kernels(BATCH, gen))
+    rows.update(phase_k4(STAGE1_BATCH, gen))
     score, comp, weights = build_models(gen)
     phase_path(score, comp, BATCH, CHECK_STEPS, gen)
     launches = phase_generate(score, comp, BATCH, STEPS, gen)
@@ -1186,16 +1606,22 @@ def main() -> int:
                   int8=True, int8_weights=weights, attn_int8=True)
     del score, comp, weights
     train_launches = phase_train(BATCH, TRAIN_STEPS, gen)
+    stage1_launches = phase_stage1_train(TRAIN_STEPS, gen)
     phase_int8_step(CHECK_STEPS)
     phase_train_reference()
+    phase_stage1_reference()
     phase_reference(CHECK_STEPS)
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
-    # tiled K2 from the timed train steps
+    # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the
+    # long-key and the multi-tile long-query one) from the timed stage-1
+    # steps
     launches["packed_self_attention_int8"] = k8_launches[
         "packed_self_attention_int8"]
     for name in ("packed_self_attention_bwd", "cross_attention_tiled"):
         launches[name] = train_launches[name]
+    for name in K4_ROWS.values():
+        launches[name] = stage1_launches[name]
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

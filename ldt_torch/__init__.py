@@ -4,16 +4,20 @@ A port of `ldt_tpu` (JAX/flax/Pallas), which stays the reference. The module
 layout and names follow `ldt_tpu` so each part has an obvious counterpart:
 
   * `configs`                 <- ldt_tpu/configs.py (+ tools/io.py dict2namespace,
-                                 the stage-2 config.yaml's values)
+                                 the stage-1 and stage-2 config.yaml's values)
   * `ops.attention`           <- ldt_tpu/ops/pallas_attention.py (CUDA kernels
                                  in `csrc/attention.cu`, built by `ops._build`)
   * `ops.geometry`            <- ldt_tpu/ops/geometry.py (FPS, kNN, grouping)
+  * `ops.chamfer`, `ops.emd`  <- ldt_tpu/ops/chamfer.py, emd.py (the stage-1
+                                 losses: chamfer, auction EMD)
+  * `eval.loss`               <- ldt_tpu/eval/loss.py
   * `nn.layers`               <- ldt_tpu/nn/layers.py
   * `models.score`            <- ldt_tpu/models/score.py
   * `models.compressor`       <- ldt_tpu/models/compressor.py (encode, decode)
   * `diffusion.sde/sampling`  <- ldt_tpu/diffusion/
   * `serving.int8`            <- ldt_tpu/serving/int8.py (unconditional W8A8)
-  * `training`                <- ldt_tpu/training/ (stage 2: state, base,
+  * `training`                <- ldt_tpu/training/ (state, base; stage 1:
+                                 compressor_trainer; stage 2:
                                  latent_sde_trainer)
   * `weights`                 flax variable trees -> torch state_dicts
   * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate,

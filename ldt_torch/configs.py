@@ -4,8 +4,10 @@
 heads, 32 latent tokens x 120 dims); `compressor_cfg()` the 8.06M-param
 set-VAE whose decoder turns those latents into 2048-point clouds; `opt_cfg()`
 the stage-2 optimizer and `latent_trainer_cfg()` the whole stage-2 config,
-the values of `experiments/Latent_Diffusion_Trainer/airplane/config.yaml`
-(there is no YAML loader: the card's machine has no PyYAML).
+the values of `experiments/Latent_Diffusion_Trainer/airplane/config.yaml`;
+`compressor_trainer_cfg()` the stage-1 config, the values of
+`experiments/Compressor_Trainer/airplane/config.yaml` (there is no YAML
+loader: the card's machine has no PyYAML).
 """
 
 from __future__ import annotations
@@ -84,6 +86,25 @@ def latent_trainer_cfg(**sections):
         common=dict(epochs=6000, num_points=2048, seed=0),
         data=dict(batch_size=64, tr_max_sample_points=2048,
                   te_max_sample_points=2048, num_categorys=1),
+    )
+    for name, over in sections.items():
+        cfg[name] = {**cfg.get(name, {}), **over}
+    return dict2namespace(cfg)
+
+
+def compressor_trainer_cfg(**sections):
+    """The stage-1 config: {model, opt, common, data} (batch 16, lr 1e-3 with
+    2000 warm-up iterations, clip 1.0, no weight decay, kl_weight 1e-6, no
+    EMA); each keyword replaces or updates a section."""
+    cfg = dict(
+        model=vars(compressor_cfg()),
+        opt=dict(adj_lr="warm_up", warmup_iters=2000, lr=0.001, beta1=0.9,
+                 beta2=0.999, ema_decay=0.0, weight_decay=0.0,
+                 grad_norm_clip_value=1.0, kl_weight=1e-6),
+        common=dict(epochs=8000, num_points=2048, seed=2023),
+        data=dict(batch_size=16, test_batch_size=16,
+                  tr_max_sample_points=2048, te_max_sample_points=2048,
+                  num_categorys=1),
     )
     for name, over in sections.items():
         cfg[name] = {**cfg.get(name, {}), **over}

@@ -22,6 +22,21 @@
 //    once for the scores of the block's query rows, which stay in shared
 //    memory for the f32 softmax, once for the AV product. Both give the same
 //    bits: every sum runs in the same order.
+// K4 ldt_cross_attention_bwd: the backward of K2. From q [B, N, D], k, v
+//    [B, M, D] and the output's gradient g [B, N, D] it recomputes the f32
+//    weights and writes dq [B, N, D], dk and dv [B, M, D] with K3's formulas.
+//    Replaces ldt_tpu/ops/pallas_attention.py::_bwd_kernel. Two schedules:
+//    where a head's k and v fit in shared memory (M=32) each block keeps them
+//    whole and takes a tile of query rows; dq is local to the block, and the
+//    tiles' dk and dv partial sums (f32) go to a workspace that a second
+//    launch sums in tile order (no atomics: a run repeats itself bit for
+//    bit). Longer key sets (M=2048, with N=32) split the keys into chunks,
+//    one block per (chunk, head, element) holding all N query rows: a first
+//    launch writes each chunk's row max, exp-sum and dw-weighted exp-sum; a
+//    second merges them in chunk order into the rows' softmax statistics and
+//    D = rowsum(dw * w), writes the chunk's complete dk and dv and its dq
+//    partial sums, which a third launch adds in chunk order. No block holds
+//    a row's [M] weights.
 // K8 ldt_packed_self_attention_int8: K1 with int8 operands. q, k and v are
 //    quantized to int8 with one symmetric scale each per group of `elems`
 //    consecutive batch elements (max|x| / 127 + 1e-20 over the group's rows
@@ -32,21 +47,23 @@
 //    (group, q|k|v) reduces the scales, then one block per (element, head)
 //    as in K1 (a group is 4 x 32 x 3072 values, more than a block holds).
 //
-// Numerics of K1, K2 and K3 follow the TPU kernels: products accumulate in
-// f32, the softmax runs in f32 (max-shifted, exp, divide by the row sum), and
-// the weights are rounded to the input dtype before the AV product (K3: before
-// dv, and ds before dq and dk). K8 rounds half to even (rintf, as jnp.round)
-// and divides exactly: the build has no --use_fast_math, which would make `/`
-// approximate.
+// Numerics of K1-K4 follow the TPU kernels: products accumulate in f32, the
+// softmax runs in f32 (max-shifted, exp, divide by the row sum), and the
+// weights are rounded to the input dtype before the AV product (K3, K4:
+// before dv, and ds, taken from the unrounded weights, before dq and dk). K8
+// rounds half to even (rintf, as jnp.round) and divides exactly: the build
+// has no --use_fast_math, which would make `/` approximate.
 //
-// All four are memory-bound at the shapes the model gives them (K1, K3 and
-// K8: N=32, dh=64, 16 heads; K2: N=2048, M=32 and N=32, M=2048, dh=32, 4
-// heads), so each block reads its head's operands from device memory once
-// (the tiled K2: once per block of query rows), keeps them and the scores in
-// shared memory, and writes each output element once (K8 reads the packed
-// qkv twice: once for the group scales). The arithmetic runs on the CUDA
-// cores, in f32 (K1, K2, K3) or int32 (K8's dots); tensor cores (wgmma) and
-// TMA are later work.
+// K1, K2, K3 and K8 are memory-bound at the shapes the model gives them (K1,
+// K3 and K8: N=32, dh=64, 16 heads; K2: N=2048, M=32 and N=32, M=2048,
+// dh=32, 4 heads), so each block reads its head's operands from device
+// memory once (the tiled K2: once per block of query rows), keeps them and
+// the scores in shared memory, and writes each output element once (K8
+// reads the packed qkv twice: once for the group scales). K4 at its long
+// shapes (f32, dh=32) does five N x M x dh products for as many bytes, so
+// f32 FMAs and bytes bound it about equally; it reads each operand once per
+// block as well. The arithmetic runs on the CUDA cores, in f32 (K1-K4) or
+// int32 (K8's dots); tensor cores (wgmma) and TMA are later work.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // the launch (0 on success). dtype: 0 = float32, 1 = bfloat16.
@@ -78,6 +95,11 @@ constexpr int kCrossRowsPerWarp = 16;
 constexpr int kTiledThreads = 256;
 constexpr int kTiledKeys = 256;
 constexpr int kTiledRows = 8;
+// K4: threads per block, and keys per tile of its long-key schedule
+// (ldt_torch/ops/attention.py mirrors kBwdKeys in its shared-memory bound and
+// picks the long-query schedule's rows per block).
+constexpr int kBwdThreads = 256;
+constexpr int kBwdKeys = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -147,6 +169,22 @@ int cross_tiled_rows(int m, int dh) {
 size_t self_bwd_smem_bytes(int n, int dh) {
   return sizeof(float) * (2 * (size_t)n * dh + 2 * (size_t)n * (dh + 1) +
                           2 * (size_t)n * n);
+}
+
+// Shared memory of K4's long-query schedule with `rows` query rows per block:
+// k and v [m, dh+1], the rows' q and g [rows, dh], and their weights and ds
+// [rows, m]; all f32.
+size_t cross_bwd_lq_smem_bytes(int m, int dh, int rows) {
+  return sizeof(float) * (2 * (size_t)m * (dh + 1) + 2 * (size_t)rows * dh +
+                          2 * (size_t)rows * m);
+}
+
+// Shared memory of K4's long-key schedule (either launch): q and g [n, dh],
+// the chunk's k and v [kBwdKeys, dh+1], the rows' scores (weights) and dw
+// (ds) over the chunk [n, kBwdKeys], and per row its max, sum and D; f32.
+size_t cross_bwd_lk_smem_bytes(int n, int dh) {
+  return sizeof(float) * (2 * (size_t)n * dh + 2 * (size_t)kBwdKeys * (dh + 1) +
+                          2 * (size_t)n * kBwdKeys + 3 * (size_t)n);
 }
 
 // One block per (batch element, head).
@@ -381,6 +419,32 @@ cross_attention_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// One warp turns a row of scores s and dw (length m, in shared memory) into
+// the f32 softmax weights w, kept unrounded in s, and
+// ds = w * (dw - rowsum(dw * w)) rounded to T, in dw's place (K3, K4).
+template <typename T>
+__device__ __forceinline__ void softmax_ds_row(float* s, float* dr, int m,
+                                               int lane) {
+  float mx = -INFINITY;
+  for (int c = lane; c < m; c += 32) mx = fmaxf(mx, s[c]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int c = lane; c < m; c += 32) {
+    const float e = expf(s[c] - mx);
+    s[c] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  float dot = 0.f;
+  for (int c = lane; c < m; c += 32) {
+    const float w = s[c] / sum;
+    s[c] = w;
+    dot += dr[c] * w;
+  }
+  dot = warp_sum(dot);
+  for (int c = lane; c < m; c += 32) dr[c] = round_to<T>(s[c] * (dr[c] - dot));
+}
+
 // K3: one block per (batch element, head). q, k, v and g of the head and the
 // [n, n] weights and their gradient stay in shared memory; dq, dk and dv are
 // written once each into the packed gradient.
@@ -433,34 +497,11 @@ packed_self_attention_bwd_kernel(const T* __restrict__ qkv,
   }
   __syncthreads();
 
-  // per row, one warp: the f32 softmax w (kept unrounded), then
-  // ds = w * (dw - rowsum(dw * w)) rounded to T
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  for (int r = warp; r < n; r += nwarps) {
-    float* s = ws + (size_t)r * n;
-    float* dr = ds + (size_t)r * n;
-    float mx = -INFINITY;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, s[c]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(s[c] - mx);
-      s[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    float dot = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float w = s[c] / sum;
-      s[c] = w;
-      dot += dr[c] * w;
-    }
-    dot = warp_sum(dot);
-    for (int c = lane; c < n; c += 32)
-      dr[c] = round_to<T>(s[c] * (dr[c] - dot));
-  }
+  for (int r = warp; r < n; r += nwarps)
+    softmax_ds_row<T>(ws + (size_t)r * n, ds + (size_t)r * n, n, lane);
   __syncthreads();
 
   // thread i owns row c (a key for dk and dv, a query for dq), channel j
@@ -480,6 +521,319 @@ packed_self_attention_bwd_kernel(const T* __restrict__ qkv,
     o[d] = from_f32<T>(dk * scale);
     o[2 * (size_t)d] = from_f32<T>(dv);
   }
+}
+
+// K4's shared-memory stages. Loads rows [r0, r0 + nr) of q and g of head h
+// of element b ([nr, dh] each) and keys [t0, t0 + tm) of k and v ([tm, dh+1]
+// each, the odd stride keeping lanes that read different keys on different
+// banks).
+template <typename T>
+__device__ __forceinline__ void load_rows_and_keys(
+    const T* __restrict__ q, const T* __restrict__ g, const T* __restrict__ k,
+    const T* __restrict__ v, float* qs, float* gs, float* ks, float* vs,
+    int b, int h, int n, int m, int d, int dh, int r0, int nr, int t0,
+    int tm) {
+  const int ld = dh + 1;
+  const size_t q0 = ((size_t)b * n + r0) * d + (size_t)h * dh;
+  for (int i = threadIdx.x; i < nr * dh; i += blockDim.x) {
+    const int r = i / dh;
+    const int c = i - r * dh;
+    qs[i] = to_f32(q[q0 + (size_t)r * d + c]);
+    gs[i] = to_f32(g[q0 + (size_t)r * d + c]);
+  }
+  const size_t kv0 = ((size_t)b * m + t0) * d + (size_t)h * dh;
+  for (int i = threadIdx.x; i < tm * dh; i += blockDim.x) {
+    const int r = i / dh;
+    const int c = i - r * dh;
+    ks[r * ld + c] = to_f32(k[kv0 + (size_t)r * d + c]);
+    vs[r * ld + c] = to_f32(v[kv0 + (size_t)r * d + c]);
+  }
+}
+
+// The scores s = q k^T * scale and dw = g v^T of nr rows against tm keys,
+// into ws and ds (row stride ldw): thread i owns (row r, key j).
+__device__ __forceinline__ void scores_and_dw(const float* qs, const float* gs,
+                                              const float* ks, const float* vs,
+                                              float* ws, float* ds, int nr,
+                                              int tm, int ldw, int dh,
+                                              float scale) {
+  const int ld = dh + 1;
+  for (int i = threadIdx.x; i < nr * tm; i += blockDim.x) {
+    const int r = i / tm;
+    const int j = i - r * tm;
+    const float* qr = qs + (size_t)r * dh;
+    const float* gr = gs + (size_t)r * dh;
+    const float* kj = ks + (size_t)j * ld;
+    const float* vj = vs + (size_t)j * ld;
+    float acc = 0.f, dw = 0.f;
+    for (int c = 0; c < dh; ++c) {
+      acc = fmaf(qr[c], kj[c], acc);
+      dw = fmaf(gr[c], vj[c], dw);
+    }
+    ws[(size_t)r * ldw + j] = acc * scale;
+    ds[(size_t)r * ldw + j] = dw;
+  }
+}
+
+// dk and dv of tm keys over nr rows (weights ws, unrounded, and round(ds),
+// row stride ldw): thread i owns (key j, channel c); `out(j, c, sk, sv)`
+// takes the sums.
+template <typename T, typename Out>
+__device__ __forceinline__ void dk_dv_sums(const float* ws, const float* ds,
+                                           const float* qs, const float* gs,
+                                           int nr, int tm, int ldw, int dh,
+                                           Out out) {
+  for (int i = threadIdx.x; i < tm * dh; i += blockDim.x) {
+    const int j = i / dh;
+    const int c = i - j * dh;
+    float sk = 0.f, sv = 0.f;
+    for (int r = 0; r < nr; ++r) {
+      sv = fmaf(round_to<T>(ws[(size_t)r * ldw + j]), gs[(size_t)r * dh + c],
+                sv);
+      sk = fmaf(ds[(size_t)r * ldw + j], qs[(size_t)r * dh + c], sk);
+    }
+    out(j, c, sk, sv);
+  }
+}
+
+// dq sums of nr rows over tm keys (round(ds), row stride ldw): thread i owns
+// (row r, channel c); `out(r, c, sum)` takes them.
+template <typename Out>
+__device__ __forceinline__ void dq_sums(const float* ds, const float* ks,
+                                        int nr, int tm, int ldw, int dh,
+                                        Out out) {
+  const int ld = dh + 1;
+  for (int i = threadIdx.x; i < nr * dh; i += blockDim.x) {
+    const int r = i / dh;
+    const int c = i - r * dh;
+    const float* dr = ds + (size_t)r * ldw;
+    float acc = 0.f;
+    for (int j = 0; j < tm; ++j) acc = fmaf(dr[j], ks[(size_t)j * ld + c], acc);
+    out(r, c, acc);
+  }
+}
+
+// K4's long-query schedule. Grid (query tile, head, batch), `rows` query rows
+// per tile. The head's k and v stay whole in shared memory; dq of the tile's
+// rows is complete here. dk and dv sum over every query row: with one tile
+// they are written here, else this tile's f32 partial sums go to `part`
+// ([2][batch][tile][m][d]: dk's, then dv's) for the reduction launch.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+cross_attention_bwd_lq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ g,
+                              T* __restrict__ dq, T* __restrict__ dk,
+                              T* __restrict__ dv, float* __restrict__ part,
+                              int n, int m, int d, int dh, int rows,
+                              float scale) {
+  extern __shared__ float smem[];
+  const int tile = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int r0 = tile * rows;
+  const int nr = min(rows, n - r0);
+  const int ld = dh + 1;
+  float* ks = smem;                       // [m, dh+1]
+  float* vs = ks + (size_t)m * ld;        // [m, dh+1]
+  float* qs = vs + (size_t)m * ld;        // [rows, dh]
+  float* gs = qs + (size_t)rows * dh;     // [rows, dh]
+  float* ws = gs + (size_t)rows * dh;     // [rows, m] weights, f32
+  float* ds = ws + (size_t)rows * m;      // [rows, m] dw, then round(ds)
+
+  load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, r0, nr,
+                     0, m);
+  __syncthreads();
+  scores_and_dw(qs, gs, ks, vs, ws, ds, nr, m, m, dh, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < nr; r += nwarps)
+    softmax_ds_row<T>(ws + (size_t)r * m, ds + (size_t)r * m, m, lane);
+  __syncthreads();
+
+  const size_t q0 = ((size_t)b * n + r0) * d + (size_t)h * dh;
+  dq_sums(ds, ks, nr, m, m, dh, [&](int r, int c, float s) {
+    dq[q0 + (size_t)r * d + c] = from_f32<T>(s * scale);
+  });
+  const size_t kv0 = (size_t)b * m * d + (size_t)h * dh;
+  const size_t tiles = gridDim.x;
+  dk_dv_sums<T>(ws, ds, qs, gs, nr, m, m, dh,
+                [&](int j, int c, float sk, float sv) {
+    if (tiles == 1) {
+      dk[kv0 + (size_t)j * d + c] = from_f32<T>(sk * scale);
+      dv[kv0 + (size_t)j * d + c] = from_f32<T>(sv);
+    } else {
+      const size_t p = (((size_t)b * tiles + tile) * m + j) * d +
+                       (size_t)h * dh + c;
+      part[p] = sk;
+      part[(size_t)gridDim.z * tiles * m * d + p] = sv;
+    }
+  });
+}
+
+// K4's reduction launch: each thread sums one element's `tiles` partials
+// ([batch][tile][md] f32) in tile order into out0 (times scale0) and, when
+// out1 is given, the partials that follow them ([batch][tile][md] again)
+// into out1.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+cross_attention_bwd_reduce_kernel(const float* __restrict__ part,
+                                  T* __restrict__ out0, float scale0,
+                                  T* __restrict__ out1, int b, int tiles,
+                                  int md) {
+  const size_t total = (size_t)b * md;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t bi = i / md;
+    const size_t e = i - bi * md;
+    const float* p0 = part + bi * tiles * md + e;
+    float s0 = 0.f;
+    for (int t = 0; t < tiles; ++t) s0 += p0[(size_t)t * md];
+    out0[i] = from_f32<T>(s0 * scale0);
+    if (out1 != nullptr) {
+      const float* p1 = p0 + total * tiles;
+      float s1 = 0.f;
+      for (int t = 0; t < tiles; ++t) s1 += p1[(size_t)t * md];
+      out1[i] = from_f32<T>(s1);
+    }
+  }
+}
+
+// K4's long-key schedule, first launch. Grid (key chunk, head, batch): the
+// head's n query rows against the chunk's kBwdKeys keys. Per row, the
+// chunk's score max mx_c, exp-sum sum_c = sum exp(s - mx_c) and
+// dot_c = sum dw exp(s - mx_c) go to stats ([batch][head][chunk][n][3]).
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+cross_attention_bwd_stats_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const T* __restrict__ g,
+                                 float* __restrict__ stats, int n, int m,
+                                 int d, int dh, float scale) {
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t0 = chunk * kBwdKeys;
+  const int tm = min(kBwdKeys, m - t0);
+  const int ld = dh + 1;
+  float* qs = smem;                           // [n, dh]
+  float* gs = qs + (size_t)n * dh;            // [n, dh]
+  float* ks = gs + (size_t)n * dh;            // [kBwdKeys, dh+1]
+  float* vs = ks + (size_t)kBwdKeys * ld;     // [kBwdKeys, dh+1]
+  float* ws = vs + (size_t)kBwdKeys * ld;     // [n, kBwdKeys] scores
+  float* ds = ws + (size_t)n * kBwdKeys;      // [n, kBwdKeys] dw
+
+  load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, 0, n, t0,
+                     tm);
+  __syncthreads();
+  scores_and_dw(qs, gs, ks, vs, ws, ds, n, tm, kBwdKeys, dh, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  float* out =
+      stats + (((size_t)b * gridDim.y + h) * gridDim.x + chunk) * n * 3;
+  for (int r = warp; r < n; r += nwarps) {
+    const float* s = ws + (size_t)r * kBwdKeys;
+    const float* dr = ds + (size_t)r * kBwdKeys;
+    float mx = -INFINITY;
+    for (int j = lane; j < tm; j += 32) mx = fmaxf(mx, s[j]);
+    mx = warp_max(mx);
+    float sum = 0.f, dot = 0.f;
+    for (int j = lane; j < tm; j += 32) {
+      const float e = expf(s[j] - mx);
+      sum += e;
+      dot += dr[j] * e;
+    }
+    sum = warp_sum(sum);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      out[(size_t)r * 3] = mx;
+      out[(size_t)r * 3 + 1] = sum;
+      out[(size_t)r * 3 + 2] = dot;
+    }
+  }
+}
+
+// K4's long-key schedule, second launch. Grid (key chunk, head, batch). Each
+// block merges the chunks' row statistics in chunk order (the row max, the
+// exp-sum and D = rowsum(dw * w)), then recomputes its chunk's scores and
+// dw, writes the chunk's dk and dv (complete: every query row is here) and
+// its f32 dq partial sums ([batch][chunk][n][d]) for the reduction launch.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+cross_attention_bwd_lk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ g,
+                              const float* __restrict__ stats,
+                              float* __restrict__ dq_part, T* __restrict__ dk,
+                              T* __restrict__ dv, int n, int m, int d, int dh,
+                              float scale) {
+  extern __shared__ float smem[];
+  const int chunk = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int chunks = gridDim.x;
+  const int t0 = chunk * kBwdKeys;
+  const int tm = min(kBwdKeys, m - t0);
+  const int ld = dh + 1;
+  float* qs = smem;                           // [n, dh]
+  float* gs = qs + (size_t)n * dh;            // [n, dh]
+  float* ks = gs + (size_t)n * dh;            // [kBwdKeys, dh+1]
+  float* vs = ks + (size_t)kBwdKeys * ld;     // [kBwdKeys, dh+1]
+  float* ws = vs + (size_t)kBwdKeys * ld;     // [n, kBwdKeys] weights
+  float* ds = ws + (size_t)n * kBwdKeys;      // [n, kBwdKeys] dw, then ds
+  float* rmax = ds + (size_t)n * kBwdKeys;    // [n]
+  float* rsum = rmax + n;                     // [n]
+  float* rdot = rsum + n;                     // [n] D
+
+  const float* st = stats + ((size_t)b * gridDim.y + h) * chunks * n * 3;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    float mx = -INFINITY;
+    for (int c = 0; c < chunks; ++c)
+      mx = fmaxf(mx, st[((size_t)c * n + r) * 3]);
+    float sum = 0.f, dot = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const float* sc = st + ((size_t)c * n + r) * 3;
+      const float f = expf(sc[0] - mx);
+      sum += sc[1] * f;
+      dot += sc[2] * f;
+    }
+    rmax[r] = mx;
+    rsum[r] = sum;
+    rdot[r] = dot / sum;
+  }
+  load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, 0, n, t0,
+                     tm);
+  __syncthreads();
+  scores_and_dw(qs, gs, ks, vs, ws, ds, n, tm, kBwdKeys, dh, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < n; r += nwarps) {
+    float* s = ws + (size_t)r * kBwdKeys;
+    float* dr = ds + (size_t)r * kBwdKeys;
+    const float mx = rmax[r], sum = rsum[r], dot = rdot[r];
+    for (int j = lane; j < tm; j += 32) {
+      const float w = expf(s[j] - mx) / sum;
+      s[j] = w;
+      dr[j] = round_to<T>(w * (dr[j] - dot));
+    }
+  }
+  __syncthreads();
+
+  const size_t kv0 = ((size_t)b * m + t0) * d + (size_t)h * dh;
+  dk_dv_sums<T>(ws, ds, qs, gs, n, tm, kBwdKeys, dh,
+                [&](int j, int c, float sk, float sv) {
+    dk[kv0 + (size_t)j * d + c] = from_f32<T>(sk * scale);
+    dv[kv0 + (size_t)j * d + c] = from_f32<T>(sv);
+  });
+  float* dp = dq_part + ((size_t)b * chunks + chunk) * n * d + (size_t)h * dh;
+  dq_sums(ds, ks, n, tm, kBwdKeys, dh,
+          [&](int r, int c, float s) { dp[(size_t)r * d + c] = s; });
 }
 
 // q8(x, s) = clip(round_half_even(x / s), -127, 127).
@@ -696,6 +1050,73 @@ cudaError_t launch_cross(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_cross_bwd(const void* q, const void* k, const void* v,
+                             const void* g, void* dq, void* dk, void* dv,
+                             void* part, int b, int n, int m, int d, int h,
+                             int rows, float scale, cudaStream_t stream) {
+  const int dh = d / h;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(g);
+  T* dqt = static_cast<T*>(dq);
+  T* dkt = static_cast<T*>(dk);
+  T* dvt = static_cast<T*>(dv);
+  if (rows == 0) {
+    const int chunks = (m + kBwdKeys - 1) / kBwdKeys;
+    const size_t smem = cross_bwd_lk_smem_bytes(n, dh);
+    if (smem > kDefaultSmem) {
+      cudaError_t e = cudaFuncSetAttribute(
+          cross_attention_bwd_stats_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(cross_attention_bwd_lk_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    float* stats = static_cast<float*>(part);
+    float* dq_part = stats + (size_t)b * h * chunks * n * 3;
+    const dim3 grid(chunks, h, b);
+    cross_attention_bwd_stats_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+        qt, kt, vt, gt, stats, n, m, d, dh, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    cross_attention_bwd_lk_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
+        qt, kt, vt, gt, stats, dq_part, dkt, dvt, n, m, d, dh, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t blocks = ((size_t)b * n * d + kBwdThreads - 1) / kBwdThreads;
+    cross_attention_bwd_reduce_kernel<T>
+        <<<(unsigned)(blocks < 65535 ? blocks : 65535), kBwdThreads, 0,
+           stream>>>(dq_part, dqt, scale, static_cast<T*>(nullptr), b, chunks,
+                     n * d);
+    return cudaGetLastError();
+  }
+  const int tiles = (n + rows - 1) / rows;
+  const size_t smem = cross_bwd_lq_smem_bytes(m, dh, rows);
+  if (smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cross_attention_bwd_lq_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  cross_attention_bwd_lq_kernel<T><<<dim3(tiles, h, b), kBwdThreads, smem,
+                                     stream>>>(
+      qt, kt, vt, gt, dqt, dkt, dvt, static_cast<float*>(part), n, m, d, dh,
+      rows, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || tiles == 1) return e;
+  const size_t total = (size_t)b * m * d;
+  const size_t blocks = (total + kBwdThreads - 1) / kBwdThreads;
+  cross_attention_bwd_reduce_kernel<T>
+      <<<(unsigned)(blocks < 65535 ? blocks : 65535), kBwdThreads, 0,
+         stream>>>(static_cast<const float*>(part), dkt, scale, dvt, b, tiles,
+                   m * d);
+  return cudaGetLastError();
+}
+
 bool bad_shape(int b, int n, int d, int h) {
   return b < 0 || n < 0 || h <= 0 || d <= 0 || d % h != 0 || h > 65535;
 }
@@ -767,6 +1188,34 @@ int ldt_cross_attention(const void* q, const void* k, const void* v,
   if (dtype == kDtypeBF16)
     return (int)launch_cross<__nv_bfloat16>(q, k, v, out, b, n, m, d, h,
                                             scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4. rows > 0 takes the long-query schedule with that many query rows per
+// block (k and v of a head whole in shared memory); rows == 0 the long-key
+// schedule (all n query rows of a head in each block, one block per chunk of
+// kBwdKeys keys). part: f32 scratch of 2 * b * ceil(n / rows) * m * d values
+// when the long-query schedule takes more than one tile (unused with one);
+// of b * ceil(m / kBwdKeys) * (3 * h * n + n * d) values for the long-key
+// schedule. Every element of dq, dk, dv is written.
+int ldt_cross_attention_bwd(const void* q, const void* k, const void* v,
+                            const void* g, void* dq, void* dk, void* dv,
+                            void* part, int b, int n, int m, int d, int h,
+                            int rows, float scale, int dtype, void* stream) {
+  if (bad_shape(b, n, d, h) || m <= 0 || rows < 0 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int dh = d / h;
+  if (rows > 0 ? cross_bwd_lq_smem_bytes(m, dh, rows) > kMaxSmem
+               : cross_bwd_lk_smem_bytes(n, dh) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (b == 0 || n == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kDtypeF32)
+    return (int)launch_cross_bwd<float>(q, k, v, g, dq, dk, dv, part, b, n, m,
+                                        d, h, rows, scale, s);
+  if (dtype == kDtypeBF16)
+    return (int)launch_cross_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, part,
+                                                b, n, m, d, h, rows, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,10 +10,13 @@ i at channels [i * z_dim, (i + 1) * z_dim). Decode (`sample`): a learned
 2048-seed set cross-attends, block by block, to each layer's projected
 latents.
 
-The encoder's BatchNorms take their running statistics (the frozen
-Compressor of stage-2 training); BatchNorm in training mode, the random seed
-subset, the mixture-of-Gaussians seeds, `pre_group`, the MLP position
-embedding and class conditioning are later work and raise here.
+`train=True` (stage-1 training) runs the encoder's BatchNorms on the
+batch's statistics and `forward` returns their updated running statistics,
+as the JAX module's `train=True, mutable=["batch_stats"]`; otherwise they
+take their running statistics (the frozen Compressor of stage-2 training,
+sampling). Dropout is the identity: every shipped config sets its rate to 0.
+The random seed subset, the mixture-of-Gaussians seeds, `pre_group`, the MLP
+position embedding and class conditioning are later work and raise here.
 """
 
 from __future__ import annotations
@@ -71,9 +74,9 @@ class MiniPointnet(nn.Module):
         self.bn2 = BatchNorm(256, **kw)
         self.fc = Dense(256, output_dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = F.relu(self.bn1(self.conv1(x), train))
+        h = F.relu(self.bn2(self.conv2(h), train))
         return self.fc(h.amax(dim=1))
 
 
@@ -91,8 +94,8 @@ class ConvBNReLURes1D(nn.Module):
         self.net1_bn = BatchNorm(mid, **kw)
         self.net2_dense = Dense(mid, channel, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.act(self.net1_bn(self.net1_dense(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.act(self.net1_bn(self.net1_dense(x), train))
         return self.act(self.net2_dense(h) + x)
 
 
@@ -112,12 +115,12 @@ class PreExtraction(nn.Module):
             ConvBNReLURes1D(out_channels, res_expansion, activation, **kw)
             for _ in range(blocks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         b, s, k, d = x.shape
         h = self.act(self.transfer_bn(self.transfer_dense(
-            x.reshape(b * s, k, d))))
+            x.reshape(b * s, k, d)), train))
         for op in self.ops:
-            h = op(h)
+            h = op(h, train)
         return h.amax(dim=1).reshape(b, s, -1)
 
 
@@ -149,7 +152,7 @@ class LocalGrouper(nn.Module):
                                         dtype=dtype, device=device)
 
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor, groups: int,
-                k: int):
+                k: int, train: bool = False):
         b = xyz.shape[0]
         new_xyz, fps_idx, idx = cluster(xyz, groups, k)
         new_feature = index_points(feature, fps_idx)        # [B, S, D]
@@ -167,7 +170,7 @@ class LocalGrouper(nn.Module):
                        + self.affine_beta)
         anchor = new_feature[:, :, None, :].expand(-1, -1, k, -1)
         x = torch.cat([grouped, anchor], dim=-1)
-        return new_xyz, self.extraction(x)
+        return new_xyz, self.extraction(x, train)
 
 
 class InitialSet(nn.Module):
@@ -302,27 +305,41 @@ class Compressor(nn.Module):
         mean = pts.mean(dim=1, keepdim=True)
         return (pts - mean) / pts.std(dim=1, keepdim=True)
 
-    def _grouped(self, pts: torch.Tensor):
+    def _grouped(self, pts: torch.Tensor, train: bool = False):
         """(centers [B, S, 3], token features [B, S, hidden]) before
         ActNorm."""
         if self.cfg.norm_input:
             pts = self.norm_pts(pts)
         n = pts.shape[1]
         return self.group(pts, self.input_dense(pts), self.cfg.z_scales,
-                          n // self.cfg.z_scales * 2)
+                          n // self.cfg.z_scales * 2, train)
+
+    def take_batch_stats(self) -> dict:
+        """The running statistics that the train-mode BatchNorms of the
+        last forward left ({state_dict key: tensor}); clears them."""
+        out = {}
+        for name, m in self.named_modules():
+            if isinstance(m, BatchNorm) and m.update is not None:
+                out.update({f"{name}.{k}": t for k, t in m.update.items()})
+                m.update = None
+        return out
 
     @torch.no_grad()
-    def init_actnorm(self, pts: torch.Tensor) -> None:
+    def init_actnorm(self, pts: torch.Tensor, train: bool = False) -> None:
         """Data-dependent ActNorm init from the clouds `pts` [B, N, 3], as
-        the JAX module initializes it at `Module.init`."""
+        the JAX module initializes it at `Module.init(..., train=train)`:
+        after the grouping's BatchNorms in train mode (the batch's
+        statistics; stage-1's init) or not (their running statistics;
+        stage-2's). Like flax's init it updates no running statistic."""
         if hasattr(self, "conv_in"):
-            self.conv_in.data_init(self._grouped(pts)[1])
+            self.conv_in.data_init(self._grouped(pts, train)[1])
+        self.take_batch_stats()
 
-    def bottom_up(self, pts: torch.Tensor) -> dict:
+    def bottom_up(self, pts: torch.Tensor, train: bool = False) -> dict:
         """Encode [B, N, 3] -> {'outputs': the n_layers taps [B, S, hidden],
         'max': max of the last stage's tokens}."""
-        center, x = self._grouped(pts)
-        pos = self.pos_embedding(center)
+        center, x = self._grouped(pts, train)
+        pos = self.pos_embedding(center, train)
         if hasattr(self, "conv_in"):
             x = self.conv_in(x)
         outputs = []
@@ -361,15 +378,21 @@ class Compressor(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 noise: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> dict:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> dict:
         """Bidirectional inference on x [B, N, 3]; 'all_eps' is
-        [B, z_scales, n_layers * z_dim] in the JAX package's layout."""
-        bup = self.bottom_up(x)
+        [B, z_scales, n_layers * z_dim] in the JAX package's layout. With
+        `train`, 'batch_stats' holds the BatchNorms' updated running
+        statistics ({state_dict key: tensor}); the buffers do not change."""
+        bup = self.bottom_up(x, train)
         tdn = self.top_down(bup["outputs"], noise, generator)
-        return {"set": self.postprocess(tdn["set"]),
-                "posteriors": tdn["posteriors"], "kls": tdn["kls"],
-                "all_eps": torch.cat(tdn["all_eps"], dim=-1),
-                "all_logqz": tdn["all_logqz"], "max": bup["max"]}
+        out = {"set": self.postprocess(tdn["set"]),
+               "posteriors": tdn["posteriors"], "kls": tdn["kls"],
+               "all_eps": torch.cat(tdn["all_eps"], dim=-1),
+               "all_logqz": tdn["all_logqz"], "max": bup["max"]}
+        if train:
+            out["batch_stats"] = self.take_batch_stats()
+        return out
 
     def sample(self, shape, given_eps: torch.Tensor) -> torch.Tensor:
         """Top-down generation. shape: (B, num_points); given_eps:

@@ -10,7 +10,9 @@ which is JAX's for these dtypes (bf16 + f32 -> f32).
 Dropout is the identity here, as in the JAX package's deterministic calls
 (every shipped config sets its rate to 0). With grad mode on, self-attention
 differentiates through `ops.attention.PackedSelfAttention` (K1 forward, K3
-backward); `BatchNorm` is the inference form (running statistics).
+backward) and cross-attention through `ops.attention.CrossAttention` (K2
+forward, K4 backward). `BatchNorm` normalizes with its running statistics,
+or in train mode with the batch's (flax's semantics).
 """
 
 from __future__ import annotations
@@ -114,10 +116,23 @@ class ActNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm(use_running_average=True)` over the last axis:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias, from the running
-    statistics (flax `batch_stats` mean and var; eps 1e-5), in f32, the
-    result in `dtype`."""
+    """flax `nn.BatchNorm(momentum=0.9)` over the last axis:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias in f32 (eps 1e-5), the
+    result in `dtype`.
+
+    `forward(x)` takes the running statistics (flax `batch_stats` mean and
+    var; `use_running_average=True`). `forward(x, train=True)` takes the
+    batch's, as flax 0.12's `_compute_stats`: in f32 over every axis but the
+    last, var = max(E[x^2] - E[x]^2, 0), the biased variance, with the
+    gradient through both. It leaves the updated running statistics
+    0.9 * running + 0.1 * batch (detached) in `self.update` for the caller
+    to collect (`Compressor.forward(train=True)` returns them, as flax's
+    `mutable=["batch_stats"]`); the buffers themselves do not change. Not
+    `F.batch_norm(training=True)`: its running variance is the unbiased one
+    and its momentum weighs the batch, not the running value.
+    """
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5, *,
                  dtype=torch.float32, device=None):
@@ -129,11 +144,25 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, **kw))
         self.register_buffer("running_mean", torch.zeros(features, **kw))
         self.register_buffer("running_var", torch.ones(features, **kw))
+        self.update = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean) * mul + self.bias).to(
-            self.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp(torch.square(x).mean(dim=dims)
+                              - torch.square(mean), min=0.0)
+            m = self.momentum
+            self.update = {
+                "running_mean": (m * self.running_mean
+                                 + (1 - m) * mean).detach(),
+                "running_var": (m * self.running_var
+                                + (1 - m) * var).detach()}
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(self.dtype)
 
 
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
@@ -226,7 +255,8 @@ class Attention(nn.Module):
     flax `fc_q` and `fc_kv` kernels stacked). Self-attention (`y is None`)
     runs the packed GEMM and hands its [B, N, 3D] output to kernel K1; cross-
     attention projects q from x and k, v from y with row slices of the same
-    weight and runs kernel K2.
+    weight and runs kernel K2. With grad mode on they go through the
+    autograd.Functions whose backwards are K3 and K4.
     """
 
     def __init__(self, dim: int, num_heads: int, *, ref_merge: bool = False,
@@ -258,7 +288,10 @@ class Attention(nn.Module):
             y = y.to(w.dtype)
             k = F.linear(y, w[d:2 * d], b[d:2 * d])
             v = F.linear(y, w[2 * d:], b[2 * d:])
-            att = attn_ops.cross_attention(q, k, v, self.num_heads)
+            if torch.is_grad_enabled():
+                att = attn_ops.CrossAttention.apply(q, k, v, self.num_heads)
+            else:
+                att = attn_ops.cross_attention(q, k, v, self.num_heads)
         return self.fc_o(att)
 
 

@@ -1,5 +1,5 @@
-"""Attention cores: hand-written CUDA kernels K1, K2, K3 and K8, and their
-plain twins.
+"""Attention cores: hand-written CUDA kernels K1, K2, K3, K4 and K8, and
+their plain twins.
 
 K1 `packed_self_attention(qkv, num_heads)` — the attention core of every
 DiT block (24 launches per denoise step).
@@ -51,9 +51,32 @@ decoded set (5).
     same bits; the second rounds the weights before AV as the TPU kernel
     does, which an online-softmax rescale would not.
 
-K1, K2 and K3 accumulate in f32, run the softmax in f32 and round the weights
-to the input dtype before the AV product, as the Pallas kernels do. They take
-f32 and bf16 tensors that are contiguous and lie on one device.
+K4 `cross_attention_bwd(q, k, v, g, num_heads)` — the backward of K2: dq
+[B, N, D], dk and dv [B, M, D] from the output's gradient g [B, N, D] (24
+launches per stage-1 train step: 13 at N = M = 32, 5 at N=32, M=2048, 6 at
+N=2048, M=32). `CrossAttention` is the autograd.Function whose forward is K2
+and whose backward is K4; it saves (q, k, v), as the JAX VJP does.
+  * Replaces `ldt_tpu/ops/pallas_attention.py::_bwd_kernel`, K3's formulas
+    on a query set against a key set.
+  * Bound on an H100: f32 FMAs and device-memory bytes about equally at the
+    long shapes (B=16, dh=32: ~1.3 GFLOP against 51-68 MB each).
+  * Design: where a head's k and v fit in shared memory, the long-query
+    schedule: grid (query tile, head, batch), k and v whole, dq of the
+    tile's rows complete in the block; dk and dv, sums over every query, are
+    written by the block when there is one tile, else as f32 partial sums
+    per tile that a second CUDA launch adds in tile order (no atomics, so a
+    run repeats itself bit for bit). Longer key sets take the long-key
+    schedule: grid (64-key chunk, head, batch), each block with the N query
+    rows; a first launch writes each chunk's row max, exp-sum and
+    dw-weighted exp-sum, a second merges them in chunk order into the
+    softmax statistics and D = rowsum(dw * w), writes the chunk's complete
+    dk and dv and its dq partial sums, and a third adds those in chunk
+    order. The launches of one call count as one in `.launches`.
+
+K1-K4 accumulate in f32, run the softmax in f32 and round the weights to the
+input dtype before the AV product, as the Pallas kernels do. They take f32
+and bf16 tensors that are contiguous and lie on one device; on the CPU the
+plain twins also take f64, and compute in it (gradient checks).
 
 K8 `packed_self_attention_int8(qkv, num_heads, elems=4)` — K1 with int8
 operands, the attention core of the int8 serving step when its int8
@@ -76,16 +99,17 @@ attention is on (24 launches per denoise step).
 
 Dispatch: a wrapper computes with its plain version only when its input
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Each
-wrapper counts its kernel launches in `<wrapper>.launches`. K2 and K8 have no
-backward in the port yet, and K1 differentiates only through
-`PackedSelfAttention`: their wrappers raise when grad mode is on and an
-input requires grad, rather than return an output with no `grad_fn`.
+wrapper counts its kernel launches in `<wrapper>.launches`. K1 and K2
+differentiate only through `PackedSelfAttention` and `CrossAttention`, and K8
+has no backward: their wrappers raise when grad mode is on and an input
+requires grad, rather than return an output with no `grad_fn`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -98,6 +122,10 @@ SMEM_LIMIT = 232448
 _CROSS_WARPS = 4
 # Keys per tile of K2's tiled schedule (kTiledKeys in csrc/attention.cu).
 _TILED_KEYS = 256
+# Keys per chunk of K4's long-key schedule (kBwdKeys in csrc/attention.cu),
+# and the most query rows per block of its long-query schedule.
+_BWD_KEYS = 64
+_BWD_ROWS = 128
 
 
 def self_smem_bytes(n: int, dh: int) -> int:
@@ -132,16 +160,55 @@ def self_bwd_smem_bytes(n: int, dh: int) -> int:
     return 4 * (2 * n * dh + 2 * n * (dh + 1) + 2 * n * n)
 
 
+def cross_bwd_lq_smem_bytes(m: int, dh: int, rows: int) -> int:
+    """K4's long-query schedule with `rows` query rows per block: k and v
+    (stride dh+1), the rows' q and g, and their weights and ds, f32."""
+    return 4 * (2 * m * (dh + 1) + 2 * rows * dh + 2 * rows * m)
+
+
+def cross_bwd_lk_smem_bytes(n: int, dh: int) -> int:
+    """K4's long-key schedule: q and g [n, dh], a chunk of k and v (stride
+    dh+1), the rows' weights and ds over the chunk, and three scalars per
+    row, f32."""
+    return 4 * (2 * n * dh + 2 * _BWD_KEYS * (dh + 1) + 2 * n * _BWD_KEYS
+                + 3 * n)
+
+
+def cross_bwd_schedule(n: int, m: int, dh: int) -> Optional[int]:
+    """K4's schedule for n queries over m keys of width dh: the long-query
+    schedule's rows per block (the most, up to 128 and n, whose shared memory
+    fits), 0 for the long-key schedule, None where neither fits."""
+    rows = _BWD_ROWS
+    while rows:
+        r = min(rows, max(n, 1))
+        if cross_bwd_lq_smem_bytes(m, dh, r) <= SMEM_LIMIT:
+            return r
+        rows //= 2
+    return 0 if cross_bwd_lk_smem_bytes(n, dh) <= SMEM_LIMIT else None
+
+
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The twins' arithmetic type: f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, N, D] -> [B, H, N, dh] in f32."""
+    """[B, N, D] -> [B, H, N, dh] in f32 (f64 for f64 inputs)."""
     b, n, d = t.shape
-    return t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2).float()
+    return t.reshape(b, n, num_heads, d // num_heads).transpose(1, 2).to(
+        _acc(t.dtype))
+
+
+def _merge(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, N, dh] -> [B, N, H * dh] in `dtype`."""
+    b, h, n, dh = t.shape
+    return t.to(dtype).transpose(1, 2).reshape(b, n, h * dh)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,13 +217,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax(q_h k_h^T dh^-1/2) v_h with f32 products and softmax, weights
     rounded to the input dtype before AV, output in the input dtype
     (`ldt_tpu/ops/pallas_attention.py::reference_attention_core`)."""
-    b, n, d = q.shape
-    dh = d // num_heads
+    dh = q.shape[-1] // num_heads
     qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v))
     s = torch.matmul(qh, kh.transpose(-1, -2)) * (dh ** -0.5)
-    w = _softmax_rows(s).to(q.dtype).float()
-    out = torch.matmul(w, vh)
-    return out.transpose(1, 2).reshape(b, n, d).to(q.dtype)
+    w = _softmax_rows(s).to(q.dtype).to(qh.dtype)
+    return _merge(torch.matmul(w, vh), q.dtype)
 
 
 def packed_self_attention_plain(qkv: torch.Tensor,
@@ -167,30 +232,38 @@ def packed_self_attention_plain(qkv: torch.Tensor,
                            num_heads)
 
 
+def cross_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor,
+                              num_heads: int):
+    """Plain twin of K4 (and of K3 on the packed qkv): (dq, dk, dv) of
+    `attention_plain`'s output from its gradient g, written out step by step
+    as `ldt_tpu/ops/pallas_attention.py::_bwd_kernel` computes it (not by
+    autograd through the forward): per head the f32 scores and softmax w,
+    dv = round(w)^T g, dw = g v^T, ds = w (dw - rowsum(dw w)),
+    dq = round(ds) k dh^-1/2, dk = round(ds)^T q dh^-1/2, round() to the
+    input dtype, each gradient in its input's dtype."""
+    scale = (q.shape[-1] // num_heads) ** -0.5
+    dt = q.dtype
+    qh, kh, vh, gh = (_heads(t, num_heads) for t in (q, k, v, g))
+    w = _softmax_rows(torch.matmul(qh, kh.transpose(-1, -2)) * scale)
+    dv = torch.matmul(w.to(dt).to(w.dtype).transpose(-1, -2), gh)
+    dw = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = (w * (dw - (dw * w).sum(dim=-1, keepdim=True))).to(dt).to(w.dtype)
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    return _merge(dq, dt), _merge(dk, k.dtype), _merge(dv, v.dtype)
+
+
 def packed_self_attention_bwd_plain(qkv: torch.Tensor, g: torch.Tensor,
                                     num_heads: int) -> torch.Tensor:
     """Plain twin of K3: the packed [B, N, 3D] gradient of K1's qkv from the
-    output's gradient g [B, N, D], written out step by step as
-    `ldt_tpu/ops/pallas_attention.py::_bwd_kernel_packed_phased` computes it
-    (not by autograd through the forward): f32 products and softmax, the
-    weights rounded to the input dtype before dv, ds rounded before dq and
-    dk, each gradient in the input dtype."""
-    b, n, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // num_heads
-    scale = dh ** -0.5
-    dt = qkv.dtype
-    q, k, v = (_heads(qkv[..., i * d:(i + 1) * d], num_heads)
-               for i in range(3))
-    gh = _heads(g, num_heads)
-    w = _softmax_rows(torch.matmul(q, k.transpose(-1, -2)) * scale)
-    dv = torch.matmul(w.to(dt).float().transpose(-1, -2), gh)
-    dw = torch.matmul(gh, v.transpose(-1, -2))
-    ds = (w * (dw - (dw * w).sum(dim=-1, keepdim=True))).to(dt).float()
-    dq = torch.matmul(ds, k) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
-    return torch.cat([t.to(dt).transpose(1, 2).reshape(b, n, d)
-                      for t in (dq, dk, dv)], dim=-1)
+    output's gradient g [B, N, D]
+    (`ldt_tpu/ops/pallas_attention.py::_bwd_kernel_packed_phased`, the same
+    arithmetic as `_bwd_kernel`)."""
+    d = qkv.shape[-1] // 3
+    return torch.cat(cross_attention_bwd_plain(
+        qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], g, num_heads),
+        dim=-1)
 
 
 def true_divide(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -240,9 +313,10 @@ def _check(name: str, tensors) -> None:
         if t.dim() != 3:
             raise ValueError(f"{name}: expected [B, N, C] tensors, got "
                              f"{tuple(t.shape)}")
-        if t.dtype not in _DTYPE_CODES:
+        if t.dtype not in _DTYPE_CODES and not (
+                t.dtype == torch.float64 and t.device.type == "cpu"):
             raise TypeError(f"{name}: dtype {t.dtype} not supported "
-                            "(float32 or bfloat16)")
+                            "(float32 or bfloat16; float64 on the CPU)")
         if t.dtype != first.dtype or t.device != first.device:
             raise ValueError(f"{name}: inputs differ in dtype or device")
         if not t.is_contiguous():
@@ -258,13 +332,14 @@ def _check_heads(name: str, d: int, num_heads: int) -> None:
 
 
 def _check_no_grad(name: str, tensors) -> None:
-    """Refuse to drop a gradient silently: K2 and K8 have no backward yet,
-    and K1 differentiates only through `PackedSelfAttention`."""
+    """Refuse to drop a gradient silently: K1 and K2 differentiate only
+    through `PackedSelfAttention` and `CrossAttention`, K8 not at all."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name}: the kernel's output would carry no gradient (K2 and "
-            "K8 have no backward in ldt_torch yet; K1 differentiates through "
-            "PackedSelfAttention); call it under torch.no_grad()")
+            f"{name}: the kernel's output would carry no gradient (K1 "
+            "differentiates through PackedSelfAttention, K2 through "
+            "CrossAttention, K8 has no backward); call it under "
+            "torch.no_grad() or through the autograd.Function")
 
 
 @functools.lru_cache(maxsize=None)
@@ -281,6 +356,9 @@ def _lib() -> ctypes.CDLL:
     lib.ldt_packed_self_attention_int8.argtypes = [p, p, p, i, i, i, i, i, f,
                                                    i, p]
     lib.ldt_packed_self_attention_int8.restype = i
+    lib.ldt_cross_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, i, f, i, p]
+    lib.ldt_cross_attention_bwd.restype = i
     lib.ldt_error_string.argtypes = [i]
     lib.ldt_error_string.restype = ctypes.c_char_p
     return lib
@@ -360,10 +438,10 @@ def packed_self_attention_int8(qkv: torch.Tensor, num_heads: int,
 packed_self_attention_int8.launches = 0
 
 
-def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int) -> torch.Tensor:
-    """K2: attention of q [B, N, D] over k, v [B, M, D] -> [B, N, D]."""
-    name = "cross_attention"
+def _check_cross(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, num_heads: int):
+    """Checks of K2 and K4 on q [B, N, D] against k, v [B, M, D]; returns
+    (B, N, M, D, dh)."""
     _check(name, (q, k, v))
     b, n, d = q.shape
     m = k.shape[1]
@@ -371,7 +449,14 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     _check_heads(name, d, num_heads)
-    dh = d // num_heads
+    return b, n, m, d, d // num_heads
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int) -> torch.Tensor:
+    """K2: attention of q [B, N, D] over k, v [B, M, D] -> [B, N, D]."""
+    name = "cross_attention"
+    b, n, m, d, dh = _check_cross(name, q, k, v, num_heads)
     if not cross_fits(m, dh):
         raise ValueError(f"{name}: M={m}, dh={dh} need "
                          f"{cross_tiled_smem_bytes(m, dh, 1)} B of shared "
@@ -447,3 +532,78 @@ class PackedSelfAttention(torch.autograd.Function):
         (qkv,) = ctx.saved_tensors
         return (packed_self_attention_bwd(qkv, g.contiguous(),
                                           ctx.num_heads), None)
+
+
+def cross_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, num_heads: int):
+    """K4: (dq [B, N, D], dk [B, M, D], dv [B, M, D]) of K2's output from
+    its gradient g [B, N, D]. One call is one count in `.launches` (two
+    CUDA launches where the long-query schedule takes more than one query
+    tile, three for the long-key schedule); `.long_key_launches` and
+    `.long_query_launches` count the calls that took the long-key schedule
+    and the multi-tile long-query one."""
+    name = "cross_attention_bwd"
+    b, n, m, d, dh = _check_cross(name, q, k, v, num_heads)
+    _check(name, (q, g))
+    if g.shape != q.shape:
+        raise ValueError(f"{name}: g {tuple(g.shape)} is not the output "
+                         f"shape {tuple(q.shape)}")
+    rows = cross_bwd_schedule(n, m, dh)
+    if rows is None:
+        raise ValueError(f"{name}: N={n}, M={m}, dh={dh} fit neither "
+                         f"schedule's shared memory (long-key: "
+                         f"{cross_bwd_lk_smem_bytes(n, dh)} B of "
+                         f"{SMEM_LIMIT})")
+    if q.device.type == "cpu":
+        return cross_attention_bwd_plain(q, k, v, g, num_heads)
+    dq = torch.empty_like(q)
+    dk = torch.zeros_like(k) if n == 0 else torch.empty_like(k)
+    dv = torch.zeros_like(v) if n == 0 else torch.empty_like(v)
+    # f32 scratch: the long-query tiles' dk and dv partials, or the long-key
+    # chunks' row statistics and dq partials
+    tiles = -(-n // rows) if rows else -(-m // _BWD_KEYS)
+    size = (2 * b * tiles * m * d if rows
+            else b * tiles * (3 * num_heads * n + n * d))
+    part = (torch.empty(size, dtype=torch.float32, device=q.device)
+            if tiles > 1 or not rows else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().ldt_cross_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), b, n, m, d,
+            num_heads, rows, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
+    _raise_on(err, name)
+    cross_attention_bwd.launches += 1
+    if rows == 0:
+        cross_attention_bwd.long_key_launches += 1
+    elif tiles > 1:
+        cross_attention_bwd.long_query_launches += 1
+    return dq, dk, dv
+
+
+cross_attention_bwd.launches = 0
+# the launches (counted in `launches` too) that took the long-key schedule,
+# and those that took the long-query schedule with more than one tile
+cross_attention_bwd.long_key_launches = 0
+cross_attention_bwd.long_query_launches = 0
+
+
+class CrossAttention(torch.autograd.Function):
+    """K2 forward, K4 backward (on CPU tensors: their plain twins). Saves
+    (q, k, v) and recomputes the weights in the backward, as the JAX VJP
+    (`ldt_tpu/ops/pallas_attention.py::fused_attention`) does. The kernels
+    are looked up in this module at each call."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                num_heads: int) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return cross_attention(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        return (*cross_attention_bwd(q, k, v, g.contiguous(), ctx.num_heads),
+                None)

@@ -18,14 +18,20 @@ from typing import Tuple
 import torch
 
 
-def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """[B, N, C], [B, M, C] -> [B, N, M] squared euclidean distances."""
+def sum_square_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_c (a_c - b_c)^2 over the last axis (a and b broadcast against
+    each other), one coordinate at a time."""
     out = None
-    for c in range(src.shape[-1]):
-        diff = src[:, :, None, c] - dst[:, None, :, c]
+    for c in range(a.shape[-1]):
+        diff = a[..., c] - b[..., c]
         sq = diff * diff
         out = sq if out is None else out + sq
     return out
+
+
+def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """[B, N, C], [B, M, C] -> [B, N, M] squared euclidean distances."""
+    return sum_square_diff(src[:, :, None, :], dst[:, None, :, :])
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,2 +1,3 @@
 """Training (counterpart of ldt_tpu/training): the optimizer state, the
-base trainer and the stage-2 latent-diffusion trainer."""
+base trainer, the stage-1 Compressor trainer and the stage-2
+latent-diffusion trainer."""

@@ -1,0 +1,155 @@
+"""Stage-1 trainer: the set-VAE Compressor, counterpart of
+`ldt_tpu/training/compressor_trainer.py`.
+
+One `update(batch)`:
+  1. the Compressor's forward in train mode on the [B, N, 3] clouds: the
+     grouping's and the position embedding's BatchNorms on the batch's
+     statistics, K2 in every attention, the reparameterization draws from
+     the trainer's generator unless pinned (`noise`, in decode order);
+  2. loss = kl_weight * mean(cat(kls)) + CD + EMD of the decoded set against
+     the clouds (l1 chamfer, auction EMD), in f32;
+  3. backward: K4 in every attention;
+  4. clip by global norm and Adam (`training.state`); no EMA (the JAX
+     trainer keeps none, and the stage-1 config's ema_decay is 0); the
+     BatchNorms' running statistics take the forward's update.
+`valsample` and `reconstruction` score with the evaluation metrics, and
+`save` and `resume` need checkpoints: later slices of the port; they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from ldt_torch import resolve_device
+from ldt_torch.eval.loss import CD_loss, EMD_loss
+from ldt_torch.models import Compressor
+from ldt_torch.training.base import BaseTrainer
+from ldt_torch.training.state import TrainState, apply_update, make_optimizer
+
+
+def compressor_objective(model: Compressor, pts: torch.Tensor,
+                         kl_weight: float,
+                         noise: Optional[Sequence[torch.Tensor]] = None,
+                         rec_fn: Optional[Callable] = None,
+                         generator: Optional[torch.Generator] = None):
+    """(loss, (kl, rec, max, batch_stats)): loss = kl_weight * kl + rec,
+    kl = mean(cat(kls)), rec = CD + EMD of the decoded set against `pts`
+    (or `rec_fn(set, pts)`), from the forward in train mode; batch_stats
+    are its BatchNorms' updated running statistics."""
+    out = model(pts, noise=noise, generator=generator, train=True)
+    kl_loss = torch.mean(torch.cat(out["kls"], dim=1))
+    if rec_fn is None:
+        rec_loss = CD_loss(out["set"], pts) + EMD_loss(out["set"], pts)
+    else:
+        rec_loss = rec_fn(out["set"], pts)
+    loss = kl_weight * kl_loss + rec_loss
+    return loss, (kl_loss, rec_loss, out["max"], out["batch_stats"])
+
+
+def _not_ported(what: str, why: str):
+    raise NotImplementedError(f"Trainer.{what} is not ported yet: {why}")
+
+
+class Trainer(BaseTrainer):
+    """Stage-1 trainer. `cfg` has the sections of
+    `configs.compressor_trainer_cfg()`: model, opt, common, data. Runs on
+    `device` ("cuda" unless the CPU is asked for); `generator` (default:
+    seeded with `cfg.common.seed` on the device) draws the random weights
+    and every unpinned draw."""
+
+    def __init__(self, cfg, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg)
+        self.device = resolve_device(device)
+        self.generator = generator if generator is not None else \
+            torch.Generator(self.device).manual_seed(cfg.common.seed)
+        self.kl_weight = cfg.opt.kl_weight
+        self.tx = make_optimizer(cfg.opt.beta1, cfg.opt.beta2,
+                                 cfg.opt.weight_decay,
+                                 cfg.opt.grad_norm_clip_value)
+        self.model: Optional[Compressor] = None
+        self.state: Optional[TrainState] = None
+
+    def _points(self, pts) -> torch.Tensor:
+        return torch.as_tensor(pts, dtype=torch.float32).to(self.device)
+
+    def maybe_init(self, batch, weights=None) -> None:
+        """Build the f32 Compressor once: random weights from the generator,
+        then ActNorm from the whole first batch after train-mode BatchNorms
+        (the JAX trainer's `model.init(..., train=True)` on that batch); or
+        from a state_dict (`ldt_torch.weights.compressor_state_dict`)."""
+        if self.state is not None:
+            return
+        model = Compressor(self.cfg.model, device=self.device,
+                           generator=self.generator)
+        if weights is not None:
+            model.load_state_dict(weights)
+        else:
+            model.init_actnorm(self._points(batch["tr_points"]), train=True)
+        self.model = model
+        self.state = TrainState.create(dict(model.named_parameters()),
+                                       self.tx,
+                                       batch_stats=dict(model.named_buffers()),
+                                       ema=False)
+
+    def train_step(self, pts: torch.Tensor, lr: float,
+                   noise: Optional[Sequence[torch.Tensor]] = None):
+        """Loss, gradients and the optimizer step on clouds `pts`; returns
+        (loss, kl, rec, max), 0-d tensors on the device."""
+        self.model.zero_grad(set_to_none=True)
+        loss, (kl, rec, max_f, new_bs) = compressor_objective(
+            self.model, pts, self.kl_weight, noise=noise,
+            generator=self.generator)
+        loss.backward()
+        grads = {k: p.grad for k, p in self.state.params.items()}
+        apply_update(self.state, grads, self.tx, lr, ema_decay=0.0,
+                     new_batch_stats=new_bs)
+        return tuple(t.detach() for t in (loss, kl, rec, max_f))
+
+    def update(self, data, *,
+               noise: Optional[Sequence[torch.Tensor]] = None):
+        """One stage-1 step on `data['tr_points']` [B, N, 3]; returns (loss,
+        kl, rec, max) as the JAX trainer's `update`."""
+        self.maybe_init(data)
+        out = self.train_step(self._points(data["tr_points"]),
+                              self.current_lr(), noise)
+        self.itr += 1
+        return out
+
+    @torch.no_grad()
+    def sample(self, num_samples: int, num_points: int,
+               given_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Decode [num_samples, num_points, 3] clouds from `given_eps`
+        [num_samples, z_scales, n_layers * z_dim], or from N(0, 1) latents
+        drawn from the generator."""
+        cfg = self.cfg.model
+        if given_eps is None:
+            given_eps = torch.randn(
+                (num_samples, cfg.z_scales, cfg.n_layers * cfg.z_dim),
+                device=self.device, generator=self.generator)
+        return self.model.sample((num_samples, num_points),
+                                 given_eps.to(self.device))
+
+    @torch.no_grad()
+    def encode(self, pts, noise: Optional[Sequence[torch.Tensor]] = None
+               ) -> dict:
+        """The Compressor's forward (running statistics) on clouds
+        [B, N, 3]: the decoded 'set', 'all_eps', 'kls', ..."""
+        return self.model(self._points(pts), noise=noise,
+                          generator=self.generator)
+
+    def valsample(self, *args, **kwargs):
+        _not_ported("valsample", "it scores with the evaluation metrics "
+                    "(K5-K7), the next slice")
+
+    def reconstruction(self, *args, **kwargs):
+        _not_ported("reconstruction", "it scores with the evaluation "
+                    "metrics (K5-K7), the next slice")
+
+    def save(self, *args, **kwargs):
+        _not_ported("save", "checkpoints are a later slice")
+
+    def resume(self, *args, **kwargs):
+        _not_ported("resume", "checkpoints are a later slice")

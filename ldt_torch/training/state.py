@@ -13,10 +13,11 @@ not to `torch.optim.Adam` and `clip_grad_norm_`, which differ:
   * EMA: e <- e * decay + p * (1 - decay), seeded with the post-step params
     at step 0.
 
-Parameters, moments and EMA are dicts of tensors (name -> tensor, the Score's
-`named_parameters()`), updated in place with `torch._foreach_*` ops, where
-the JAX package builds new trees: one copy of each lives on the device. The
-bf16-moment option (`scale_by_adam_q`) is later work.
+Parameters, moments, EMA and BatchNorm statistics are dicts of tensors
+(name -> tensor: the module's `named_parameters()` and, for the Compressor,
+its running-statistic buffers), updated in place with `torch._foreach_*`
+ops, where the JAX package builds new trees: one copy of each lives on the
+device. The bf16-moment option (`scale_by_adam_q`) is later work.
 """
 
 from __future__ import annotations
@@ -40,20 +41,25 @@ class AdamState:
 
 @dataclass
 class TrainState:
-    """(step, params, ema_params, opt_state). `params` holds the trained
-    module's parameters themselves (updated in place)."""
+    """(step, params, ema_params, opt_state, batch_stats). `params` and
+    `batch_stats` hold the trained module's parameters and running
+    statistics themselves (updated in place)."""
     step: int
     params: Params
     ema_params: Optional[Params]
     opt_state: AdamState
+    batch_stats: Optional[Params] = None
 
     @classmethod
     def create(cls, params: Params, tx: "Optimizer",
+               batch_stats: Optional[Params] = None,
                ema: bool = True) -> "TrainState":
         ema_params = ({k: p.detach().clone() for k, p in params.items()}
                       if ema else None)
         return cls(step=0, params=dict(params), ema_params=ema_params,
-                   opt_state=tx.init(params))
+                   opt_state=tx.init(params),
+                   batch_stats=None if batch_stats is None
+                   else dict(batch_stats))
 
 
 def _values(tree: Params, keys: List[str]) -> List[torch.Tensor]:
@@ -129,8 +135,11 @@ def make_optimizer(beta1: float = 0.9, beta2: float = 0.999,
 
 @torch.no_grad()
 def apply_update(state: TrainState, grads: Params, tx: Optimizer, lr: float,
-                 ema_decay: float = 0.0) -> TrainState:
-    """One optimizer step and the EMA, in place; returns `state`."""
+                 ema_decay: float = 0.0,
+                 new_batch_stats: Optional[Params] = None) -> TrainState:
+    """One optimizer step and the EMA, in place; `new_batch_stats` (a
+    train-mode forward's running statistics) replace the state's when
+    given. Returns `state`."""
     keys = list(state.params)
     u = tx.update(grads, state.opt_state, state.params)
     torch._foreach_mul_(u, lr)
@@ -145,6 +154,10 @@ def apply_update(state: TrainState, grads: Params, tx: Optimizer, lr: float,
         else:
             torch._foreach_mul_(ema, ema_decay)
             torch._foreach_add_(ema, params, alpha=1.0 - ema_decay)
+    if new_batch_stats is not None:
+        stats = list(state.batch_stats)
+        torch._foreach_copy_(_values(state.batch_stats, stats),
+                             _values(new_batch_stats, stats))
     state.step += 1
     return state
 

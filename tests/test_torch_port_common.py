@@ -125,7 +125,9 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.generate", "ldt_torch.serving",
             "ldt_torch.serving.int8", "ldt_torch.ops.geometry",
             "ldt_torch.training.state", "ldt_torch.training.base",
-            "ldt_torch.training.latent_sde_trainer", "chip_smoke"]
+            "ldt_torch.training.latent_sde_trainer",
+            "ldt_torch.training.compressor_trainer", "ldt_torch.ops.chamfer",
+            "ldt_torch.ops.emd", "ldt_torch.eval.loss", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -185,9 +187,16 @@ def _entry_points():
                                           compressor=SMALL_COMPRESSOR,
                                           sde=SDE), **kw)
 
+    def stage1_trainer(**kw):
+        from ldt_torch.configs import compressor_trainer_cfg
+        from ldt_torch.training.compressor_trainer import Trainer
+
+        return Trainer(compressor_trainer_cfg(model=SMALL_COMPRESSOR), **kw)
+
     return {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "Trainer": trainer,
+        "stage1_Trainer": stage1_trainer,
         "Score": lambda **kw: Score(score_cfg(num_blocks=1), **kw),
         "Compressor": lambda **kw: Compressor(compressor_cfg(), **kw),
         "make_diffusion": lambda **kw: make_diffusion(sde_cfg(), **kw),
@@ -203,7 +212,7 @@ def _entry_points():
                                   "make_diffusion", "sample_discrete",
                                   "generate", "generate_int8",
                                   "sample_latents", "calibrate_act_scales",
-                                  "Trainer"])
+                                  "Trainer", "stage1_Trainer"])
 def test_entry_points_need_a_card_unless_cpu_is_asked(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3 and K8 against their plain twins, and a small
-stage-2 train step, on the card.
+"""The CUDA kernels K1, K2, K3, K4 and K8 against their plain twins, and
+small stage-1 and stage-2 train steps, on the card.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; without a card they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -31,6 +31,10 @@ K8_TOL = (0.08, 1e-5)
 # K3 vs its twin, (max, mean) of |kernel - twin| relative to the largest
 # |twin| (chip_smoke.py's phase 12).
 K3_TOL = {torch.float32: (1e-5, 1e-7), torch.bfloat16: (8e-3, 1e-5)}
+# K4 vs its twin, each of dq, dk, dv relative to its largest |twin|
+# (chip_smoke.py's phase 15): in f32 the dk and dv sums over 2048 query rows
+# run in another order than the twin's (read 1.8e-6 / 1.0e-7).
+K4_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (8e-3, 1e-5)}
 
 
 def _assert_within(got, want, tol, scale=1.0):
@@ -295,4 +299,72 @@ def test_small_train_step_through_the_kernels(card):
             ops.packed_self_attention_bwd.launches - counts[1],
             ops.cross_attention.launches - counts[2]) == (4, 4, 12)
     clouds, _ = trainer.sample(2, 256)
+    assert clouds.shape == (2, 256, 3) and torch.isfinite(clouds).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,d,h", [(16, 32, 32, 128, 4),    # encoder
+                                       (16, 32, 2048, 128, 4),  # posterior
+                                       (16, 2048, 32, 128, 4),  # decoder
+                                       (3, 45, 3000, 96, 2),    # ragged keys
+                                       (2, 300, 8, 64, 2),      # 3 row tiles
+                                       (2, 8, 300, 64, 2)])     # 8 rows
+def test_cross_attention_bwd_kernel(card, b, n, m, d, h, dtype):
+    q = _randn(card, b, n, d, dtype=dtype)
+    k = _randn(card, b, m, d, dtype=dtype)
+    v = _randn(card, b, m, d, dtype=dtype)
+    g = _randn(card, b, n, d, dtype=dtype)
+    fn = ops.cross_attention_bwd
+    before = (fn.launches, fn.long_key_launches, fn.long_query_launches)
+    got = fn(q, k, v, g, h)
+    torch.cuda.synchronize()
+    rows = ops.cross_bwd_schedule(n, m, d // h)
+    assert (fn.launches, fn.long_key_launches, fn.long_query_launches) == (
+        before[0] + 1, before[1] + (rows == 0),
+        before[2] + (rows > 0 and n > rows))
+    want = ops.cross_attention_bwd_plain(q, k, v, g, h)
+    for got_t, want_t, like in zip(got, want, (q, k, v)):
+        assert got_t.dtype == dtype and got_t.shape == like.shape
+        _assert_within(got_t, want_t, K4_TOL[dtype],
+                       want_t.float().abs().max().item())
+    again = fn(q, k, v, g, h)  # no atomics: the same bits every run
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_cross_attention_function_on_the_card(card):
+    q = _randn(card, 4, 2048, 128, dtype=torch.float32)
+    k = _randn(card, 4, 32, 128, dtype=torch.float32)
+    v = _randn(card, 4, 32, 128, dtype=torch.float32)
+    g = _randn(card, 4, 2048, 128, dtype=torch.float32)
+    x = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    k2, k4 = ops.cross_attention.launches, ops.cross_attention_bwd.launches
+    out = ops.CrossAttention.apply(*x, 4)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (ops.cross_attention.launches - k2,
+            ops.cross_attention_bwd.launches - k4) == (1, 1)
+    for t, want in zip(x, ops.cross_attention_bwd_plain(q, k, v, g, 4)):
+        _assert_within(t.grad, want, K4_TOL[torch.float32],
+                       want.abs().max().item())
+
+
+def test_small_stage1_step_through_the_kernels(card):
+    """Two stage-1 steps at a small width: K2 and K4 in every attention of
+    the Compressor (2 layers: 2 encoder blocks, 2 posteriors, 2 decoder
+    blocks); finite losses."""
+    from ldt_torch.configs import compressor_trainer_cfg
+    from ldt_torch.training.compressor_trainer import Trainer
+
+    cfg = compressor_trainer_cfg(model=dict(
+        outsize=256, max_outputs=256, n_layers=2, hidden_dim=32, p_dim=32,
+        num_heads=2, encoder_layers=1))
+    trainer = Trainer(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    data = {"tr_points": _randn(card, 4, 256, 3, dtype=torch.float32)}
+    counts = (ops.cross_attention.launches, ops.cross_attention_bwd.launches)
+    losses = torch.stack([trainer.update(data)[0] for _ in range(2)])
+    torch.cuda.synchronize()
+    assert torch.isfinite(losses).all()
+    assert (ops.cross_attention.launches - counts[0],
+            ops.cross_attention_bwd.launches - counts[1]) == (12, 12)
+    clouds = trainer.sample(2, 256)
     assert clouds.shape == (2, 256, 3) and torch.isfinite(clouds).all()
