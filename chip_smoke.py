@@ -4,7 +4,8 @@
 Run from the root of the repository:  python3 chip_smoke.py
 
 Phases (each raises on failure, so the process exits non-zero):
-  1. Build the CUDA kernels (ldt_torch/csrc/*.cu) with nvcc; print the time.
+  1. Build the CUDA kernels (ldt_torch/csrc/attention.cu and eval.cu, one
+     nvcc each, started together); print the time.
   2. Hold each kernel against its plain PyTorch twin on the card at the main
      path's shapes, in f32 and bf16; time the kernel, the twin and one
      `scaled_dot_product_attention` call on the same tensors (a yardstick
@@ -68,6 +69,25 @@ Stage-1 training (`ldt_torch.training.compressor_trainer.Trainer.update`):
      same weights, clouds, pinned noise, chamfer neighbours and EMD
      assignment, on the card against the CPU, and against a K4 with dq and
      dk swapped; the auction alone on dyadic-grid clouds, card == CPU.
+Evaluation (`ldt_torch.eval.metrics`, the trainers' `valsample` and
+`reconstruction`), on clouds at ShapeNet's scale (`synthetic_shapes`):
+ 18. (after 15) K5 (`pairwise_cd_means`) and K6/K7 (`approx_match_cost`,
+     d streamed / built on the fly) on 32 pairs of 2048-point clouds against
+     their twins on the card and on the CPU and against wrong variants (K5:
+     one direction, on sqrt d; K6: 8 levels, no consumption clamp, the cost
+     on d); K6 == K7 bit for bit, each repeating itself; one pair against the
+     exact optimum (scipy's linear_sum_assignment); times, bounds and twin
+     times at a full eval tile (64 pairs).
+ 19. (after 16) The eval path at full width on 64 references and 64
+     samples of 2048 points: `compute_all_metrics(smp, ref, 128)` (pairs/s),
+     `compute_CD_metrics(smp, ref, 256)`, `EMD_CD` through K7, the JSD, the
+     phase-16 stage-1 trainer's `reconstruction` and `valsample` on a test
+     loader of 4 batches of 16, and a stage-2 `valsample` (one batch, 32
+     steps); K5/K6/K7 launch counts against those `_tile_shape` predicts;
+     one matrix's tiles under torch.profiler.
+ 20. (after 17) 8 x 8 pairs, card against CPU: the CD and EMD matrices of
+     `compute_all_metrics` (and against a card run with wrong kernels), the
+     metric dicts on sets with margin, and the JSD.
 
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
@@ -77,6 +97,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -152,12 +173,56 @@ TRAIN_STEP_TOL = (1e-4, 1e-6)
 # 1.1e-2; bf16 "ds from rounded w" 3.2e-3-7.8e-3 / 1.9e-4-3.8e-4: the mean
 # tells it.
 K4_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (8e-3, 1e-5)}
+# Phase 18, K5 vs its twin, (max, mean) over pairs of |kernel - twin| /
+# |twin|: the minima have the twin's bits (the same direct-form roundings),
+# only the means' sums run in another order (read on the H100: 2.3e-7 /
+# 4.9e-8, card and CPU twins). Wrong: "one direction" (2 mean dist1: 0.35 /
+# 0.10), "on sqrt d" (the means of sqrt(dist)).
+K5_TOL = (1e-5, 1e-6)
+# Phase 18, K6/K7 vs their twin, the same readings: sums over 2048 rows and
+# columns in another order through nine levels (read on the H100: twin
+# 2.5e-6 / 1.7e-7, CPU twin 4.5e-6 / 5.4e-7, f64 6.9e-6 / 3.5e-7). Wrong:
+# "8 levels" (-4^-1 dropped: 6.1e-3 / 1.9e-3; ~2e-6 on a jittered copy
+# alone), "no clamp" (the consumption min(., 1) dropped: 0.72 / 0.47),
+# "cost on d" (sum match d, not sqrt(d)). Phase 20 holds the card's CD and
+# EMD matrices to the CPU's with K5_TOL and K6_TOL.
+K6_TOL = (3e-5, 2e-6)
+EVAL_PAIRS = 32    # phase 18's pairs
+EVAL_SET = 64      # phase 19's references and samples
+EVAL_POINTS = 2048  # points per cloud in phases 18-20 (the eval's)
 TRAIN_STEPS = 10   # timed flagship train steps (phases 13, 16)
 STAGE1_BATCH = 16  # the stage-1 config's batch (phase 15's K4 shapes)
 BATCH = 64         # clouds per generation, as bench.py
 STEPS = 1000       # ancestral steps of the main path
 CHECK_STEPS = 32   # phases 3, 5 and 6 (beta_end / N must stay below 1)
 SEED = 0
+
+
+def synthetic_shapes(count: int, points: int, rng):
+    """[count, points, 3] float32 clouds at ShapeNet's scale, from a numpy
+    Generator: surface points of random ellipsoids and boxes (alternating),
+    randomly rotated, centred and scaled to unit max radius (the
+    normalization of ldt_tpu/tools/utils.py::normalize_point_clouds)."""
+    import numpy as np
+
+    out = np.empty((count, points, 3), np.float64)
+    for k in range(count):
+        axes = rng.uniform(0.2, 1.0, 3)
+        if k % 2 == 0:  # ellipsoid: unit directions scaled by the semi-axes
+            v = rng.standard_normal((points, 3))
+            pts = v / np.linalg.norm(v, axis=1, keepdims=True) * axes
+        else:  # box: a face by its area, then a point on it
+            area = np.array([axes[1] * axes[2], axes[0] * axes[2],
+                             axes[0] * axes[1]])
+            face = rng.choice(3, points, p=area / area.sum())
+            pts = rng.uniform(-1.0, 1.0, (points, 3)) * axes
+            pts[np.arange(points), face] = rng.choice([-1.0, 1.0],
+                                                      points) * axes[face]
+        q, r = np.linalg.qr(rng.standard_normal((3, 3)))
+        pts = pts @ (q * np.sign(np.diag(r)))
+        pts -= pts.mean(axis=0)
+        out[k] = pts / np.linalg.norm(pts, axis=1).max()
+    return out.astype(np.float32)
 
 
 def fail(msg: str) -> None:
@@ -188,17 +253,26 @@ def smi_name_and_power() -> str:
 
 
 def phase_build() -> None:
-    from ldt_torch.ops import _build
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ldt_torch.ops import _build, _eval_kernels
     from ldt_torch.ops import attention as attn_ops
 
+    sources = ("attention", "eval")
     t0 = time.perf_counter()
-    log = _build.build("attention")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
     attn_ops._lib()
+    _eval_kernels.lib()
     dt = time.perf_counter() - t0
-    print(f"[1] build: {dt:.3f} s ({'cached' if log is None else 'compiled'})")
-    for line in (log or "").splitlines():
-        if any(w in line for w in ("registers", "spill", "error", "warning")):
-            print(f"    nvcc: {line.strip()}")
+    print(f"[1] build: {dt:.3f} s (" + ", ".join(
+        f"{k} {'cached' if v is None else 'compiled'}"
+        for k, v in logs.items()) + ")")
+    for name, log in logs.items():
+        for line in (log or "").splitlines():
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning")):
+                print(f"    nvcc {name}: {line.strip()}")
 
 
 def _bound(nbytes: int, ops: dict):
@@ -885,6 +959,8 @@ def counted(fn):
     import torch
 
     from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.ops.chamfer import pairwise_cd_means
+    from ldt_torch.ops.emd import approx_match_cost
 
     wrappers = {"packed_self_attention": attn_ops.packed_self_attention,
                 "cross_attention": attn_ops.cross_attention,
@@ -892,14 +968,18 @@ def counted(fn):
                 attn_ops.packed_self_attention_int8,
                 "packed_self_attention_bwd":
                 attn_ops.packed_self_attention_bwd,
-                "cross_attention_bwd": attn_ops.cross_attention_bwd}
+                "cross_attention_bwd": attn_ops.cross_attention_bwd,
+                "pairwise_cd_means": pairwise_cd_means,
+                "approx_match_cost": approx_match_cost}
     # the schedule counts (each launch is counted in its wrapper's too)
     schedules = {"cross_attention_tiled": (attn_ops.cross_attention,
                                            "tiled_launches"),
                  "cross_attention_bwd_long_key": (
                      attn_ops.cross_attention_bwd, "long_key_launches"),
                  "cross_attention_bwd_long_query": (
-                     attn_ops.cross_attention_bwd, "long_query_launches")}
+                     attn_ops.cross_attention_bwd, "long_query_launches"),
+                 "approx_match_cost_otf": (approx_match_cost,
+                                           "otf_launches")}
     for w in wrappers.values():
         w.launches = 0
     for w, attr in schedules.values():
@@ -919,7 +999,8 @@ def per_step_launches(**counts) -> dict:
     names = ("packed_self_attention", "cross_attention",
              "packed_self_attention_int8", "packed_self_attention_bwd",
              "cross_attention_bwd", "cross_attention_tiled",
-             "cross_attention_bwd_long_key", "cross_attention_bwd_long_query")
+             "cross_attention_bwd_long_key", "cross_attention_bwd_long_query",
+             "pairwise_cd_means", "approx_match_cost", "approx_match_cost_otf")
     return {k: counts.get(k, 0) for k in names}
 
 
@@ -1240,10 +1321,10 @@ def profile_step(tag: str, step, batch: int) -> None:
         print(f"    {us / 1e3:9.2f} ms  {key[:110]}")
 
 
-def phase_stage1_train(steps: int, gen) -> dict:
+def phase_stage1_train(steps: int, gen):
     """The flagship stage-1 train step (`compressor_trainer_cfg()`: B=16,
     2048 points, 6 layers, f32) on synthetic clouds: returns the launch
-    counts of the timed steps."""
+    counts of the timed steps and the trainer (phase 19 evaluates it)."""
     import torch
 
     from ldt_torch.configs import compressor_trainer_cfg
@@ -1335,7 +1416,7 @@ def phase_stage1_train(steps: int, gen) -> dict:
         busy[name] = sum(device_time_by_kernel(prof).values()) / 1e3
     print("[16] device busy of each loss alone on the decoded set: "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in busy.items()))
-    return launches
+    return launches, trainer
 
 
 def pinned_rec(rec: "torch.Tensor", pts: "torch.Tensor"):
@@ -1573,6 +1654,473 @@ def phase_reference(steps: int) -> None:
               for k in ("card", "wrong")}, REF_TOL[part], right=("card",))
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def rel_errs(got, want):
+    """(max, mean) over pairs of |got - want| / |want|."""
+    want = want.double().cpu()
+    rel = ((got.double().cpu() - want).abs()
+           / want.abs().clamp(min=1e-30))  # 0 / 0 (a cloud's CD to itself)
+    return rel.max().item(), rel.mean().item()
+
+
+def eval_pairs(p: int, n: int, seed: int):
+    """p pairs of n-point clouds at ShapeNet's scale on the card: even pairs
+    a shape and its copy jittered by 0.01, odd pairs two shapes."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = synthetic_shapes(p, n, rng)
+    y = synthetic_shapes(p, n, rng)
+    y[::2] = x[::2] + 0.01 * rng.standard_normal(x[::2].shape)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def cd_variant(x, y, one_direction: bool = False, on_sqrt: bool = False):
+    """K5's twin with a slip: 2 mean(dist1) (one direction), or the means
+    of sqrt(dist) (the l1 loss's form, not the metric's)."""
+    import torch
+
+    from ldt_torch.ops.chamfer import chamfer_distance
+
+    d1, d2, _, _ = chamfer_distance(x, y)
+    if on_sqrt:
+        d1, d2 = torch.sqrt(d1), torch.sqrt(d2)
+    return 2 * d1.mean(dim=1) if one_direction else d1.mean(dim=1) + \
+        d2.mean(dim=1)
+
+
+def emd_variant(x, y, levels: int = 9, clamp: bool = True,
+                on_sqrt: bool = True, dtype=None):
+    """The approx-match cost of N == M clouds written out, with knobs for
+    the wrong variants: `levels` from -4^7 (9: down to -4^-1), the
+    min(., 1) consumption clamp, the cost on sqrt(d) or on d; `dtype`
+    float64 gives the "f64" reading."""
+    import torch
+
+    from ldt_torch.ops.geometry import square_distance
+
+    d = torch.clamp(square_distance(x, y), min=0.0)
+    if dtype is not None:
+        d = d.to(dtype)
+    p, n, m = d.shape
+    cost_d = torch.sqrt(torch.clamp(d, min=1e-20)) if on_sqrt else d
+    rl = torch.ones(p, n, dtype=d.dtype, device=d.device)
+    rr = torch.ones(p, m, dtype=d.dtype, device=d.device)
+    cost = torch.zeros(p, dtype=d.dtype, device=d.device)
+    for j in range(7, 7 - levels, -1):
+        w = torch.exp(-(4.0 ** j) * d)
+        ratio_l = rl / (1e-9 + (w @ rr[:, :, None])[:, :, 0])
+        sumr = (ratio_l[:, None, :] @ w)[:, 0, :] * rr
+        cons = rr / (sumr + 1e-9)
+        ratio_r = (torch.clamp(cons, max=1.0) if clamp else cons) * rr
+        cost = cost + (ratio_l[:, None, :] @ (
+            (w * cost_d) @ ratio_r[:, :, None]))[:, 0, 0]
+        rl = torch.clamp(rl - ratio_l * (w @ ratio_r[:, :, None])[:, :, 0],
+                         min=0.0)
+        rr = torch.clamp(rr - sumr, min=0.0)
+    return cost
+
+
+def phase_eval_kernels() -> dict:
+    """Phase 18: K5 and K6/K7 against their twins and wrong variants, K6 ==
+    K7, repeatability, one pair against the exact optimum; times at a full
+    eval tile."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from ldt_torch.ops import _eval_kernels
+    from ldt_torch.ops import chamfer, emd
+    from ldt_torch.ops.geometry import square_distance
+
+    p, n = EVAL_PAIRS, EVAL_POINTS
+    x, y = eval_pairs(p, n, SEED)
+    xc, yc = x.cpu(), y.cpu()
+    # K5
+    got = chamfer.pairwise_cd_means(x, y)
+    readings = {
+        "twin": rel_errs(got, chamfer.pairwise_cd_means_plain(x, y)),
+        "cpu twin": rel_errs(got, chamfer.pairwise_cd_means_plain(xc, yc)),
+        "one direction": rel_errs(got, cd_variant(x, y, one_direction=True)),
+        "on sqrt d": rel_errs(got, cd_variant(x, y, on_sqrt=True))}
+    print(f"[18] pairwise_cd_means (K5), {p} pairs of {n}-point clouds, "
+          f"f32: cd {got.min().item():.6f}..{got.max().item():.6f}")
+    held("K5 (relative per pair) vs", readings, K5_TOL,
+         right=("twin", "cpu twin"), wrong=("one direction", "on sqrt d"))
+    if not torch.equal(got, chamfer.pairwise_cd_means(x, y)):
+        fail("phase 18: K5 did not repeat its bits")
+    # K6 / K7
+    k6 = emd.approx_match_cost(x, y)
+    k7 = emd.approx_match_cost(x, y, otf=True)
+    same = torch.equal(k6, k7)
+    repeat = torch.equal(k6, emd.approx_match_cost(x, y)) and torch.equal(
+        k7, emd.approx_match_cost(x, y, otf=True))
+    t0 = time.perf_counter()
+    cpu_twin = emd.approx_match_cost_plain(xc, yc)
+    cpu_s = time.perf_counter() - t0
+    readings = {
+        "twin": rel_errs(k6, emd.approx_match_cost_plain(x, y)),
+        "cpu twin": rel_errs(k6, cpu_twin),
+        "f64": rel_errs(k6, emd_variant(x, y, dtype=torch.float64)),
+        "8 levels": rel_errs(k6, emd_variant(x, y, levels=8)),
+        "no clamp": rel_errs(k6, emd_variant(x, y, clamp=False)),
+        "cost on d": rel_errs(k6, emd_variant(x, y, on_sqrt=False))}
+    print(f"[18] approx_match_cost (K6 d streamed, K7 d on the fly), {p} "
+          f"pairs: emd {k6.min().item() / n:.6f}..{k6.max().item() / n:.6f};"
+          f" K6 == K7 bit for bit: {same}; each repeats its bits: {repeat}; "
+          f"CPU twin {cpu_s:.2f} s")
+    held("K6/K7 (relative per pair) vs", readings, K6_TOL,
+         right=("twin", "cpu twin", "f64"),
+         wrong=("8 levels", "no clamp", "cost on d"))
+    if not (same and repeat):
+        fail("phase 18: K6 and K7 differ, or a run did not repeat its bits")
+    # one pair of two shapes against the exact optimum
+    a, b = xc[1].double().numpy(), yc[1].double().numpy()
+    dist = np.sqrt(((a[:, None] - b[None]) ** 2).sum(-1))
+    r, c = linear_sum_assignment(dist)
+    exact = dist[r, c].mean()
+    approx = k6[1].item() / n
+    print(f"[18] pair 1 against the exact optimum (linear_sum_assignment): "
+          f"exact {exact:.6f}, approx {approx:.6f}, ratio "
+          f"{approx / exact:.4f} (bounds: >= exact - 1e-4, <= 1.35 exact)")
+    if not exact - 1e-4 <= approx <= 1.35 * exact:
+        fail("phase 18: the approx-match cost leaves the exact bounds")
+
+    # times at a full eval tile: compute_all_metrics(.., 128) on 64 x 64
+    # clouds takes 64 pairs per tile
+    tp = 64
+    x, y = eval_pairs(tp, n, SEED + 1)
+    d = torch.clamp(square_distance(x, y), min=0.0)
+    out = torch.empty(tp, device=x.device)
+    lib, stream = _eval_kernels.lib(), _eval_kernels.stream(x)
+
+    def k6_kernel():  # the launch alone, on a d built once
+        _eval_kernels.raise_on(lib.ldt_approx_match_cost(
+            x.data_ptr(), y.data_ptr(), d.data_ptr(), out.data_ptr(), tp, n,
+            n, 0, stream), "approx_match_cost")
+
+    clock = sm_clock_hz()
+    exp_rate = 16 * 132 * clock  # SFU exponentials per second
+    nm = tp * n * n
+    cloud_bytes = 2 * tp * n * 3 * 4 + 4 * tp
+    bounds = {
+        # 10 f32 ops per (i, j): three differences, three squares, two
+        # adds, two minima
+        "pairwise_cd_means": {"bytes": cloud_bytes,
+                              "operations": 10 * nm / PEAK_FLOPS["float32"]},
+        # per level and (i, j): one exponential on the SFUs; four FMAs (the
+        # row sum, the column sum, the cost, the row drain) = 8 flops
+        "approx_match_cost": {"bytes": 4 * nm + 4 * tp,
+                              "exp": 9 * nm / exp_rate,
+                              "fma": 9 * 8 * nm / PEAK_FLOPS["float32"]},
+        "approx_match_cost_otf": {"bytes": cloud_bytes,
+                                  "exp": 9 * nm / exp_rate,
+                                  "fma": 9 * 8 * nm / PEAK_FLOPS["float32"]},
+    }
+    emd_twin_ms = cuda_ms(lambda: emd.approx_match_cost_plain(x, y), 3, 1)
+    times = {
+        "pairwise_cd_means": (
+            cuda_ms(lambda: chamfer.pairwise_cd_means(x, y), 20, 2),
+            cuda_ms(lambda: chamfer.pairwise_cd_means_plain(x, y), 3, 1)),
+        "approx_match_cost": (cuda_ms(k6_kernel, 5, 1), emd_twin_ms),
+        "approx_match_cost_otf": (cuda_ms(
+            lambda: emd.approx_match_cost(x, y, otf=True), 5, 1),
+            emd_twin_ms)}
+    wrapper_ms = cuda_ms(lambda: emd.approx_match_cost(x, y), 5, 1)
+    twin = emd.approx_match_cost_plain(x, y)
+    max_err = {
+        "pairwise_cd_means": (chamfer.pairwise_cd_means(x, y)
+                              - chamfer.pairwise_cd_means_plain(x, y)
+                              ).abs().max().item(),
+        "approx_match_cost": (emd.approx_match_cost(x, y)
+                              - twin).abs().max().item(),
+        "approx_match_cost_otf": (emd.approx_match_cost(x, y, otf=True)
+                                  - twin).abs().max().item()}
+    replaces = {"pairwise_cd_means": "ldt_tpu/ops/chamfer.py:135",
+                "approx_match_cost": "ldt_tpu/ops/emd.py:381",
+                "approx_match_cost_otf": "ldt_tpu/ops/emd.py:465"}
+    rows = {}
+    for name, b in bounds.items():
+        t_bytes = b["bytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = max(v for k, v in b.items() if k != "bytes") * 1e3
+        bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                              else (t_ops, "operations"))
+        ms, plain_ms = times[name]
+        print(f"[18] {name} at the eval tile ({tp} pairs of {n} points): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; bytes {t_bytes:.4f} ms, "
+              + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in b.items()
+                          if k != "bytes")
+              + f"; SFU rate at {clock / 1e6:.0f} MHz), library: none"
+              + (f"; with the d build {wrapper_ms:.4f} ms"
+                 if name == "approx_match_cost" else "")
+              + f" ({smi_name_and_power()})")
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": "ldt_torch/csrc/eval.cu",
+                      "replaces": replaces[name], "launches": 0,
+                      "max_abs_err": max_err[name], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None}
+    return rows
+
+def tile_launches(ns: int, nr: int, batch: int, points: int,
+                  symmetric: bool = False) -> int:
+    """Tiles (= K5 launches, and K6 ones with the EMD) of one pair matrix,
+    from `eval.metrics._tile_shape`."""
+    from ldt_torch.eval import metrics
+
+    sb, rb = metrics._tile_shape(ns, nr, batch, None, points, points,
+                                 symmetric)
+    return sum(1 for s0, _ in metrics._iter_blocks(ns, sb)
+               for _, r1 in metrics._iter_blocks(nr, rb)
+               if not (symmetric and r1 <= s0))
+
+
+def eval_sets(count: int, points: int, seed: int):
+    """(samples, references) numpy [count, points, 3]: references are
+    shapes; the first half of the samples are references jittered by 0.01,
+    the rest other shapes (so COV and 1-NNA sit away from their ends)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ref = synthetic_shapes(count, points, rng)
+    smp = synthetic_shapes(count, points, rng)
+    half = count // 2
+    smp[:half] = ref[:half] + 0.01 * rng.standard_normal(
+        ref[:half].shape).astype(np.float32)
+    return smp, ref
+
+
+def phase_eval(stage1) -> dict:
+    """Phase 19: the eval path at full width; returns the K5/K6/K7 launch
+    counts summed over its runs."""
+    import numpy as np
+    import torch
+
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.eval import metrics
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    count, n = EVAL_SET, EVAL_POINTS
+    smp, ref = eval_sets(count, n, SEED)
+    pairs = 3 * count * count
+    per = tile_launches(count, count, 128, n)
+    # the test loader: 4 batches of normalized clouds (the references), each
+    # with the shift and scale of its raw cloud
+    rng = np.random.default_rng(SEED + 1)
+    bs = count // 4
+    loader = [{"te_points": ref[bs * b:bs * (b + 1)],
+               "shift": rng.uniform(-1.0, 1.0, (bs, 1, 3)).astype(np.float32),
+               "scale": rng.uniform(0.5, 2.0, (bs, 1, 1)).astype(np.float32)}
+              for b in range(4)]
+    layers = stage1.cfg.model.n_layers
+    cfg = latent_trainer_cfg(sde=dict(sample_N=CHECK_STEPS))
+    stage2 = Trainer(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(SEED))
+    stage2.maybe_init({"tr_points": torch.from_numpy(ref[:2]).cuda()},
+                      compressor_weights=stage1.model.state_dict())
+    s2_pairs = tile_launches(bs, bs, 64, n)
+    blocks = stage2.cfg.score.num_blocks
+    runs = {
+        "compute_all_metrics(smp, ref, 128)": (
+            lambda: metrics.compute_all_metrics(smp, ref, 128,
+                                                verbose=False),
+            dict(pairwise_cd_means=3 * per, approx_match_cost=3 * per)),
+        "compute_CD_metrics(smp, ref, 256)": (
+            lambda: metrics.compute_CD_metrics(smp, ref, 256, verbose=False),
+            dict(pairwise_cd_means=tile_launches(count, count, 256, n)
+                 + 2 * tile_launches(count, count, 256, n, True))),
+        "EMD_CD(smp, ref, 64, emd_otf=True)": (
+            lambda: metrics.EMD_CD(smp, ref, 64, emd_otf=True),
+            dict(pairwise_cd_means=1, approx_match_cost=1,
+                 approx_match_cost_otf=1)),
+        "jsd_between_point_cloud_sets(smp / 2, ref / 2)": (
+            lambda: {"jsd": metrics.jsd_between_point_cloud_sets(
+                smp / 2, ref / 2)}, {}),
+        # per encode: per layer 2 encoder blocks, a posterior over the
+        # decoded set (K2's tiled schedule but in the first layer, which
+        # has no decoded set yet) and a decoder block; per decode: a
+        # decoder block per layer
+        f"stage-1 reconstruction (4 x {bs} clouds)": (
+            lambda: stage1.reconstruction(loader),
+            dict(cross_attention=4 * 4 * layers,
+                 cross_attention_tiled=4 * (layers - 1),
+                 pairwise_cd_means=3 * per, approx_match_cost=3 * per)),
+        f"stage-1 valsample (4 x {bs} clouds)": (
+            lambda: stage1.valsample(loader, n),
+            dict(cross_attention=4 * layers, pairwise_cd_means=3 * per,
+                 approx_match_cost=3 * per)),
+        f"stage-2 valsample ({bs} clouds, {CHECK_STEPS} steps)": (
+            lambda: stage2.valsample(loader[:1]),
+            dict(packed_self_attention=blocks * CHECK_STEPS,
+                 cross_attention=stage2.cfg.compressor.n_layers,
+                 pairwise_cd_means=3 * s2_pairs,
+                 approx_match_cost=3 * s2_pairs)),
+    }
+    totals = dict.fromkeys(("pairwise_cd_means", "approx_match_cost",
+                            "approx_match_cost_otf"), 0)
+    card = smi_name_and_power()
+    for what, (fn, expect) in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            res, dt, launches = counted(fn)
+        expect = per_step_launches(**expect)
+        values = {k: float(v) for k, v in res.items()}
+        rate = (f", {pairs / dt:.1f} pairs/s" if what.startswith(
+            "compute_all") else "")
+        print(f"[19] {what}: {dt:.3f} s{rate} ({card}); "
+              + ", ".join(f"{k} {v:.6g}" for k, v in values.items())
+              + f"; launches {launches} (expected {expect})")
+        if launches != expect:
+            fail(f"phase 19 {what}: launch counts differ from the tiles'")
+        if not all(np.isfinite(v) for v in values.values()):
+            fail(f"phase 19 {what}: a value is not finite")
+        emd_key = [k for k in values if k.endswith("mmd-EMD")]
+        # the random-weight stage-2 sampler's clouds are ~1e2 across, where
+        # the annealing's exp underflows and the EMD may be 0
+        if emd_key and not what.startswith("stage-2") and \
+                not values[emd_key[0]] > 0:
+            fail(f"phase 19 {what}: mmd-EMD is not positive")
+        for k in totals:
+            totals[k] += launches[k]
+    # one matrix's tiles under the profiler: 8 tiles of 64 pairs
+    from torch.profiler import ProfilerActivity, profile
+
+    metrics.pairwise_EMD_CD(ref[:1], smp, 128)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        metrics.pairwise_EMD_CD(ref[:8], smp, 128)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = device_time_by_kernel(prof)
+    busy = sum(by_kernel.values()) / 1e3
+    classes = {"K6 (approx_match_cost_kernel)": "approx_match",
+               "K5 (pairwise_cd_means_kernel)": "pairwise_cd",
+               "other (the d build's elementwise passes, copies)": ""}
+    shares = dict.fromkeys(classes, 0.0)
+    for key, us in by_kernel.items():
+        for cname, tag in classes.items():
+            if tag and tag in key or not tag:
+                shares[cname] += us / 1e3
+                break
+    print(f"[19] profile of pairwise_EMD_CD(ref[:8], smp, 128), 8 tiles of "
+          f"64 pairs: device busy {busy:.2f} ms, profiled wall {wall:.2f} ms"
+          f" (idle share {1 - busy / wall:.3f}); " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in shares.items()))
+    return totals
+
+def margin(mat, axis: int) -> float:
+    """The least relative gap, over the lines along `axis`, between the
+    smallest entry and the runner-up."""
+    import numpy as np
+
+    s = np.sort(mat, axis=axis)
+    first, second = np.take(s, 0, axis), np.take(s, 1, axis)
+    return float(((second - first) / np.abs(second)).min())
+
+
+def knn_margin(mxx, mxy, myy) -> float:
+    """`margin` of the 1-NN test's nearest neighbours: over the columns of
+    the [ref, smp] x [ref, smp] matrix without its diagonal."""
+    import numpy as np
+
+    mat = np.block([[mxx, mxy], [mxy.T, myy]]).astype(np.float64)
+    np.fill_diagonal(mat, np.inf)
+    return margin(mat, 0)
+
+
+def phase_eval_reference() -> None:
+    """Phase 20: `compute_all_metrics` on 8 x 8 clouds on the card (K5, K6)
+    and on the CPU (the twins the CPU tests hold against ldt_tpu), and on
+    the card with wrong kernels (K5 one direction, K6 without its last
+    level): the matrices under K5_TOL / K6_TOL, the metric dicts on sets
+    with margin; and the JSD, card == CPU."""
+    import torch
+
+    from ldt_torch.eval import metrics
+
+    smp, ref = eval_sets(8, EVAL_POINTS, SEED + 2)
+    runs = {"cpu": ("cpu", False), "card": ("cuda", False),
+            "wrong": ("cuda", True)}
+    out = {}
+    for run, (dev, wrong) in runs.items():
+        mats = []
+        real = metrics.pairwise_EMD_CD
+
+        def record(*a, **kw):
+            mats.append(real(*a, **kw))
+            return mats[-1]
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(metrics, "pairwise_EMD_CD",
+                                                  record))
+            if wrong:
+                stack.enter_context(mock.patch.object(
+                    metrics, "pairwise_cd_means",
+                    lambda x, y: cd_variant(x, y, one_direction=True)))
+                stack.enter_context(mock.patch.object(
+                    metrics, "approx_match_cost",
+                    lambda x, y, otf=False: emd_variant(x, y, levels=8)))
+            t0 = time.perf_counter()
+            res = metrics.compute_all_metrics(smp, ref, 128, verbose=False,
+                                              device=dev)
+        out[run] = (res, mats, time.perf_counter() - t0)
+    print(f"[20] compute_all_metrics on 8 x 8 clouds of {EVAL_POINTS} "
+          f"points: CPU {out['cpu'][2]:.2f} s, card {out['card'][2]:.3f} s")
+    names = ("ref x smp", "ref x ref", "smp x smp")
+    for i, what in enumerate(names):
+        for j, (kind, tol) in enumerate((("CD", K5_TOL), ("EMD", K6_TOL))):
+            want = torch.from_numpy(out["cpu"][1][i][j]).flatten()
+            held(f"{kind} matrix {what} (relative per pair), CPU vs",
+                 {k: rel_errs(torch.from_numpy(out[k][1][i][j]).flatten(),
+                              want) for k in ("card", "wrong")}, tol,
+                 right=("card",), wrong=("wrong",))
+    # the argmin-derived metrics: exactly, where every nearest neighbour
+    # beats its runner-up by > 1e-4 relative (asserted on the CPU's
+    # matrices): two entries within K6_TOL[0] = 3e-5 of their values cannot
+    # change places then
+    rs_cd, rs_emd = out["cpu"][1][0]
+    rr, ss = out["cpu"][1][1], out["cpu"][1][2]
+    margins = []
+    for m_rs, m_rr, m_ss in ((rs_cd, rr[0], ss[0]), (rs_emd, rr[1], ss[1])):
+        margins += [margin(m_rs.T, 1), knn_margin(m_rr, m_rs, m_ss)]
+    print(f"[20] nearest-neighbour margins (relative; COV-CD, 1-NNA-CD, "
+          f"COV-EMD, 1-NNA-EMD): " + ", ".join(f"{v:.3e}" for v in margins))
+    if min(margins) <= 1e-4:
+        fail("phase 20: the sets have no margin for the argmin metrics")
+    cpu_res, card_res = out["cpu"][0], out["card"][0]
+    worst = 0.0
+    for k, v in cpu_res.items():
+        if "cov" in k or "acc" in k:
+            if card_res[k] != v:
+                fail(f"phase 20: {k} card {card_res[k]} vs CPU {v}")
+        else:
+            worst = max(worst, abs(card_res[k] - v) / abs(v))
+    print(f"[20] metric dicts, card vs CPU: COV and 1-NNA equal; the MMDs "
+          f"within {worst:.3e} relative (limit {K6_TOL[0]:g}): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in card_res.items()))
+    if worst > K6_TOL[0]:
+        fail("phase 20: an MMD differs between the card and the CPU")
+    jsd = {dev: metrics.jsd_between_point_cloud_sets(smp / 2, ref / 2,
+                                                     device=dev)
+           for dev in ("cpu", "cuda")}
+    print(f"[20] JSD (clouds halved into the unit grid's sphere): card "
+          f"{jsd['cuda']:.8f}, CPU {jsd['cpu']:.8f} (the same nearest "
+          f"cells: direct-form distances have the same bits on both)")
+    if jsd["cuda"] != jsd["cpu"]:
+        fail("phase 20: the JSD differs between the card and the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -1595,6 +2143,7 @@ def main() -> int:
     phase_int8_gemms(gen)
     rows.update(phase_train_kernels(BATCH, gen))
     rows.update(phase_k4(STAGE1_BATCH, gen))
+    rows.update(phase_eval_kernels())
     score, comp, weights = build_models(gen)
     phase_path(score, comp, BATCH, CHECK_STEPS, gen)
     launches = phase_generate(score, comp, BATCH, STEPS, gen)
@@ -1606,22 +2155,29 @@ def main() -> int:
                   int8=True, int8_weights=weights, attn_int8=True)
     del score, comp, weights
     train_launches = phase_train(BATCH, TRAIN_STEPS, gen)
-    stage1_launches = phase_stage1_train(TRAIN_STEPS, gen)
+    stage1_launches, stage1 = phase_stage1_train(TRAIN_STEPS, gen)
+    eval_launches = phase_eval(stage1)
+    del stage1
     phase_int8_step(CHECK_STEPS)
     phase_train_reference()
     phase_stage1_reference()
+    phase_eval_reference()
     phase_reference(CHECK_STEPS)
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the
     # long-key and the multi-tile long-query one) from the timed stage-1
-    # steps
+    # steps, K5, K6 and K7 from the eval runs of phase 19
     launches["packed_self_attention_int8"] = k8_launches[
         "packed_self_attention_int8"]
     for name in ("packed_self_attention_bwd", "cross_attention_tiled"):
         launches[name] = train_launches[name]
     for name in K4_ROWS.values():
         launches[name] = stage1_launches[name]
+    launches.update(eval_launches)
+    # K6's row counts the launches with d streamed (the wrapper's count
+    # holds both modes)
+    launches["approx_match_cost"] -= launches["approx_match_cost_otf"]
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

@@ -9,8 +9,13 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
                                  in `csrc/attention.cu`, built by `ops._build`)
   * `ops.geometry`            <- ldt_tpu/ops/geometry.py (FPS, kNN, grouping)
   * `ops.chamfer`, `ops.emd`  <- ldt_tpu/ops/chamfer.py, emd.py (the stage-1
-                                 losses: chamfer, auction EMD)
+                                 losses: chamfer, auction EMD; the eval's K5
+                                 and K6/K7 as CUDA kernels in
+                                 `csrc/eval.cu`, bound by
+                                 `ops._eval_kernels`)
   * `eval.loss`               <- ldt_tpu/eval/loss.py
+  * `eval.metrics`            <- ldt_tpu/eval/metrics.py (MMD/COV/1-NNA over
+                                 CD and EMD, JSD)
   * `nn.layers`               <- ldt_tpu/nn/layers.py
   * `models.score`            <- ldt_tpu/models/score.py
   * `models.compressor`       <- ldt_tpu/models/compressor.py (encode, decode)
@@ -18,7 +23,8 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
   * `serving.int8`            <- ldt_tpu/serving/int8.py (unconditional W8A8)
   * `training`                <- ldt_tpu/training/ (state, base; stage 1:
                                  compressor_trainer; stage 2:
-                                 latent_sde_trainer)
+                                 latent_sde_trainer; both with their
+                                 `valsample`, stage 1 `reconstruction`)
   * `weights`                 flax variable trees -> torch state_dicts
   * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate,
                                  bf16 or int8 serving)

@@ -1,5 +1,6 @@
-"""Chamfer distance, counterpart of `ldt_tpu/ops/chamfer.py`'s XLA path
-(`chamfer_distance`, `chamfer_loss`, `chamfer_metric`), plain PyTorch.
+"""Chamfer distance, counterpart of `ldt_tpu/ops/chamfer.py`: its XLA path
+(`chamfer_distance`, `chamfer_loss`, `chamfer_metric`) in plain PyTorch, and
+K5, the eval tiles' per-pair chamfer means, as a CUDA kernel.
 
 For clouds x [B, N, 3] and y [B, M, 3]:
   dist1[b, n] = min_m |x[b, n] - y[b, m]|^2,   idx1[b, n] = argmin_m
@@ -18,12 +19,28 @@ negative to y[idx1]), the gradient JAX takes through the min of its
 expanded form. At an exact tie `jnp.min` splits the gradient between the
 tied entries; here all of it goes to the first
 (tests/test_torch_port_losses.py pins this).
+
+K5 `pairwise_cd_means(x, y)` — mean_n dist1 + mean_m dist2 of each pair, the
+only number the eval tiles take from a pair (`eval.metrics._pair_block`).
+  * Replaces `ldt_tpu/ops/chamfer.py::_pairwise_cd_kernel`
+    (`pairwise_cd_means_pallas`).
+  * Bound on an H100: f32 operations, ~10 N M per pair (three differences,
+    three squares, two adds, two minima); its bytes are the two clouds.
+  * Design (`csrc/eval.cu`): one block per pair with both clouds in shared
+    memory, row minima then column minima, each d_ij the direct form with
+    the products and sums rounded one at a time as here, so every minimum
+    has the CPU's bits; the minima are summed in a fixed order (a run
+    repeats itself bit for bit). Its plain twin `pairwise_cd_means_plain` is
+    the means of `chamfer_distance`. On a CPU tensor the wrapper takes the
+    twin; on a CUDA tensor it launches the kernel or raises; it counts its
+    launches in `pairwise_cd_means.launches`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ldt_torch.ops import _eval_kernels
 from ldt_torch.ops.geometry import (
     index_points,
     square_distance,
@@ -59,3 +76,32 @@ def chamfer_metric(x: torch.Tensor, y: torch.Tensor):
     """(dist1, dist2) only."""
     d1, d2, _, _ = chamfer_distance(x, y)
     return d1, d2
+
+
+def pairwise_cd_means_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K5: [P] mean(dist1) + mean(dist2) of x [P, N, 3]
+    against y [P, M, 3], from `chamfer_distance`."""
+    with torch.no_grad():
+        d1, d2, _, _ = chamfer_distance(x, y)
+    return d1.mean(dim=1) + d2.mean(dim=1)
+
+
+def pairwise_cd_means(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """K5: [P] float32 chamfer means (squared distances) of the pairs
+    x [P, N, 3], y [P, M, 3]; forward only."""
+    name = "pairwise_cd_means"
+    x, y = _eval_kernels.pairs(name, x, y, _eval_kernels.cd_smem_bytes)
+    if x.device.type == "cpu":
+        return pairwise_cd_means_plain(x, y)
+    p, n, _ = x.shape
+    out = torch.empty(p, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _eval_kernels.lib().ldt_pairwise_cd_means(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(), p, n, y.shape[1],
+            _eval_kernels.stream(x))
+    _eval_kernels.raise_on(err, name)
+    pairwise_cd_means.launches += 1
+    return out
+
+
+pairwise_cd_means.launches = 0

@@ -1,11 +1,24 @@
-"""Base trainer: the epoch and iteration counters and the learning rate,
-counterpart of `ldt_tpu/training/base.py` (no mesh, no CSV logger and no
-wall-time counter; `epoch_end` does not save yet: checkpoints are later
-work)."""
+"""Base trainer: the epoch and iteration counters, the learning rate and
+the validation scoring, counterpart of `ldt_tpu/training/base.py` (no mesh,
+no CSV logger and no wall-time counter; `epoch_end` does not save yet:
+checkpoints are later work). A subclass sets `self.device`."""
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
+import torch
+
+from ldt_torch.eval.metrics import compute_all_metrics
 from ldt_torch.training.state import make_lr_fn
+
+
+def to_numpy(a) -> np.ndarray:
+    """A test batch's array (numpy or a tensor on any device) as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 class BaseTrainer:
@@ -32,3 +45,24 @@ class BaseTrainer:
     def epoch_end(self):
         self.epoch += 1
         self._itr_epoch_start = self.itr
+
+    def synchronize(self) -> None:
+        """Wait for the device's queued work (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def save_npy(self, name: str, arr: np.ndarray) -> None:
+        """Save `arr` as `name` under `cfg.log.save_path`, if the config
+        has one."""
+        path = getattr(getattr(self.cfg, "log", None), "save_path", None)
+        if path:
+            np.save(os.path.join(path, name), arr)
+
+    def eval_metrics(self, smp: np.ndarray, ref: np.ndarray,
+                     batch_size: int) -> dict:
+        """{'val/gen/<metric>': value} of `compute_all_metrics(smp, ref,
+        batch_size)` on the trainer's device."""
+        gen_res = compute_all_metrics(smp, ref, batch_size=batch_size,
+                                      device=self.device)
+        print(f"Validation Sample (unit) Epoch:{self.epoch} ", gen_res)
+        return {f"val/gen/{k}": float(v) for k, v in gen_res.items()}

@@ -12,20 +12,25 @@ One `update(batch)`:
   4. clip by global norm and Adam (`training.state`); no EMA (the JAX
      trainer keeps none, and the stage-1 config's ema_decay is 0); the
      BatchNorms' running statistics take the forward's update.
-`valsample` and `reconstruction` score with the evaluation metrics, and
-`save` and `resume` need checkpoints: later slices of the port; they raise.
+`valsample` (decode the prior) and `reconstruction` (encode-decode the
+test split, denormalized) score with `eval.metrics.compute_all_metrics`
+(K5 and K6 on the card). `save` and `resume` need checkpoints, a later
+slice of the port; they raise, as do `valsample(vis=True)` (the renderer is
+not ported) and a class-conditional reconstruction.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ldt_torch import resolve_device
 from ldt_torch.eval.loss import CD_loss, EMD_loss
 from ldt_torch.models import Compressor
-from ldt_torch.training.base import BaseTrainer
+from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.state import TrainState, apply_update, make_optimizer
 
 
@@ -140,13 +145,62 @@ class Trainer(BaseTrainer):
         return self.model(self._points(pts), noise=noise,
                           generator=self.generator)
 
-    def valsample(self, *args, **kwargs):
-        _not_ported("valsample", "it scores with the evaluation metrics "
-                    "(K5-K7), the next slice")
+    def valsample(self, test_loader, sample_points: int, vis: bool = False):
+        """Decode one batch of prior samples per test batch and score them
+        against the test clouds `data['te_points']`: {'val/gen/<metric>'}
+        of `compute_all_metrics(smp, ref, batch_size=128)`; the samples go
+        to `smp_ep<epoch>.npy` under `cfg.log.save_path` when there is
+        one."""
+        if vis:
+            _not_ported("valsample(vis=True)", "its renderer "
+                        "(tools/vis_utils) is a later slice")
+        all_ref, all_smp = [], []
+        use_time = 0.0
+        for data in test_loader:
+            ref_pts = data["te_points"]
+            t0 = time.time()
+            smp = self.sample(ref_pts.shape[0], sample_points)
+            self.synchronize()
+            use_time += time.time() - t0
+            all_smp.append(smp.cpu().numpy())
+            all_ref.append(to_numpy(ref_pts))
+        smp = np.concatenate(all_smp)
+        ref = np.concatenate(all_ref)
+        print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
+        self.save_npy(f"smp_ep{self.epoch}.npy", smp)
+        return self.eval_metrics(smp, ref, 128)
 
-    def reconstruction(self, *args, **kwargs):
-        _not_ported("reconstruction", "it scores with the evaluation "
-                    "metrics (K5-K7), the next slice")
+    def reconstruction(self, test_loader, val_cate: int = 0):
+        """Encode-decode each test batch (with several categories, the
+        clouds of `val_cate` only), denormalize the clouds and their
+        reconstructions with `* scale + shift`, and score them:
+        {'val/gen/<metric>'} of `compute_all_metrics(rec, ref,
+        batch_size=128)`; the reconstructions go to `rec_ep<epoch>.npy`
+        under `cfg.log.save_path` when there is one."""
+        several = self.cfg.data.num_categorys > 1
+        if several and self.cfg.model.class_condition:
+            _not_ported("reconstruction", "a class-conditional Compressor "
+                        "(its label embedding) is a later slice")
+        all_ref, all_rec = [], []
+        for data in test_loader:
+            pts, shift, scale = (to_numpy(data[k])
+                                 for k in ("te_points", "shift", "scale"))
+            if several:
+                idx = to_numpy(data["cate_idx"]) == val_cate
+                if not idx.any():
+                    continue
+                pts, shift, scale = pts[idx], shift[idx], scale[idx]
+            rec = self.encode(pts)["set"]
+            shift, scale = self._points(shift), self._points(scale)
+            all_ref.append((self._points(pts) * scale + shift).cpu().numpy())
+            all_rec.append((rec * scale + shift).cpu().numpy())
+        rec = np.concatenate(all_rec)
+        ref = np.concatenate(all_ref)
+        self.save_npy(f"rec_ep{self.epoch}.npy", rec)
+        return self.eval_metrics(rec, ref, 128)
+
+    # the reference's public (misspelled) method name
+    reconstrustion = reconstruction
 
     def save(self, *args, **kwargs):
         _not_ported("save", "checkpoints are a later slice")

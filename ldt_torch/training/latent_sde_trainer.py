@@ -16,14 +16,20 @@ Sampling and the validation loss use the EMA params.
 Every draw can be pinned: `update(..., t_idx=, eta=, enc_noise=)` (the
 reparameterization noise of the encode, in decode order); otherwise it comes
 from the trainer's `torch.Generator`. Continuous-t training (the JAX
-package's `iw_quantities`) is later work and raises.
+package's `iw_quantities`) is later work and raises. `valsample` samples one
+batch per test batch with the EMA params and scores it with
+`eval.metrics.compute_all_metrics` (K5 and K6 on the card); its
+several-category branch needs class conditioning, a later slice, and
+raises, as does `vis=True` (the renderer is not ported).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ldt_torch import resolve_device
@@ -31,7 +37,7 @@ from ldt_torch.diffusion import make_diffusion
 from ldt_torch.diffusion.sampling import timesteps as schedule
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
-from ldt_torch.training.base import BaseTrainer
+from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.state import TrainState, apply_update, make_optimizer
 
 
@@ -206,3 +212,33 @@ class Trainer(BaseTrainer):
             eps = sample_latents(score, self.sde, num_samples,
                                  sde_cfg.sample_N, device=self.device, **opts)
             return self.compressor.sample((num_samples, n), eps), eps
+
+    def valsample(self, test_loader, val_cate: int = 0, vis: bool = False):
+        """Sample as many clouds as each test batch holds and score them
+        against the test clouds `data['te_points']`: {'val/gen/<metric>'}
+        of `compute_all_metrics(smp, ref, batch_size=64)`; the samples go to
+        `smp_ep<epoch>.npy` under `cfg.log.save_path` when there is one."""
+        if vis:
+            raise NotImplementedError(
+                "Trainer.valsample(vis=True) is not ported yet: its renderer "
+                "(tools/vis_utils) is a later slice")
+        if self.cfg.data.num_categorys != 1:
+            raise NotImplementedError(
+                "Trainer.valsample with several categories is not ported "
+                "yet: it samples with class labels, and class conditioning "
+                "is a later slice")
+        all_ref, all_smp = [], []
+        use_time = 0.0
+        for data in test_loader:
+            ref_pts = data["te_points"]
+            t0 = time.time()
+            smp, _ = self.sample(num_samples=ref_pts.shape[0])
+            self.synchronize()
+            use_time += time.time() - t0
+            all_smp.append(smp.cpu().numpy())
+            all_ref.append(to_numpy(ref_pts))
+        smp = np.concatenate(all_smp)
+        ref = np.concatenate(all_ref)
+        print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
+        self.save_npy(f"smp_ep{self.epoch}.npy", smp)
+        return self.eval_metrics(smp, ref, 64)

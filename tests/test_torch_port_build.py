@@ -76,6 +76,18 @@ def test_kernel_sources_are_plain_c_interfaces():
         assert fn in src
 
 
+def test_eval_kernel_source_is_a_plain_c_interface():
+    """csrc/eval.cu (K5, K6/K7) binds through ctypes too, its distances
+    rounded op by op (no FMA contraction) and its exponentials accurate."""
+    src = (_build.CSRC / "eval.cu").read_text()
+    assert "torch/extension.h" not in src and 'extern "C"' in src
+    for fn in ("ldt_pairwise_cd_means", "ldt_approx_match_cost",
+               "ldt_eval_error_string", "__fmul_rn", "expf("):
+        assert fn in src
+    assert "__expf" not in src.replace("not __expf", "")
+    assert "--use_fast_math" not in " ".join(_build.NVCC_FLAGS)
+
+
 @pytest.mark.parametrize("fn,args", [
     (ops.packed_self_attention, (torch.zeros(1, 4, 24, device="meta"), 2)),
     (ops.cross_attention, tuple(torch.zeros(1, 4, 8, device="meta")

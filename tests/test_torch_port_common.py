@@ -127,7 +127,9 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.training.state", "ldt_torch.training.base",
             "ldt_torch.training.latent_sde_trainer",
             "ldt_torch.training.compressor_trainer", "ldt_torch.ops.chamfer",
-            "ldt_torch.ops.emd", "ldt_torch.eval.loss", "chip_smoke"]
+            "ldt_torch.ops.emd", "ldt_torch.eval.loss", "ldt_torch.eval",
+            "ldt_torch.eval.metrics", "ldt_torch.ops._eval_kernels",
+            "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -193,7 +195,35 @@ def _entry_points():
 
         return Trainer(compressor_trainer_cfg(model=SMALL_COMPRESSOR), **kw)
 
+    from ldt_torch import eval as metrics
+    from ldt_torch.ops.chamfer import pairwise_cd_means
+    from ldt_torch.ops.emd import approx_match_cost
+
+    clouds = np.random.default_rng(0).uniform(0, 1, (3, 16, 3)).astype(
+        np.float32)
+
+    def on_device(fn):
+        """`fn` on tensors on the device the entry point is given."""
+        def run(device="cuda"):
+            dev = resolve_device(device)
+            return fn(*(torch.from_numpy(clouds).to(dev) for _ in range(2)))
+        return run
+
     return {
+        "compute_all_metrics": lambda **kw: metrics.compute_all_metrics(
+            clouds, clouds, 2, verbose=False, **kw),
+        "compute_CD_metrics": lambda **kw: metrics.compute_CD_metrics(
+            clouds, clouds, 2, verbose=False, **kw),
+        "EMD_CD": lambda **kw: metrics.EMD_CD(clouds, clouds, 2, **kw),
+        "pairwise_CD": lambda **kw: metrics.pairwise_CD(clouds, clouds, 2,
+                                                        **kw),
+        "pairwise_EMD_CD": lambda **kw: metrics.pairwise_EMD_CD(
+            clouds, clouds, 2, **kw),
+        "jsd_between_point_cloud_sets":
+        lambda **kw: metrics.jsd_between_point_cloud_sets(
+            clouds - 0.5, clouds - 0.5, 8, **kw),
+        "approx_match_cost": on_device(approx_match_cost),
+        "pairwise_cd_means": on_device(pairwise_cd_means),
         "resolve_device": lambda **kw: resolve_device(**kw),
         "Trainer": trainer,
         "stage1_Trainer": stage1_trainer,
@@ -212,7 +242,11 @@ def _entry_points():
                                   "make_diffusion", "sample_discrete",
                                   "generate", "generate_int8",
                                   "sample_latents", "calibrate_act_scales",
-                                  "Trainer", "stage1_Trainer"])
+                                  "Trainer", "stage1_Trainer",
+                                  "compute_all_metrics", "compute_CD_metrics",
+                                  "EMD_CD", "pairwise_CD", "pairwise_EMD_CD",
+                                  "jsd_between_point_cloud_sets",
+                                  "approx_match_cost", "pairwise_cd_means"])
 def test_entry_points_need_a_card_unless_cpu_is_asked(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2, K3, K4 and K8 against their plain twins, and
-small stage-1 and stage-2 train steps, on the card.
+"""The CUDA kernels K1, K2, K3, K4, K5, K6/K7 and K8 against their plain
+twins, small stage-1 and stage-2 train steps, and the eval metrics, on the
+card.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; without a card they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -35,6 +36,12 @@ K3_TOL = {torch.float32: (1e-5, 1e-7), torch.bfloat16: (8e-3, 1e-5)}
 # (chip_smoke.py's phase 15): in f32 the dk and dv sums over 2048 query rows
 # run in another order than the twin's (read 1.8e-6 / 1.0e-7).
 K4_TOL = {torch.float32: (1e-5, 1e-6), torch.bfloat16: (8e-3, 1e-5)}
+# K5 and K6/K7 vs their twins, (max, mean) of |kernel - twin| relative to
+# each pair's |twin| (chip_smoke.py's phase 18): K5's minima are the twin's
+# bits, only the means' sums run in another order; K6/K7's sums over 2048
+# rows and columns too, through nine levels.
+K5_TOL = (1e-5, 1e-6)
+K6_TOL = (3e-5, 2e-6)
 
 
 def _assert_within(got, want, tol, scale=1.0):
@@ -368,3 +375,83 @@ def test_small_stage1_step_through_the_kernels(card):
             ops.cross_attention_bwd.launches - counts[1]) == (12, 12)
     clouds = trainer.sample(2, 256)
     assert clouds.shape == (2, 256, 3) and torch.isfinite(clouds).all()
+
+
+def _eval_clouds(p, n, m, seed=0):
+    """Unit-radius clouds: pairs of a shape and a jittered copy or another
+    shape (chip_smoke.synthetic_shapes)."""
+    import numpy as np
+
+    from chip_smoke import synthetic_shapes
+
+    rng = np.random.default_rng(seed)
+    x = synthetic_shapes(p, n, rng)
+    y = synthetic_shapes(p, m, rng)
+    if n == m:
+        y[::2] = x[::2] + 0.01 * rng.standard_normal(x[::2].shape)
+    return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+
+
+def _rel_within(got, want, tol):
+    rel = ((got - want).abs() / want.abs()).double()
+    assert rel.max().item() <= tol[0], rel.max().item()
+    assert rel.mean().item() <= tol[1], rel.mean().item()
+
+
+@pytest.mark.parametrize("p,n,m", [(8, 2048, 2048),   # the eval tiles
+                                   (3, 1000, 333),    # ragged, N != M
+                                   (2, 100, 4000)])   # > 48 KB smem
+def test_pairwise_cd_means_kernel(card, p, n, m):
+    from ldt_torch.ops import chamfer
+
+    x, y = _eval_clouds(p, n, m)
+    before = chamfer.pairwise_cd_means.launches
+    got = chamfer.pairwise_cd_means(x, y)
+    torch.cuda.synchronize()
+    assert chamfer.pairwise_cd_means.launches == before + 1
+    assert got.shape == (p,) and got.dtype == torch.float32
+    _rel_within(got, chamfer.pairwise_cd_means_plain(x, y), K5_TOL)
+    _rel_within(got.cpu(), chamfer.pairwise_cd_means_plain(x.cpu(), y.cpu()),
+                K5_TOL)
+    assert torch.equal(got, chamfer.pairwise_cd_means(x, y))  # no atomics
+
+
+@pytest.mark.parametrize("p,n,m", [(4, 2048, 2048),   # the eval tiles
+                                   (3, 700, 300),     # ragged, multi_r = 2
+                                   (2, 256, 1000)])   # multi_l = 3
+def test_approx_match_cost_kernels(card, p, n, m):
+    """K6 and K7 against the twin, equal to each other bit for bit, and
+    each repeating itself."""
+    from ldt_torch.ops import emd
+
+    x, y = _eval_clouds(p, n, m)
+    fn = emd.approx_match_cost
+    before = (fn.launches, fn.otf_launches)
+    k6 = fn(x, y)
+    k7 = fn(x, y, otf=True)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.otf_launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(k6, k7)
+    assert torch.equal(k6, fn(x, y)) and torch.equal(k7, fn(x, y, otf=True))
+    _rel_within(k6, emd.approx_match_cost_plain(x, y), K6_TOL)
+    _rel_within(k6.cpu(), emd.approx_match_cost_plain(x.cpu(), y.cpu()),
+                K6_TOL)
+
+
+def test_eval_metrics_on_the_card_match_the_cpu(card):
+    """compute_all_metrics through K5 and K6 (and K7) against its CPU run:
+    the matrices' tiles do not move a pair's value."""
+    from ldt_torch.eval import metrics
+
+    x, y = _eval_clouds(4, 512, 512, seed=1)
+    smp, ref = x.cpu().numpy(), y.cpu().numpy()
+    cd, emd = metrics.pairwise_EMD_CD(smp, ref, 2)
+    cd_cpu, emd_cpu = metrics.pairwise_EMD_CD(smp, ref, 2, device="cpu")
+    assert (abs(cd - cd_cpu) / cd_cpu).max() <= K5_TOL[0]
+    assert (abs(emd - emd_cpu) / emd_cpu).max() <= K6_TOL[0]
+    again = metrics.pairwise_EMD_CD(smp, ref, 8, block=4)
+    assert (again[0] == cd).all() and (again[1] == emd).all()
+    otf = metrics.pairwise_EMD_CD(smp, ref, 2, emd_otf=True)
+    assert (otf[1] == emd).all()
+    res = metrics.compute_all_metrics(smp, ref, 4, verbose=False)
+    assert res["mmd-EMD"] > 0 and all(v == v for v in res.values())

@@ -385,6 +385,14 @@ def test_trainer_random_init_and_its_state():
 @pytest.mark.parametrize("method", ["valsample", "reconstruction", "save",
                                     "resume"])
 def test_unported_trainer_methods_say_why(method):
+    """Checkpoints are a later slice; of the evaluation, the renderer of
+    `valsample(vis=True)` and a class-conditional reconstruction are."""
     trainer = Trainer(_cfg(), device="cpu")
+    calls = {
+        "valsample": lambda: trainer.valsample([], N, vis=True),
+        "reconstruction": lambda: Trainer(compressor_trainer_cfg(
+            model=dict(C, class_condition=True),
+            data=dict(num_categorys=2)), device="cpu").reconstruction([]),
+        "save": trainer.save, "resume": trainer.resume}
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        getattr(trainer, method)()
+        calls[method]()
