@@ -7,9 +7,11 @@ Phases (each raises on failure, so the process exits non-zero):
   1. Build the CUDA kernels (ldt_torch/csrc/attention.cu and eval.cu, one
      nvcc each, started together); print the time.
   2. Hold each kernel against its plain PyTorch twin on the card at the main
-     path's shapes, in f32 and bf16; time the kernel, the twin and one
-     `scaled_dot_product_attention` call on the same tensors (a yardstick
-     only: the port never calls it); work out each kernel's bound.
+     path's shapes, in f32 and bf16, each repeating its bits (K2 here: its
+     whole-set schedule at the decode shape); time the kernel, the twin
+     and one `scaled_dot_product_attention` call on the same tensors (a
+     yardstick only: the port never calls it); work out each kernel's
+     bound.
   3. Full-width flagship DiT (24 blocks, hidden 1024, bf16) plus the 6-block
      decoder, random weights from a seed: the two halves of `generate` (a
      short sampler run; the decoder on N(0, 1) latents) through the kernels
@@ -41,10 +43,12 @@ default), in this order among the phases above:
  11. (before 6) One int8 step at flagship width cut to two blocks, on the
      card against the CPU run of the port, and against wrong variants.
 Stage-2 training (`ldt_torch.training.latent_sde_trainer.Trainer.update`):
- 12. (after 8) K3 (the backward of K1) at the train step's shape and K2's
-     tiled schedule at the posterior's shape (M=2048) against their plain
-     twins on the card and on the CPU and against wrong variants; their
-     times, bounds, twin times and the SDPA yardsticks.
+ 12. (after 8) K3 (the backward of K1) at the train step's shape, K2's
+     long-key schedule at the posterior's shape (M=2048) and its whole-set
+     schedule at the encoder's (N=M=32, f32) against their plain twins on
+     the card and on the CPU and against wrong variants, each kernel
+     repeating its bits; their times, bounds, twin times and the SDPA
+     yardsticks.
  13. (after 10) The flagship train step at B=64, f32: the frozen full
      Compressor encodes synthetic [64, 2048, 3] clouds, then loss, K1
      forward / K3 backward through the 24-block Score, clip, Adam, EMA;
@@ -153,10 +157,11 @@ INT8_STEP_TOL = (1e-2, 1.3e-4)
 # the f32 weights, read 4.4e-3 / 3.1e-5 against a right 1.1e-3 / 1.1e-8:
 # the mean tells them apart), "dq dk swapped".
 K3_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (8e-3, 1e-5)}
-# Phase 12, K2's tiled schedule (M=2048): phase 2's limits (the outputs are
-# means over 2048 values, so |out| is smaller and the same limits stricter;
-# the weights rounded in the wrong dtype read 5.7e-4 / 4.8e-5 in f32 and
-# 9.8e-4 / 4.8e-5 in bf16, and fail).
+# Phase 12, K2's long-key schedule (M=2048): phase 2's limits (the outputs
+# are means over 2048 values, so |out| is smaller and the same limits
+# stricter; right readings 8.9e-7 / 2.1e-8 in f32, 4.9e-4 / 6.6e-8 in bf16;
+# the weights rounded in the wrong dtype read 1.8e-3 / 4.8e-5 in f32 and
+# 9.8e-4 / 4.9e-5 in bf16, and fail).
 # Phase 14, one train step, card vs CPU, (max, mean) relative to the largest
 # |value| of each of loss, gradients, params, EMA and Adam's mu: f32 GEMMs
 # and sums in other orders (gradients read 1.5e-5 / 1.1e-8). Wrong: "dq dk
@@ -407,6 +412,8 @@ def phase_kernels(batch: int, gen) -> dict:
         }
         for name, c in cases.items():
             got = c["kernel"]()
+            if not torch.equal(got, c["kernel"]()):
+                fail(f"phase 2: {name} ({dn}) did not repeat its bits")
             readings = {"twin": errs(got, c["plain"]()),
                         "cpu twin": errs(got, c["plain_cpu"]())}
             for vname, (acc, w) in variants(dtype).items():
@@ -421,6 +428,9 @@ def phase_kernels(batch: int, gen) -> dict:
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {c['nbytes'] / 1e6:.1f} MB, "
                   f"{c['flops'] / 1e9:.3f} GFLOP)")
+            if name == "cross_attention":
+                print(f"    device time per call: "
+                      f"{k2_launch_us(c['kernel'])}")
             held(f"{name} {dn} vs", readings, KERNEL_TOL[dn],
                  right=("twin", "cpu twin", "f64"))
             if dtype == torch.bfloat16:  # the main path's dtype
@@ -598,7 +608,7 @@ def sdpa_backward_ms(q, k, v, g) -> float:
 
 
 def phase_train_kernels(batch: int, gen) -> dict:
-    """K3 at the train step's shape and K2's tiled schedule at the
+    """K3 at the train step's shape and K2's long-key schedule at the
     posterior's, against their twins and wrong variants; rows for f32, the
     train step's dtype."""
     import torch
@@ -685,7 +695,10 @@ def phase_train_kernels(batch: int, gen) -> dict:
         tiled = attn_ops.cross_attention.tiled_launches
         got = k2()
         if attn_ops.cross_attention.tiled_launches != tiled + 1:
-            fail("phase 12: K2 at M=2048 did not take its tiled schedule")
+            fail("phase 12: K2 at M=2048 did not take its long-key schedule")
+        if not torch.equal(got, k2()):
+            fail(f"phase 12: K2's long-key schedule ({dn}) did not repeat "
+                 "its bits")
         readings = {"twin": errs(got, k2_plain()),
                     "cpu twin": errs(got, attn_ops.attention_plain(
                         q.cpu(), k.cpu(), v.cpu(), hc)),
@@ -701,15 +714,17 @@ def phase_train_kernels(batch: int, gen) -> dict:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = batch * hc * (4 * nq * m * (dc // hc) + 5 * nq * m)
         bound_ms, bound_by = _bound(nbytes, {dn: flops})
-        print(f"[12] cross_attention, tiled schedule (K2) {dn} q "
+        print(f"[12] cross_attention, long-key schedule (K2) {dn} q "
               f"{list(q.shape)}, k/v {list(k.shape)}, H={hc}: max|twin| "
               f"{k2_plain().float().abs().max().item():.4f}, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-        held(f"K2 tiled {dn} vs", readings, KERNEL_TOL[dn],
+        print(f"    device time per call: {k2_launch_us(k2)}")
+        held(f"K2 long-key {dn} vs", readings, KERNEL_TOL[dn],
              right=("twin", "cpu twin", "f64"), wrong=("wrong", "kv swapped"))
         if dtype == torch.float32:
+            k2_encoder_f32(batch, gen)
             rows["cross_attention_tiled"] = {
                 "name": "cross_attention_tiled", "route": "cuda",
                 "source": "ldt_torch/csrc/attention.cu",
@@ -718,6 +733,72 @@ def phase_train_kernels(batch: int, gen) -> dict:
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms}
     return rows
+
+
+def k2_launch_us(fn, iters: int = 20) -> str:
+    """Device microseconds per call of each CUDA launch that `fn` makes,
+    from torch.profiler (the schedule's parts, without the host's share)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    import re
+
+    def short(key):
+        m = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
+        return m.group(1) if m else key[:60]
+
+    return ", ".join(f"{short(k)} {us / iters:.2f} us"
+                     for k, us in device_time_by_kernel(prof).items())
+
+
+def k2_encoder_f32(batch: int, gen) -> None:
+    """K2's whole-set schedule at the encoder's shape (32 tokens over
+    themselves, f32, 13 launches per train step): held as phase 2 holds the
+    decode shape, timed beside its bound and SDPA (printed only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldt_torch.ops import attention as attn_ops
+
+    n, dc, hc = 32, 128, 4
+    q, k, v = (torch.randn(batch, n, dc, device="cuda", generator=gen)
+               for _ in range(3))
+
+    def k2():
+        return attn_ops.cross_attention(q, k, v, hc)
+
+    got = k2()
+    if not torch.equal(got, k2()):
+        fail("phase 12: K2's whole-set schedule did not repeat its bits")
+    readings = {"twin": errs(got, attn_ops.attention_plain(q, k, v, hc)),
+                "cpu twin": errs(got, attn_ops.attention_plain(
+                    q.cpu(), k.cpu(), v.cpu(), hc)),
+                "kv swapped": errs(got, attention_variant(
+                    q, v, k, hc, torch.float32, torch.float32))}
+    for vname, (acc, w) in variants(torch.float32).items():
+        readings[vname] = errs(got, attention_variant(q, k, v, hc, acc, w))
+    ms = cuda_ms(k2)
+    plain_ms = cuda_ms(lambda: attn_ops.attention_plain(q, k, v, hc),
+                       iters=20)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *(t.unflatten(-1, (hc, -1)).transpose(1, 2) for t in (q, k, v))))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = batch * hc * (4 * n * n * (dc // hc) + 5 * n * n)
+    bound_ms, bound_by = _bound(nbytes, {"float32": flops})
+    print(f"[12] cross_attention, whole-set schedule (K2, encoder) float32 "
+          f"q/k/v {list(q.shape)}, H={hc}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.3f} GFLOP)")
+    print(f"    device time per call: {k2_launch_us(k2)}")
+    held("K2 encoder float32 vs", readings, KERNEL_TOL["float32"],
+         right=("twin", "cpu twin", "f64"), wrong=("wrong", "kv swapped"))
 
 
 def k4_variant(q, k, v, g, num_heads: int, acc=None, rowsum: bool = True,

@@ -16,12 +16,33 @@
 // K2 ldt_cross_attention: the same function as K1 for q [B, N, D] against
 //    k, v [B, M, D], any M. Replaces ldt_tpu/ops/pallas_attention.py::
 //    _fwd_kernel (and the grouped schedule _fwd_kernel_grouped, which
-//    computes the same). Two schedules: where a head's k and v fit in shared
-//    memory (the decode's M=32) each block keeps them whole; longer key sets
-//    (the posterior's M=2048) stream through shared memory in tiles, twice:
-//    once for the scores of the block's query rows, which stay in shared
-//    memory for the f32 softmax, once for the AV product. Both give the same
-//    bits: every sum runs in the same order.
+//    computes the same). Two schedules, both on the CUDA cores in f32:
+//    - Whole-set (dh <= 64 and a head's k and v fit in shared memory: the
+//      decode's N=2048, M=32 and the encoder's N=M=32). Grid (128-row tile,
+//      head, element); one thread owns one query row, its q row, a chunk of
+//      32 scores and its output row in registers, and runs the row's softmax
+//      alone. k and v sit in shared memory as f32 rows that every lane of a
+//      warp reads at the same address, so one ld.shared.v4 broadcast feeds
+//      4 FMAs of all 32 lanes. At the decode shape the bytes bound it (68 MB
+//      in bf16, 0.020 ms on an H100) about as much as its 1.07 G f32 FMAs
+//      (0.032 ms at 67 TFLOP/s). Past 32 keys the thread recomputes each
+//      32-key chunk's scores, so its registers stay fixed for any M.
+//    - Long-key (the rest: the posterior's N=32, M=2048). Split the keys,
+//      not the rows, so that k and v are read once per row tile, not once
+//      per block of rows: launch A, grid (128-key chunk x 32-row tile, head,
+//      element), writes each row's chunk max m_c and sum_c exp(s - m_c);
+//      launch B merges them in chunk order (m = max m_c, l = sum_c l_c
+//      exp(m_c - m)), recomputes its chunk's scores, rounds the weights and
+//      writes the f32 partial AV product of the chunk; launch C adds the
+//      partials in chunk order. Scores and AV are register-tiled (4 rows x 4
+//      keys, 4 rows x 4 channels a thread), so a shared load feeds 8 FMAs.
+//      At the posterior shape (f32, B=64) it moves k twice, v once and the
+//      partials twice, ~0.22 GB, so the bytes bound it (~0.065 ms).
+//    No tensor cores: training runs K2 in f32, whose limits TF32 fails; a
+//    bf16 mma.sync path for generation is later work. The two schedules no
+//    longer give each other's bits (the merged row sum differs from a direct
+//    one by a few f32 ulps); each repeats itself bit for bit, every sum in a
+//    fixed order without atomics.
 // K4 ldt_cross_attention_bwd: the backward of K2. From q [B, N, D], k, v
 //    [B, M, D] and the output's gradient g [B, N, D] it recomputes the f32
 //    weights and writes dq [B, N, D], dk and dv [B, M, D] with K3's formulas.
@@ -54,12 +75,11 @@
 // rounds half to even (rintf, as jnp.round) and divides exactly: the build
 // has no --use_fast_math, which would make `/` approximate.
 //
-// K1, K2, K3 and K8 are memory-bound at the shapes the model gives them (K1,
-// K3 and K8: N=32, dh=64, 16 heads; K2: N=2048, M=32 and N=32, M=2048,
-// dh=32, 4 heads), so each block reads its head's operands from device
-// memory once (the tiled K2: once per block of query rows), keeps them and
-// the scores in shared memory, and writes each output element once (K8
-// reads the packed qkv twice: once for the group scales). K4 at its long
+// K1, K3 and K8 are memory-bound at the shapes the model gives them (N=32,
+// dh=64, 16 heads), so each block reads its head's operands from device
+// memory once, keeps them and the scores in shared memory, and writes each
+// output element once (K8 reads the packed qkv twice: once for the group
+// scales). K4 at its long
 // shapes (f32, dh=32) does five N x M x dh products for as many bytes, so
 // f32 FMAs and bytes bound it about equally; it reads each operand once per
 // block as well. The arithmetic runs on the CUDA cores, in f32 (K1-K4) or
@@ -72,6 +92,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -85,16 +106,18 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kSelfThreads = 256;
 // K8's scale reduction: threads per (group, q|k|v) block.
 constexpr int kScaleThreads = 512;
-// K2: warps per block and query rows per warp. ldt_torch/ops/attention.py
-// mirrors kCrossWarps in its shared-memory bound.
-constexpr int kCrossWarps = 4;
-constexpr int kCrossRowsPerWarp = 16;
-// K2's tiled schedule: threads per block, keys per tile, and at most this
-// many query rows per block (fewer where their scores would not fit).
-// ldt_torch/ops/attention.py mirrors kTiledKeys in its shared-memory bound.
-constexpr int kTiledThreads = 256;
-constexpr int kTiledKeys = 256;
-constexpr int kTiledRows = 8;
+// K2's whole-set schedule: threads (query rows) per block, the widest head
+// it takes in registers, and keys per register chunk of scores.
+// K2's long-key schedule: threads per block, query rows per block (4 per
+// warp), and the most keys per chunk (fewer, down to kLkMinKeys, where a
+// wide head would not fit). ldt_torch/ops/attention.py mirrors all six.
+constexpr int kWholeThreads = 128;
+constexpr int kWholeMaxDh = 64;
+constexpr int kWholeChunk = 32;
+constexpr int kLkThreads = 256;
+constexpr int kLkRows = 32;
+constexpr int kLkKeys = 128;
+constexpr int kLkMinKeys = 32;
 // K4: threads per block, and keys per tile of its long-key schedule
 // (ldt_torch/ops/attention.py mirrors kBwdKeys in its shared-memory bound and
 // picks the long-query schedule's rows per block).
@@ -140,27 +163,40 @@ size_t self_smem_bytes(int n, int dh) {
           (size_t)n * n);
 }
 
-// Shared memory of K2: k [m, dh+1], v [m, dh], and per warp one query row
-// [dh] and its weights [m]; all f32.
-size_t cross_smem_bytes(int m, int dh) {
-  return sizeof(float) * ((size_t)m * (dh + 1) + (size_t)m * dh +
-                          (size_t)kCrossWarps * dh + (size_t)kCrossWarps * m);
+// K2's whole-set schedule keeps a head of width dh in registers of width
+// 16, 32, 48 or 64 (zero-padded); 0 where dh is wider.
+int whole_width(int dh) {
+  return dh > kWholeMaxDh ? 0 : (dh + 15) / 16 * 16;
 }
 
-// Shared memory of K2's tiled schedule with `rows` query rows per block: one
-// tile [kTiledKeys, dh+1] (k tiles in the first pass, v tiles in the
-// second), the rows' q [rows, dh] and AV sums [rows, dh], and their weights
-// [rows, m]; all f32.
-size_t cross_tiled_smem_bytes(int m, int dh, int rows) {
-  return sizeof(float) * ((size_t)kTiledKeys * (dh + 1) +
-                          2 * (size_t)rows * dh + (size_t)rows * m);
+// Shared memory of K2's whole-set schedule: k and v [m, width], f32.
+size_t cross_whole_smem_bytes(int m, int dh) {
+  return sizeof(float) * 2 * (size_t)m * whole_width(dh);
 }
 
-// Query rows per block of the tiled K2: the most, up to kTiledRows, whose
-// scores fit; 0 if not even one row fits.
-int cross_tiled_rows(int m, int dh) {
-  for (int rows = kTiledRows; rows > 0; rows >>= 1)
-    if (cross_tiled_smem_bytes(m, dh, rows) <= kMaxSmem) return rows;
+// Row stride (floats) of the long-key schedule's q, k and v in shared
+// memory: dh padded with zeros to a multiple of 8, plus 4, so that the 8
+// lanes of a quarter warp reading 8 rows as float4 hit 8 bank groups.
+__host__ __device__ int lk_ld(int dh) { return (dh + 7) / 8 * 8 + 4; }
+
+// Row stride of the long-key schedule's weights, stored [key][row].
+constexpr int kLkLdw = kLkRows + 4;
+
+// Shared memory of the long-key schedule's launch B (launch A uses less):
+// q [kLkRows, ld], the chunk's k [keys, ld] (then its weights [keys,
+// kLkLdw]), v [keys, ld], and the rows' merged max and sum; f32.
+size_t cross_lk_smem_bytes(int dh, int keys) {
+  const size_t ld = lk_ld(dh);
+  return sizeof(float) *
+         ((size_t)kLkRows * ld + (size_t)keys * (ld > kLkLdw ? ld : kLkLdw) +
+          (size_t)keys * ld + 2 * kLkRows);
+}
+
+// Keys per chunk of the long-key schedule: the most, from kLkKeys down to
+// kLkMinKeys, whose shared memory fits; 0 if none does.
+int cross_lk_keys(int dh) {
+  for (int keys = kLkKeys; keys >= kLkMinKeys; keys >>= 1)
+    if (cross_lk_smem_bytes(dh, keys) <= kMaxSmem) return keys;
   return 0;
 }
 
@@ -257,165 +293,468 @@ packed_self_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   }
 }
 
-// Grid (batch, head, query tile); each warp owns whole query rows.
+// Elements of T in 16 bytes: one vector load or store.
 template <typename T>
-__global__ void __launch_bounds__(kCrossWarps * 32)
-cross_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int n,
-                       int m, int d, int dh, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int ldk = dh + 1;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* ks = smem;
-  float* vs = ks + (size_t)m * ldk;
-  float* qw = vs + (size_t)m * dh + (size_t)warp * dh;
-  float* ww = vs + (size_t)m * dh + (size_t)kCrossWarps * dh +
-              (size_t)warp * m;
+constexpr int kVec = 16 / (int)sizeof(T);
 
-  const size_t kv0 = (size_t)b * m * d + (size_t)h * dh;
-  for (int i = threadIdx.x; i < m * dh; i += blockDim.x) {
-    const int r = i / dh;
-    const int c = i - r * dh;
-    ks[r * ldk + c] = to_f32(k[kv0 + (size_t)r * d + c]);
-    vs[i] = to_f32(v[kv0 + (size_t)r * d + c]);
-  }
-  __syncthreads();
-
-  const int rows = kCrossWarps * kCrossRowsPerWarp;
-  const int row_end = min(n, (int)(blockIdx.z + 1) * rows);
-  for (int r = blockIdx.z * rows + warp; r < row_end; r += kCrossWarps) {
-    const size_t o = ((size_t)b * n + r) * d + (size_t)h * dh;
-    for (int c = lane; c < dh; c += 32) qw[c] = to_f32(q[o + c]);
-    __syncwarp();
-    float mx = -INFINITY;
-    for (int c = lane; c < m; c += 32) {
-      const float* kr = ks + (size_t)c * ldk;
-      float acc = 0.f;
-      for (int j = 0; j < dh; ++j) acc = fmaf(qw[j], kr[j], acc);
-      acc *= scale;
-      ww[c] = acc;
-      mx = fmaxf(mx, acc);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < m; c += 32) {
-      const float e = expf(ww[c] - mx);
-      ww[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < m; c += 32) ww[c] = round_to<T>(ww[c] / sum);
-    __syncwarp();
-    for (int c = lane; c < dh; c += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < m; ++j) acc = fmaf(ww[j], vs[(size_t)j * dh + c], acc);
-      out[o + c] = from_f32<T>(acc);
-    }
-    __syncwarp();
+// 16 bytes of T at p (16-byte aligned) as f32, into dst[0, kVec<T>).
+__device__ __forceinline__ void load16(const float* p, float* dst) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  dst[0] = x.x;
+  dst[1] = x.y;
+  dst[2] = x.z;
+  dst[3] = x.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
   }
 }
 
-// K2's tiled schedule for key sets too long for shared memory. Grid (query
-// row block, head, batch); `rows` query rows per block. Pass 1 streams the
-// head's keys in tiles and keeps the rows' scores; one warp per row takes
-// the softmax as the whole-set kernel does (same lanes, same sums) and
-// rounds the weights to T; pass 2 streams the values and accumulates each
-// output in key order, so both schedules give the same bits.
+// src[0, kVec<T>) rounded to T, stored as 16 bytes at p (16-byte aligned).
+__device__ __forceinline__ void store16(float* p, const float* src) {
+  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* src) {
+  uint4 x;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);  // nearest even
+  *reinterpret_cast<uint4*>(p) = x;
+}
+
+// K2's staging: rows [0, rows) of a slice of width dh and row stride
+// `stride` (elements of T) into dst [rows, ld] as f32, zero in columns
+// [dh, width) and in rows [valid, rows). width is a multiple of 8 and ld of
+// 4; with `vec` every row starts 16-byte aligned and dh is a multiple of
+// kVec<T>, and each thread moves 16 bytes at a time.
 template <typename T>
-__global__ void __launch_bounds__(kTiledThreads)
-cross_attention_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+__device__ __forceinline__ void stage_rows(float* dst, int ld,
+                                           const T* __restrict__ src,
+                                           size_t stride, int rows, int valid,
+                                           int dh, int width, bool vec) {
+  if (vec) {
+    constexpr int V = kVec<T>;
+    const int groups = width / V;
+    for (int i = threadIdx.x; i < rows * groups; i += blockDim.x) {
+      const int r = i / groups;
+      const int c = (i - r * groups) * V;
+      float x[V];
+      if (r < valid && c < dh) {
+        load16(src + r * stride + c, x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) x[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(dst + (size_t)r * ld + c + e) =
+            make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * width; i += blockDim.x) {
+      const int r = i / width;
+      const int c = i - r * width;
+      dst[(size_t)r * ld + c] =
+          r < valid && c < dh ? to_f32(src[r * stride + c]) : 0.f;
+    }
+  }
+}
+
+// One row of width dh at p into x[0, W) as f32, zero past dh.
+template <typename T, int W>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int dh,
+                                         bool vec, float (&x)[W]) {
+  if (vec) {
+    constexpr int V = kVec<T>;
+#pragma unroll
+    for (int c = 0; c < W; c += V) {
+      if (c < dh) {
+        load16(p + c, x + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) x[c + e] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c) x[c] = c < dh ? to_f32(p[c]) : 0.f;
+  }
+}
+
+// x[0, dh) rounded to T into the row at p.
+template <typename T, int W>
+__device__ __forceinline__ void store_row(T* __restrict__ p, int dh, bool vec,
+                                          const float (&x)[W]) {
+  if (vec) {
+    constexpr int V = kVec<T>;
+#pragma unroll
+    for (int c = 0; c < W; c += V)
+      if (c < dh) store16(p + c, x + c);
+  } else {
+#pragma unroll
+    for (int c = 0; c < W; ++c)
+      if (c < dh) p[c] = from_f32<T>(x[c]);
+  }
+}
+
+// K2's whole-set schedule. Grid (128-row tile, head, element); thread i of
+// the block owns query row 128 * tile + i. The head's k and v stay in shared
+// memory as [m, W] f32 rows (W = whole_width(dh), zero-padded), read by all
+// lanes of a warp at one address (a broadcast). The thread keeps its q row,
+// the scores of 32 keys and its output row in registers: pass 1 finds the
+// row max, pass 2 the sum of exp(s - max), pass 3 forms the weights (divided
+// by the sum, rounded to T) and the AV product, every sum in key order.
+// With more than 32 keys each pass recomputes a chunk's scores.
+template <typename T, int W>
+__global__ void __launch_bounds__(kWholeThreads)
+cross_attention_whole_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out,
-                             int n, int m, int d, int dh, int rows,
-                             float scale) {
+                             int n, int m, int d, int dh, float scale,
+                             int vec) {
   extern __shared__ float smem[];
-  const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, n - r0);
-  const int ldk = dh + 1;
-  float* ks = smem;                                // [kTiledKeys, dh+1]
-  float* vs = smem;                                // [kTiledKeys, dh], pass 2
-  float* qs = ks + (size_t)kTiledKeys * ldk;       // [rows, dh]
-  float* os = qs + (size_t)rows * dh;              // [rows, dh]
-  float* ws = os + (size_t)rows * dh;              // [rows, m]
-
+  const int b = blockIdx.z;
+  float* ks = smem;                    // [m, W]
+  float* vs = ks + (size_t)m * W;      // [m, W]
   const size_t kv0 = (size_t)b * m * d + (size_t)h * dh;
-  const size_t q0 = ((size_t)b * n + r0) * d + (size_t)h * dh;
-  for (int i = threadIdx.x; i < nr * dh; i += blockDim.x) {
-    const int r = i / dh;
-    const int c = i - r * dh;
-    qs[i] = to_f32(q[q0 + (size_t)r * d + c]);
-    os[i] = 0.f;
-  }
+  stage_rows(ks, W, k + kv0, d, m, m, dh, W, vec);
+  stage_rows(vs, W, v + kv0, d, m, m, dh, W, vec);
+  const int r = blockIdx.x * kWholeThreads + threadIdx.x;
+  const size_t o0 = ((size_t)b * n + r) * d + (size_t)h * dh;
+  float qr[W];
+  if (r < n) load_row<T, W>(q + o0, dh, vec, qr);
+  __syncthreads();
+  if (r >= n) return;
 
-  // pass 1: scores; thread i owns (row r, key j) of the tile
-  for (int t0 = 0; t0 < m; t0 += kTiledKeys) {
-    const int tm = min(kTiledKeys, m - t0);
-    __syncthreads();  // the previous tile is consumed; q is loaded
-    for (int i = threadIdx.x; i < tm * dh; i += blockDim.x) {
-      const int r = i / dh;
-      const int c = i - r * dh;
-      ks[r * ldk + c] = to_f32(k[kv0 + (size_t)(t0 + r) * d + c]);
+  float s[kWholeChunk];
+  // s[i]: the score of key j0 + i, -inf past m
+  auto scores = [&](int j0) {
+#pragma unroll
+    for (int i = 0; i < kWholeChunk; ++i) {
+      float acc = -INFINITY;
+      if (j0 + i < m) {
+        const float4* kr =
+            reinterpret_cast<const float4*>(ks + (size_t)(j0 + i) * W);
+        acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < W / 4; ++c) {
+          const float4 kk = kr[c];
+          acc = fmaf(qr[4 * c], kk.x, acc);
+          acc = fmaf(qr[4 * c + 1], kk.y, acc);
+          acc = fmaf(qr[4 * c + 2], kk.z, acc);
+          acc = fmaf(qr[4 * c + 3], kk.w, acc);
+        }
+        acc *= scale;
+      }
+      s[i] = acc;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr * tm; i += blockDim.x) {
-      const int r = i / tm;
-      const int j = i - r * tm;
-      const float* qr = qs + (size_t)r * dh;
-      const float* kr = ks + (size_t)j * ldk;
-      float acc = 0.f;
-      for (int c = 0; c < dh; ++c) acc = fmaf(qr[c], kr[c], acc);
-      ws[(size_t)r * m + t0 + j] = acc * scale;
+  };
+  const bool one_chunk = m <= kWholeChunk;
+  float mx = -INFINITY;
+  for (int j0 = 0; j0 < m; j0 += kWholeChunk) {
+    scores(j0);
+#pragma unroll
+    for (int i = 0; i < kWholeChunk; ++i) mx = fmaxf(mx, s[i]);
+  }
+  float sum = 0.f;
+  for (int j0 = 0; j0 < m; j0 += kWholeChunk) {
+    if (!one_chunk) scores(j0);
+#pragma unroll
+    for (int i = 0; i < kWholeChunk; ++i) {
+      s[i] = expf(s[i] - mx);  // 0 past m
+      sum += s[i];
     }
   }
-  __syncthreads();  // the scores are complete; the k tile is consumed
+  float o[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) o[c] = 0.f;
+  for (int j0 = 0; j0 < m; j0 += kWholeChunk) {
+    if (!one_chunk) {
+      scores(j0);
+#pragma unroll
+      for (int i = 0; i < kWholeChunk; ++i) s[i] = expf(s[i] - mx);
+    }
+#pragma unroll
+    for (int i = 0; i < kWholeChunk; ++i) {
+      if (j0 + i < m) {
+        const float w = round_to<T>(s[i] / sum);
+        const float4* vr =
+            reinterpret_cast<const float4*>(vs + (size_t)(j0 + i) * W);
+#pragma unroll
+        for (int c = 0; c < W / 4; ++c) {
+          const float4 vv = vr[c];
+          o[4 * c] = fmaf(w, vv.x, o[4 * c]);
+          o[4 * c + 1] = fmaf(w, vv.y, o[4 * c + 1]);
+          o[4 * c + 2] = fmaf(w, vv.z, o[4 * c + 2]);
+          o[4 * c + 3] = fmaf(w, vv.w, o[4 * c + 3]);
+        }
+      }
+    }
+  }
+  store_row<T, W>(out + o0, dh, vec, o);
+}
 
-  // row softmax, one warp per row, as cross_attention_kernel
+// The long-key schedule's scores: warp w's query rows [4w, 4w + 4) of qs
+// against keys lane + 32 i (i < KPL) of ks, each a dot over `width` columns
+// in column order, times scale. Launches A and B run this same code, so B
+// recomputes A's bits.
+template <int KPL>
+__device__ __forceinline__ void lk_scores(const float* qs, const float* ks,
+                                          int ld, int width, float scale,
+                                          float (&s)[4][KPL]) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = warp; r < nr; r += nwarps) {
-    float* s = ws + (size_t)r * m;
+  const float* q0 = qs + (size_t)(4 * warp) * ld;
+  const float* k0 = ks + (size_t)lane * ld;
+  float acc[4][KPL];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) acc[a][i] = 0.f;
+  for (int c = 0; c < width; c += 4) {
+    float4 qv[4], kv[KPL];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      qv[a] = *reinterpret_cast<const float4*>(q0 + (size_t)a * ld + c);
+#pragma unroll
+    for (int i = 0; i < KPL; ++i)
+      kv[i] = *reinterpret_cast<const float4*>(k0 + (size_t)(32 * i) * ld + c);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int i = 0; i < KPL; ++i) {
+        acc[a][i] = fmaf(qv[a].x, kv[i].x, acc[a][i]);
+        acc[a][i] = fmaf(qv[a].y, kv[i].y, acc[a][i]);
+        acc[a][i] = fmaf(qv[a].z, kv[i].z, acc[a][i]);
+        acc[a][i] = fmaf(qv[a].w, kv[i].w, acc[a][i]);
+      }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) s[a][i] = acc[a][i] * scale;
+}
+
+// Launches A and B of the long-key schedule share this grid: x = row tile *
+// chunks + chunk (kLkRows rows, 32 * KPL keys), y = head, z = element.
+struct LkBlock {
+  int chunk, r0, t0, nr, tm, h, b;
+  __device__ LkBlock(int n, int m, int chunks, int keys) {
+    chunk = blockIdx.x % chunks;
+    r0 = (blockIdx.x / chunks) * kLkRows;
+    t0 = chunk * keys;
+    nr = min(kLkRows, n - r0);
+    tm = min(keys, m - t0);
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
+};
+
+// K2's long-key launch A: per query row, the chunk's score max m_c and
+// sum_c exp(s - m_c) into stats [element][head][chunk][n][2].
+template <typename T, int KPL>
+__global__ void __launch_bounds__(kLkThreads)
+cross_attention_lk_stats_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                float* __restrict__ stats, int n, int m,
+                                int d, int dh, int chunks, float scale,
+                                int vec) {
+  extern __shared__ float smem[];
+  constexpr int kKeys = 32 * KPL;
+  const LkBlock blk(n, m, chunks, kKeys);
+  const int ld = lk_ld(dh);
+  float* qs = smem;                          // [kLkRows, ld]
+  float* ks = qs + (size_t)kLkRows * ld;     // [kKeys, ld]
+  const size_t head = (size_t)blk.h * dh;
+  stage_rows(qs, ld, q + ((size_t)blk.b * n + blk.r0) * d + head, d, kLkRows,
+             blk.nr, dh, ld - 4, vec);
+  stage_rows(ks, ld, k + ((size_t)blk.b * m + blk.t0) * d + head, d, kKeys,
+             blk.tm, dh, ld - 4, vec);
+  __syncthreads();
+  float s[4][KPL];
+  lk_scores<KPL>(qs, ks, ld, ld - 4, scale, s);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* st = stats + (((size_t)blk.b * gridDim.y + blk.h) * chunks +
+                       blk.chunk) * n * 2;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
     float mx = -INFINITY;
-    for (int c = lane; c < m; c += 32) mx = fmaxf(mx, s[c]);
+#pragma unroll
+    for (int i = 0; i < KPL; ++i)
+      if (lane + 32 * i < blk.tm) mx = fmaxf(mx, s[a][i]);
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int c = lane; c < m; c += 32) {
-      const float e = expf(s[c] - mx);
-      s[c] = e;
-      sum += e;
-    }
+#pragma unroll
+    for (int i = 0; i < KPL; ++i)
+      if (lane + 32 * i < blk.tm) sum += expf(s[a][i] - mx);
     sum = warp_sum(sum);
-    for (int c = lane; c < m; c += 32) s[c] = round_to<T>(s[c] / sum);
+    const int r = 4 * warp + a;
+    if (lane == 0 && r < blk.nr) {
+      st[(size_t)(blk.r0 + r) * 2] = mx;
+      st[(size_t)(blk.r0 + r) * 2 + 1] = sum;
+    }
   }
+}
 
-  // pass 2: AV; thread i owns output (row r, channel c) across the tiles
-  for (int t0 = 0; t0 < m; t0 += kTiledKeys) {
-    const int tm = min(kTiledKeys, m - t0);
-    __syncthreads();  // the weights are final; the tile buffer is free
-    for (int i = threadIdx.x; i < tm * dh; i += blockDim.x) {
-      const int r = i / dh;
-      const int c = i - r * dh;
-      vs[i] = to_f32(v[kv0 + (size_t)(t0 + r) * d + c]);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr * dh; i += blockDim.x) {
-      const int r = i / dh;
-      const int c = i - r * dh;
-      const float* w = ws + (size_t)r * m + t0;
-      float acc = os[i];
-      for (int j = 0; j < tm; ++j) acc = fmaf(w[j], vs[(size_t)j * dh + c], acc);
-      os[i] = acc;
+// The AV sums of a 4-row x 4-channel output tile (rows 4 rq.., channels
+// 4 cq..) over keys [j0, j1): weights ws [key][kLkLdw], values vs [key][ld].
+__device__ __forceinline__ void lk_av_tile(const float* ws, const float* vs,
+                                           int ld, int rq, int cq, int j0,
+                                           int j1, float (&acc)[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const float4 w =
+        *reinterpret_cast<const float4*>(ws + (size_t)j * kLkLdw + 4 * rq);
+    const float4 x =
+        *reinterpret_cast<const float4*>(vs + (size_t)j * ld + 4 * cq);
+    const float wa[4] = {w.x, w.y, w.z, w.w};
+    const float xa[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][e] = fmaf(wa[a], xa[e], acc[a][e]);
+  }
+}
+
+// K2's long-key launch B: merges the chunks' row statistics in chunk order,
+// recomputes the chunk's scores, forms the weights exp(s - m) / l rounded to
+// T and writes the chunk's f32 partial AV sums to part [element][chunk][n]
+// [d]. Each output tile's keys are split among `splits` threads whose sums
+// are added in split order.
+template <typename T, int KPL>
+__global__ void __launch_bounds__(kLkThreads)
+cross_attention_lk_av_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const float* __restrict__ stats,
+                             float* __restrict__ part, int n, int m, int d,
+                             int dh, int chunks, float scale, int vec) {
+  extern __shared__ float smem[];
+  constexpr int kKeys = 32 * KPL;
+  const LkBlock blk(n, m, chunks, kKeys);
+  const int ld = lk_ld(dh);
+  const int ldw = ld > kLkLdw ? ld : kLkLdw;
+  float* qs = smem;                          // [kLkRows, ld]
+  float* ks = qs + (size_t)kLkRows * ld;     // [kKeys, ld], then weights
+  float* vs = ks + (size_t)kKeys * ldw;      // [kKeys, ld]
+  float* rmax = vs + (size_t)kKeys * ld;     // [kLkRows]
+  float* rsum = rmax + kLkRows;              // [kLkRows]
+
+  if ((int)threadIdx.x < blk.nr) {
+    const float* st = stats + ((size_t)blk.b * gridDim.y + blk.h) * chunks *
+                                  n * 2 + (size_t)(blk.r0 + threadIdx.x) * 2;
+    const size_t step = (size_t)n * 2;
+    float mx = -INFINITY;
+    for (int c = 0; c < chunks; ++c) mx = fmaxf(mx, st[c * step]);
+    float sum = 0.f;
+    for (int c = 0; c < chunks; ++c)
+      sum += st[c * step + 1] * expf(st[c * step] - mx);
+    rmax[threadIdx.x] = mx;
+    rsum[threadIdx.x] = sum;
+  }
+  const size_t head = (size_t)blk.h * dh;
+  const size_t kv0 = ((size_t)blk.b * m + blk.t0) * d + head;
+  stage_rows(qs, ld, q + ((size_t)blk.b * n + blk.r0) * d + head, d, kLkRows,
+             blk.nr, dh, ld - 4, vec);
+  stage_rows(ks, ld, k + kv0, d, kKeys, blk.tm, dh, ld - 4, vec);
+  stage_rows(vs, ld, v + kv0, d, kKeys, blk.tm, dh, ld - 4, vec);
+  __syncthreads();
+  float s[4][KPL];
+  lk_scores<KPL>(qs, ks, ld, ld - 4, scale, s);
+  __syncthreads();  // every warp is done with k: the weights take its place
+
+  float* ws = ks;  // [kKeys, kLkLdw], stored key by key
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int r = 4 * warp + a;
+    const float mx = r < blk.nr ? rmax[r] : 0.f;
+    const float sum = r < blk.nr ? rsum[r] : 1.f;
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int j = lane + 32 * i;
+      ws[(size_t)j * kLkLdw + r] =
+          r < blk.nr && j < blk.tm ? round_to<T>(expf(s[a][i] - mx) / sum)
+                                   : 0.f;
     }
   }
-  // each thread writes the sums it accumulated itself
-  for (int i = threadIdx.x; i < nr * dh; i += blockDim.x) {
+  __syncthreads();
+
+  const int quads = (dh + 3) / 4;
+  const int tiles = kLkRows / 4 * quads;
+  float* dp = part + ((size_t)blk.b * chunks + blk.chunk) * n * d +
+              (size_t)blk.r0 * d + head;
+  float acc[4][4];
+  if (tiles * 2 > kLkThreads) {  // one thread per tile, all the keys
+    for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+      const int rq = t / quads;
+      const int cq = t - rq * quads;
+      lk_av_tile(ws, vs, ld, rq, cq, 0, blk.tm, acc);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * rq + a < blk.nr && 4 * cq + e < dh)
+            dp[(size_t)(4 * rq + a) * d + 4 * cq + e] = acc[a][e];
+    }
+    return;
+  }
+  const int splits = kLkThreads / tiles;
+  const int split = threadIdx.x / tiles;
+  const int t = threadIdx.x - split * tiles;
+  const int rq = t / quads;
+  const int cq = t - rq * quads;
+  if (split < splits)
+    lk_av_tile(ws, vs, ld, rq, cq, split * blk.tm / splits,
+               (split + 1) * blk.tm / splits, acc);
+  __syncthreads();  // the weights and values are consumed
+  float* red = ks;  // [splits][kLkRows][4 * quads], over ws and vs
+  const int ldr = 4 * quads;
+  if (split < splits)
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[((size_t)split * kLkRows + 4 * rq + a) * ldr + 4 * cq + e] =
+            acc[a][e];
+  __syncthreads();
+  for (int i = threadIdx.x; i < blk.nr * dh; i += blockDim.x) {
     const int r = i / dh;
     const int c = i - r * dh;
-    out[q0 + (size_t)r * d + c] = from_f32<T>(os[i]);
+    float sum = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      sum += red[((size_t)sp * kLkRows + r) * ldr + c];
+    dp[(size_t)r * d + c] = sum;
+  }
+}
+
+// K2's long-key launch C: out = the sum of the chunks' partials ([element]
+// [chunk][nd] f32) in chunk order, in T.
+template <typename T>
+__global__ void __launch_bounds__(kLkThreads)
+cross_attention_lk_reduce_kernel(const float* __restrict__ part,
+                                 T* __restrict__ out, int b, int chunks,
+                                 size_t nd) {
+  const size_t total = (size_t)b * nd;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t bi = i / nd;
+    const float* p = part + bi * chunks * nd + (i - bi * nd);
+    float s = 0.f;
+    for (int c = 0; c < chunks; ++c) s += p[(size_t)c * nd];
+    out[i] = from_f32<T>(s);
   }
 }
 
@@ -1007,47 +1346,109 @@ cudaError_t launch_self_bwd(const void* qkv, const void* g, void* dqkv, int b,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_cross_tiled(const void* q, const void* k, const void* v,
-                               void* out, int b, int n, int m, int d, int h,
-                               float scale, cudaStream_t stream) {
+// Lets `kernel` take `smem` bytes of dynamic shared memory.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Whether K2 takes the whole-set schedule for m keys of width dh.
+bool cross_whole(int m, int dh) {
+  return whole_width(dh) > 0 && cross_whole_smem_bytes(m, dh) <= kMaxSmem;
+}
+
+template <typename T, int W>
+cudaError_t launch_cross_whole(const T* q, const T* k, const T* v, T* out,
+                               int b, int n, int m, int d, int h, float scale,
+                               int vec, cudaStream_t stream) {
+  const size_t smem = cross_whole_smem_bytes(m, d / h);
+  cudaError_t e = allow_smem(cross_attention_whole_kernel<T, W>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + kWholeThreads - 1) / kWholeThreads, h, b);
+  cross_attention_whole_kernel<T, W><<<grid, kWholeThreads, smem, stream>>>(
+      q, k, v, out, n, m, d, d / h, scale, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int KPL>
+cudaError_t launch_cross_lk(const T* q, const T* k, const T* v, T* out,
+                            float* work, int b, int n, int m, int d, int h,
+                            float scale, int vec, cudaStream_t stream) {
   const int dh = d / h;
-  const int rows = cross_tiled_rows(m, dh);
-  const size_t smem = cross_tiled_smem_bytes(m, dh, rows);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cross_attention_tiled_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((n + rows - 1) / rows, h, b);
-  cross_attention_tiled_kernel<T><<<grid, kTiledThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n, m, d, dh, rows,
-      scale);
+  constexpr int keys = 32 * KPL;
+  const int chunks = (m + keys - 1) / keys;
+  const int tiles = (n + kLkRows - 1) / kLkRows;
+  const size_t smem_a = sizeof(float) * (size_t)(kLkRows + keys) * lk_ld(dh);
+  const size_t smem_b = cross_lk_smem_bytes(dh, keys);
+  cudaError_t e = allow_smem(cross_attention_lk_stats_kernel<T, KPL>, smem_a);
+  if (e == cudaSuccess)
+    e = allow_smem(cross_attention_lk_av_kernel<T, KPL>, smem_b);
+  if (e != cudaSuccess) return e;
+  float* stats = work;                                  // [b][h][chunk][n][2]
+  float* part = work + (size_t)b * h * chunks * n * 2;  // [b][chunk][n][d]
+  const dim3 grid((unsigned)chunks * tiles, h, b);
+  cross_attention_lk_stats_kernel<T, KPL>
+      <<<grid, kLkThreads, smem_a, stream>>>(q, k, stats, n, m, d, dh,
+                                             chunks, scale, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  cross_attention_lk_av_kernel<T, KPL><<<grid, kLkThreads, smem_b, stream>>>(
+      q, k, v, stats, part, n, m, d, dh, chunks, scale, vec);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const size_t blocks = ((size_t)b * n * d + kLkThreads - 1) / kLkThreads;
+  cross_attention_lk_reduce_kernel<T>
+      <<<(unsigned)(blocks < 65535 ? blocks : 65535), kLkThreads, 0,
+         stream>>>(part, out, b, chunks, (size_t)n * d);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_cross(const void* q, const void* k, const void* v,
-                         void* out, int b, int n, int m, int d, int h,
-                         float scale, cudaStream_t stream) {
+                         void* out, void* work, int b, int n, int m, int d,
+                         int h, float scale, cudaStream_t stream) {
   const int dh = d / h;
-  if (cross_smem_bytes(m, dh) > kMaxSmem)
-    return launch_cross_tiled<T>(q, k, v, out, b, n, m, d, h, scale, stream);
-  const size_t smem = cross_smem_bytes(m, dh);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cross_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  // 16-byte loads and stores where every row of a head starts aligned
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) |
+                        reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) |
+                        reinterpret_cast<uintptr_t>(out);
+  const int vec = any % 16 == 0 && d % kVec<T> == 0 && dh % kVec<T> == 0;
+  if (cross_whole(m, dh)) {
+    switch (whole_width(dh)) {
+      case 16:
+        return launch_cross_whole<T, 16>(qt, kt, vt, ot, b, n, m, d, h, scale,
+                                         vec, stream);
+      case 32:
+        return launch_cross_whole<T, 32>(qt, kt, vt, ot, b, n, m, d, h, scale,
+                                         vec, stream);
+      case 48:
+        return launch_cross_whole<T, 48>(qt, kt, vt, ot, b, n, m, d, h, scale,
+                                         vec, stream);
+      default:
+        return launch_cross_whole<T, 64>(qt, kt, vt, ot, b, n, m, d, h, scale,
+                                         vec, stream);
+    }
   }
-  const int rows = kCrossWarps * kCrossRowsPerWarp;
-  const dim3 grid(b, h, (n + rows - 1) / rows);
-  cross_attention_kernel<T><<<grid, kCrossWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n, m, d, dh, scale);
-  return cudaGetLastError();
+  float* wt = static_cast<float*>(work);
+  switch (cross_lk_keys(dh)) {
+    case 128:
+      return launch_cross_lk<T, 4>(qt, kt, vt, ot, wt, b, n, m, d, h, scale,
+                                   vec, stream);
+    case 64:
+      return launch_cross_lk<T, 2>(qt, kt, vt, ot, wt, b, n, m, d, h, scale,
+                                   vec, stream);
+    default:
+      return launch_cross_lk<T, 1>(qt, kt, vt, ot, wt, b, n, m, d, h, scale,
+                                   vec, stream);
+  }
 }
 
 template <typename T>
@@ -1172,21 +1573,28 @@ int ldt_packed_self_attention_bwd(const void* qkv, const void* g, void* dqkv,
   return (int)cudaErrorInvalidValue;
 }
 
+// K2. work: f32 scratch for the long-key schedule (unused by the whole-set
+// one) of b * chunks * (2 * h * n + n * d) values, chunks = ceil(m /
+// cross_lk_keys(d / h)). Every element of out is written.
 int ldt_cross_attention(const void* q, const void* k, const void* v,
-                        void* out, int b, int n, int m, int d, int h,
-                        float scale, int dtype, void* stream) {
-  if (bad_shape(b, n, d, h) || m <= 0) return (int)cudaErrorInvalidValue;
-  const bool whole = cross_smem_bytes(m, d / h) <= kMaxSmem;
-  if (whole ? (n + kCrossWarps * kCrossRowsPerWarp - 1) /
-                      (kCrossWarps * kCrossRowsPerWarp) > 65535
-            : cross_tiled_rows(m, d / h) == 0 || b > 65535)
+                        void* out, void* work, int b, int n, int m, int d,
+                        int h, float scale, int dtype, void* stream) {
+  if (bad_shape(b, n, d, h) || m <= 0 || b > 65535)
     return (int)cudaErrorInvalidValue;
+  const int dh = d / h;
+  if (!cross_whole(m, dh)) {
+    const int keys = cross_lk_keys(dh);
+    if (keys == 0 || (long long)((m + keys - 1) / keys) *
+                             ((n + kLkRows - 1) / kLkRows) > 2147483647LL)
+      return (int)cudaErrorInvalidValue;
+  }
   if (b == 0 || n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
-    return (int)launch_cross<float>(q, k, v, out, b, n, m, d, h, scale, s);
+    return (int)launch_cross<float>(q, k, v, out, work, b, n, m, d, h, scale,
+                                    s);
   if (dtype == kDtypeBF16)
-    return (int)launch_cross<__nv_bfloat16>(q, k, v, out, b, n, m, d, h,
+    return (int)launch_cross<__nv_bfloat16>(q, k, v, out, work, b, n, m, d, h,
                                             scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -252,11 +252,12 @@ def compute_all_metrics(sample_pcs, ref_pcs, batch_size: int,
 
 def compute_MMD_metrics(sample_pcs, ref_pcs, batch_size: int,
                         verbose: bool = True, *, device="cuda",
+                        emd_otf: bool = False,
                         **_ignored) -> Dict[str, float]:
-    """MMD/COV only."""
+    """MMD/COV only. `emd_otf` as in `compute_all_metrics`."""
     results: Dict[str, float] = {}
     m_rs_cd, m_rs_emd = pairwise_EMD_CD(ref_pcs, sample_pcs, batch_size,
-                                        device=device)
+                                        device=device, emd_otf=emd_otf)
     results.update({f"{k}-CD": v for k, v in lgan_mmd_cov(m_rs_cd.T).items()})
     results.update({f"{k}-EMD": v
                     for k, v in lgan_mmd_cov(m_rs_emd.T).items()})

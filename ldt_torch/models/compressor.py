@@ -14,9 +14,9 @@ latents.
 batch's statistics and `forward` returns their updated running statistics,
 as the JAX module's `train=True, mutable=["batch_stats"]`; otherwise they
 take their running statistics (the frozen Compressor of stage-2 training,
-sampling). Dropout is the identity: every shipped config sets its rate to 0.
-The random seed subset, the mixture-of-Gaussians seeds, `pre_group`, the MLP
-position embedding and class conditioning are later work and raise here.
+sampling). Dropout, the random seed subset, the mixture-of-Gaussians seeds,
+`pre_group`, the MLP position embedding and class conditioning are later
+work and raise here (every shipped config sets the dropout rates to 0).
 """
 
 from __future__ import annotations
@@ -267,7 +267,10 @@ class Compressor(nn.Module):
                             "Compressor"),
                            (cfg.pre_group, "pre_group"),
                            (cfg.pos_embedding == "mlp",
-                            "the MLP position embedding")):
+                            "the MLP position embedding"),
+                           (cfg.encoder_dropout_p or cfg.decoder_dropout_p,
+                            "dropout (encoder_dropout_p or decoder_dropout_p "
+                            "> 0)")):
             if flag:
                 raise NotImplementedError(f"{what} is not ported yet")
         dev = resolve_device(device)

@@ -37,7 +37,8 @@ class Score(nn.Module):
         for flag, what in ((cfg.unet, "the UNet variant"),
                            (cfg.condition, "the conditional Score"),
                            (cfg.num_categorys > 1, "label conditioning"),
-                           (not cfg.AdaLN, "the AdaLN=False block")):
+                           (not cfg.AdaLN, "the AdaLN=False block"),
+                           (cfg.dropout, "dropout (score.dropout > 0)")):
             if flag:
                 raise NotImplementedError(f"{what} is not ported yet")
         dev = resolve_device(device)

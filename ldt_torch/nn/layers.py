@@ -7,8 +7,9 @@ epsilon 1e-6 and returns the module dtype, GELU is the tanh approximation
 (`jax.nn.gelu`'s default), and residual sums follow PyTorch's type promotion,
 which is JAX's for these dtypes (bf16 + f32 -> f32).
 
-Dropout is the identity here, as in the JAX package's deterministic calls
-(every shipped config sets its rate to 0). With grad mode on, self-attention
+Dropout is not ported: `Score` and `Compressor` refuse a nonzero rate, which
+the JAX package applies in training (every shipped config sets it to 0).
+With grad mode on, self-attention
 differentiates through `ops.attention.PackedSelfAttention` (K1 forward, K3
 backward) and cross-attention through `ops.attention.CrossAttention` (K2
 forward, K4 backward). `BatchNorm` normalizes with its running statistics,

@@ -39,17 +39,24 @@ decoded set (5).
     schedule `_fwd_kernel_grouped` (the same function for N == M).
   * Bound on an H100: device-memory bytes. At the decode shape (B=64,
     N=2048, M=32, D=128, 4 heads, bf16) q in and the output out are 33.5 MB
-    each; k and v are 1 MB together. At the posterior shape (N=32, M=2048,
-    f32) k and v are 134 MB.
-  * Design: where a head's k_h and v_h fit in shared memory (M=32), grid
-    (batch, head, 64-query tile), each block keeps them whole and each warp
-    streams whole query rows through them, so q is read once and every
-    output element is written once. Longer key sets (M=2048) stream through
-    shared memory in 256-key tiles, twice, for blocks of up to 8 query rows:
-    the first pass keeps the rows' scores in shared memory for the f32
-    softmax, the second accumulates AV in key order. Both schedules give the
-    same bits; the second rounds the weights before AV as the TPU kernel
-    does, which an online-softmax rescale would not.
+    each, k and v 1 MB together (0.020 ms), and the 1.07 G f32 FMAs take
+    about as long (0.032 ms at 67 TFLOP/s). At the posterior shape (N=32,
+    M=2048, f32) k and v are 134 MB.
+  * Design: two schedules (`cross_schedule`), f32 on the CUDA cores.
+    Whole-set, where dh <= 64 and a head's k_h and v_h fit in shared memory
+    (M=32): grid (128-row tile, head, batch), one thread per query row
+    with its q row, 32 scores and its output row in registers; k and v in
+    shared memory are read by all lanes at one address (a broadcast), so
+    one 16-byte shared load feeds 4 FMAs of 32 rows.
+    Long-key (M=2048): the keys split into chunks of up to 128 (grid:
+    chunk x 32-row tile, head, batch), three CUDA launches: each chunk's
+    row max and exp-sum; the merge of those in chunk order, the chunk's
+    rounded weights and its f32 partial AV product; the partials' sum in
+    chunk order. k and v are read once per 32 query rows. The weights are
+    rounded before AV as the TPU kernel does, which an online-softmax
+    rescale would not. The schedules round the row sum differently (a few
+    f32 ulps); each repeats itself bit for bit. The launches of one call
+    count as one in `.launches`.
 
 K4 `cross_attention_bwd(q, k, v, g, num_heads)` — the backward of K2: dq
 [B, N, D], dk and dv [B, M, D] from the output's gradient g [B, N, D] (24
@@ -118,10 +125,18 @@ from ldt_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Most dynamic shared memory a block may use on sm_90 (bytes).
 SMEM_LIMIT = 232448
-# Warps per K2 block (kCrossWarps in csrc/attention.cu).
-_CROSS_WARPS = 4
-# Keys per tile of K2's tiled schedule (kTiledKeys in csrc/attention.cu).
-_TILED_KEYS = 256
+# K2's schedules (csrc/attention.cu): the whole-set schedule's threads per
+# block (kWholeThreads), widest head (kWholeMaxDh) and keys per register
+# chunk (kWholeChunk); the long-key schedule's threads (kLkThreads) and rows
+# (kLkRows) per block and its most and fewest keys per chunk (kLkKeys,
+# kLkMinKeys).
+_WHOLE_THREADS = 128
+_WHOLE_MAX_DH = 64
+_WHOLE_CHUNK = 32
+_LK_THREADS = 256
+_LK_ROWS = 32
+_LK_KEYS = 128
+_LK_MIN_KEYS = 32
 # Keys per chunk of K4's long-key schedule (kBwdKeys in csrc/attention.cu),
 # and the most query rows per block of its long-query schedule.
 _BWD_KEYS = 64
@@ -134,24 +149,57 @@ def self_smem_bytes(n: int, dh: int) -> int:
     return 4 * (n * dh + n * (dh + 1) + n * dh + n * n)
 
 
-def cross_smem_bytes(m: int, dh: int) -> int:
-    """K2's shared memory: k (stride dh+1), v, and per warp a query row and
-    its m weights, f32."""
-    return 4 * (m * (dh + 1) + m * dh + _CROSS_WARPS * (dh + m))
+def whole_width(dh: int) -> int:
+    """The register width (16, 32, 48 or 64) in which K2's whole-set
+    schedule keeps a head of width dh, zero-padded; 0 past 64."""
+    return 0 if dh > _WHOLE_MAX_DH else -(-dh // 16) * 16
 
 
-def cross_tiled_smem_bytes(m: int, dh: int, rows: int) -> int:
-    """K2's tiled schedule with `rows` query rows per block: one tile (stride
-    dh+1; k in the first pass, v in the second), the rows' q and AV sums,
-    and their m weights, f32."""
-    return 4 * (_TILED_KEYS * (dh + 1) + 2 * rows * dh + rows * m)
+def cross_whole_smem_bytes(m: int, dh: int) -> int:
+    """K2's whole-set shared memory: k and v [m, whole_width(dh)], f32."""
+    return 4 * 2 * m * whole_width(dh)
 
 
-def cross_fits(m: int, dh: int) -> bool:
-    """Whether K2 takes m keys of width dh: whole in shared memory, or one
-    query row's scores beside a tile."""
-    return (cross_smem_bytes(m, dh) <= SMEM_LIMIT
-            or cross_tiled_smem_bytes(m, dh, 1) <= SMEM_LIMIT)
+def lk_ld(dh: int) -> int:
+    """Row stride (floats) of the long-key schedule's q, k and v in shared
+    memory: dh padded to a multiple of 8, plus 4."""
+    return -(-dh // 8) * 8 + 4
+
+
+def cross_lk_smem_bytes(dh: int, keys: int) -> int:
+    """K2's long-key shared memory (its second launch, the larger): q rows,
+    the chunk's k (then its weights, [keys, rows + 4]) and v, and two
+    scalars per row, f32."""
+    ld = lk_ld(dh)
+    return 4 * (_LK_ROWS * ld + keys * max(ld, _LK_ROWS + 4) + keys * ld
+                + 2 * _LK_ROWS)
+
+
+def cross_lk_keys(dh: int) -> int:
+    """Keys per chunk of K2's long-key schedule: the most, from 128 down to
+    32, whose shared memory fits; 0 if none does."""
+    keys = _LK_KEYS
+    while keys >= _LK_MIN_KEYS:
+        if cross_lk_smem_bytes(dh, keys) <= SMEM_LIMIT:
+            return keys
+        keys //= 2
+    return 0
+
+
+def cross_schedule(n: int, m: int, dh: int) -> Optional[str]:
+    """K2's schedule for n queries over m keys of width dh: "whole" where
+    dh <= 64 and a head's k and v fit in shared memory, else "long_key",
+    or None where neither fits (n does not decide it)."""
+    if whole_width(dh) and cross_whole_smem_bytes(m, dh) <= SMEM_LIMIT:
+        return "whole"
+    return "long_key" if cross_lk_keys(dh) else None
+
+
+def cross_lk_workspace(b: int, n: int, m: int, d: int, num_heads: int) -> int:
+    """f32 values of the long-key schedule's scratch: per element and chunk,
+    each row's max and exp-sum per head, and the partial output [n, d]."""
+    chunks = -(-m // cross_lk_keys(d // num_heads))
+    return b * chunks * (2 * num_heads * n + n * d)
 
 
 def self_bwd_smem_bytes(n: int, dh: int) -> int:
@@ -348,7 +396,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ldt_packed_self_attention.argtypes = [p, p, i, i, i, i, f, i, p]
     lib.ldt_packed_self_attention.restype = i
-    lib.ldt_cross_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
+    lib.ldt_cross_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
+                                        p]
     lib.ldt_cross_attention.restype = i
     lib.ldt_packed_self_attention_bwd.argtypes = [p, p, p, i, i, i, i, f, i,
                                                   p]
@@ -454,32 +503,39 @@ def _check_cross(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int) -> torch.Tensor:
-    """K2: attention of q [B, N, D] over k, v [B, M, D] -> [B, N, D]."""
+    """K2: attention of q [B, N, D] over k, v [B, M, D] -> [B, N, D]. One
+    call is one count in `.launches` (three CUDA launches on the long-key
+    schedule, whose calls `.tiled_launches` counts too)."""
     name = "cross_attention"
     b, n, m, d, dh = _check_cross(name, q, k, v, num_heads)
-    if not cross_fits(m, dh):
-        raise ValueError(f"{name}: M={m}, dh={dh} need "
-                         f"{cross_tiled_smem_bytes(m, dh, 1)} B of shared "
-                         f"memory for one query row, more than the "
-                         f"{SMEM_LIMIT} B a block may use")
+    schedule = cross_schedule(n, m, dh)
+    if schedule is None:
+        raise ValueError(f"{name}: dh={dh} needs "
+                         f"{cross_lk_smem_bytes(dh, _LK_MIN_KEYS)} B of "
+                         f"shared memory for a chunk of {_LK_MIN_KEYS} keys, "
+                         f"more than the {SMEM_LIMIT} B a block may use")
     _check_no_grad(name, (q, k, v))
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads)
     out = torch.empty_like(q)
+    work = (torch.empty(cross_lk_workspace(b, n, m, d, num_heads),
+                        dtype=torch.float32, device=q.device)
+            if schedule == "long_key" else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().ldt_cross_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
-            m, d, num_heads, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), b, n, m, d,
+            num_heads, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, name)
     cross_attention.launches += 1
-    if cross_smem_bytes(m, dh) > SMEM_LIMIT:
+    if schedule == "long_key":
         cross_attention.tiled_launches += 1
     return out
 
 
 cross_attention.launches = 0
-# the launches (counted in `launches` too) that took the tiled schedule
+# the calls (counted in `launches` too) that took the long-key schedule
 cross_attention.tiled_launches = 0
 
 

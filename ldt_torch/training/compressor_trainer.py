@@ -73,7 +73,8 @@ class Trainer(BaseTrainer):
         self.kl_weight = cfg.opt.kl_weight
         self.tx = make_optimizer(cfg.opt.beta1, cfg.opt.beta2,
                                  cfg.opt.weight_decay,
-                                 cfg.opt.grad_norm_clip_value)
+                                 cfg.opt.grad_norm_clip_value,
+                                 getattr(cfg.opt, "moment_dtype", "float32"))
         self.model: Optional[Compressor] = None
         self.state: Optional[TrainState] = None
 

@@ -96,7 +96,8 @@ class Trainer(BaseTrainer):
             self.device)
         self.tx = make_optimizer(cfg.opt.beta1, cfg.opt.beta2,
                                  cfg.opt.weight_decay,
-                                 cfg.opt.grad_norm_clip_value)
+                                 cfg.opt.grad_norm_clip_value,
+                                 getattr(cfg.opt, "moment_dtype", "float32"))
         self.ema_decay = cfg.opt.ema_decay
         self.score: Optional[Score] = None
         self.compressor: Optional[Compressor] = None

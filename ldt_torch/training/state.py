@@ -128,8 +128,15 @@ class Optimizer:
 
 def make_optimizer(beta1: float = 0.9, beta2: float = 0.999,
                    weight_decay: float = 0.0,
-                   grad_clip: Optional[float] = 1.0) -> Optimizer:
-    """The JAX package's `make_optimizer` with f32 moments."""
+                   grad_clip: Optional[float] = 1.0,
+                   moment_dtype: str = "float32") -> Optimizer:
+    """The JAX package's `make_optimizer` with f32 moments; its bf16
+    moments (`moment_dtype="bfloat16"`, `scale_by_adam_q`) are not ported
+    and raise."""
+    if str(moment_dtype) != "float32":
+        raise NotImplementedError(
+            f"Adam moments in {moment_dtype} (opt.moment_dtype) are not "
+            "ported yet: only float32")
     return Optimizer(beta1, beta2, weight_decay, grad_clip)
 
 

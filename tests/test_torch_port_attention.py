@@ -112,7 +112,7 @@ def _bad_cross_inputs():
         "heads_do_not_divide": (ValueError, (q, kv, kv), 3),
         "non_contiguous": (ValueError, (torch.zeros(2, 16, 8).transpose(1, 2),
                                         kv, kv), 2),
-        # one query row's scores beside a tile of keys 32768 wide
+        # a chunk of 32 keys 32768 wide
         "beyond_shared_memory": (ValueError, (torch.zeros(1, 8, 32768),
                                               torch.zeros(1, 2, 32768),
                                               torch.zeros(1, 2, 32768)), 1),
@@ -128,13 +128,14 @@ def test_cross_attention_rejects(case):
 
 def test_shared_memory_bounds_admit_the_main_path_shapes():
     assert ops.self_smem_bytes(32, 64) <= 48 * 1024
-    assert ops.cross_smem_bytes(32, 32) <= 48 * 1024
-    # K2 takes other M up to its bound (the conditional Score's
+    assert ops.cross_whole_smem_bytes(32, 32) <= 48 * 1024
+    # K2 keeps other M whole up to its bound (the conditional Score's
     # cross-attention will give it other key counts)
-    assert ops.cross_smem_bytes(512, 32) <= ops.SMEM_LIMIT
-    # the posterior's 2048 keys stream through the tiled schedule, 8 query
-    # rows per block; K3 at the DiT's shape
-    assert ops.cross_smem_bytes(2048, 32) > ops.SMEM_LIMIT
-    assert ops.cross_tiled_smem_bytes(2048, 32, 8) <= ops.SMEM_LIMIT
-    assert ops.cross_fits(2048, 32) and ops.cross_fits(40000, 32)
+    assert ops.cross_whole_smem_bytes(512, 32) <= ops.SMEM_LIMIT
+    # the posterior's 2048 keys take the long-key schedule in chunks of
+    # 128; K3 at the DiT's shape
+    assert ops.cross_whole_smem_bytes(2048, 32) > ops.SMEM_LIMIT
+    assert ops.cross_lk_smem_bytes(32, 128) <= 48 * 1024
+    assert ops.cross_schedule(32, 2048, 32) == "long_key"
+    assert ops.cross_schedule(32, 40000, 32) == "long_key"
     assert ops.self_bwd_smem_bytes(32, 64) <= 48 * 1024

@@ -230,7 +230,7 @@ def test_packed_self_attention_bwd_kernel(card, b, n, h, dh, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,m,d,h", [(4, 32, 2048, 128, 4),   # posterior
                                        (2, 45, 3000, 96, 2),    # ragged
-                                       (1, 5, 20000, 64, 1)])   # 2 rows/block
+                                       (1, 5, 20000, 64, 1)])   # 157 chunks
 def test_cross_attention_tiled_kernel(card, b, n, m, d, h, dtype):
     q = _randn(card, b, n, d, dtype=dtype)
     k = _randn(card, b, m, d, dtype=dtype)
@@ -246,19 +246,74 @@ def test_cross_attention_tiled_kernel(card, b, n, m, d, h, dtype):
 
 
 def test_k2_takes_the_tiled_schedule_past_its_bound(card):
-    """At M=512 K2 keeps a head's k and v whole at dh=32 and streams them
-    at dh=64; both agree with the twin."""
+    """At M=512 K2 keeps a head's k and v whole at dh=32 and takes the
+    long-key schedule at dh=64; both agree with the twin."""
     q = _randn(card, 2, 40, 64, dtype=torch.float32)
     k = _randn(card, 2, 512, 64, dtype=torch.float32)
     v = _randn(card, 2, 512, 64, dtype=torch.float32)
-    assert ops.cross_smem_bytes(512, 32) <= ops.SMEM_LIMIT
-    assert ops.cross_smem_bytes(512, 64) > ops.SMEM_LIMIT
+    assert ops.cross_whole_smem_bytes(512, 32) <= ops.SMEM_LIMIT
+    assert ops.cross_whole_smem_bytes(512, 64) > ops.SMEM_LIMIT
     whole = ops.cross_attention(q, k, v, 2)
     tiled_before = ops.cross_attention.tiled_launches
     tiled = ops.cross_attention(q, k, v, 1)
     assert ops.cross_attention.tiled_launches == tiled_before + 1
     _assert_within(whole, ops.attention_plain(q, k, v, 2), TOL[torch.float32])
     _assert_within(tiled, ops.attention_plain(q, k, v, 1), TOL[torch.float32])
+
+
+# K2's chunk and tile edges, (b, n, m, d, h): the whole-set schedule's
+# 32-key register chunks (M = 31, 32, 33) and 128-row tiles (N = 129, 257)
+# at dh 16, 32, 48, 64; the long-key schedule's 128-key chunks (M = 127,
+# 128, 129 at dh = 96; 2047, 2048, 2049 at dh = 32, 16, 48), its 32-row
+# tiles (N = 31, 33, 65), 64- and 32-key chunks (dh = 256, 400), and dh = 20
+# (bf16 rows not a multiple of 16 bytes: element loads)
+K2_EDGES = [(2, 129, 31, 64, 2), (2, 129, 32, 32, 2), (2, 129, 33, 96, 2),
+            (2, 257, 33, 64, 1), (2, 50, 70, 60, 3),
+            (1, 40, 127, 96, 1), (1, 40, 128, 96, 1), (1, 40, 129, 96, 1),
+            (2, 33, 2047, 64, 2), (2, 31, 2048, 32, 2), (2, 65, 2049, 96, 2),
+            (2, 32, 1000, 64, 1), (2, 50, 1500, 60, 3), (1, 20, 300, 256, 1),
+            (1, 20, 100, 400, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,d,h", K2_EDGES)
+def test_cross_attention_edges_repeat_their_bits(card, b, n, m, d, h, dtype):
+    q = _randn(card, b, n, d, dtype=dtype)
+    k = _randn(card, b, m, d, dtype=dtype)
+    v = _randn(card, b, m, d, dtype=dtype)
+    fn = ops.cross_attention
+    before = (fn.launches, fn.tiled_launches)
+    got = fn(q, k, v, h)
+    torch.cuda.synchronize()
+    long_key = ops.cross_schedule(n, m, d // h) == "long_key"
+    assert (fn.launches, fn.tiled_launches) == (before[0] + 1,
+                                                before[1] + long_key)
+    _assert_within(got, ops.attention_plain(q, k, v, h), TOL[dtype])
+    assert torch.equal(got, fn(q, k, v, h))  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("m", [32, 2048])
+def test_cross_attention_takes_rows_that_are_not_16_byte_aligned(card, m):
+    """Contiguous views one element into their storage take element loads
+    and stores; the output is the aligned run's, bit for bit."""
+    shapes = ((2, 100, 128), (2, m, 128), (2, m, 128))
+    q, k, v = (_randn(card, s[0] * s[1] * s[2] + 1, dtype=torch.bfloat16)
+               [1:].view(s) for s in shapes)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    got = ops.cross_attention(q, k, v, 4)
+    want = ops.cross_attention(*(t.clone() for t in (q, k, v)), 4)
+    assert torch.equal(got, want)
+
+
+def test_cross_attention_refuses_a_grad_input_on_the_card(card):
+    q = _randn(card, 2, 64, 128, dtype=torch.float32).requires_grad_(True)
+    kv = _randn(card, 2, 32, 128, dtype=torch.float32)
+    before = ops.cross_attention.launches
+    with pytest.raises(RuntimeError, match="CrossAttention"):
+        ops.cross_attention(q, kv, kv, 4)
+    assert ops.cross_attention.launches == before
+    with torch.no_grad():
+        ops.cross_attention(q, kv, kv, 4)
 
 
 def test_packed_self_attention_function_on_the_card(card):
