@@ -410,10 +410,20 @@ def phase_kernels(batch: int, gen) -> dict:
                 source="ldt_torch/csrc/attention.cu",
                 replaces="ldt_tpu/ops/pallas_attention.py:49"),
         }
+        schedules = {
+            "packed_self_attention": attn_ops.packed_schedule(n, d // h,
+                                                              dtype),
+            "cross_attention": attn_ops.cross_schedule(nq, m, dc // hc)}
         for name, c in cases.items():
+            mma = attn_ops.packed_self_attention.mma_launches
             got = c["kernel"]()
             if not torch.equal(got, c["kernel"]()):
                 fail(f"phase 2: {name} ({dn}) did not repeat its bits")
+            if name == "packed_self_attention" and \
+                    attn_ops.packed_self_attention.mma_launches - mma != (
+                        2 if schedules[name] == "mma" else 0):
+                fail(f"phase 2: K1 ({dn}) did not take the "
+                     f"{schedules[name]} schedule")
             readings = {"twin": errs(got, c["plain"]()),
                         "cpu twin": errs(got, c["plain_cpu"]())}
             for vname, (acc, w) in variants(dtype).items():
@@ -423,7 +433,8 @@ def phase_kernels(batch: int, gen) -> dict:
             plain_ms = cuda_ms(c["plain"], iters=20)
             library_ms = cuda_ms(c["library"])
             bound_ms, bound_by = _bound(c["nbytes"], {dn: c["flops"]})
-            print(f"[2] {name} {dn} {c['shape']}: max_abs_err {err:.3e}, "
+            print(f"[2] {name} {dn} {c['shape']} ({schedules[name]} "
+                  f"schedule): max_abs_err {err:.3e}, "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {c['nbytes'] / 1e6:.1f} MB, "
@@ -431,6 +442,14 @@ def phase_kernels(batch: int, gen) -> dict:
             if name == "cross_attention":
                 print(f"    device time per call: "
                       f"{k2_launch_us(c['kernel'])}")
+            else:
+                # K1 takes less device time than its wrapper's host work
+                # (the timed loop above is host-bound): its row keeps the
+                # device time per call, kernel and SDPA alike
+                ms = sum(launch_us(c["kernel"], 100).values()) / 1e3
+                library_ms = sum(launch_us(c["library"], 100).values()) / 1e3
+                print(f"    device time per call: kernel {ms:.4f} ms, sdpa "
+                      f"{library_ms:.4f} ms")
             held(f"{name} {dn} vs", readings, KERNEL_TOL[dn],
                  right=("twin", "cpu twin", "f64"))
             if dtype == torch.bfloat16:  # the main path's dtype
@@ -735,9 +754,11 @@ def phase_train_kernels(batch: int, gen) -> dict:
     return rows
 
 
-def k2_launch_us(fn, iters: int = 20) -> str:
-    """Device microseconds per call of each CUDA launch that `fn` makes,
-    from torch.profiler (the schedule's parts, without the host's share)."""
+def launch_us(fn, iters: int = 20) -> dict:
+    """{kernel: device microseconds per call} of each CUDA launch that `fn`
+    makes, from torch.profiler (without the host's share)."""
+    import re
+
     import torch
 
     fn()
@@ -747,14 +768,19 @@ def k2_launch_us(fn, iters: int = 20) -> str:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    import re
 
     def short(key):
         m = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
         return m.group(1) if m else key[:60]
 
-    return ", ".join(f"{short(k)} {us / iters:.2f} us"
-                     for k, us in device_time_by_kernel(prof).items())
+    return {short(k): us / iters
+            for k, us in device_time_by_kernel(prof).items()}
+
+
+def k2_launch_us(fn, iters: int = 20) -> str:
+    """`launch_us` as text: K2's schedules' parts."""
+    return ", ".join(f"{k} {us:.2f} us" for k, us in launch_us(fn,
+                                                                iters).items())
 
 
 def k2_encoder_f32(batch: int, gen) -> None:
@@ -1053,14 +1079,18 @@ def counted(fn):
                 "pairwise_cd_means": pairwise_cd_means,
                 "approx_match_cost": approx_match_cost}
     # the schedule counts (each launch is counted in its wrapper's too)
-    schedules = {"cross_attention_tiled": (attn_ops.cross_attention,
+    schedules = {"packed_self_attention_mma": (
+                     attn_ops.packed_self_attention, "mma_launches"),
+                 "cross_attention_tiled": (attn_ops.cross_attention,
                                            "tiled_launches"),
                  "cross_attention_bwd_long_key": (
                      attn_ops.cross_attention_bwd, "long_key_launches"),
                  "cross_attention_bwd_long_query": (
                      attn_ops.cross_attention_bwd, "long_query_launches"),
                  "approx_match_cost_otf": (approx_match_cost,
-                                           "otf_launches")}
+                                           "otf_launches"),
+                 "approx_match_cost_cluster": (approx_match_cost,
+                                               "cluster_launches")}
     for w in wrappers.values():
         w.launches = 0
     for w, attr in schedules.values():
@@ -1077,12 +1107,26 @@ def counted(fn):
 
 def per_step_launches(**counts) -> dict:
     """Every kernel's launch count in one step: `counts`, else 0."""
-    names = ("packed_self_attention", "cross_attention",
-             "packed_self_attention_int8", "packed_self_attention_bwd",
-             "cross_attention_bwd", "cross_attention_tiled",
-             "cross_attention_bwd_long_key", "cross_attention_bwd_long_query",
-             "pairwise_cd_means", "approx_match_cost", "approx_match_cost_otf")
+    names = ("packed_self_attention", "packed_self_attention_mma",
+             "cross_attention", "packed_self_attention_int8",
+             "packed_self_attention_bwd", "cross_attention_bwd",
+             "cross_attention_tiled", "cross_attention_bwd_long_key",
+             "cross_attention_bwd_long_query", "pairwise_cd_means",
+             "approx_match_cost", "approx_match_cost_otf",
+             "approx_match_cost_cluster")
     return {k: counts.get(k, 0) for k in names}
+
+
+def k1_mma_launches(score, k1_launches: int) -> int:
+    """K1's tensor-core calls among `k1_launches` of `score`'s blocks: all
+    of them where the rule takes its shape (the generation's bf16 qkv of 32
+    tokens, heads of 64), else none."""
+    from ldt_torch.ops import attention as attn_ops
+
+    dtype = next(score.parameters()).dtype
+    dh = score.cfg.hidden_size // score.cfg.num_heads
+    return k1_launches if attn_ops.packed_schedule(
+        score.cfg.z_scale, dh, dtype) == "mma" else 0
 
 
 def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
@@ -1107,6 +1151,8 @@ def expected_launches(score, comp, steps: int, k1: bool, k8: bool) -> dict:
     per_run = score.cfg.num_blocks * steps
     return per_step_launches(
         packed_self_attention=per_run if k1 else 0,
+        packed_self_attention_mma=k1_mma_launches(score,
+                                                  per_run if k1 else 0),
         cross_attention=comp.cfg.n_layers,
         packed_self_attention_int8=per_run if k8 else 0)
 
@@ -1864,6 +1910,15 @@ def phase_eval_kernels() -> dict:
          wrong=("8 levels", "no clamp", "cost on d"))
     if not (same and repeat):
         fail("phase 18: K6 and K7 differ, or a run did not repeat its bits")
+    # the cluster schedule: a pair's cost does not depend on its tile (one
+    # pair alone runs in a cluster of 8)
+    alone = emd.approx_match_cost(x[:1], y[:1])
+    print(f"[18] K6/K7 schedule at {p} pairs: "
+          f"{_eval_kernels.emd_schedule(p, n, n, False)}, at 1 pair: "
+          f"{_eval_kernels.emd_schedule(1, n, n, False)}; pair 0 alone == "
+          f"in the tile: {torch.equal(alone, k6[:1])}")
+    if not torch.equal(alone, k6[:1]):
+        fail("phase 18: a pair's K6 cost depends on its tile")
     # one pair of two shapes against the exact optimum
     a, b = xc[1].double().numpy(), yc[1].double().numpy()
     dist = np.sqrt(((a[:, None] - b[None]) ** 2).sum(-1))
@@ -1936,12 +1991,15 @@ def phase_eval_kernels() -> dict:
         bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                               else (t_ops, "operations"))
         ms, plain_ms = times[name]
+        otf = name.endswith("otf")
         print(f"[18] {name} at the eval tile ({tp} pairs of {n} points): "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}; bytes {t_bytes:.4f} ms, "
               + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in b.items()
                           if k != "bytes")
               + f"; SFU rate at {clock / 1e6:.0f} MHz), library: none"
+              + (f"; schedule {_eval_kernels.emd_schedule(tp, n, n, otf)}"
+                 if name.startswith("approx") else "")
               + (f"; with the d build {wrapper_ms:.4f} ms"
                  if name == "approx_match_cost" else "")
               + f" ({smi_name_and_power()})")
@@ -2043,6 +2101,8 @@ def phase_eval(stage1) -> dict:
         f"stage-2 valsample ({bs} clouds, {CHECK_STEPS} steps)": (
             lambda: stage2.valsample(loader[:1]),
             dict(packed_self_attention=blocks * CHECK_STEPS,
+                 packed_self_attention_mma=k1_mma_launches(
+                     stage2.score, blocks * CHECK_STEPS),
                  cross_attention=stage2.cfg.compressor.n_layers,
                  pairwise_cd_means=3 * s2_pairs,
                  approx_match_cost=3 * s2_pairs)),
@@ -2054,6 +2114,8 @@ def phase_eval(stage1) -> dict:
         with contextlib.redirect_stdout(io.StringIO()):
             res, dt, launches = counted(fn)
         expect = per_step_launches(**expect)
+        # every cloud has 2048 points: K6/K7 take the cluster schedule
+        expect["approx_match_cost_cluster"] = expect["approx_match_cost"]
         values = {k: float(v) for k, v in res.items()}
         rate = (f", {pairs / dt:.1f} pairs/s" if what.startswith(
             "compute_all") else "")

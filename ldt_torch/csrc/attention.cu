@@ -5,6 +5,32 @@
 //    column offsets 0, D, 2D), written to [B, N, D] with heads concatenated.
 //    Replaces ldt_tpu/ops/pallas_attention.py::_fwd_kernel_packed_phased_multi
 //    (and its one-element and per-head schedules, which compute the same).
+//    Bound on an H100: bytes. At the generation shape (B=64, N=32, 16 heads
+//    of dh=64, bf16) it reads 12.6 MB and writes 4.2 MB, 0.0050 ms at 3.35
+//    TB/s; its 0.27 GFLOP are far below the tensor cores' rate. Two
+//    schedules, chosen by one rule (self_mma below; ldt_torch/ops/
+//    attention.py::packed_schedule mirrors it):
+//    - Tensor cores (packed_self_attention_mma_kernel) where the input is
+//      bf16, N is a multiple of 16 in [16, 64], dh is 16, 32, 64 or 128, and
+//      qkv and out are 16-byte aligned: the generation path. A block holds 4
+//      heads of one element; q, k and v come into shared memory with 16-byte
+//      cp.async copies (rows padded by 16 bytes, so ldmatrix's 8 rows hit 8
+//      bank groups). A warp owns 16 query rows of one head: the scores are
+//      mma.sync m16n8k16 bf16 products with f32 accumulation (A from
+//      ldmatrix on q, B from ldmatrix on k, whose [keys, dh] rows are the
+//      column-major operand); the softmax runs on the accumulator fragments
+//      in registers (row max and sum over the 4 lanes of a quad, expf and an
+//      IEEE division, as the TPU kernel); the weights, rounded to bf16, are
+//      packed straight into the A fragments of the AV product (two adjacent
+//      m16n8 accumulator tiles are one m16k16 A tile), v comes in with
+//      ldmatrix.trans, and the bf16 output goes out through the warp's q rows
+//      in shared memory with 16-byte stores. The products of bf16 operands
+//      are exact; only the order of the f32 sums differs from the other
+//      schedule.
+//    - CUDA cores (packed_self_attention_kernel<T>) for every other input,
+//      f32 (training's path: TF32 would fail its limits) included: one block
+//      per (element, head), q, k, v and the scores in shared memory as f32,
+//      each score and output element an f32 FMA chain over shared loads.
 // K3 ldt_packed_self_attention_bwd: the backward of K1. From the packed qkv
 //    and the output's gradient g [B, N, D] it recomputes the f32 weights w and
 //    writes dq, dk, dv into one packed [B, N, 3D] gradient:
@@ -83,7 +109,7 @@
 // shapes (f32, dh=32) does five N x M x dh products for as many bytes, so
 // f32 FMAs and bytes bound it about equally; it reads each operand once per
 // block as well. The arithmetic runs on the CUDA cores, in f32 (K1-K4) or
-// int32 (K8's dots); tensor cores (wgmma) and TMA are later work.
+// int32 (K8's dots), but for K1's bf16 schedule on the tensor cores.
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // the launch (0 on success). dtype: 0 = float32, 1 = bfloat16.
@@ -104,6 +130,13 @@ constexpr size_t kMaxSmem = 232448;
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 constexpr int kSelfThreads = 256;
+// K1's tensor-core schedule: heads per block, the most tokens it takes (a
+// warp per 16 query rows, scores of up to 64 keys in registers), and the
+// padding of its shared-memory rows (bf16). ldt_torch/ops/attention.py
+// mirrors all three.
+constexpr int kMmaHeads = 4;
+constexpr int kMmaMaxN = 64;
+constexpr int kMmaPad = 8;
 // K8's scale reduction: threads per (group, q|k|v) block.
 constexpr int kScaleThreads = 512;
 // K2's whole-set schedule: threads (query rows) per block, the widest head
@@ -161,6 +194,23 @@ size_t self_smem_bytes(int n, int dh) {
   return sizeof(float) *
          ((size_t)n * dh + (size_t)n * (dh + 1) + (size_t)n * dh +
           (size_t)n * n);
+}
+
+// Shared memory of K1's tensor-core schedule: q, k and v of kMmaHeads heads,
+// [n, dh + kMmaPad] bf16 each.
+size_t self_mma_smem_bytes(int n, int dh) {
+  return sizeof(__nv_bfloat16) * 3 * kMmaHeads * (size_t)n * (dh + kMmaPad);
+}
+
+// K1's schedule rule: the tensor cores take bf16 with n a multiple of 16 in
+// [16, kMmaMaxN], dh of 16, 32, 64 or 128, and 16-byte aligned qkv and out;
+// the CUDA-core kernel takes the rest.
+bool self_mma(int n, int dh, int dtype, const void* qkv, const void* out) {
+  return dtype == kDtypeBF16 && n % 16 == 0 && n >= 16 && n <= kMmaMaxN &&
+         (dh == 16 || dh == 32 || dh == 64 || dh == 128) &&
+         reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+         self_mma_smem_bytes(n, dh) <= kMaxSmem;
 }
 
 // K2's whole-set schedule keeps a head of width dh in registers of width
@@ -290,6 +340,215 @@ packed_self_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out,
     float acc = 0.f;
     for (int m = 0; m < n; ++m) acc = fmaf(w[m], vs[(size_t)m * dh + c], acc);
     obase[(size_t)r * d + c] = from_f32<T>(acc);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global memory into shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and receives row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each (of its transpose with `trans`).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b: a 16x16 bf16 (row-major fragment), b 16x8 bf16 (column-major),
+// d 16x8 f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// K1 on the tensor cores (the header's first schedule). Grid (element,
+// group of kMmaHeads heads); n / 16 warps per head. In a warp, lane l is
+// (g, t) = (l / 4, l % 4): its accumulator fragment of an m16n8 tile holds
+// rows g and g + 8, columns 2t and 2t + 1.
+template <int DH>
+__global__ void __launch_bounds__(kMmaHeads* kMmaMaxN / 16 * 32)
+packed_self_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                 __nv_bfloat16* __restrict__ out, int n,
+                                 int h, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int LD = DH + kMmaPad;  // row stride in shared memory
+  constexpr int CH = DH / 8;        // 16-byte chunks per row
+  constexpr int KT = DH / 16;       // k-steps of the scores
+  constexpr int NT = kMmaMaxN / 8;  // most key tiles of 8
+  constexpr int OT = DH / 8;        // output tiles of 8 channels
+  const int d = h * DH;
+  const int b = blockIdx.x;
+  const int h0 = blockIdx.y * kMmaHeads;
+  const int heads = min(kMmaHeads, h - h0);
+  const size_t row = 3 * (size_t)d;
+  const int per_head = 3 * n * LD;  // [q|k|v][n][LD] per head
+
+  // q, k, v of the block's heads: consecutive threads take consecutive 16
+  // bytes of a token's row (the heads of one of q, k, v are adjacent)
+  const __nv_bfloat16* base = qkv + (size_t)b * n * row + (size_t)h0 * DH;
+  const int chunks = heads * 3 * n * CH;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const int c = i % CH;
+    int t = i / CH;
+    const int hh = t % heads;
+    t /= heads;
+    const int which = t % 3;
+    const int r = t / 3;
+    cp_async16(smem + hh * per_head + (which * n + r) * LD + c * 8,
+               base + r * row + (size_t)which * d + hh * DH + c * 8);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wph = n >> 4;  // warps per head
+  const int hh = warp / wph;
+  if (hh >= heads) return;
+  const int r0 = (warp - hh * wph) * 16;
+  const int nt = n >> 3;
+  __nv_bfloat16* qs = smem + hh * per_head;
+  const __nv_bfloat16* ks = qs + n * LD;
+  const __nv_bfloat16* vs = ks + n * LD;
+
+  // scores of the warp's 16 rows against all keys, f32
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldmatrix_x4(qa[kk], qs + (r0 + (lane & 15)) * LD + kk * 16 +
+                            (lane >> 4) * 8);
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    if (j < nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        // keys 8j..8j+15, channels 16kk..16kk+15: two B fragments
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[j], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[j + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+  }
+
+  // softmax of rows g (elements 0, 1) and g + 8 (elements 2, 3)
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      s[j][0] = expf(s[j][0] - mx0);
+      s[j][1] = expf(s[j][1] - mx0);
+      s[j][2] = expf(s[j][2] - mx1);
+      s[j][3] = expf(s[j][3] - mx1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+  }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+  }
+
+  // AV: the rounded weights of key tiles 2kk and 2kk + 1 are the A fragment
+  // of keys 16kk..16kk+15
+  float acc[OT][4];
+#pragma unroll
+  for (int jn = 0; jn < OT; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    if (2 * kk < nt) {
+      uint32_t wa[4];
+      wa[0] = pack_bf16(s[2 * kk][0] / sum0, s[2 * kk][1] / sum0);
+      wa[1] = pack_bf16(s[2 * kk][2] / sum1, s[2 * kk][3] / sum1);
+      wa[2] = pack_bf16(s[2 * kk + 1][0] / sum0, s[2 * kk + 1][1] / sum0);
+      wa[3] = pack_bf16(s[2 * kk + 1][2] / sum1, s[2 * kk + 1][3] / sum1);
+#pragma unroll
+      for (int jn = 0; jn < OT; jn += 2) {
+        // keys 16kk..16kk+15, channels 8jn..8jn+15: two B fragments
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 15)) * LD + jn * 8 +
+                                  (lane >> 4) * 8);
+        mma_bf16(acc[jn], wa, vb[0], vb[1]);
+        mma_bf16(acc[jn + 1], wa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // out: through the warp's own q rows (read only by this warp, above)
+  __syncwarp();
+  __nv_bfloat16* os = qs + r0 * LD;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int jn = 0; jn < OT; ++jn) {
+    *reinterpret_cast<uint32_t*>(os + g * LD + jn * 8 + t2) =
+        pack_bf16(acc[jn][0], acc[jn][1]);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * LD + jn * 8 + t2) =
+        pack_bf16(acc[jn][2], acc[jn][3]);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = out + ((size_t)b * n + r0) * d + (size_t)(h0 + hh) * DH;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    *reinterpret_cast<uint4*>(ob + (size_t)r * d + c * 8) =
+        *reinterpret_cast<const uint4*>(os + r * LD + c * 8);
   }
 }
 
@@ -1311,10 +1570,36 @@ cudaError_t launch_self_int8(const void* qkv, void* scales, void* out, int b,
   return cudaGetLastError();
 }
 
+template <int DH>
+cudaError_t launch_self_mma(const void* qkv, void* out, int b, int n, int h,
+                            float scale, cudaStream_t stream) {
+  const size_t smem = self_mma_smem_bytes(n, DH);
+  if (smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(
+        packed_self_attention_mma_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(b, (h + kMmaHeads - 1) / kMmaHeads);
+  packed_self_attention_mma_kernel<DH>
+      <<<grid, kMmaHeads * (n / 16) * 32, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(qkv),
+          static_cast<__nv_bfloat16*>(out), n, h, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_self(const void* qkv, void* out, int b, int n, int d,
                         int h, float scale, cudaStream_t stream) {
   const int dh = d / h;
+  if (self_mma(n, dh, sizeof(T) == 2 ? kDtypeBF16 : kDtypeF32, qkv, out)) {
+    switch (dh) {
+      case 16: return launch_self_mma<16>(qkv, out, b, n, h, scale, stream);
+      case 32: return launch_self_mma<32>(qkv, out, b, n, h, scale, stream);
+      case 64: return launch_self_mma<64>(qkv, out, b, n, h, scale, stream);
+      default: return launch_self_mma<128>(qkv, out, b, n, h, scale, stream);
+    }
+  }
   const size_t smem = self_smem_bytes(n, dh);
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -25,15 +25,44 @@
 //    reads a precomputed d [P, N, M] from device memory; it replaces
 //    ldt_tpu/ops/emd.py::_approx_match_cost_kernel (with _emd_pair_step).
 //    K7 (otf = 1) builds each d_ij from the two clouds held in shared memory;
-//    it replaces _approx_match_cost_otf_kernel. Both are one template: only
-//    the source of d differs, so on the same d they return the same bits.
-//    One block per pair loops over the levels, and within a level over three
-//    passes: rows (warps own rows: the row sums and ratio_l), columns
-//    (threads own four columns: sumr, then ratio_r), rows again (the cost
-//    and remain_l). The per-pair state (remain_l, ratio_l: [N]; remain_r,
-//    sumr, ratio_r: [M]) stays in shared memory, 40 KB at 2048 points; w is
-//    recomputed at each use, never stored. Every sum runs in a fixed order
-//    and no atomics are used, so a run repeats itself bit for bit.
+//    it replaces _approx_match_cost_otf_kernel. Each schedule below is one
+//    template in which only the source of d differs, so on the same d K6 and
+//    K7 return the same bits.
+//    Bound on an H100 at the eval tile (64 pairs of 2048-point clouds): the
+//    9 N M exponentials of the function on the special-function units (16
+//    per SM per clock: 0.58 ms at 1980 MHz), above K6's one read of d (16.8
+//    MB a pair, 0.32 ms at 3.35 TB/s) and the f32 FMAs.
+//    Two schedules, chosen by one rule (emd_cluster_fits below;
+//    ldt_torch/ops/_eval_kernels.py::emd_schedule mirrors it):
+//    - Cluster (approx_match_cluster_kernel), where M <= 2048 and its shared
+//      memory fits: the eval's path. A pair's rows are split over
+//      kEmdSlots = 16 warps, spread over a thread-block cluster of c blocks
+//      of 16 / c warps: c = 8, 4 or 2, the largest with P c <= 132 (the SMs),
+//      else 2, so a 64-pair tile runs on 128 SMs. Two sweeps a level, the
+//      second fused with the next level's first: sweep A(L) takes each row's
+//      w = exp(L d) once, keeps it in the warp's registers (lane l holds
+//      columns 128 t + 4 l .. + 3), takes the row sum and ratio_l from it and
+//      adds ratio_l w to the warp's column partial sums (registers); after
+//      the column sums are reduced, sumr, ratio_r and the next remain_r are
+//      known, so sweep B(L) (the row's cost and remain_l) and A(L + 1),
+//      which needs exactly that remain_l, run as one sweep: A(0), eight fused
+//      sweeps, B(8), 10 reads of d and 18 exponentials per element, where
+//      the first version did 27 and 27. The column partial sums and the
+//      level's cost are reduced in a fixed balanced tree over the 16 warps:
+//      within a block over its warps in warp order, then over the blocks in
+//      rank order through distributed shared memory (cluster.map_shared_rank,
+//      double-buffered, one cluster.sync a reduction). The tree is the same
+//      for every c, so a pair's cost does not depend on the tile it lands in,
+//      and no atomics are used, so a run repeats its bits. Every block keeps
+//      the whole column state (remain_r, ratio_r: [M]) and updates it from
+//      the same sums; the row state lives with the warp that owns the row.
+//    - Block (approx_match_cost_kernel), for M > 2048: one block of 512
+//      threads per pair, three passes a level (rows: the row sums and
+//      ratio_l; columns: sumr, then ratio_r; rows: the cost and remain_l),
+//      each w recomputed where it is used, the row and column state in
+//      shared memory; every sum in a fixed order.
+//    The two order their sums differently, so they do not give each other's
+//    bits.
 //
 // Distances: d_ij is taken in the direct form sum_c (x_ic - y_jc)^2, one
 // coordinate at a time with __fsub_rn / __fmul_rn / __fadd_rn, the order of
@@ -44,21 +73,18 @@
 // has no --use_fast_math): the fast intrinsic's error grows with |x|, and
 // here x reaches -4^7 d.
 //
-// Bounds on an H100 at the eval tile (64 pairs of 2048-point clouds): K5 is
-// bound by f32 operations (~10 N M per pair; its bytes are the clouds); K6
-// and K7 by the 9 N M exponentials on the special-function units (16 per SM
-// per clock), above the f32 FMAs and K6's one read of d (16.8 MB per pair).
-// This first version recomputes each w three times per level on the CUDA
-// cores and SFUs; caching a row tile's w and using more blocks per pair are
-// later work.
+// Bound on an H100 at the eval tile: K5 is bound by f32 operations (~10 N M
+// per pair; its bytes are the clouds).
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // the launch (0 on success); x, y, d and out are contiguous float32.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -72,6 +98,13 @@ constexpr int kEmdThreads = 512;
 constexpr int kEmdWarps = kEmdThreads / 32;
 constexpr int kEmdCols = 4;       // columns of a K6/K7 thread per pass
 constexpr int kLevels = 9;
+// K6/K7's cluster schedule: row slots (warps) per pair, whatever the
+// cluster; the SMs its cluster rule fills; the most float4 column groups a
+// lane holds (128 columns each: M <= 2048). ldt_torch/ops/_eval_kernels.py
+// mirrors all three.
+constexpr int kEmdSlots = 16;
+constexpr int kEmdSms = 132;
+constexpr int kEmdMaxGroups = 16;
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
                                          float bx, float by, float bz) {
@@ -288,6 +321,230 @@ approx_match_cost_kernel(const float* __restrict__ x,
   if (tid == 0) out[p] = cost;
 }
 
+// ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7)): a balanced tree of 8
+// leaves. With the leaves past k zero it is the balanced tree of the first
+// k (k a power of two): x + 0 is x.
+__device__ __forceinline__ float tree8(const float (&v)[8]) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+}
+
+// The distances of row i to the lane's columns 128 t + 4 lane + e (G groups
+// of 4) into dd; 0 past m (the column state is 0 there, so a padded column
+// adds +0 to every sum). K7: x_i = (xi0, xi1, xi2), ys [3][128 G] zero-padded;
+// K6: drow = d + i m, 16-byte loads where `vec`.
+template <bool kOtf, int G>
+__device__ __forceinline__ void row_distances(float (&dd)[4 * G],
+                                              const float* __restrict__ drow,
+                                              const float* ys, float xi0,
+                                              float xi1, float xi2, int m,
+                                              bool vec, int lane) {
+  constexpr int MP = 128 * G;
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    const int j = 128 * t + 4 * lane;
+    if (kOtf) {
+      const float4 a = *reinterpret_cast<const float4*>(ys + j);
+      const float4 b = *reinterpret_cast<const float4*>(ys + MP + j);
+      const float4 c = *reinterpret_cast<const float4*>(ys + 2 * MP + j);
+      dd[4 * t] = fmaxf(sq_dist(xi0, xi1, xi2, a.x, b.x, c.x), 0.f);
+      dd[4 * t + 1] = fmaxf(sq_dist(xi0, xi1, xi2, a.y, b.y, c.y), 0.f);
+      dd[4 * t + 2] = fmaxf(sq_dist(xi0, xi1, xi2, a.z, b.z, c.z), 0.f);
+      dd[4 * t + 3] = fmaxf(sq_dist(xi0, xi1, xi2, a.w, b.w, c.w), 0.f);
+    } else if (vec) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < m) a = __ldg(reinterpret_cast<const float4*>(drow + j));
+      dd[4 * t] = a.x;
+      dd[4 * t + 1] = a.y;
+      dd[4 * t + 2] = a.z;
+      dd[4 * t + 3] = a.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dd[4 * t + e] = j + e < m ? __ldg(drow + j + e) : 0.f;
+    }
+  }
+}
+
+// One sweep of a warp over its rows i = slot, slot + kEmdSlots, ...: with kB
+// sweep B of level lb (the row's cost into lc, remain_l), with kA sweep A of
+// level la (ratio_l, and the row's ratio_l w added to acc). acc and lc are
+// the warp's partial sums, the same in every lane.
+template <bool kOtf, int G, bool kB, bool kA>
+__device__ __forceinline__ void emd_sweep(
+    float (&acc)[4 * G], float& lc, const float* __restrict__ dp,
+    const float* xs, const float* ys, float* remain_l, float* ratio_l,
+    const float* remain_r, const float* ratio_r, int n, int m, bool vec,
+    int slot, int lane, float lb, float la) {
+#pragma unroll
+  for (int k = 0; k < 4 * G; ++k) acc[k] = 0.f;
+  lc = 0.f;
+  for (int i = slot; i < n; i += kEmdSlots) {
+    const float rem0 = remain_l[i];
+    const float rl = kB ? ratio_l[i] : 0.f;
+    float dd[4 * G];
+    row_distances<kOtf, G>(dd, kOtf ? nullptr : dp + (size_t)i * m, ys,
+                           kOtf ? xs[i] : 0.f, kOtf ? xs[n + i] : 0.f,
+                           kOtf ? xs[2 * n + i] : 0.f, m, vec, lane);
+    float c = 0.f, wr = 0.f, sa = 0.f;
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      const int j = 128 * t + 4 * lane;
+      float rr[4], rm[4];
+      if (kB) {
+        const float4 v = *reinterpret_cast<const float4*>(ratio_r + j);
+        rr[0] = v.x; rr[1] = v.y; rr[2] = v.z; rr[3] = v.w;
+      }
+      if (kA) {
+        const float4 v = *reinterpret_cast<const float4*>(remain_r + j);
+        rm[0] = v.x; rm[1] = v.y; rm[2] = v.z; rm[3] = v.w;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dv = dd[4 * t + e];
+        if (kB) {
+          const float w = expf(lb * dv);
+          c += (w * sqrtf(fmaxf(dv, 1e-20f))) * rr[e];
+          wr += w * rr[e];
+        }
+        if (kA) {
+          const float w = expf(la * dv);
+          sa += w * rm[e];
+          dd[4 * t + e] = w;
+        }
+      }
+    }
+    float rem = rem0;
+    if (kB) {
+      c = warp_sum(c);
+      wr = warp_sum(wr);
+      lc += rl * c;
+      rem = fmaxf(0.f, rem0 - rl * wr);
+    }
+    float rl_next = 0.f;
+    if (kA) {
+      sa = warp_sum(sa);
+      rl_next = rem / (1e-9f + sa);
+#pragma unroll
+      for (int k = 0; k < 4 * G; ++k) acc[k] += rl_next * dd[k];
+    }
+    if (lane == 0) {  // every lane read the row's state before the shuffles
+      remain_l[i] = rem;
+      ratio_l[i] = rl_next;
+    }
+  }
+}
+
+// K6/K7's cluster schedule (the header's first). Grid: c blocks per pair in
+// a cluster of c; kEmdSlots / c warps a block; warp w of rank r is row slot
+// r (kEmdSlots / c) + w. Columns padded to MP = 128 G.
+template <bool kOtf, int G>
+__global__ void __launch_bounds__(kEmdSlots / 2 * 32)
+approx_match_cluster_kernel(const float* __restrict__ x,
+                            const float* __restrict__ y,
+                            const float* __restrict__ d,
+                            float* __restrict__ out, int n, int m) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int MP = 128 * G;
+  constexpr int LS = MP + 4;  // a partial row: MP column sums, the cost
+  extern __shared__ __align__(16) float smem[];
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int nwarps = kEmdSlots / c;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int slot = rank * nwarps + warp;
+  const size_t p = blockIdx.x / c;
+  const int n4 = (n + 3) / 4 * 4;
+  float* remain_l = smem;            // [n]
+  float* ratio_l = remain_l + n4;    // [n]
+  float* remain_r = ratio_l + n4;    // [MP]
+  float* ratio_r = remain_r + MP;    // [MP]
+  float* stage = ratio_r + MP;       // [nwarps][LS]
+  float* bpart = stage + nwarps * LS;  // [2][LS], read by the cluster
+  float* xs = bpart + 2 * LS;        // K7: [3][n4]
+  float* ys = xs + 3 * n4;           // K7: [3][MP]
+  const float* dp = kOtf ? nullptr : d + p * n * m;
+  const bool vec = !kOtf && m % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(d) % 16 == 0;
+
+  const float multi_l = (float)max(1, m / n);
+  const float multi_r = (float)max(1, n / m);
+  for (int i = tid; i < n; i += blockDim.x) remain_l[i] = multi_l;
+  for (int j = tid; j < MP; j += blockDim.x) {
+    remain_r[j] = j < m ? multi_r : 0.f;
+    ratio_r[j] = 0.f;
+  }
+  if (kOtf) {
+    for (int e = tid; e < 3 * n; e += blockDim.x)
+      xs[(e % 3) * n + e / 3] = x[p * n * 3 + e];
+    for (int e = tid; e < 3 * MP; e += blockDim.x) {
+      const int j = e / 3;
+      ys[(e % 3) * MP + j] = j < m ? y[p * m * 3 + e] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  float acc[4 * G];
+  float lc;
+  float cost = 0.f;  // kept by the thread that reduces entry MP
+  for (int r = 0; r <= kLevels; ++r) {
+    // r = 0: A(0); 0 < r < kLevels: B(r - 1) fused with A(r); r = kLevels:
+    // B(kLevels - 1)
+    const float lb = r > 0 ? level_of(r - 1) : 0.f;
+    const float la = r < kLevels ? level_of(r) : 0.f;
+    if (r == 0)
+      emd_sweep<kOtf, G, false, true>(acc, lc, dp, xs, ys, remain_l, ratio_l,
+                                      remain_r, ratio_r, n, m, vec, slot,
+                                      lane, lb, la);
+    else if (r < kLevels)
+      emd_sweep<kOtf, G, true, true>(acc, lc, dp, xs, ys, remain_l, ratio_l,
+                                     remain_r, ratio_r, n, m, vec, slot,
+                                     lane, lb, la);
+    else
+      emd_sweep<kOtf, G, true, false>(acc, lc, dp, xs, ys, remain_l, ratio_l,
+                                      remain_r, ratio_r, n, m, vec, slot,
+                                      lane, lb, la);
+    float* row = stage + warp * LS;
+#pragma unroll
+    for (int t = 0; t < G; ++t)
+      *reinterpret_cast<float4*>(row + 128 * t + 4 * lane) =
+          make_float4(acc[4 * t], acc[4 * t + 1], acc[4 * t + 2],
+                      acc[4 * t + 3]);
+    if (lane == 0) row[MP] = lc;
+    __syncthreads();
+    // the block's warps, in warp order
+    float* mine = bpart + (r & 1) * LS;
+    for (int j = tid; j <= MP; j += blockDim.x) {
+      float v[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) v[w] = w < nwarps ? stage[w * LS + j] : 0.f;
+      mine[j] = tree8(v);
+    }
+    cluster.sync();
+    // the cluster's blocks, in rank order; then the column state
+    for (int j = tid; j <= MP; j += blockDim.x) {
+      float v[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        v[q] = q < c ? cluster.map_shared_rank(mine, q)[j] : 0.f;
+      const float total = tree8(v);
+      if (j == MP) {
+        cost += total;
+      } else if (r < kLevels) {  // sumr, ratio_r and remain_r of level r
+        const float rr = remain_r[j];
+        const float sumr = total * rr;
+        ratio_r[j] = fminf(rr / (sumr + 1e-9f), 1.f) * rr;
+        remain_r[j] = fmaxf(0.f, rr - sumr);
+      }
+    }
+    __syncthreads();
+  }
+  if (rank == 0 && tid == MP % (int)blockDim.x) out[p] = cost;
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
 size_t cd_smem_bytes(int n, int m) {
   return sizeof(float) * (3 * (size_t)n + 3 * (size_t)m + kCdThreads / 32);
 }
@@ -298,12 +555,86 @@ size_t emd_smem_bytes(int n, int m, bool otf) {
   return sizeof(float) * f;
 }
 
+// The cluster schedule's cluster size for p pairs: the largest of 8, 4, 2
+// with p c <= kEmdSms, else 2.
+int emd_cluster(int p) {
+  for (int c = 8; c > 2; c >>= 1)
+    if ((long long)p * c <= kEmdSms) return c;
+  return 2;
+}
+
+// Float4 column groups a lane of the cluster schedule holds: 8 (M <= 1024)
+// or 16 (M <= 2048); 0 past 2048.
+int emd_groups(int m) {
+  return m <= 1024 ? 8 : m <= 128 * kEmdMaxGroups ? kEmdMaxGroups : 0;
+}
+
+// Shared memory of the cluster schedule with cluster size c: the row state
+// [2, n], the column state [2, MP], the warps' partial rows and the block's
+// two [MP + 4]; K7 holds both clouds beside them.
+size_t emd_cluster_smem_bytes(int n, int m, bool otf, int c) {
+  const size_t mp = 128 * (size_t)emd_groups(m);
+  const size_t n4 = (n + 3) / 4 * 4;
+  size_t f = 2 * n4 + 2 * mp + (kEmdSlots / c + 2) * (mp + 4);
+  if (otf) f += 3 * n4 + 3 * mp;
+  return sizeof(float) * f;
+}
+
+// The schedule rule: the cluster schedule where M <= 2048 and its shared
+// memory fits, else the block schedule.
+bool emd_cluster_fits(int p, int n, int m, bool otf) {
+  return emd_groups(m) > 0 &&
+         emd_cluster_smem_bytes(n, m, otf, emd_cluster(p)) <= kMaxSmem;
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= (size_t)kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+template <bool kOtf, int G>
+cudaError_t launch_emd_cluster(const float* x, const float* y, const float* d,
+                               float* out, int p, int n, int m,
+                               cudaStream_t stream) {
+  const int c = emd_cluster(p);
+  const size_t smem = emd_cluster_smem_bytes(n, m, kOtf, c);
+  cudaError_t e = allow_smem(approx_match_cluster_kernel<kOtf, G>, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p * c);
+  cfg.blockDim = dim3(32 * (kEmdSlots / c));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, approx_match_cluster_kernel<kOtf, G>, x, y, d,
+                         out, n, m);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <bool kOtf>
+cudaError_t launch_emd(const float* x, const float* y, const float* d,
+                       float* out, int p, int n, int m, cudaStream_t stream) {
+  if (emd_cluster_fits(p, n, m, kOtf))
+    return emd_groups(m) == 8
+               ? launch_emd_cluster<kOtf, 8>(x, y, d, out, p, n, m, stream)
+               : launch_emd_cluster<kOtf, kEmdMaxGroups>(x, y, d, out, p, n,
+                                                         m, stream);
+  const size_t smem = emd_smem_bytes(n, m, kOtf);
+  cudaError_t e = allow_smem(approx_match_cost_kernel<kOtf>, smem);
+  if (e != cudaSuccess) return e;
+  approx_match_cost_kernel<kOtf><<<p, kEmdThreads, smem, stream>>>(x, y, d,
+                                                                   out, n, m);
+  return cudaGetLastError();
 }
 
 bool bad_pairs(int p, int n, int m) { return p < 0 || n <= 0 || m <= 0; }
@@ -342,19 +673,8 @@ int ldt_approx_match_cost(const void* x, const void* y, const void* d,
   const float* yf = static_cast<const float*>(y);
   const float* df = static_cast<const float*>(d);
   float* of = static_cast<float*>(out);
-  cudaError_t e;
-  if (otf) {
-    e = allow_smem(approx_match_cost_kernel<true>, smem);
-    if (e != cudaSuccess) return (int)e;
-    approx_match_cost_kernel<true><<<p, kEmdThreads, smem, s>>>(xf, yf, df,
-                                                                of, n, m);
-  } else {
-    e = allow_smem(approx_match_cost_kernel<false>, smem);
-    if (e != cudaSuccess) return (int)e;
-    approx_match_cost_kernel<false><<<p, kEmdThreads, smem, s>>>(xf, yf, df,
-                                                                 of, n, m);
-  }
-  return (int)cudaGetLastError();
+  return (int)(otf ? launch_emd<true>(xf, yf, df, of, p, n, m, s)
+                   : launch_emd<false>(xf, yf, df, of, p, n, m, s));
 }
 
 const char* ldt_eval_error_string(int err) {

@@ -13,10 +13,16 @@ from ldt_torch.ops import _build
 
 # Most dynamic shared memory a block may use on sm_90 (bytes).
 SMEM_LIMIT = 232448
-# Warps per K5 and per K6/K7 block (kCdThreads / 32, kEmdWarps in
-# csrc/eval.cu).
+# Warps per K5 and per K6/K7 block of the block schedule (kCdThreads / 32,
+# kEmdWarps in csrc/eval.cu).
 _CD_WARPS = 8
 _EMD_WARPS = 16
+# K6/K7's cluster schedule (csrc/eval.cu): row slots (warps) per pair
+# (kEmdSlots), the SMs its cluster rule fills (kEmdSms), and the most float4
+# column groups a lane holds (kEmdMaxGroups: 128 columns each).
+_EMD_SLOTS = 16
+_EMD_SMS = 132
+_EMD_MAX_GROUPS = 16
 
 
 def cd_smem_bytes(n: int, m: int) -> int:
@@ -25,9 +31,52 @@ def cd_smem_bytes(n: int, m: int) -> int:
 
 
 def emd_smem_bytes(n: int, m: int, otf: bool) -> int:
-    """K6's shared memory: the row state [2, n], the column state [3, m] and
-    one float per warp; K7 holds both clouds beside them."""
+    """K6's shared memory in the block schedule (the least of the two, so
+    the one that decides what the kernel takes at all): the row state
+    [2, n], the column state [3, m] and one float per warp; K7 holds both
+    clouds beside them."""
     return 4 * (2 * n + 3 * m + _EMD_WARPS + (3 * n + 3 * m if otf else 0))
+
+
+def emd_cluster(p: int) -> int:
+    """The cluster schedule's blocks per pair for a tile of p pairs: the
+    largest of 8, 4, 2 with p * c <= 132 (the H100's SMs), else 2. A block
+    has 16 / c warps, so every pair has 16 row slots."""
+    for c in (8, 4):
+        if p * c <= _EMD_SMS:
+            return c
+    return 2
+
+
+def emd_groups(m: int) -> int:
+    """Float4 column groups a lane of the cluster schedule holds: 8 for
+    M <= 1024, 16 for M <= 2048, 0 past 2048."""
+    if m <= 1024:
+        return 8
+    return _EMD_MAX_GROUPS if m <= 128 * _EMD_MAX_GROUPS else 0
+
+
+def emd_cluster_smem_bytes(n: int, m: int, otf: bool, c: int) -> int:
+    """The cluster schedule's shared memory with cluster size c: the row
+    state [2, n], the column state [2, MP] (MP = 128 groups), the 16 / c
+    warps' partial rows and the block's two [MP + 4]; K7 holds both clouds
+    beside them."""
+    mp = 128 * emd_groups(m)
+    n4 = -(-n // 4) * 4
+    f = 2 * n4 + 2 * mp + (_EMD_SLOTS // c + 2) * (mp + 4)
+    if otf:
+        f += 3 * n4 + 3 * mp
+    return 4 * f
+
+
+def emd_schedule(p: int, n: int, m: int, otf: bool):
+    """(schedule, cluster size) of K6/K7 (`emd_cluster_fits` in
+    csrc/eval.cu): ("cluster", c) where M <= 2048 and its shared memory
+    fits, else ("block", 1), the first version's one block per pair."""
+    c = emd_cluster(p)
+    if emd_groups(m) and emd_cluster_smem_bytes(n, m, otf, c) <= SMEM_LIMIT:
+        return "cluster", c
+    return "block", 1
 
 
 @functools.lru_cache(maxsize=None)

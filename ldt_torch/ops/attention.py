@@ -10,9 +10,21 @@ DiT block (24 launches per denoise step).
   * Bound on an H100: device-memory bytes. At the flagship shape (B=64,
     N=32, D=1024, 16 heads, bf16) it reads 12.6 MB and writes 4.2 MB for
     0.27 GFLOP, far below the card's operations-per-byte balance.
-  * Design: one block per (batch element, head) reads its q_h, k_h, v_h
-    column slices straight out of the packed rows (no split copies), keeps
-    them and the [N, N] scores in shared memory, and writes [N, dh] once.
+  * Design: two schedules, picked by `packed_schedule(n, dh, dtype)`. Both
+    read q_h, k_h, v_h straight out of the packed rows (no split copies) and
+    write [N, dh] once.
+    "mma" (bf16, N a multiple of 16 up to 64, dh 16/32/64/128, the generation
+    path): a block holds 4 heads of one element in shared memory (16-byte
+    `cp.async` copies); a warp owns 16 query rows of a head, takes the
+    scores with `mma.sync` m16n8k16 bf16 products (f32 accumulation), runs
+    the softmax on the accumulator fragments in registers, rounds the
+    weights to bf16 straight into the A fragments of the AV product, and
+    writes the output with 16-byte stores. Its calls are counted in
+    `.mma_launches` too.
+    "fma" (every other input; f32, training's path, always): one block per
+    (batch element, head) keeps q, k, v and the [N, N] scores in shared
+    memory as f32 and runs each score and output element as an FMA chain.
+    The two order their f32 sums differently; each repeats its own bits.
 
 K3 `packed_self_attention_bwd(qkv, g, num_heads)` — the backward of K1: the
 packed [B, N, 3D] gradient of the qkv from the output's gradient g [B, N, D]
@@ -137,6 +149,13 @@ _LK_THREADS = 256
 _LK_ROWS = 32
 _LK_KEYS = 128
 _LK_MIN_KEYS = 32
+# K1's tensor-core schedule (csrc/attention.cu): heads per block (kMmaHeads),
+# the most tokens (kMmaMaxN), the padding of its shared-memory rows in bf16
+# (kMmaPad), and the head widths it takes.
+_MMA_HEADS = 4
+_MMA_MAX_N = 64
+_MMA_PAD = 8
+_MMA_DH = (16, 32, 64, 128)
 # Keys per chunk of K4's long-key schedule (kBwdKeys in csrc/attention.cu),
 # and the most query rows per block of its long-query schedule.
 _BWD_KEYS = 64
@@ -147,6 +166,25 @@ def self_smem_bytes(n: int, dh: int) -> int:
     """K1's and K8's shared memory: q, k (stride dh+1), v and the [n, n]
     scores, 4 bytes each (f32, or K8's int32 codes)."""
     return 4 * (n * dh + n * (dh + 1) + n * dh + n * n)
+
+
+def self_mma_smem_bytes(n: int, dh: int) -> int:
+    """K1's tensor-core shared memory: q, k and v of 4 heads, [n, dh + 8]
+    bf16 each."""
+    return 2 * 3 * _MMA_HEADS * n * (dh + _MMA_PAD)
+
+
+def packed_schedule(n: int, dh: int, dtype: torch.dtype,
+                    aligned: bool = True) -> str:
+    """K1's schedule for n tokens of head width dh (`self_mma` in
+    csrc/attention.cu): "mma" (the tensor cores) where dtype is bf16, n a
+    multiple of 16 in [16, 64], dh 16, 32, 64 or 128, and the qkv and output
+    16-byte `aligned`; "fma" (the CUDA cores) for everything else."""
+    if (dtype == torch.bfloat16 and aligned and n % 16 == 0
+            and 16 <= n <= _MMA_MAX_N and dh in _MMA_DH
+            and self_mma_smem_bytes(n, dh) <= SMEM_LIMIT):
+        return "mma"
+    return "fma"
 
 
 def whole_width(dh: int) -> int:
@@ -430,6 +468,8 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, d3 = qkv.shape
     d = d3 // 3
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
+    aligned = qkv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    schedule = packed_schedule(n, dh, qkv.dtype, aligned)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = _lib().ldt_packed_self_attention(
@@ -437,10 +477,14 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
             _DTYPE_CODES[qkv.dtype], stream)
     _raise_on(err, name)
     packed_self_attention.launches += 1
+    if schedule == "mma":
+        packed_self_attention.mma_launches += 1
     return out
 
 
 packed_self_attention.launches = 0
+# the launches (counted in `launches` too) that took the tensor cores
+packed_self_attention.mma_launches = 0
 
 
 def _check_packed(name: str, qkv: torch.Tensor, num_heads: int) -> int:

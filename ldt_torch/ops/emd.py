@@ -32,18 +32,26 @@ L = -4^7 ... -4^-1 (the reference's `match_cost`).
   * Bound on an H100: the 9 N M exponentials on the special-function units
     (16 per SM per clock), ~9 us a pair at 2048 points; then the f32 FMAs,
     and K6's one read of d (16.8 MB a pair).
-  * Design (`csrc/eval.cu`): one block per pair loops over the levels, with
-    three passes per level (row sums and ratio_l; column sums, then ratio_r;
-    the cost and remain_l), the row and column state in shared memory, each
-    w = exp(L d) recomputed where it is used. K6 takes d from
-    `ops.geometry.square_distance`; K7 computes it with the same roundings,
-    so the two return the same bits. Every sum runs in a fixed order (a run
-    repeats itself bit for bit). On a CPU tensor the wrapper takes the plain
+  * Design (`csrc/eval.cu`): two schedules, picked by
+    `_eval_kernels.emd_schedule(p, n, m, otf)`. "cluster" (M <= 2048, the
+    eval's path): a pair's rows over 16 warps in a thread-block cluster of
+    `emd_cluster(p)` blocks (2 at the eval's 64-pair tile: 128 SMs); two
+    sweeps a level, the second fused with the next level's first (A(0),
+    eight fused sweeps, B(8): 10 reads of d and 18 exponentials per
+    element), each row's w held in its warp's registers; the column sums
+    and the cost reduced in a fixed balanced tree over the 16 warps, the
+    same for every cluster size, so a pair's cost does not depend on its
+    tile. "block" (M > 2048): the first version, one block per pair, three
+    passes a level. K6 takes d from `ops.geometry.square_distance`; K7
+    computes it with the same roundings, so the two return the same bits
+    in either schedule. Every sum runs in a fixed order (a run repeats
+    itself bit for bit). On a CPU tensor the wrapper takes the plain
     twin `approx_match_cost_plain` (the batched `_approx_match_cost_single`:
     multi_l = max(1, M // N), multi_r = max(1, N // M),
     dist = sqrt(max(d, 1e-20))); on a CUDA tensor it launches the kernel or
     raises. `approx_match_cost.launches` counts both modes,
-    `.otf_launches` the K7 ones.
+    `.otf_launches` the K7 ones, `.cluster_launches` those of the cluster
+    schedule.
 The twin takes the JAX form's matrix-vector products with `torch.matmul`:
 on a card they are full f32 only under torch's default matmul precision
 ("highest", `torch.backends.cuda.matmul.allow_tf32` False), which
@@ -215,12 +223,16 @@ def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
     approx_match_cost.launches += 1
     if otf:
         approx_match_cost.otf_launches += 1
+    if _eval_kernels.emd_schedule(p, n, m, otf)[0] == "cluster":
+        approx_match_cost.cluster_launches += 1
     return out
 
 
 approx_match_cost.launches = 0
-# the launches (counted in `launches` too) that took K7, the on-the-fly d
+# the launches (counted in `launches` too) that took K7, the on-the-fly d,
+# and those that took the cluster schedule
 approx_match_cost.otf_launches = 0
+approx_match_cost.cluster_launches = 0
 
 
 def emd_approx(sample: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -77,6 +77,57 @@ def test_packed_self_attention_kernel(card, b, n, h, dh, dtype):
     _assert_within(got, want, TOL[dtype])
 
 
+# (b, n, h, dh, schedule) of K1 in bf16: the tensor cores at the DiT's shape
+# and at the edges of their rule (N = 16, 48, 64; dh = 16, 32, 128; B = 1; a
+# head group of 4 left ragged), the CUDA cores past it (N = 17, dh = 24)
+K1_BF16 = [(8, 32, 16, 64, "mma"), (2, 16, 4, 64, "mma"),
+           (2, 48, 4, 64, "mma"), (2, 64, 2, 64, "mma"),
+           (2, 32, 6, 32, "mma"), (2, 64, 2, 128, "mma"),
+           (1, 32, 16, 64, "mma"), (1, 16, 5, 16, "mma"),
+           (2, 17, 4, 64, "fma"), (2, 32, 4, 24, "fma"),
+           (2, 80, 2, 64, "fma")]
+
+
+@pytest.mark.parametrize("b,n,h,dh,schedule", K1_BF16)
+def test_packed_self_attention_schedules_repeat_their_bits(card, b, n, h, dh,
+                                                           schedule):
+    """K1 bf16 on the schedule `packed_schedule` names, against its twin,
+    repeating its bits; `.mma_launches` counts exactly the tensor-core
+    calls."""
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=torch.bfloat16)
+    assert ops.packed_schedule(n, dh, torch.bfloat16) == schedule
+    fn = ops.packed_self_attention
+    before = (fn.launches, fn.mma_launches)
+    got = fn(qkv, h)
+    again = fn(qkv, h)
+    torch.cuda.synchronize()
+    mma = 2 if schedule == "mma" else 0
+    assert (fn.launches, fn.mma_launches) == (before[0] + 2, before[1] + mma)
+    assert torch.equal(got, again)
+    _assert_within(got, ops.packed_self_attention_plain(qkv, h),
+                   TOL[torch.bfloat16])
+    _assert_within(got.cpu(), ops.packed_self_attention_plain(qkv.cpu(), h),
+                   TOL[torch.bfloat16])
+
+
+def test_packed_self_attention_unaligned_and_f32_take_the_cuda_cores(card):
+    """A qkv whose rows start 2 bytes off a 16-byte boundary, and every f32
+    input, take the CUDA-core schedule."""
+    b, n, h, dh = 2, 32, 4, 64
+    flat = _randn(card, b * n * 3 * h * dh + 1, dtype=torch.bfloat16)
+    qkv = flat[1:].view(b, n, 3 * h * dh)
+    assert qkv.is_contiguous() and qkv.data_ptr() % 16 != 0
+    fn = ops.packed_self_attention
+    for x in (qkv, qkv.float()):
+        before = (fn.launches, fn.mma_launches)
+        got = fn(x, h)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1])
+        _assert_within(got, ops.packed_self_attention_plain(x, h),
+                       TOL[x.dtype])
+    assert ops.packed_schedule(n, dh, torch.float32) == "fma"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,m,d,h", [(4, 2048, 32, 128, 4),  # decode
                                        (2, 100, 45, 96, 2),    # M, dh > 32
@@ -473,21 +524,33 @@ def test_pairwise_cd_means_kernel(card, p, n, m):
 
 @pytest.mark.parametrize("p,n,m", [(4, 2048, 2048),   # the eval tiles
                                    (3, 700, 300),     # ragged, multi_r = 2
-                                   (2, 256, 1000)])   # multi_l = 3
+                                   (2, 256, 1000),    # multi_l = 3
+                                   (1, 2048, 2048),   # one pair: cluster 8
+                                   (64, 1024, 1024),  # the tile: cluster 2
+                                   (130, 256, 256),   # past the SMs
+                                   (5, 130, 67),      # M % 4 != 0
+                                   (2, 1500, 2600)])  # M > 2048: block
 def test_approx_match_cost_kernels(card, p, n, m):
     """K6 and K7 against the twin, equal to each other bit for bit, and
-    each repeating itself."""
-    from ldt_torch.ops import emd
+    each repeating itself; the cluster schedule's first pair alone (a
+    cluster of 8) has the bits it has in the tile."""
+    from ldt_torch.ops import _eval_kernels, emd
 
     x, y = _eval_clouds(p, n, m)
     fn = emd.approx_match_cost
-    before = (fn.launches, fn.otf_launches)
+    schedule = _eval_kernels.emd_schedule(p, n, m, False)[0]
+    assert schedule == ("block" if m > 2048 else "cluster")
+    before = (fn.launches, fn.otf_launches, fn.cluster_launches)
     k6 = fn(x, y)
     k7 = fn(x, y, otf=True)
     torch.cuda.synchronize()
-    assert (fn.launches, fn.otf_launches) == (before[0] + 2, before[1] + 1)
+    assert (fn.launches, fn.otf_launches, fn.cluster_launches) == (
+        before[0] + 2, before[1] + 1,
+        before[2] + (2 if schedule == "cluster" else 0))
     assert torch.equal(k6, k7)
     assert torch.equal(k6, fn(x, y)) and torch.equal(k7, fn(x, y, otf=True))
+    if schedule == "cluster":
+        assert torch.equal(fn(x[:1], y[:1]), k6[:1])
     _rel_within(k6, emd.approx_match_cost_plain(x, y), K6_TOL)
     _rel_within(k6.cpu(), emd.approx_match_cost_plain(x.cpu(), y.cpu()),
                 K6_TOL)
