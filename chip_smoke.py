@@ -101,6 +101,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import subprocess
@@ -429,9 +430,17 @@ def phase_kernels(batch: int, gen) -> dict:
             for vname, (acc, w) in variants(dtype).items():
                 readings[vname] = errs(got, c["variant"](acc, w))
             err = readings["twin"][0]
+            # `ms` and `library_ms`: the event loop over back-to-back calls,
+            # the wrapper's host work included (K1's is more than its
+            # device time); `device_ms` and `library_device_ms`: the
+            # device time per call alone, from torch.profiler
             ms = cuda_ms(c["kernel"])
             plain_ms = cuda_ms(c["plain"], iters=20)
             library_ms = cuda_ms(c["library"])
+            parts = launch_us(c["kernel"], 100)
+            device_ms = sum(parts.values()) / 1e3
+            library_device_ms = sum(launch_us(c["library"],
+                                              100).values()) / 1e3
             bound_ms, bound_by = _bound(c["nbytes"], {dn: c["flops"]})
             print(f"[2] {name} {dn} {c['shape']} ({schedules[name]} "
                   f"schedule): max_abs_err {err:.3e}, "
@@ -439,27 +448,60 @@ def phase_kernels(batch: int, gen) -> dict:
                   f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {c['nbytes'] / 1e6:.1f} MB, "
                   f"{c['flops'] / 1e9:.3f} GFLOP)")
-            if name == "cross_attention":
-                print(f"    device time per call: "
-                      f"{k2_launch_us(c['kernel'])}")
-            else:
-                # K1 takes less device time than its wrapper's host work
-                # (the timed loop above is host-bound): its row keeps the
-                # device time per call, kernel and SDPA alike
-                ms = sum(launch_us(c["kernel"], 100).values()) / 1e3
-                library_ms = sum(launch_us(c["library"], 100).values()) / 1e3
-                print(f"    device time per call: kernel {ms:.4f} ms, sdpa "
-                      f"{library_ms:.4f} ms")
+            print(f"    device time per call: kernel {device_ms:.4f} ms ("
+                  + ", ".join(f"{k} {us:.2f} us" for k, us in parts.items())
+                  + f"), sdpa {library_device_ms:.4f} ms")
+            row = {"name": name, "route": "cuda", "source": c["source"],
+                   "replaces": c["replaces"], "launches": 0,
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "device_ms": device_ms,
+                   "library_device_ms": library_device_ms}
+            if name == "packed_self_attention":
+                # the schedule the library launched, seen by the profiler
+                if ("packed_self_attention_mma_kernel" in " ".join(parts)) \
+                        != (schedules[name] == "mma"):
+                    fail(f"phase 2: K1 ({dn}) launched {list(parts)}, not "
+                         f"the {schedules[name]} schedule")
+                if schedules[name] == "mma":
+                    row.update(k1_cuda_cores(qkv, h, dn))
             held(f"{name} {dn} vs", readings, KERNEL_TOL[dn],
                  right=("twin", "cpu twin", "f64"))
             if dtype == torch.bfloat16:  # the main path's dtype
-                rows[name] = {
-                    "name": name, "route": "cuda", "source": c["source"],
-                    "replaces": c["replaces"], "launches": 0,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms}
+                rows[name] = row
     return rows
+
+
+def k1_cuda_cores(qkv, h: int, dn: str) -> dict:
+    """K1's CUDA-core schedule at the tensor-core schedule's shape, for the
+    before and after in one run: a copy of qkv whose rows start 2 bytes off
+    a 16-byte boundary takes it (the rule). Held against the twin; timed by
+    the event loop and by the profiler, as phase 2 times the kernel."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    flat = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device=qkv.device)
+    off = flat[1:].view(qkv.shape)
+    off.copy_(qkv)
+    fn = attn_ops.packed_self_attention
+    mma = fn.mma_launches
+    got = fn(off, h)
+    parts = launch_us(lambda: fn(off, h), 100)
+    if fn.mma_launches != mma or any("mma" in k for k in parts):
+        fail("phase 2: the unaligned K1 copy took the tensor cores")
+    if not torch.equal(got, fn(off, h)):
+        fail(f"phase 2: K1's CUDA-core schedule ({dn}) did not repeat its "
+             f"bits")
+    err = errs(got, attn_ops.packed_self_attention_plain(qkv, h))
+    out = {"fma_ms": cuda_ms(lambda: fn(off, h)),
+           "fma_device_ms": sum(parts.values()) / 1e3}
+    print(f"    the CUDA-core schedule at this shape (unaligned copy): "
+          f"max_abs_err {err[0]:.3e}, kernel {out['fma_ms']:.4f} ms, device "
+          f"time per call {out['fma_device_ms']:.4f} ms")
+    held(f"packed_self_attention {dn} CUDA-core schedule vs", {"twin": err},
+         KERNEL_TOL[dn], right=("twin",), wrong=())
+    return out
 
 
 def k8_weights_unquantized(qkv, num_heads: int, elems: int = 4):
@@ -1857,6 +1899,32 @@ def emd_variant(x, y, levels: int = 9, clamp: bool = True,
     return cost
 
 
+def emd_cluster_launched(x, y, otf: bool = False) -> int:
+    """The cluster size (0: the block schedule) that the library reports
+    for K6 (K7 with `otf`) on x, y; fails unless it is the one
+    `_eval_kernels.emd_schedule` expects on this card."""
+    import torch
+
+    from ldt_torch.ops import _eval_kernels
+    from ldt_torch.ops.geometry import square_distance
+
+    p, n, m = x.shape[0], x.shape[1], y.shape[1]
+    d = torch.clamp(square_distance(x, y), min=0.0)
+    out = torch.empty(p, device=x.device)
+    cluster = ctypes.c_int(-1)
+    _eval_kernels.raise_on(_eval_kernels.lib().ldt_approx_match_cost(
+        x.data_ptr(), y.data_ptr(), d.data_ptr(), out.data_ptr(), p, n, m,
+        int(otf), _eval_kernels.stream(x), ctypes.byref(cluster)),
+        "approx_match_cost")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    schedule, c = _eval_kernels.emd_schedule(p, n, m, otf, sms)
+    want = c if schedule == "cluster" else 0
+    if cluster.value != want:
+        fail(f"phase 18: K6/K7 at {p} pairs of {n} x {m} launched cluster "
+             f"size {cluster.value}; the rule says {want} on {sms} SMs")
+    return cluster.value
+
+
 def phase_eval_kernels() -> dict:
     """Phase 18: K5 and K6/K7 against their twins and wrong variants, K6 ==
     K7, repeatability, one pair against the exact optimum; times at a full
@@ -1913,9 +1981,9 @@ def phase_eval_kernels() -> dict:
     # the cluster schedule: a pair's cost does not depend on its tile (one
     # pair alone runs in a cluster of 8)
     alone = emd.approx_match_cost(x[:1], y[:1])
-    print(f"[18] K6/K7 schedule at {p} pairs: "
-          f"{_eval_kernels.emd_schedule(p, n, n, False)}, at 1 pair: "
-          f"{_eval_kernels.emd_schedule(1, n, n, False)}; pair 0 alone == "
+    print(f"[18] K6/K7 cluster size at {p} pairs: "
+          f"{emd_cluster_launched(x, y)}, at 1 pair: "
+          f"{emd_cluster_launched(x[:1], y[:1])}; pair 0 alone == "
           f"in the tile: {torch.equal(alone, k6[:1])}")
     if not torch.equal(alone, k6[:1]):
         fail("phase 18: a pair's K6 cost depends on its tile")
@@ -1938,11 +2006,15 @@ def phase_eval_kernels() -> dict:
     d = torch.clamp(square_distance(x, y), min=0.0)
     out = torch.empty(tp, device=x.device)
     lib, stream = _eval_kernels.lib(), _eval_kernels.stream(x)
+    cluster = ctypes.c_int(0)
 
     def k6_kernel():  # the launch alone, on a d built once
         _eval_kernels.raise_on(lib.ldt_approx_match_cost(
             x.data_ptr(), y.data_ptr(), d.data_ptr(), out.data_ptr(), tp, n,
-            n, 0, stream), "approx_match_cost")
+            n, 0, stream, ctypes.byref(cluster)), "approx_match_cost")
+
+    tile_cluster = {otf: emd_cluster_launched(x, y, otf)
+                    for otf in (False, True)}
 
     clock = sm_clock_hz()
     exp_rate = 16 * 132 * clock  # SFU exponentials per second
@@ -1998,7 +2070,7 @@ def phase_eval_kernels() -> dict:
               + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in b.items()
                           if k != "bytes")
               + f"; SFU rate at {clock / 1e6:.0f} MHz), library: none"
-              + (f"; schedule {_eval_kernels.emd_schedule(tp, n, n, otf)}"
+              + (f"; cluster size {tile_cluster[otf]}"
                  if name.startswith("approx") else "")
               + (f"; with the d build {wrapper_ms:.4f} ms"
                  if name == "approx_match_cost" else "")

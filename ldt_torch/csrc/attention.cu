@@ -8,8 +8,10 @@
 //    Bound on an H100: bytes. At the generation shape (B=64, N=32, 16 heads
 //    of dh=64, bf16) it reads 12.6 MB and writes 4.2 MB, 0.0050 ms at 3.35
 //    TB/s; its 0.27 GFLOP are far below the tensor cores' rate. Two
-//    schedules, chosen by one rule (self_mma below; ldt_torch/ops/
-//    attention.py::packed_schedule mirrors it):
+//    schedules, chosen by one rule (self_mma below, which the entry point
+//    reports as the schedule it launched; ldt_torch/ops/attention.py::
+//    packed_schedule mirrors it for the tests and chip_smoke.py's
+//    expected counts):
 //    - Tensor cores (packed_self_attention_mma_kernel) where the input is
 //      bf16, N is a multiple of 16 in [16, 64], dh is 16, 32, 64 or 128, and
 //      qkv and out are 16-byte aligned: the generation path. A block holds 4
@@ -1588,11 +1590,13 @@ cudaError_t launch_self_mma(const void* qkv, void* out, int b, int n, int h,
   return cudaGetLastError();
 }
 
+// *mma: 1 where the tensor-core schedule was launched, else 0.
 template <typename T>
 cudaError_t launch_self(const void* qkv, void* out, int b, int n, int d,
-                        int h, float scale, cudaStream_t stream) {
+                        int h, float scale, cudaStream_t stream, int* mma) {
   const int dh = d / h;
-  if (self_mma(n, dh, sizeof(T) == 2 ? kDtypeBF16 : kDtypeF32, qkv, out)) {
+  *mma = self_mma(n, dh, sizeof(T) == 2 ? kDtypeBF16 : kDtypeF32, qkv, out);
+  if (*mma) {
     switch (dh) {
       case 16: return launch_self_mma<16>(qkv, out, b, n, h, scale, stream);
       case 32: return launch_self_mma<32>(qkv, out, b, n, h, scale, stream);
@@ -1811,16 +1815,21 @@ bool bad_shape(int b, int n, int d, int h) {
 
 extern "C" {
 
+// *schedule: 1 where the launch took the tensor cores, 0 where it took the
+// CUDA cores or launched nothing.
 int ldt_packed_self_attention(const void* qkv, void* out, int b, int n, int d,
-                              int h, float scale, int dtype, void* stream) {
+                              int h, float scale, int dtype, void* stream,
+                              int* schedule) {
+  *schedule = 0;
   if (bad_shape(b, n, d, h) || self_smem_bytes(n, d / h) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
-    return (int)launch_self<float>(qkv, out, b, n, d, h, scale, s);
+    return (int)launch_self<float>(qkv, out, b, n, d, h, scale, s, schedule);
   if (dtype == kDtypeBF16)
-    return (int)launch_self<__nv_bfloat16>(qkv, out, b, n, d, h, scale, s);
+    return (int)launch_self<__nv_bfloat16>(qkv, out, b, n, d, h, scale, s,
+                                           schedule);
   return (int)cudaErrorInvalidValue;
 }
 

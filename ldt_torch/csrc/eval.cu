@@ -32,13 +32,16 @@
 //    9 N M exponentials of the function on the special-function units (16
 //    per SM per clock: 0.58 ms at 1980 MHz), above K6's one read of d (16.8
 //    MB a pair, 0.32 ms at 3.35 TB/s) and the f32 FMAs.
-//    Two schedules, chosen by one rule (emd_cluster_fits below;
-//    ldt_torch/ops/_eval_kernels.py::emd_schedule mirrors it):
+//    Two schedules, chosen by one rule (emd_cluster_fits below, which the
+//    entry point reports as the cluster size it launched;
+//    ldt_torch/ops/_eval_kernels.py::emd_schedule mirrors it for the tests
+//    and chip_smoke.py's expected counts):
 //    - Cluster (approx_match_cluster_kernel), where M <= 2048 and its shared
 //      memory fits: the eval's path. A pair's rows are split over
 //      kEmdSlots = 16 warps, spread over a thread-block cluster of c blocks
-//      of 16 / c warps: c = 8, 4 or 2, the largest with P c <= 132 (the SMs),
-//      else 2, so a 64-pair tile runs on 128 SMs. Two sweeps a level, the
+//      of 16 / c warps: c = 8, 4 or 2, the largest with P c <= the card's
+//      SMs (read at each call; 132 on an H100 SXM), else 2, so a 64-pair
+//      tile runs on 128 of 132 SMs. Two sweeps a level, the
 //      second fused with the next level's first: sweep A(L) takes each row's
 //      w = exp(L d) once, keeps it in the warp's registers (lane l holds
 //      columns 128 t + 4 l .. + 3), takes the row sum and ratio_l from it and
@@ -99,11 +102,9 @@ constexpr int kEmdWarps = kEmdThreads / 32;
 constexpr int kEmdCols = 4;       // columns of a K6/K7 thread per pass
 constexpr int kLevels = 9;
 // K6/K7's cluster schedule: row slots (warps) per pair, whatever the
-// cluster; the SMs its cluster rule fills; the most float4 column groups a
-// lane holds (128 columns each: M <= 2048). ldt_torch/ops/_eval_kernels.py
-// mirrors all three.
+// cluster; the most float4 column groups a lane holds (128 columns each:
+// M <= 2048). ldt_torch/ops/_eval_kernels.py mirrors both.
 constexpr int kEmdSlots = 16;
-constexpr int kEmdSms = 132;
 constexpr int kEmdMaxGroups = 16;
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az,
@@ -555,11 +556,11 @@ size_t emd_smem_bytes(int n, int m, bool otf) {
   return sizeof(float) * f;
 }
 
-// The cluster schedule's cluster size for p pairs: the largest of 8, 4, 2
-// with p c <= kEmdSms, else 2.
-int emd_cluster(int p) {
+// The cluster schedule's cluster size for p pairs on a card of sms SMs: the
+// largest of 8, 4, 2 with p c <= sms, else 2.
+int emd_cluster(int p, int sms) {
   for (int c = 8; c > 2; c >>= 1)
-    if ((long long)p * c <= kEmdSms) return c;
+    if ((long long)p * c <= sms) return c;
   return 2;
 }
 
@@ -582,9 +583,9 @@ size_t emd_cluster_smem_bytes(int n, int m, bool otf, int c) {
 
 // The schedule rule: the cluster schedule where M <= 2048 and its shared
 // memory fits, else the block schedule.
-bool emd_cluster_fits(int p, int n, int m, bool otf) {
+bool emd_cluster_fits(int p, int n, int m, bool otf, int sms) {
   return emd_groups(m) > 0 &&
-         emd_cluster_smem_bytes(n, m, otf, emd_cluster(p)) <= kMaxSmem;
+         emd_cluster_smem_bytes(n, m, otf, emd_cluster(p, sms)) <= kMaxSmem;
 }
 
 template <typename Kernel>
@@ -597,9 +598,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 template <bool kOtf, int G>
 cudaError_t launch_emd_cluster(const float* x, const float* y, const float* d,
-                               float* out, int p, int n, int m,
+                               float* out, int p, int n, int m, int c,
                                cudaStream_t stream) {
-  const int c = emd_cluster(p);
   const size_t smem = emd_cluster_smem_bytes(n, m, kOtf, c);
   cudaError_t e = allow_smem(approx_match_cluster_kernel<kOtf, G>, smem);
   if (e != cudaSuccess) return e;
@@ -621,14 +621,19 @@ cudaError_t launch_emd_cluster(const float* x, const float* y, const float* d,
   return cudaGetLastError();
 }
 
+// *cluster: the cluster size launched, 0 for the block schedule.
 template <bool kOtf>
 cudaError_t launch_emd(const float* x, const float* y, const float* d,
-                       float* out, int p, int n, int m, cudaStream_t stream) {
-  if (emd_cluster_fits(p, n, m, kOtf))
+                       float* out, int p, int n, int m, int sms,
+                       cudaStream_t stream, int* cluster) {
+  if (emd_cluster_fits(p, n, m, kOtf, sms)) {
+    *cluster = emd_cluster(p, sms);
     return emd_groups(m) == 8
-               ? launch_emd_cluster<kOtf, 8>(x, y, d, out, p, n, m, stream)
+               ? launch_emd_cluster<kOtf, 8>(x, y, d, out, p, n, m, *cluster,
+                                             stream)
                : launch_emd_cluster<kOtf, kEmdMaxGroups>(x, y, d, out, p, n,
-                                                         m, stream);
+                                                         m, *cluster, stream);
+  }
   const size_t smem = emd_smem_bytes(n, m, kOtf);
   cudaError_t e = allow_smem(approx_match_cost_kernel<kOtf>, smem);
   if (e != cudaSuccess) return e;
@@ -661,20 +666,29 @@ int ldt_pairwise_cd_means(const void* x, const void* y, void* out, int p,
 
 // K6 (otf = 0: d is the [p, n, m] squared distances; x, y unused) and K7
 // (otf = 1: x [p, n, 3], y [p, m, 3]; d unused). out: [p] float32.
+// *cluster: the cluster size of the cluster schedule where it was launched,
+// 0 where the block schedule was or nothing was.
 int ldt_approx_match_cost(const void* x, const void* y, const void* d,
                           void* out, int p, int n, int m, int otf,
-                          void* stream) {
+                          void* stream, int* cluster) {
+  *cluster = 0;
   const size_t smem = emd_smem_bytes(n, m, otf != 0);
   if (bad_pairs(p, n, m) || smem > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   if (p == 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* yf = static_cast<const float*>(y);
   const float* df = static_cast<const float*>(d);
   float* of = static_cast<float*>(out);
-  return (int)(otf ? launch_emd<true>(xf, yf, df, of, p, n, m, s)
-                   : launch_emd<false>(xf, yf, df, of, p, n, m, s));
+  return (int)(otf ? launch_emd<true>(xf, yf, df, of, p, n, m, sms, s, cluster)
+                   : launch_emd<false>(xf, yf, df, of, p, n, m, sms, s,
+                                       cluster));
 }
 
 const char* ldt_eval_error_string(int err) {

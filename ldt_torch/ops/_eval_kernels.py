@@ -18,10 +18,9 @@ SMEM_LIMIT = 232448
 _CD_WARPS = 8
 _EMD_WARPS = 16
 # K6/K7's cluster schedule (csrc/eval.cu): row slots (warps) per pair
-# (kEmdSlots), the SMs its cluster rule fills (kEmdSms), and the most float4
-# column groups a lane holds (kEmdMaxGroups: 128 columns each).
+# (kEmdSlots) and the most float4 column groups a lane holds (kEmdMaxGroups:
+# 128 columns each).
 _EMD_SLOTS = 16
-_EMD_SMS = 132
 _EMD_MAX_GROUPS = 16
 
 
@@ -38,12 +37,13 @@ def emd_smem_bytes(n: int, m: int, otf: bool) -> int:
     return 4 * (2 * n + 3 * m + _EMD_WARPS + (3 * n + 3 * m if otf else 0))
 
 
-def emd_cluster(p: int) -> int:
-    """The cluster schedule's blocks per pair for a tile of p pairs: the
-    largest of 8, 4, 2 with p * c <= 132 (the H100's SMs), else 2. A block
-    has 16 / c warps, so every pair has 16 row slots."""
+def emd_cluster(p: int, sms: int) -> int:
+    """The cluster schedule's blocks per pair for a tile of p pairs on a card
+    of `sms` SMs (132 on an H100 SXM): the largest of 8, 4, 2 with
+    p * c <= sms, else 2. A block has 16 / c warps, so every pair has 16 row
+    slots."""
     for c in (8, 4):
-        if p * c <= _EMD_SMS:
+        if p * c <= sms:
             return c
     return 2
 
@@ -69,11 +69,13 @@ def emd_cluster_smem_bytes(n: int, m: int, otf: bool, c: int) -> int:
     return 4 * f
 
 
-def emd_schedule(p: int, n: int, m: int, otf: bool):
-    """(schedule, cluster size) of K6/K7 (`emd_cluster_fits` in
-    csrc/eval.cu): ("cluster", c) where M <= 2048 and its shared memory
-    fits, else ("block", 1), the first version's one block per pair."""
-    c = emd_cluster(p)
+def emd_schedule(p: int, n: int, m: int, otf: bool, sms: int):
+    """(schedule, cluster size) of K6/K7 on a card of `sms` SMs
+    (`emd_cluster_fits` in csrc/eval.cu, which decides and reports the
+    cluster size it launched): ("cluster", c) where M <= 2048 and its shared
+    memory fits, else ("block", 1), the first version's one block per pair.
+    The tests and chip_smoke.py hold what the library reports to this."""
+    c = emd_cluster(p, sms)
     if emd_groups(m) and emd_cluster_smem_bytes(n, m, otf, c) <= SMEM_LIMIT:
         return "cluster", c
     return "block", 1
@@ -85,7 +87,8 @@ def lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     out.ldt_pairwise_cd_means.argtypes = [p, p, p, i, i, i, p]
     out.ldt_pairwise_cd_means.restype = i
-    out.ldt_approx_match_cost.argtypes = [p, p, p, p, i, i, i, i, p]
+    out.ldt_approx_match_cost.argtypes = [p, p, p, p, i, i, i, i, p,
+                                          ctypes.POINTER(i)]
     out.ldt_approx_match_cost.restype = i
     out.ldt_eval_error_string.argtypes = [i]
     out.ldt_eval_error_string.restype = ctypes.c_char_p

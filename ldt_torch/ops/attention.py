@@ -10,16 +10,17 @@ DiT block (24 launches per denoise step).
   * Bound on an H100: device-memory bytes. At the flagship shape (B=64,
     N=32, D=1024, 16 heads, bf16) it reads 12.6 MB and writes 4.2 MB for
     0.27 GFLOP, far below the card's operations-per-byte balance.
-  * Design: two schedules, picked by `packed_schedule(n, dh, dtype)`. Both
-    read q_h, k_h, v_h straight out of the packed rows (no split copies) and
-    write [N, dh] once.
+  * Design: two schedules, picked in the library (mirrored by
+    `packed_schedule(n, dh, dtype)`). Both read q_h, k_h, v_h straight out
+    of the packed rows (no split copies) and write [N, dh] once.
     "mma" (bf16, N a multiple of 16 up to 64, dh 16/32/64/128, the generation
     path): a block holds 4 heads of one element in shared memory (16-byte
     `cp.async` copies); a warp owns 16 query rows of a head, takes the
     scores with `mma.sync` m16n8k16 bf16 products (f32 accumulation), runs
     the softmax on the accumulator fragments in registers, rounds the
     weights to bf16 straight into the A fragments of the AV product, and
-    writes the output with 16-byte stores. Its calls are counted in
+    writes the output with 16-byte stores. The library reports which
+    schedule it launched; the tensor-core calls are counted in
     `.mma_launches` too.
     "fma" (every other input; f32, training's path, always): one block per
     (batch element, head) keeps q, k, v and the [N, N] scores in shared
@@ -177,9 +178,11 @@ def self_mma_smem_bytes(n: int, dh: int) -> int:
 def packed_schedule(n: int, dh: int, dtype: torch.dtype,
                     aligned: bool = True) -> str:
     """K1's schedule for n tokens of head width dh (`self_mma` in
-    csrc/attention.cu): "mma" (the tensor cores) where dtype is bf16, n a
-    multiple of 16 in [16, 64], dh 16, 32, 64 or 128, and the qkv and output
-    16-byte `aligned`; "fma" (the CUDA cores) for everything else."""
+    csrc/attention.cu, which decides): "mma" (the tensor cores) where dtype
+    is bf16, n a multiple of 16 in [16, 64], dh 16, 32, 64 or 128, and the
+    qkv and output 16-byte `aligned`; "fma" (the CUDA cores) for everything
+    else. The wrapper counts what the library reports it launched; this
+    rule is what the tests and chip_smoke.py expect it to report."""
     if (dtype == torch.bfloat16 and aligned and n % 16 == 0
             and 16 <= n <= _MMA_MAX_N and dh in _MMA_DH
             and self_mma_smem_bytes(n, dh) <= SMEM_LIMIT):
@@ -432,7 +435,8 @@ def _check_no_grad(name: str, tensors) -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ldt_packed_self_attention.argtypes = [p, p, i, i, i, i, f, i, p]
+    lib.ldt_packed_self_attention.argtypes = [p, p, i, i, i, i, f, i, p,
+                                              ctypes.POINTER(i)]
     lib.ldt_packed_self_attention.restype = i
     lib.ldt_cross_attention.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
                                         p]
@@ -468,22 +472,21 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, d3 = qkv.shape
     d = d3 // 3
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
-    aligned = qkv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    schedule = packed_schedule(n, dh, qkv.dtype, aligned)
+    mma = ctypes.c_int(0)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = _lib().ldt_packed_self_attention(
             qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, dh ** -0.5,
-            _DTYPE_CODES[qkv.dtype], stream)
+            _DTYPE_CODES[qkv.dtype], stream, ctypes.byref(mma))
     _raise_on(err, name)
     packed_self_attention.launches += 1
-    if schedule == "mma":
-        packed_self_attention.mma_launches += 1
+    packed_self_attention.mma_launches += mma.value
     return out
 
 
 packed_self_attention.launches = 0
-# the launches (counted in `launches` too) that took the tensor cores
+# the launches (counted in `launches` too) that took the tensor cores, as
+# the library reports the schedule it launched
 packed_self_attention.mma_launches = 0
 
 

@@ -32,13 +32,14 @@ L = -4^7 ... -4^-1 (the reference's `match_cost`).
   * Bound on an H100: the 9 N M exponentials on the special-function units
     (16 per SM per clock), ~9 us a pair at 2048 points; then the f32 FMAs,
     and K6's one read of d (16.8 MB a pair).
-  * Design (`csrc/eval.cu`): two schedules, picked by
-    `_eval_kernels.emd_schedule(p, n, m, otf)`. "cluster" (M <= 2048, the
-    eval's path): a pair's rows over 16 warps in a thread-block cluster of
-    `emd_cluster(p)` blocks (2 at the eval's 64-pair tile: 128 SMs); two
-    sweeps a level, the second fused with the next level's first (A(0),
-    eight fused sweeps, B(8): 10 reads of d and 18 exponentials per
-    element), each row's w held in its warp's registers; the column sums
+  * Design (`csrc/eval.cu`): two schedules, picked in the library (mirrored
+    by `_eval_kernels.emd_schedule(p, n, m, otf, sms)`). "cluster"
+    (M <= 2048, the eval's path): a pair's rows over 16 warps in a
+    thread-block cluster of `emd_cluster(p, sms)` blocks (2 at the eval's
+    64-pair tile: 128 of an H100's 132 SMs); two sweeps a level, the second
+    fused with the next level's first (A(0), eight fused sweeps, B(8): 10
+    reads of d and 18 exponentials per element), each row's w held in its
+    warp's registers; the column sums
     and the cost reduced in a fixed balanced tree over the 16 warps, the
     same for every cluster size, so a pair's cost does not depend on its
     tile. "block" (M > 2048): the first version, one block per pair, three
@@ -62,6 +63,7 @@ itself.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -215,22 +217,24 @@ def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
     # in the direct form); K7 builds them itself
     d = None if otf else torch.clamp(square_distance(x1, x2), min=0.0)
     out = torch.empty(p, dtype=torch.float32, device=x1.device)
+    cluster = ctypes.c_int(0)
     with torch.cuda.device(x1.device):
         err = _eval_kernels.lib().ldt_approx_match_cost(
             x1.data_ptr(), x2.data_ptr(), None if d is None else d.data_ptr(),
-            out.data_ptr(), p, n, m, int(otf), _eval_kernels.stream(x1))
+            out.data_ptr(), p, n, m, int(otf), _eval_kernels.stream(x1),
+            ctypes.byref(cluster))
     _eval_kernels.raise_on(err, name)
     approx_match_cost.launches += 1
     if otf:
         approx_match_cost.otf_launches += 1
-    if _eval_kernels.emd_schedule(p, n, m, otf)[0] == "cluster":
+    if cluster.value:
         approx_match_cost.cluster_launches += 1
     return out
 
 
 approx_match_cost.launches = 0
 # the launches (counted in `launches` too) that took K7, the on-the-fly d,
-# and those that took the cluster schedule
+# and those that took the cluster schedule (as the library reports it)
 approx_match_cost.otf_launches = 0
 approx_match_cost.cluster_launches = 0
 

@@ -8,6 +8,7 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import ctypes
 from unittest import mock
 
 import pytest
@@ -48,6 +49,17 @@ def _assert_within(got, want, tol, scale=1.0):
     diff = (got.float() - want.float()).abs()
     assert diff.max().item() <= tol[0] * scale, diff.max().item()
     assert diff.mean().item() <= tol[1] * scale, diff.mean().item()
+
+
+def _launched(fn) -> str:
+    """The names of the CUDA kernels that `fn` launches, from
+    torch.profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 @pytest.fixture
@@ -93,7 +105,7 @@ def test_packed_self_attention_schedules_repeat_their_bits(card, b, n, h, dh,
                                                            schedule):
     """K1 bf16 on the schedule `packed_schedule` names, against its twin,
     repeating its bits; `.mma_launches` counts exactly the tensor-core
-    calls."""
+    calls, and the profiler sees that schedule's kernel run."""
     qkv = _randn(card, b, n, 3 * h * dh, dtype=torch.bfloat16)
     assert ops.packed_schedule(n, dh, torch.bfloat16) == schedule
     fn = ops.packed_self_attention
@@ -104,6 +116,9 @@ def test_packed_self_attention_schedules_repeat_their_bits(card, b, n, h, dh,
     mma = 2 if schedule == "mma" else 0
     assert (fn.launches, fn.mma_launches) == (before[0] + 2, before[1] + mma)
     assert torch.equal(got, again)
+    names = _launched(lambda: fn(qkv, h))
+    assert ("packed_self_attention_mma_kernel" in names) == (
+        schedule == "mma"), names
     _assert_within(got, ops.packed_self_attention_plain(qkv, h),
                    TOL[torch.bfloat16])
     _assert_within(got.cpu(), ops.packed_self_attention_plain(qkv.cpu(), h),
@@ -123,6 +138,8 @@ def test_packed_self_attention_unaligned_and_f32_take_the_cuda_cores(card):
         got = fn(x, h)
         torch.cuda.synchronize()
         assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1])
+        assert "packed_self_attention_mma_kernel" not in _launched(
+            lambda: fn(x, h))
         _assert_within(got, ops.packed_self_attention_plain(x, h),
                        TOL[x.dtype])
     assert ops.packed_schedule(n, dh, torch.float32) == "fma"
@@ -149,10 +166,11 @@ def test_a_refused_launch_raises(card):
     it into an exception (here: an unknown dtype code)."""
     qkv = _randn(card, 1, 4, 24, dtype=torch.float32)
     out = torch.empty(1, 4, 8, device="cuda")
+    mma = ctypes.c_int(-1)
     err = ops._lib().ldt_packed_self_attention(
         qkv.data_ptr(), out.data_ptr(), 1, 4, 8, 2, 0.5, 7,
-        torch.cuda.current_stream().cuda_stream)
-    assert err != 0
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(mma))
+    assert err != 0 and mma.value == 0  # no launch, no schedule
     with pytest.raises(RuntimeError, match="CUDA error"):
         ops._raise_on(err, "packed_self_attention")
 
@@ -538,7 +556,8 @@ def test_approx_match_cost_kernels(card, p, n, m):
 
     x, y = _eval_clouds(p, n, m)
     fn = emd.approx_match_cost
-    schedule = _eval_kernels.emd_schedule(p, n, m, False)[0]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    schedule = _eval_kernels.emd_schedule(p, n, m, False, sms)[0]
     assert schedule == ("block" if m > 2048 else "cluster")
     before = (fn.launches, fn.otf_launches, fn.cluster_launches)
     k6 = fn(x, y)
@@ -549,6 +568,9 @@ def test_approx_match_cost_kernels(card, p, n, m):
         before[2] + (2 if schedule == "cluster" else 0))
     assert torch.equal(k6, k7)
     assert torch.equal(k6, fn(x, y)) and torch.equal(k7, fn(x, y, otf=True))
+    names = _launched(lambda: fn(x, y))
+    assert ("approx_match_cluster_kernel" in names) == (
+        schedule == "cluster"), names
     if schedule == "cluster":
         assert torch.equal(fn(x[:1], y[:1]), k6[:1])
     _rel_within(k6, emd.approx_match_cost_plain(x, y), K6_TOL)

@@ -172,13 +172,16 @@ def test_a_fusion_with_the_stale_remain_r_fails_the_limit():
     assert not _within(wrong), wrong
 
 
-@pytest.mark.parametrize("p,c", [(1, 8), (16, 8), (17, 4), (32, 4), (33, 4),
-                                 (34, 2), (64, 2), (130, 2), (4096, 2)])
-def test_cluster_size_rule(p, c):
-    assert _eval_kernels.emd_cluster(p) == c
-    # at most 8 warps a block (the kernel's launch bound), on <= 132 SMs
-    # where the tile is small enough
-    assert SLOTS // c <= 8 and (p * c <= 132 or c == 2)
+@pytest.mark.parametrize("p,sms,c", [
+    (1, 132, 8), (16, 132, 8), (17, 132, 4), (32, 132, 4), (33, 132, 4),
+    (34, 132, 2), (64, 132, 2), (130, 132, 2), (4096, 132, 2),
+    # a card of 114 SMs (the H100 PCIe): the rule follows the count
+    (14, 114, 8), (15, 114, 4), (28, 114, 4), (29, 114, 2), (64, 114, 2)])
+def test_cluster_size_rule(p, sms, c):
+    assert _eval_kernels.emd_cluster(p, sms) == c
+    # at most 8 warps a block (the kernel's launch bound), on at most the
+    # card's SMs where the tile is small enough
+    assert SLOTS // c <= 8 and (p * c <= sms or c == 2)
 
 
 @pytest.mark.parametrize("p,n,m,otf,schedule", [
@@ -187,7 +190,7 @@ def test_cluster_size_rule(p, c):
     (64, 6000, 2048, True, "block"), (2, 1500, 2049, False, "block"),
     (2, 8000, 8000, False, "block")])
 def test_schedule_rule(p, n, m, otf, schedule):
-    assert _eval_kernels.emd_schedule(p, n, m, otf)[0] == schedule
+    assert _eval_kernels.emd_schedule(p, n, m, otf, 132)[0] == schedule
 
 
 def _constants():
@@ -197,9 +200,10 @@ def _constants():
 
 def test_constants_mirror_the_source():
     c = _constants()
-    assert (c["kEmdSlots"], c["kEmdSms"], c["kEmdMaxGroups"]) == (
-        _eval_kernels._EMD_SLOTS, _eval_kernels._EMD_SMS,
-        _eval_kernels._EMD_MAX_GROUPS)
+    assert (c["kEmdSlots"], c["kEmdMaxGroups"]) == (
+        _eval_kernels._EMD_SLOTS, _eval_kernels._EMD_MAX_GROUPS)
+    # the cluster rule takes the SM count from the card, not a constant
+    assert "cudaDevAttrMultiProcessorCount" in SOURCE
     assert c["kEmdThreads"] // 32 == _eval_kernels._EMD_WARPS
     assert re.search(r"__launch_bounds__\(kEmdSlots / 2 \* 32\)", SOURCE)
     body = re.search(r"size_t emd_cluster_smem_bytes\(.*?\n}", SOURCE,
