@@ -8,10 +8,14 @@ Phases (each raises on failure, so the process exits non-zero):
      nvcc each, started together); print the time.
   2. Hold each kernel against its plain PyTorch twin on the card at the main
      path's shapes, in f32 and bf16, each repeating its bits (K2 here: its
-     whole-set schedule at the decode shape); time the kernel, the twin
-     and one `scaled_dot_product_attention` call on the same tensors (a
-     yardstick only: the port never calls it); work out each kernel's
-     bound.
+     whole-set schedule at the decode shape; K1 on its register-tiled f32
+     and tensor-core bf16 schedules, the schedule the library reports and
+     the profiler names checked); time the kernel (event loop and device
+     time), the twin and one `scaled_dot_product_attention` call on the
+     same tensors (a yardstick only: the port never calls it); work out each
+     kernel's bound. K1's first CUDA-core kernel runs and is timed at both
+     shapes through an unaligned copy (the before of the same run); in f32
+     it must equal the register-tiled schedule bit for bit.
   3. Full-width flagship DiT (24 blocks, hidden 1024, bf16) plus the 6-block
      decoder, random weights from a seed: the two halves of `generate` (a
      short sampler run; the decoder on N(0, 1) latents) through the kernels
@@ -31,14 +35,19 @@ default), in this order among the phases above:
   7. (after 2) Kernel K8 against its plain twin on the card and on the CPU
      at the main path's shape, and against wrong variants that must fail
      (scales per batch element, weights left unquantized before AV, k and
-     v swapped); its time, bound and twin time.
+     v swapped); on the int8 tensor cores (the library's report and the
+     profiler's kernel name), equal bit for bit to its CUDA-core kernels run
+     through an unaligned copy; both timed by the event loop and by device
+     time, with the bound and the twin's time.
   8. (after 7) The int8 GEMMs at the DiT's four block shapes: `_int_mm`,
      the whole dynamic `int8_matmul` and a bf16 matmul, timed; the int8
      product on the card equal to the CPU's bit for bit.
   9. (after 4) Two full int8 generations, 1000 steps + decode at B=64:
      attention through K1 (bench.py's default), then through K8; launch
-     counts checked, clouds/min printed.
- 10. (after 9) A 32-step DDIM generation through the int8 path and K8.
+     counts checked (every K8 launch on the int8 tensor cores, as the
+     library reports), clouds/min printed.
+ 10. (after 9) A 32-step DDIM generation through the int8 path and K8 (its
+     launch counts checked as phase 9's).
      Phase 5 then profiles the bf16 and the int8 (K8) paths.
  11. (before 6) One int8 step at flagship width cut to two blocks, on the
      card against the CPU run of the port, and against wrong variants.
@@ -52,8 +61,8 @@ Stage-2 training (`ldt_torch.training.latent_sde_trainer.Trainer.update`):
  13. (after 10) The flagship train step at B=64, f32: the frozen full
      Compressor encodes synthetic [64, 2048, 3] clouds, then loss, K1
      forward / K3 backward through the 24-block Score, clip, Adam, EMA;
-     launch counts K1 24, K3 24, K2 24 per step; ms per step; one step
-     under torch.profiler by kernel class.
+     launch counts K1 24 (register-tiled), K3 24, K2 24 per step; ms per
+     step; one step under torch.profiler by kernel class.
  14. (after 11) One train step at flagship width cut to two Score blocks,
      f32, same weights, clouds and pinned draws, on the card against the
      CPU, and against a K3 with dq and dk swapped.
@@ -193,6 +202,10 @@ K5_TOL = (1e-5, 1e-6)
 # "cost on d" (sum match d, not sqrt(d)). Phase 20 holds the card's CD and
 # EMD matrices to the CPU's with K5_TOL and K6_TOL.
 K6_TOL = (3e-5, 2e-6)
+# The kernel each schedule of K1 launches, as torch.profiler names it.
+K1_KERNELS = {"mma": "packed_self_attention_mma_kernel",
+              "tiled": "packed_self_attention_tiled_kernel",
+              "fma": "packed_self_attention_kernel<"}
 EVAL_PAIRS = 32    # phase 18's pairs
 EVAL_SET = 64      # phase 19's references and samples
 EVAL_POINTS = 2048  # points per cloud in phases 18-20 (the eval's)
@@ -363,7 +376,7 @@ def phase_kernels(batch: int, gen) -> dict:
 
     n, d, h = 32, 1024, 16            # DiT self-attention (score_cfg)
     nq, m, dc, hc = 2048, 32, 128, 4  # decoder cross-attention
-    rows = {}
+    rows, f32_rows = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         qkv = torch.randn(batch, n, 3 * d, device="cuda", dtype=dtype,
@@ -416,13 +429,13 @@ def phase_kernels(batch: int, gen) -> dict:
                                                               dtype),
             "cross_attention": attn_ops.cross_schedule(nq, m, dc // hc)}
         for name, c in cases.items():
-            mma = attn_ops.packed_self_attention.mma_launches
+            before = k1_schedule_counts()
             got = c["kernel"]()
             if not torch.equal(got, c["kernel"]()):
                 fail(f"phase 2: {name} ({dn}) did not repeat its bits")
             if name == "packed_self_attention" and \
-                    attn_ops.packed_self_attention.mma_launches - mma != (
-                        2 if schedules[name] == "mma" else 0):
+                    k1_schedule_counts() != k1_schedule_counts(
+                        before, schedules[name], 2):
                 fail(f"phase 2: K1 ({dn}) did not take the "
                      f"{schedules[name]} schedule")
             readings = {"twin": errs(got, c["plain"]()),
@@ -459,47 +472,84 @@ def phase_kernels(batch: int, gen) -> dict:
                    "library_device_ms": library_device_ms}
             if name == "packed_self_attention":
                 # the schedule the library launched, seen by the profiler
-                if ("packed_self_attention_mma_kernel" in " ".join(parts)) \
-                        != (schedules[name] == "mma"):
+                names = " ".join(parts)
+                if any((kernel in names) != (sched == schedules[name])
+                       for sched, kernel in K1_KERNELS.items()):
                     fail(f"phase 2: K1 ({dn}) launched {list(parts)}, not "
                          f"the {schedules[name]} schedule")
-                if schedules[name] == "mma":
-                    row.update(k1_cuda_cores(qkv, h, dn))
+                if schedules[name] != "fma":
+                    row.update(k1_cuda_cores(qkv, h, dn, got,
+                                             schedules[name]))
             held(f"{name} {dn} vs", readings, KERNEL_TOL[dn],
                  right=("twin", "cpu twin", "f64"))
             if dtype == torch.bfloat16:  # the main path's dtype
                 rows[name] = row
+            else:
+                f32_rows[name] = row
+    # K1 at f32 is the stage-2 train step's: its numbers ride in K1's row
+    rows["packed_self_attention"]["float32"] = {
+        k: v for k, v in f32_rows["packed_self_attention"].items()
+        if k.endswith("ms") or k in ("max_abs_err", "bound_by")}
     return rows
 
 
-def k1_cuda_cores(qkv, h: int, dn: str) -> dict:
-    """K1's CUDA-core schedule at the tensor-core schedule's shape, for the
-    before and after in one run: a copy of qkv whose rows start 2 bytes off
-    a 16-byte boundary takes it (the rule). Held against the twin; timed by
-    the event loop and by the profiler, as phase 2 times the kernel."""
+def unaligned_copy(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary: K1 and K8 then take their earlier kernels (their rules)."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    off = flat[1:].view(t.shape)
+    off.copy_(t)
+    return off
+
+
+def k1_schedule_counts(before=None, schedule=None, calls=0) -> tuple:
+    """K1's (launches, tensor-core, register-tiled) counts now, or, given
+    `before`, what they must read after `calls` calls on `schedule`."""
+    from ldt_torch.ops import attention as attn_ops
+
+    if before is None:
+        fn = attn_ops.packed_self_attention
+        return fn.launches, fn.mma_launches, fn.tiled_launches
+    return (before[0] + calls, before[1] + calls * (schedule == "mma"),
+            before[2] + calls * (schedule == "tiled"))
+
+
+def k1_cuda_cores(qkv, h: int, dn: str, got, schedule: str) -> dict:
+    """K1's first CUDA-core kernel at the shape where `schedule` ran, for the
+    before and after in one run: an unaligned copy of qkv takes it (the
+    rule). Held against the twin, and equal to `got` bit for bit where the
+    new schedule is the register-tiled one (the same f32 FMA chains); timed
+    by the event loop and by the profiler, as phase 2 times the kernel."""
     import torch
 
     from ldt_torch.ops import attention as attn_ops
 
-    flat = torch.empty(qkv.numel() + 1, dtype=qkv.dtype, device=qkv.device)
-    off = flat[1:].view(qkv.shape)
-    off.copy_(qkv)
+    off = unaligned_copy(qkv)
     fn = attn_ops.packed_self_attention
-    mma = fn.mma_launches
-    got = fn(off, h)
+    before = k1_schedule_counts()
+    old = fn(off, h)
     parts = launch_us(lambda: fn(off, h), 100)
-    if fn.mma_launches != mma or any("mma" in k for k in parts):
-        fail("phase 2: the unaligned K1 copy took the tensor cores")
-    if not torch.equal(got, fn(off, h)):
-        fail(f"phase 2: K1's CUDA-core schedule ({dn}) did not repeat its "
-             f"bits")
-    err = errs(got, attn_ops.packed_self_attention_plain(qkv, h))
+    if k1_schedule_counts() != k1_schedule_counts(before, "fma", 102) or \
+            K1_KERNELS["fma"] not in " ".join(parts):
+        fail(f"phase 2: the unaligned K1 copy ({dn}) did not take the first "
+             f"CUDA-core kernel: {list(parts)}")
+    if not torch.equal(old, fn(off, h)):
+        fail(f"phase 2: K1's CUDA-core kernel ({dn}) did not repeat its bits")
+    if schedule == "tiled" and not torch.equal(got, old):
+        fail("phase 2: K1's register-tiled schedule and the CUDA-core kernel "
+             f"differ (max {errs(got, old)[0]:.3e})")
+    err = errs(old, attn_ops.packed_self_attention_plain(qkv, h))
     out = {"fma_ms": cuda_ms(lambda: fn(off, h)),
            "fma_device_ms": sum(parts.values()) / 1e3}
-    print(f"    the CUDA-core schedule at this shape (unaligned copy): "
+    print(f"    the first CUDA-core kernel at this shape (unaligned copy): "
           f"max_abs_err {err[0]:.3e}, kernel {out['fma_ms']:.4f} ms, device "
-          f"time per call {out['fma_device_ms']:.4f} ms")
-    held(f"packed_self_attention {dn} CUDA-core schedule vs", {"twin": err},
+          f"time per call {out['fma_device_ms']:.4f} ms"
+          + ("; == the register-tiled schedule bit for bit"
+             if schedule == "tiled" else ""))
+    held(f"packed_self_attention {dn} first CUDA-core kernel vs",
+         {"twin": err},
          KERNEL_TOL[dn], right=("twin",), wrong=())
     return out
 
@@ -545,7 +595,12 @@ def phase_k8(batch: int, gen) -> dict:
         def plain():
             return attn_ops.packed_self_attention_int8_plain(qkv, h)
 
+        mma = attn_ops.packed_self_attention_int8.mma_launches
         got = kernel()
+        if attn_ops.packed_self_attention_int8.mma_launches - mma != 1:
+            fail(f"phase 7: K8 ({dn}) did not take the int8 tensor cores")
+        if not torch.equal(got, kernel()):
+            fail(f"phase 7: K8 ({dn}) did not repeat its bits")
         readings = {
             "twin": errs(got, plain()),
             "cpu twin": errs(got, attn_ops.packed_self_attention_int8_plain(
@@ -560,6 +615,26 @@ def phase_k8(batch: int, gen) -> dict:
         step = qkv[..., 2 * d:].float().abs().amax().item() / 127
         ms = cuda_ms(kernel)
         plain_ms = cuda_ms(plain, iters=20)
+        parts = launch_us(kernel, 100)
+        device_ms = sum(parts.values()) / 1e3
+        if "packed_self_attention_int8_mma_kernel" not in " ".join(parts):
+            fail(f"phase 7: K8 ({dn}) launched {list(parts)}, not the int8 "
+                 "tensor cores")
+        # the CUDA-core kernels at this shape, through an unaligned copy
+        off = unaligned_copy(qkv)
+        mma = attn_ops.packed_self_attention_int8.mma_launches
+        old = attn_ops.packed_self_attention_int8(off, h)
+        old_parts = launch_us(
+            lambda: attn_ops.packed_self_attention_int8(off, h), 100)
+        if attn_ops.packed_self_attention_int8.mma_launches != mma or \
+                "int8_mma" in " ".join(old_parts):
+            fail(f"phase 7: the unaligned K8 copy ({dn}) took the tensor "
+                 "cores")
+        if not torch.equal(got, old):
+            fail(f"phase 7: K8's tensor-core schedule and the CUDA-core "
+                 f"kernels differ ({dn}, max {errs(got, old)[0]:.3e})")
+        fma_ms = cuda_ms(lambda: attn_ops.packed_self_attention_int8(off, h))
+        fma_device_ms = sum(old_parts.values()) / 1e3
         nbytes = qkv.numel() * qkv.element_size() \
             + batch * n * d * qkv.element_size()
         ops = {"int8": batch * h * 4 * n * n * dh,
@@ -573,6 +648,13 @@ def phase_k8(batch: int, gen) -> dict:
               f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{ops['int8'] / 1e9:.3f} G int8 ops, "
               f"{ops['float32'] / 1e9:.3f} GFLOP f32); library: none")
+        print(f"    device time per call: kernel {device_ms:.4f} ms ("
+              + ", ".join(f"{k} {us:.2f} us" for k, us in parts.items())
+              + f"); the CUDA-core kernels (unaligned copy, == the tensor "
+              f"cores bit for bit) {fma_ms:.4f} ms, device "
+              f"{fma_device_ms:.4f} ms ("
+              + ", ".join(f"{k} {us:.2f} us" for k, us in old_parts.items())
+              + ")")
         held(f"K8 {dn} vs", readings, K8_TOL, right=("twin", "cpu twin"),
              wrong=("E=1", "w unquantized", "kv swapped"))
         if dtype == torch.bfloat16:  # the main path's dtype
@@ -582,7 +664,9 @@ def phase_k8(batch: int, gen) -> dict:
                 "replaces": "ldt_tpu/ops/pallas_attention.py:253",
                 "launches": 0, "max_abs_err": readings["twin"][0], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}}
+                "bound_by": bound_by, "library_ms": None,
+                "device_ms": device_ms, "fma_ms": fma_ms,
+                "fma_device_ms": fma_device_ms}}
     return row
 
 
@@ -1123,6 +1207,10 @@ def counted(fn):
     # the schedule counts (each launch is counted in its wrapper's too)
     schedules = {"packed_self_attention_mma": (
                      attn_ops.packed_self_attention, "mma_launches"),
+                 "packed_self_attention_tiled": (
+                     attn_ops.packed_self_attention, "tiled_launches"),
+                 "packed_self_attention_int8_mma": (
+                     attn_ops.packed_self_attention_int8, "mma_launches"),
                  "cross_attention_tiled": (attn_ops.cross_attention,
                                            "tiled_launches"),
                  "cross_attention_bwd_long_key": (
@@ -1150,7 +1238,9 @@ def counted(fn):
 def per_step_launches(**counts) -> dict:
     """Every kernel's launch count in one step: `counts`, else 0."""
     names = ("packed_self_attention", "packed_self_attention_mma",
-             "cross_attention", "packed_self_attention_int8",
+             "packed_self_attention_tiled", "cross_attention",
+             "packed_self_attention_int8", "packed_self_attention_int8_mma",
+
              "packed_self_attention_bwd", "cross_attention_bwd",
              "cross_attention_tiled", "cross_attention_bwd_long_key",
              "cross_attention_bwd_long_query", "pairwise_cd_means",
@@ -1159,16 +1249,18 @@ def per_step_launches(**counts) -> dict:
     return {k: counts.get(k, 0) for k in names}
 
 
-def k1_mma_launches(score, k1_launches: int) -> int:
-    """K1's tensor-core calls among `k1_launches` of `score`'s blocks: all
-    of them where the rule takes its shape (the generation's bf16 qkv of 32
-    tokens, heads of 64), else none."""
+def k1_schedule_launches(score, k1_launches: int) -> dict:
+    """K1's calls by schedule among `k1_launches` of `score`'s blocks (the
+    rule at its dtype, 32 tokens and heads of 64: the tensor cores in bf16,
+    the register-tiled schedule in f32), as `counted` names them."""
     from ldt_torch.ops import attention as attn_ops
 
     dtype = next(score.parameters()).dtype
     dh = score.cfg.hidden_size // score.cfg.num_heads
-    return k1_launches if attn_ops.packed_schedule(
-        score.cfg.z_scale, dh, dtype) == "mma" else 0
+    schedule = attn_ops.packed_schedule(score.cfg.z_scale, dh, dtype)
+    return {"packed_self_attention_mma": k1_launches * (schedule == "mma"),
+            "packed_self_attention_tiled":
+            k1_launches * (schedule == "tiled")}
 
 
 def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
@@ -1191,12 +1283,13 @@ def checked_generation(tag: str, what: str, fn, batch: int, expect: dict):
 
 def expected_launches(score, comp, steps: int, k1: bool, k8: bool) -> dict:
     per_run = score.cfg.num_blocks * steps
+    # every K8 call at the DiT's shape must report the int8 tensor cores
     return per_step_launches(
         packed_self_attention=per_run if k1 else 0,
-        packed_self_attention_mma=k1_mma_launches(score,
-                                                  per_run if k1 else 0),
+        **k1_schedule_launches(score, per_run if k1 else 0),
         cross_attention=comp.cfg.n_layers,
-        packed_self_attention_int8=per_run if k8 else 0)
+        packed_self_attention_int8=per_run if k8 else 0,
+        packed_self_attention_int8_mma=per_run if k8 else 0)
 
 
 def phase_generate(score, comp, batch: int, steps: int, gen) -> dict:
@@ -1423,7 +1516,8 @@ def phase_train(batch: int, steps: int, gen) -> dict:
     losses = losses.cpu()
     per_step = per_step_launches(
         packed_self_attention=24, packed_self_attention_bwd=24,
-        cross_attention=24, cross_attention_tiled=5)
+        cross_attention=24, cross_attention_tiled=5,
+        **k1_schedule_launches(trainer.score, 24))
     expect = {k: v * steps for k, v in per_step.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[13] {steps} train steps at B={batch}, f32: {dt * 1e3 / steps:.2f}"
@@ -2173,8 +2267,7 @@ def phase_eval(stage1) -> dict:
         f"stage-2 valsample ({bs} clouds, {CHECK_STEPS} steps)": (
             lambda: stage2.valsample(loader[:1]),
             dict(packed_self_attention=blocks * CHECK_STEPS,
-                 packed_self_attention_mma=k1_mma_launches(
-                     stage2.score, blocks * CHECK_STEPS),
+                 **k1_schedule_launches(stage2.score, blocks * CHECK_STEPS),
                  cross_attention=stage2.cfg.compressor.n_layers,
                  pairwise_cd_means=3 * s2_pairs,
                  approx_match_cost=3 * s2_pairs)),

@@ -7,10 +7,10 @@
 //    (and its one-element and per-head schedules, which compute the same).
 //    Bound on an H100: bytes. At the generation shape (B=64, N=32, 16 heads
 //    of dh=64, bf16) it reads 12.6 MB and writes 4.2 MB, 0.0050 ms at 3.35
-//    TB/s; its 0.27 GFLOP are far below the tensor cores' rate. Two
-//    schedules, chosen by one rule (self_mma below, which the entry point
-//    reports as the schedule it launched; ldt_torch/ops/attention.py::
-//    packed_schedule mirrors it for the tests and chip_smoke.py's
+//    TB/s; its 0.27 GFLOP are far below the tensor cores' rate. Three
+//    schedules, chosen by one rule (self_mma and self_tiled below; the entry
+//    point reports the schedule it launched; ldt_torch/ops/attention.py::
+//    packed_schedule mirrors the rule for the tests and chip_smoke.py's
 //    expected counts):
 //    - Tensor cores (packed_self_attention_mma_kernel) where the input is
 //      bf16, N is a multiple of 16 in [16, 64], dh is 16, 32, 64 or 128, and
@@ -28,11 +28,25 @@
 //      ldmatrix.trans, and the bf16 output goes out through the warp's q rows
 //      in shared memory with 16-byte stores. The products of bf16 operands
 //      are exact; only the order of the f32 sums differs from the other
-//      schedule.
-//    - CUDA cores (packed_self_attention_kernel<T>) for every other input,
-//      f32 (training's path: TF32 would fail its limits) included: one block
-//      per (element, head), q, k, v and the scores in shared memory as f32,
-//      each score and output element an f32 FMA chain over shared loads.
+//      schedules.
+//    - Register-tiled CUDA cores (packed_self_attention_tiled_kernel) where
+//      the input is f32 (training's path: TF32 would fail its limits), dh is
+//      a multiple of 4, qkv and out are 16-byte aligned and the shared
+//      memory of kTileHeads heads fits a block. At the train step's shape
+//      (B=64, f32) it reads 25.2 MB and writes 8.4 MB, 0.0100 ms at 3.35
+//      TB/s; its FMAs take 0.004 ms at 67 TFLOP/s, but fed one FMA per two
+//      scalar shared loads (the kernel below) the shared-memory pipe sets
+//      the time (~0.05 ms). So a thread owns a 4 x 4 tile of scores, then
+//      of outputs, in registers and reads float4 slices of q, k (of weights,
+//      v), 8 FMAs a shared load; 2 heads a block, 256 threads, q and k by
+//      cp.async, v copied over q once the scores are taken (in flight during
+//      the softmax): 44 KB a block, the 512 blocks resident at once. Every
+//      score and output is the same fmaf chain in the same order as the
+//      kernel below, and the softmax the same warp loop: the same bits.
+//    - CUDA cores (packed_self_attention_kernel<T>) for every other input:
+//      one block per (element, head), q, k, v and the scores in shared
+//      memory as f32, each score and output element an f32 FMA chain over
+//      shared loads.
 // K3 ldt_packed_self_attention_bwd: the backward of K1. From the packed qkv
 //    and the output's gradient g [B, N, D] it recomputes the f32 weights w and
 //    writes dq, dk, dv into one packed [B, N, 3D] gradient:
@@ -92,9 +106,29 @@
 //    and all heads), the scores and the AV product are int32 dots, and the
 //    f32 softmax weights are quantized at the static scale 127 before AV.
 //    Replaces ldt_tpu/ops/pallas_attention.py::
-//    _fwd_kernel_packed_phased_multi_int8. Two launches: one block per
-//    (group, q|k|v) reduces the scales, then one block per (element, head)
-//    as in K1 (a group is 4 x 32 x 3072 values, more than a block holds).
+//    _fwd_kernel_packed_phased_multi_int8. Bound on an H100: bytes, as K1
+//    (16.8 MB in bf16 at the generation shape, 0.0050 ms; its 0.27 G int8
+//    operations take 0.0001 ms on the int8 tensor cores). Two schedules,
+//    chosen by self_int8_mma (the entry point reports which it launched; no
+//    Python mirror):
+//    - Int8 tensor cores where N is a multiple of 16 in [16, 64], dh a
+//      multiple of 32 and qkv and out 16-byte aligned (the generation path).
+//      The scale pass reads each group over 3 x ceil(elems N / kScaleRows)
+//      blocks (768 at B=64) with 16-byte loads and writes partial maxima,
+//      which each block of the main kernel merges (a max is exact in any
+//      order). The main kernel holds 4 heads a block and quantizes 16-byte
+//      loads in registers into int8 codes in shared memory: q and k as rows,
+//      v transposed (the AV product's column-major B operand; ldmatrix.trans
+//      takes b16 only). A warp owns 16 query rows: mma.sync m16n8k32 s8
+//      products (A and B by ldmatrix over int8 rows) give the int32 scores,
+//      the f32 softmax runs the CUDA-core kernel's warp loop on them, its
+//      weight codes go to int8 rows, and the AV product runs the same way
+//      over v transposed (keys padded to 32 with zero codes). The dots are
+//      exact (|dot| <= 127^2 dh), so the output and the scales have the
+//      other schedule's bits.
+//    - CUDA cores (int8_group_scales_kernel, one block per (group, q|k|v);
+//      packed_self_attention_int8_kernel, one block per (element, head), K1's
+//      layout with int32 copies of the codes) for every other input.
 //
 // Numerics of K1-K4 follow the TPU kernels: products accumulate in f32, the
 // softmax runs in f32 (max-shifted, exp, divide by the row sum), and the
@@ -104,14 +138,15 @@
 // has no --use_fast_math, which would make `/` approximate.
 //
 // K1, K3 and K8 are memory-bound at the shapes the model gives them (N=32,
-// dh=64, 16 heads), so each block reads its head's operands from device
+// dh=64, 16 heads), so each block reads its heads' operands from device
 // memory once, keeps them and the scores in shared memory, and writes each
 // output element once (K8 reads the packed qkv twice: once for the group
 // scales). K4 at its long
 // shapes (f32, dh=32) does five N x M x dh products for as many bytes, so
 // f32 FMAs and bytes bound it about equally; it reads each operand once per
-// block as well. The arithmetic runs on the CUDA cores, in f32 (K1-K4) or
-// int32 (K8's dots), but for K1's bf16 schedule on the tensor cores.
+// block as well. The arithmetic runs on the CUDA cores in f32 (K1 in f32,
+// K2-K4), on the bf16 tensor cores (K1 in bf16) and on the int8 tensor
+// cores (K8 where its rule takes the shape; else int32 CUDA-core dots).
 //
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // the launch (0 on success). dtype: 0 = float32, 1 = bfloat16.
@@ -139,8 +174,14 @@ constexpr int kSelfThreads = 256;
 constexpr int kMmaHeads = 4;
 constexpr int kMmaMaxN = 64;
 constexpr int kMmaPad = 8;
-// K8's scale reduction: threads per (group, q|k|v) block.
+// K1's register-tiled f32 schedule: heads and threads per block
+// (ldt_torch/ops/attention.py mirrors kTileHeads).
+constexpr int kTileHeads = 2;
+constexpr int kTileThreads = 256;
+// K8's scale reduction: threads per (group, q|k|v) block; rows per block of
+// the int8 tensor-core schedule's scale pass.
 constexpr int kScaleThreads = 512;
+constexpr int kScaleRows = 8;
 // K2's whole-set schedule: threads (query rows) per block, the widest head
 // it takes in registers, and keys per register chunk of scores.
 // K2's long-key schedule: threads per block, query rows per block (4 per
@@ -190,6 +231,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One f32 score row of n in shared memory, one warp: s[c] = exp(s[c] -
+// max) in place, lane l taking c = l, l + 32, ...; returns the row sum (the
+// same in every lane). Every schedule of K1 and K8 runs its softmax through
+// this, so their weights have the same bits.
+__device__ __forceinline__ float softmax_exp_row(float* s, int n, int lane) {
+  float mx = -INFINITY;
+  for (int c = lane; c < n; c += 32) mx = fmaxf(mx, s[c]);
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    const float e = expf(s[c] - mx);
+    s[c] = e;
+    sum += e;
+  }
+  return warp_sum(sum);
+}
+
+// K8's weight code of a softmax numerator e over the row sum:
+// clip(round(w * 127), 0, 127), as an exact small float.
+__device__ __forceinline__ float weight_code(float e, float sum) {
+  return fminf(fmaxf(rintf((e / sum) * 127.0f), 0.f), 127.f);
+}
+
 // Shared memory of K1: q [n, dh], k [n, dh+1] (odd stride: lanes reading
 // different keys hit different banks), v [n, dh], scores [n, n]; all f32.
 size_t self_smem_bytes(int n, int dh) {
@@ -204,15 +268,17 @@ size_t self_mma_smem_bytes(int n, int dh) {
   return sizeof(__nv_bfloat16) * 3 * kMmaHeads * (size_t)n * (dh + kMmaPad);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // K1's schedule rule: the tensor cores take bf16 with n a multiple of 16 in
 // [16, kMmaMaxN], dh of 16, 32, 64 or 128, and 16-byte aligned qkv and out;
 // the CUDA-core kernel takes the rest.
 bool self_mma(int n, int dh, int dtype, const void* qkv, const void* out) {
   return dtype == kDtypeBF16 && n % 16 == 0 && n >= 16 && n <= kMmaMaxN &&
-         (dh == 16 || dh == 32 || dh == 64 || dh == 128) &&
-         reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-         self_mma_smem_bytes(n, dh) <= kMaxSmem;
+         (dh == 16 || dh == 32 || dh == 64 || dh == 128) && aligned16(qkv) &&
+         aligned16(out) && self_mma_smem_bytes(n, dh) <= kMaxSmem;
 }
 
 // K2's whole-set schedule keeps a head of width dh in registers of width
@@ -275,6 +341,43 @@ size_t cross_bwd_lk_smem_bytes(int n, int dh) {
                           2 * (size_t)n * kBwdKeys + 3 * (size_t)n);
 }
 
+// Shared memory of K1's register-tiled schedule: per head q (then v) and k
+// [n4, lk_ld(dh)] and the scores [n4, n4 + 8], n4 = n rounded up to 4; f32.
+size_t self_tiled_smem_bytes(int n, int dh) {
+  const size_t n4 = (n + 3) / 4 * 4;
+  return sizeof(float) * kTileHeads * (2 * n4 * lk_ld(dh) + n4 * (n4 + 8));
+}
+
+// K1's register-tiled rule: f32, dh a multiple of 4, 16-byte aligned qkv
+// and out, and the shared memory of kTileHeads heads within a block's.
+bool self_tiled(int n, int dh, int dtype, const void* qkv, const void* out) {
+  return dtype == kDtypeF32 && dh % 4 == 0 && aligned16(qkv) &&
+         aligned16(out) && self_tiled_smem_bytes(n, dh) <= kMaxSmem;
+}
+
+// Shared memory of K8's int8 tensor-core schedule: the group's 3 scales
+// (16 bytes), then per head the f32 scores [n, n + 8], the q and k codes
+// [n, dh + 16], the v codes transposed [dh, np + 16] and the weight codes
+// [n, np + 16], np = n rounded up to 32 (the keys of an m16n8k32 step; the
+// padding holds zero codes).
+size_t self_int8_mma_smem_bytes(int n, int dh) {
+  const size_t np = (n + 31) / 32 * 32;
+  return 16 + kMmaHeads * (sizeof(float) * n * (n + 8) +
+                           2 * (size_t)n * (dh + 16) +
+                           ((size_t)dh + n) * (np + 16));
+}
+
+// K8's rule: the int8 tensor cores take n a multiple of 16 in [16,
+// kMmaMaxN], dh a multiple of 32, 16-byte aligned qkv and out; the
+// CUDA-core kernels take the rest.
+bool self_int8_mma(int n, int dh, int elems, const void* qkv,
+                   const void* out) {
+  return n % 16 == 0 && n >= 16 && n <= kMmaMaxN && dh % 32 == 0 &&
+         aligned16(qkv) && aligned16(out) &&
+         self_int8_mma_smem_bytes(n, dh) <= kMaxSmem &&
+         ((long long)elems * n + kScaleRows - 1) / kScaleRows <= 65535;
+}
+
 // One block per (batch element, head).
 template <typename T>
 __global__ void __launch_bounds__(kSelfThreads)
@@ -319,16 +422,7 @@ packed_self_attention_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < n; r += nwarps) {
     float* s = ss + (size_t)r * n;
-    float mx = -INFINITY;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, s[c]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(s[c] - mx);
-      s[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
+    const float sum = softmax_exp_row(s, n, lane);
     for (int c = lane; c < n; c += 32) s[c] = round_to<T>(s[c] / sum);
   }
   __syncthreads();
@@ -361,6 +455,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 // Four 8x8 b16 matrices from shared memory; lane l gives the address of row
 // l % 8 of matrix l / 8, and receives row l / 4, columns 2 (l % 4) and
 // 2 (l % 4) + 1 of each (of its transpose with `trans`).
@@ -387,6 +485,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b: a 16x32 s8 (row-major fragment), b 32x8 s8 (column-major), d
+// 16x8 s32. The fragments hold 4 bytes where m16n8k16 holds 2 b16 values,
+// so the same ldmatrix addressing loads them from int8 rows.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -551,6 +661,171 @@ packed_self_attention_mma_kernel(const __nv_bfloat16* __restrict__ qkv,
     const int c = i - r * CH;
     *reinterpret_cast<uint4*>(ob + (size_t)r * d + c * 8) =
         *reinterpret_cast<const uint4*>(os + r * LD + c * 8);
+  }
+}
+
+// Component e (0-3, known at compile time once unrolled) of v.
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// K1 on the CUDA cores in f32, register-tiled (the header's second
+// schedule). Grid (element, group of kTileHeads heads), kTileThreads
+// threads. With n4 = n rounded up to 4 and rn = n4 / 4, a thread's 4 x 4
+// tile of scores holds query rows rt + rn i and keys kt + rn j (i, j < 4),
+// so the 8 lanes of a quarter warp read one q row (a broadcast) and 8
+// consecutive k rows (lk_ld: 8 bank groups) as float4; a 4 x 4 output tile
+// holds rows rt + rn i and channels 4 ct .. 4 ct + 3. v comes into q's rows
+// once the scores are taken, its copy in flight during the softmax. Each
+// score is the chain fmaf(q[j], k[j], acc) over j ascending times scale,
+// and each output fmaf(w[m], v[m][c], acc) over m ascending, as in
+// packed_self_attention_kernel: the same bits.
+__global__ void __launch_bounds__(kTileThreads)
+packed_self_attention_tiled_kernel(const float* __restrict__ qkv,
+                                   float* __restrict__ out, int n, int h,
+                                   int dh, float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int ld = lk_ld(dh);
+  const int rn = (n + 3) / 4;
+  const int n4 = 4 * rn;
+  const int lds = n4 + 8;  // score row stride
+  const int d = h * dh;
+  const int b = blockIdx.x;
+  const int h0 = blockIdx.y * kTileHeads;
+  const int heads = min(kTileHeads, h - h0);
+  const int per_head = 2 * n4 * ld + n4 * lds;  // q (then v) | k | scores
+  const size_t row = 3 * (size_t)d;
+
+  // q and k (which 0, 1), or v into q's rows (which 2), of the block's
+  // heads by 16-byte copies, consecutive threads on consecutive bytes of a
+  // token's row; q and k rows [n, n4) zero
+  const int ch = dh / 4;
+  const float* base = qkv + (size_t)b * n * row + (size_t)h0 * dh;
+  auto copy = [&](int which, int rows) {
+    const int parts = which == 2 ? 1 : 2;
+    const int chunks = heads * parts * rows * ch;
+    for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+      const int c = i % ch;
+      int t = i / ch;
+      const int hh = t % heads;
+      t /= heads;
+      const int w = which == 2 ? 2 : t % 2;
+      const int r = which == 2 ? t : t / 2;
+      float* dst = smem_f + hh * per_head + ((w & 1) * n4 + r) * ld + c * 4;
+      if (r < n)
+        cp_async16(dst, base + r * row + (size_t)w * d + hh * dh + c * 4);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  copy(0, n4);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // scores, a 4 x 4 register tile a step
+  const int tiles = rn * rn;
+  for (int t = threadIdx.x; t < heads * tiles; t += blockDim.x) {
+    const int hh = t / tiles;
+    const int rt = (t - hh * tiles) / rn;
+    const int kt = t - hh * tiles - rt * rn;
+    const float* qs = smem_f + hh * per_head + rt * ld;
+    const float* ks = smem_f + hh * per_head + (n4 + kt) * ld;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < dh; c += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = *reinterpret_cast<const float4*>(qs + i * rn * ld + c);
+        kv[i] = *reinterpret_cast<const float4*>(ks + i * rn * ld + c);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(lane4(qv[i], e), lane4(kv[j], e), acc[i][j]);
+    }
+    float* ss = smem_f + hh * per_head + 2 * n4 * ld;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = rt + rn * i;
+        const int k = kt + rn * j;
+        if (r < n && k < n) ss[r * lds + k] = acc[i][j] * scale;
+      }
+  }
+  __syncthreads();
+  copy(2, n);  // v over q, in flight during the softmax
+  cp_async_commit();
+
+  // row softmax, one warp per row
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int t = warp; t < heads * n; t += nwarps) {
+    const int hh = t / n;
+    float* s = smem_f + hh * per_head + 2 * n4 * ld + (t - hh * n) * lds;
+    const float sum = softmax_exp_row(s, n, lane);
+    for (int c = lane; c < n; c += 32) s[c] = s[c] / sum;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // AV, a 4 x 4 register tile a step: float4 reads of 4 weights of a row
+  // (a broadcast across the quarter warp) and of 4 channels of a v row
+  const int cn = dh / 4;
+  const int otiles = rn * cn;
+  for (int t = threadIdx.x; t < heads * otiles; t += blockDim.x) {
+    const int hh = t / otiles;
+    const int rt = (t - hh * otiles) / cn;
+    const int ct = t - hh * otiles - rt * cn;
+    const float* vs = smem_f + hh * per_head + 4 * ct;
+    const float* ws = smem_f + hh * per_head + 2 * n4 * ld + rt * lds;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    int m = 0;
+    for (; m + 4 <= n; m += 4) {
+      float4 wv[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[i] = *reinterpret_cast<const float4*>(ws + i * rn * lds + m);
+        vv[i] = *reinterpret_cast<const float4*>(vs + (m + i) * ld);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(lane4(wv[i], e), lane4(vv[e], j), acc[i][j]);
+    }
+    for (; m < n; ++m) {
+      const float4 vv = *reinterpret_cast<const float4*>(vs + m * ld);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = ws[i * rn * lds + m];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(w, lane4(vv, j), acc[i][j]);
+      }
+    }
+    float* ob = out + (size_t)b * n * d + (size_t)(h0 + hh) * dh + 4 * ct;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rt + rn * i;
+      if (r < n)
+        *reinterpret_cast<float4*>(ob + (size_t)r * d) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
   }
 }
 
@@ -1441,9 +1716,9 @@ __device__ __forceinline__ int quantize_int8(float x, float s) {
   return (int)fminf(fmaxf(rintf(x / s), -127.f), 127.f);
 }
 
-// K8, first launch: grid (group, part), part 0/1/2 = q/k/v. Writes
-// scales[group * 3 + part] = max|x| / 127 + 1e-20 over the `rows` rows of
-// the group and the part's d columns.
+// K8 on the CUDA cores, first launch: grid (group, part), part 0/1/2 =
+// q/k/v. Writes scales[group * 3 + part] = max|x| / 127 + 1e-20 over the
+// `rows` rows of the group and the part's d columns.
 template <typename T>
 __global__ void __launch_bounds__(kScaleThreads)
 int8_group_scales_kernel(const T* __restrict__ qkv, float* __restrict__ scales,
@@ -1467,9 +1742,9 @@ int8_group_scales_kernel(const T* __restrict__ qkv, float* __restrict__ scales,
   }
 }
 
-// K8, second launch: one block per (batch element, head), K1's layout with
-// int32 copies of the int8 codes: q [n, dh], k [n, dh+1], v [n, dh], and the
-// [n, n] scores (later the weight codes) as f32.
+// K8 on the CUDA cores, second launch: one block per (batch element,
+// head), K1's layout with int32 copies of the int8 codes: q [n, dh], k [n,
+// dh+1], v [n, dh], and the [n, n] scores (later the weight codes) as f32.
 template <typename T>
 __global__ void __launch_bounds__(kSelfThreads)
 packed_self_attention_int8_kernel(const T* __restrict__ qkv,
@@ -1519,18 +1794,8 @@ packed_self_attention_int8_kernel(const T* __restrict__ qkv,
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < n; r += nwarps) {
     float* s = ss + (size_t)r * n;
-    float mx = -INFINITY;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, s[c]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(s[c] - mx);
-      s[c] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int c = lane; c < n; c += 32)
-      s[c] = fminf(fmaxf(rintf((s[c] / sum) * 127.0f), 0.f), 127.f);
+    const float sum = softmax_exp_row(s, n, lane);
+    for (int c = lane; c < n; c += 32) s[c] = weight_code(s[c], sum);
   }
   __syncthreads();
 
@@ -1547,28 +1812,295 @@ packed_self_attention_int8_kernel(const T* __restrict__ qkv,
   }
 }
 
+// K8's int8 tensor-core schedule, first launch: grid (group, part, slice of
+// kScaleRows rows), part 0/1/2 = q/k/v. Writes the slice's max|x| over the
+// part's d columns to part_max[(group * 3 + part) * slices + slice], from
+// 16-byte loads. A max is exact in any order, so the merged scales have the
+// bits of int8_group_scales_kernel's.
+template <typename T>
+__global__ void __launch_bounds__(kSelfThreads)
+packed_self_attention_int8_scales_kernel(const T* __restrict__ qkv,
+                                         float* __restrict__ part_max,
+                                         int rows, int d, int slices) {
+  __shared__ float warp_max_of[kSelfThreads / 32];
+  constexpr int V = kVec<T>;
+  const int r0 = blockIdx.z * kScaleRows;
+  const int nr = min(kScaleRows, rows - r0);
+  const int vecs = d / V;
+  const size_t row = 3 * (size_t)d;
+  const T* base = qkv + ((size_t)blockIdx.x * rows + r0) * row +
+                  (size_t)blockIdx.y * d;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < nr * vecs; i += blockDim.x) {
+    const int r = i / vecs;
+    float x[V];
+    load16(base + r * row + (size_t)(i - r * vecs) * V, x);
+#pragma unroll
+    for (int e = 0; e < V; ++e) mx = fmaxf(mx, fabsf(x[e]));
+  }
+  mx = warp_max(mx);
+  if ((threadIdx.x & 31) == 0) warp_max_of[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+      mx = fmaxf(mx, warp_max_of[w]);
+    part_max[((size_t)blockIdx.x * 3 + blockIdx.y) * slices + blockIdx.z] =
+        mx;
+  }
+}
+
+// The int8 codes of V values, packed little-endian into V bytes at p.
+template <int V>
+__device__ __forceinline__ void store_codes(int8_t* p, const float* x,
+                                            float s);
+template <>
+__device__ __forceinline__ void store_codes<4>(int8_t* p, const float* x,
+                                               float s) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    w |= (uint32_t)(uint8_t)(int8_t)quantize_int8(x[e], s) << (8 * e);
+  *reinterpret_cast<uint32_t*>(p) = w;
+}
+template <>
+__device__ __forceinline__ void store_codes<8>(int8_t* p, const float* x,
+                                               float s) {
+  store_codes<4>(p, x, s);
+  store_codes<4>(p + 4, x + 4, s);
+}
+
+// (a, b) rounded to T, stored at p (aligned to two T).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// K8 on the int8 tensor cores (the header's first K8 schedule), second
+// launch. Grid (element, group of kMmaHeads heads); n / 16 warps per head,
+// each owning 16 query rows. Per head in shared memory: the f32 scores
+// [n, n + 8], the q and k codes as int8 rows [n, dh + 16], the v codes
+// transposed [dh, np + 16] (the AV product's column-major B operand:
+// ldmatrix.trans takes b16 only) and the weight codes [n, np + 16]; every
+// row stride is an odd number of 16 bytes, so ldmatrix's 8 rows hit 8 bank
+// groups. Keys [n, np) hold zero codes in the weights and in v.
+template <typename T>
+__global__ void __launch_bounds__(kMmaHeads* kMmaMaxN / 16 * 32)
+packed_self_attention_int8_mma_kernel(const T* __restrict__ qkv,
+                                      const float* __restrict__ part_max,
+                                      float* __restrict__ scales,
+                                      T* __restrict__ out, int n, int h,
+                                      int dh, int elems, int slices,
+                                      float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* group_scale = reinterpret_cast<float*>(smem_raw);  // sq, sk, sv
+  unsigned char* heads_smem = smem_raw + 16;
+  constexpr int V = kVec<T>;
+  constexpr int NT = kMmaMaxN / 8;  // most key tiles of 8
+  const int d = h * dh;
+  const int b = blockIdx.x;
+  const int h0 = blockIdx.y * kMmaHeads;
+  const int heads = min(kMmaHeads, h - h0);
+  const int np = (n + 31) / 32 * 32;
+  const int ls = n + 8;    // score row stride (floats)
+  const int lq = dh + 16;  // q and k code row stride (bytes)
+  const int lv = np + 16;  // v^T and weight code row stride (bytes)
+  const int per_head = 4 * n * ls + 2 * n * lq + (dh + n) * lv;
+  const int group = b / elems;
+
+  // the group's scales from its slices' maxima, as int8_group_scales_kernel
+  // forms them; the group's first element writes them out
+  if (threadIdx.x < 3) {
+    const float* p = part_max + ((size_t)group * 3 + threadIdx.x) * slices;
+    float mx = 0.f;
+    for (int s = 0; s < slices; ++s) mx = fmaxf(mx, p[s]);
+    const float s = mx / 127.0f + 1e-20f;
+    group_scale[threadIdx.x] = s;
+    if (b % elems == 0 && blockIdx.y == 0)
+      scales[(size_t)group * 3 + threadIdx.x] = s;
+  }
+  // zero codes of the padding keys: v^T columns and weight columns [n, np)
+  const int pad = np - n;
+  for (int i = threadIdx.x; i < heads * (dh + n) * pad; i += blockDim.x) {
+    const int c = i % pad;
+    const int t = i / pad;
+    const int hh = t / (dh + n);
+    const int r = t - hh * (dh + n);
+    heads_smem[hh * per_head + 4 * n * ls + 2 * n * lq + r * lv + n + c] = 0;
+  }
+  __syncthreads();
+
+  // 16-byte loads of the block's q, k, v, quantized in registers: q and k
+  // codes stored as rows, v codes transposed
+  const size_t row = 3 * (size_t)d;
+  const T* base = qkv + (size_t)b * n * row + (size_t)h0 * dh;
+  const int ch = dh / V;  // 16-byte chunks per head row
+  for (int i = threadIdx.x; i < heads * 3 * n * ch; i += blockDim.x) {
+    const int c = i % ch;
+    int t = i / ch;
+    const int hh = t % heads;
+    t /= heads;
+    const int which = t % 3;
+    const int r = t / 3;
+    float x[V];
+    load16(base + r * row + (size_t)which * d + hh * dh + c * V, x);
+    const float s = group_scale[which];
+    int8_t* hs =
+        reinterpret_cast<int8_t*>(heads_smem + hh * per_head + 4 * n * ls);
+    if (which < 2) {
+      store_codes<V>(hs + (which * n + r) * lq + c * V, x, s);
+    } else {
+      int8_t* vt = hs + 2 * n * lq + (c * V) * lv + r;
+#pragma unroll
+      for (int e = 0; e < V; ++e) vt[e * lv] = (int8_t)quantize_int8(x[e], s);
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wph = n >> 4;  // warps per head
+  const int hh = warp / wph;
+  if (hh >= heads) return;
+  const int r0 = (warp - hh * wph) * 16;
+  const int nt = n >> 3;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+  float* ss = reinterpret_cast<float*>(heads_smem + hh * per_head);
+  int8_t* qs = reinterpret_cast<int8_t*>(ss + n * ls);
+  const int8_t* ks = qs + n * lq;
+  const int8_t* vt = ks + n * lq;
+  int8_t* ws = qs + 2 * n * lq + dh * lv;
+
+  // scores: int32 dots of the warp's 16 q rows with every key, k-steps of
+  // 32 channels (A from q rows, B from k rows, both by ldmatrix), times
+  // ((sq sk) dh^-1/2) into the f32 score rows
+  int s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0;
+  for (int kk = 0; kk < dh; kk += 32) {
+    uint32_t qa[4];
+    ldmatrix_x4(qa, qs + (r0 + (lane & 15)) * lq + kk + (lane >> 4) * 16);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      if (j < nt) {
+        // keys 8j..8j+15, channels kk..kk+31: two B fragments
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * lq +
+                            kk + ((lane >> 3) & 1) * 16);
+        mma_s8(s[j], qa, kb[0], kb[1]);
+        mma_s8(s[j + 1], qa, kb[2], kb[3]);
+      }
+    }
+  }
+  const float qk_scale = (group_scale[0] * group_scale[1]) * scale;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j < nt) {
+      *reinterpret_cast<float2*>(ss + (r0 + g) * ls + j * 8 + t2) =
+          make_float2((float)s[j][0] * qk_scale, (float)s[j][1] * qk_scale);
+      *reinterpret_cast<float2*>(ss + (r0 + g + 8) * ls + j * 8 + t2) =
+          make_float2((float)s[j][2] * qk_scale, (float)s[j][3] * qk_scale);
+    }
+  }
+  __syncwarp();
+
+  // f32 row softmax of the warp's rows, then the weight codes as int8 rows
+  for (int rr = r0; rr < r0 + 16; ++rr) {
+    float* sr = ss + rr * ls;
+    const float sum = softmax_exp_row(sr, n, lane);
+    for (int c = lane; c < n; c += 32)
+      ws[rr * lv + c] = (int8_t)weight_code(sr[c], sum);
+  }
+  __syncwarp();
+
+  // AV: int32 dots of the weight codes (A) with v^T rows (B), 32 channels
+  // at a time, times sv / 127
+  const float out_scale = group_scale[2] / 127.0f;
+  T* ob = out + ((size_t)b * n + r0) * d + (size_t)(h0 + hh) * dh;
+  for (int c0 = 0; c0 < dh; c0 += 32) {
+    int acc[4][4];
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jn][e] = 0;
+    for (int kk = 0; kk < np; kk += 32) {
+      uint32_t wa[4];
+      ldmatrix_x4(wa, ws + (r0 + (lane & 15)) * lv + kk + (lane >> 4) * 16);
+#pragma unroll
+      for (int jn = 0; jn < 4; jn += 2) {
+        // channels c0+8jn..c0+8jn+15, keys kk..kk+31: two B fragments
+        uint32_t vb[4];
+        ldmatrix_x4(vb, vt + (c0 + jn * 8 + (lane & 7) + ((lane >> 4) << 3)) *
+                                 lv +
+                            kk + ((lane >> 3) & 1) * 16);
+        mma_s8(acc[jn], wa, vb[0], vb[1]);
+        mma_s8(acc[jn + 1], wa, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      const int c = c0 + jn * 8 + t2;
+      store2(ob + (size_t)g * d + c, (float)acc[jn][0] * out_scale,
+             (float)acc[jn][1] * out_scale);
+      store2(ob + (size_t)(g + 8) * d + c, (float)acc[jn][2] * out_scale,
+             (float)acc[jn][3] * out_scale);
+    }
+  }
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// *schedule: 1 where the int8 tensor-core schedule was launched, else 0.
 template <typename T>
 cudaError_t launch_self_int8(const void* qkv, void* scales, void* out, int b,
                              int n, int d, int h, int elems, float scale,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, int* schedule) {
   const int dh = d / h;
-  const size_t smem = self_smem_bytes(n, dh);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_self_attention_int8_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  float* sc = static_cast<float*>(scales);
+  *schedule = self_int8_mma(n, dh, elems, qkv, out);
+  if (*schedule) {
+    const int rows = elems * n;
+    const int slices = (rows + kScaleRows - 1) / kScaleRows;
+    float* part = sc + (size_t)(b / elems) * 3;  // the slices' maxima
+    const size_t smem = self_int8_mma_smem_bytes(n, dh);
+    cudaError_t e =
+        allow_smem(packed_self_attention_int8_mma_kernel<T>, smem);
     if (e != cudaSuccess) return e;
+    packed_self_attention_int8_scales_kernel<T>
+        <<<dim3(b / elems, 3, slices), kSelfThreads, 0, stream>>>(
+            static_cast<const T*>(qkv), part, rows, d, slices);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    packed_self_attention_int8_mma_kernel<T>
+        <<<dim3(b, (h + kMmaHeads - 1) / kMmaHeads),
+           kMmaHeads * (n / 16) * 32, smem, stream>>>(
+            static_cast<const T*>(qkv), part, sc, static_cast<T*>(out), n,
+            h, dh, elems, slices, scale);
+    return cudaGetLastError();
   }
+  cudaError_t e = allow_smem(packed_self_attention_int8_kernel<T>,
+                             self_smem_bytes(n, dh));
+  if (e != cudaSuccess) return e;
   int8_group_scales_kernel<T><<<dim3(b / elems, 3), kScaleThreads, 0,
-                                stream>>>(static_cast<const T*>(qkv),
-                                          static_cast<float*>(scales),
+                                stream>>>(static_cast<const T*>(qkv), sc,
                                           elems * n, d);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   packed_self_attention_int8_kernel<T>
-      <<<dim3(b, h), kSelfThreads, smem, stream>>>(
-          static_cast<const T*>(qkv), static_cast<const float*>(scales),
-          static_cast<T*>(out), n, d, dh, elems, scale);
+      <<<dim3(b, h), kSelfThreads, self_smem_bytes(n, dh), stream>>>(
+          static_cast<const T*>(qkv), sc, static_cast<T*>(out), n, d, dh,
+          elems, scale);
   return cudaGetLastError();
 }
 
@@ -1590,13 +2122,29 @@ cudaError_t launch_self_mma(const void* qkv, void* out, int b, int n, int h,
   return cudaGetLastError();
 }
 
-// *mma: 1 where the tensor-core schedule was launched, else 0.
+cudaError_t launch_self_tiled(const void* qkv, void* out, int b, int n,
+                              int h, int dh, float scale,
+                              cudaStream_t stream) {
+  const size_t smem = self_tiled_smem_bytes(n, dh);
+  const cudaError_t e = allow_smem(packed_self_attention_tiled_kernel, smem);
+  if (e != cudaSuccess) return e;
+  packed_self_attention_tiled_kernel
+      <<<dim3(b, (h + kTileHeads - 1) / kTileHeads), kTileThreads, smem,
+         stream>>>(static_cast<const float*>(qkv), static_cast<float*>(out),
+                   n, h, dh, scale);
+  return cudaGetLastError();
+}
+
+// *schedule: 1 where the tensor-core schedule was launched, 2 the
+// register-tiled f32 one, 0 the CUDA-core kernel.
 template <typename T>
 cudaError_t launch_self(const void* qkv, void* out, int b, int n, int d,
-                        int h, float scale, cudaStream_t stream, int* mma) {
+                        int h, float scale, cudaStream_t stream,
+                        int* schedule) {
   const int dh = d / h;
-  *mma = self_mma(n, dh, sizeof(T) == 2 ? kDtypeBF16 : kDtypeF32, qkv, out);
-  if (*mma) {
+  const int dtype = sizeof(T) == 2 ? kDtypeBF16 : kDtypeF32;
+  if (self_mma(n, dh, dtype, qkv, out)) {
+    *schedule = 1;
     switch (dh) {
       case 16: return launch_self_mma<16>(qkv, out, b, n, h, scale, stream);
       case 32: return launch_self_mma<32>(qkv, out, b, n, h, scale, stream);
@@ -1604,13 +2152,14 @@ cudaError_t launch_self(const void* qkv, void* out, int b, int n, int d,
       default: return launch_self_mma<128>(qkv, out, b, n, h, scale, stream);
     }
   }
-  const size_t smem = self_smem_bytes(n, dh);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_self_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  if (self_tiled(n, dh, dtype, qkv, out)) {
+    *schedule = 2;
+    return launch_self_tiled(qkv, out, b, n, h, dh, scale, stream);
   }
+  *schedule = 0;
+  const size_t smem = self_smem_bytes(n, dh);
+  const cudaError_t e = allow_smem(packed_self_attention_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
   packed_self_attention_kernel<T><<<dim3(b, h), kSelfThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(out), n, d, dh, scale);
   return cudaGetLastError();
@@ -1633,15 +2182,6 @@ cudaError_t launch_self_bwd(const void* qkv, const void* g, void* dqkv, int b,
           static_cast<const T*>(qkv), static_cast<const T*>(g),
           static_cast<T*>(dqkv), n, d, dh, scale);
   return cudaGetLastError();
-}
-
-// Lets `kernel` take `smem` bytes of dynamic shared memory.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 // Whether K2 takes the whole-set schedule for m keys of width dh.
@@ -1815,8 +2355,8 @@ bool bad_shape(int b, int n, int d, int h) {
 
 extern "C" {
 
-// *schedule: 1 where the launch took the tensor cores, 0 where it took the
-// CUDA cores or launched nothing.
+// *schedule: 1 where the launch took the tensor cores, 2 the register-tiled
+// f32 schedule, 0 the CUDA-core kernel or no launch.
 int ldt_packed_self_attention(const void* qkv, void* out, int b, int n, int d,
                               int h, float scale, int dtype, void* stream,
                               int* schedule) {
@@ -1833,10 +2373,16 @@ int ldt_packed_self_attention(const void* qkv, void* out, int b, int n, int d,
   return (int)cudaErrorInvalidValue;
 }
 
-// scales: f32 scratch of b / elems * 3 values (the group scales).
+// scales: f32 scratch of b / elems * 3 * (1 + elems * n) values. Both
+// schedules write the group scales [b / elems, 3] at its start; the int8
+// tensor-core schedule keeps its slices' partial maxima after them.
+// *schedule: 1 where the launch took the int8 tensor cores, 0 the
+// CUDA-core kernels or no launch.
 int ldt_packed_self_attention_int8(const void* qkv, void* scales, void* out,
                                    int b, int n, int d, int h, int elems,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dtype, void* stream,
+                                   int* schedule) {
+  *schedule = 0;
   if (bad_shape(b, n, d, h) || elems <= 0 || b % elems != 0 ||
       self_smem_bytes(n, d / h) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -1844,10 +2390,10 @@ int ldt_packed_self_attention_int8(const void* qkv, void* scales, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
     return (int)launch_self_int8<float>(qkv, scales, out, b, n, d, h, elems,
-                                        scale, s);
+                                        scale, s, schedule);
   if (dtype == kDtypeBF16)
     return (int)launch_self_int8<__nv_bfloat16>(qkv, scales, out, b, n, d, h,
-                                                elems, scale, s);
+                                                elems, scale, s, schedule);
   return (int)cudaErrorInvalidValue;
 }
 

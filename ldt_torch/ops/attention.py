@@ -10,8 +10,8 @@ DiT block (24 launches per denoise step).
   * Bound on an H100: device-memory bytes. At the flagship shape (B=64,
     N=32, D=1024, 16 heads, bf16) it reads 12.6 MB and writes 4.2 MB for
     0.27 GFLOP, far below the card's operations-per-byte balance.
-  * Design: two schedules, picked in the library (mirrored by
-    `packed_schedule(n, dh, dtype)`). Both read q_h, k_h, v_h straight out
+  * Design: three schedules, picked in the library (mirrored by
+    `packed_schedule(n, dh, dtype)`). All read q_h, k_h, v_h straight out
     of the packed rows (no split copies) and write [N, dh] once.
     "mma" (bf16, N a multiple of 16 up to 64, dh 16/32/64/128, the generation
     path): a block holds 4 heads of one element in shared memory (16-byte
@@ -19,13 +19,23 @@ DiT block (24 launches per denoise step).
     scores with `mma.sync` m16n8k16 bf16 products (f32 accumulation), runs
     the softmax on the accumulator fragments in registers, rounds the
     weights to bf16 straight into the A fragments of the AV product, and
-    writes the output with 16-byte stores. The library reports which
-    schedule it launched; the tensor-core calls are counted in
-    `.mma_launches` too.
-    "fma" (every other input; f32, training's path, always): one block per
-    (batch element, head) keeps q, k, v and the [N, N] scores in shared
-    memory as f32 and runs each score and output element as an FMA chain.
-    The two order their f32 sums differently; each repeats its own bits.
+    writes the output with 16-byte stores.
+    "tiled" (f32, dh a multiple of 4, 16-byte aligned rows, two heads'
+    shared memory within a block's: training's path; TF32 would fail its
+    limits): the "fma" kernel fed one FMA per two scalar shared-memory loads,
+    so the shared-memory pipe, not the device's 33.6 MB (0.0100 ms), set its
+    time. Here a thread owns a 4 x 4 register tile of scores, then of
+    outputs, read as float4 slices (8 FMAs a shared load); 2 heads a block,
+    q and k by `cp.async`, v copied over q during the softmax (44 KB a
+    block at the train step's shape, all 512 blocks resident at once).
+    Each score and output is the same f32 FMA chain, in the same order, as
+    the "fma" kernel's, and the softmax the same warp loop: the same bits.
+    "fma" (every other input): one block per (batch element, head) keeps q,
+    k, v and the [N, N] scores in shared memory as f32 and runs each score
+    and output element as an FMA chain.
+    The library reports which schedule it launched; the calls on the first
+    two are counted in `.mma_launches` and `.tiled_launches` too. "mma"
+    orders its f32 sums differently from the others; each repeats its bits.
 
 K3 `packed_self_attention_bwd(qkv, g, num_heads)` — the backward of K1: the
 packed [B, N, 3D] gradient of the qkv from the output's gradient g [B, N, D]
@@ -110,10 +120,20 @@ attention is on (24 launches per denoise step).
     int32(w8 v8) * (sv / 127) in the input dtype.
   * Bound on an H100: device-memory bytes, as K1 (the same 16.8 MB at the
     flagship shape; its dots are int8).
-  * Design: two CUDA launches, which together count as ONE launch of K8 in
-    `.launches`: one block per (group, q|k|v) reduces the scales, then one
-    block per (element, head) quantizes its slices into shared memory and
-    runs K1's schedule with int32 dots.
+  * Design: two schedules, picked in the library, whose report the wrapper
+    counts (no Python mirror); each is two CUDA launches, which together
+    count as ONE launch of K8 in `.launches`. Int8 tensor cores (N a
+    multiple of 16 up to 64, dh a multiple of 32, 16-byte aligned rows: the
+    generation path; `.mma_launches` counts them): a scale pass over
+    (group, q|k|v, 8-row slice) blocks writes partial maxima with 16-byte
+    loads; the main kernel merges them, quantizes 4 heads of an element
+    into int8 codes in shared memory (v transposed, the AV product's
+    column-major operand), and a warp per 16 query rows takes the scores
+    and the AV product as `mma.sync` m16n8k32 s8 products, the f32 softmax
+    between them in the other schedule's warp loop. The rest: one block per
+    (group, q|k|v) reduces the scales, then one block per (element, head)
+    runs K1's CUDA-core schedule with int32 dots. The dots are exact, so the
+    two give the same bits.
   The plain twin takes its integer dots in f64, which is exact here
   (|sum| <= 127^2 * dh) on both devices.
 
@@ -157,6 +177,9 @@ _MMA_HEADS = 4
 _MMA_MAX_N = 64
 _MMA_PAD = 8
 _MMA_DH = (16, 32, 64, 128)
+# K1's register-tiled f32 schedule (csrc/attention.cu): heads per block
+# (kTileHeads).
+_TILE_HEADS = 2
 # Keys per chunk of K4's long-key schedule (kBwdKeys in csrc/attention.cu),
 # and the most query rows per block of its long-query schedule.
 _BWD_KEYS = 64
@@ -175,18 +198,32 @@ def self_mma_smem_bytes(n: int, dh: int) -> int:
     return 2 * 3 * _MMA_HEADS * n * (dh + _MMA_PAD)
 
 
+def self_tiled_smem_bytes(n: int, dh: int) -> int:
+    """K1's register-tiled shared memory: per head q (then v) and k [n4,
+    lk_ld(dh)] and the scores [n4, n4 + 8], n4 = n rounded up to 4, f32,
+    for `_TILE_HEADS` heads."""
+    n4 = -(-n // 4) * 4
+    return 4 * _TILE_HEADS * (2 * n4 * lk_ld(dh) + n4 * (n4 + 8))
+
+
 def packed_schedule(n: int, dh: int, dtype: torch.dtype,
                     aligned: bool = True) -> str:
-    """K1's schedule for n tokens of head width dh (`self_mma` in
-    csrc/attention.cu, which decides): "mma" (the tensor cores) where dtype
-    is bf16, n a multiple of 16 in [16, 64], dh 16, 32, 64 or 128, and the
-    qkv and output 16-byte `aligned`; "fma" (the CUDA cores) for everything
-    else. The wrapper counts what the library reports it launched; this
-    rule is what the tests and chip_smoke.py expect it to report."""
+    """K1's schedule for n tokens of head width dh (`self_mma` and
+    `self_tiled` in csrc/attention.cu, which decide): "mma" (the tensor
+    cores) where dtype is bf16, n a multiple of 16 in [16, 64], dh 16, 32,
+    64 or 128, and the qkv and output 16-byte `aligned`; "tiled" (the CUDA
+    cores, register-tiled) where dtype is f32, dh a multiple of 4, the rows
+    `aligned` and two heads' shared memory within a block's; "fma" (the
+    first CUDA-core kernel) for everything else. The wrapper counts what the
+    library reports it launched; this rule is what the tests and
+    chip_smoke.py expect it to report."""
     if (dtype == torch.bfloat16 and aligned and n % 16 == 0
             and 16 <= n <= _MMA_MAX_N and dh in _MMA_DH
             and self_mma_smem_bytes(n, dh) <= SMEM_LIMIT):
         return "mma"
+    if (dtype == torch.float32 and aligned and dh % 4 == 0
+            and self_tiled_smem_bytes(n, dh) <= SMEM_LIMIT):
+        return "tiled"
     return "fma"
 
 
@@ -445,7 +482,7 @@ def _lib() -> ctypes.CDLL:
                                                   p]
     lib.ldt_packed_self_attention_bwd.restype = i
     lib.ldt_packed_self_attention_int8.argtypes = [p, p, p, i, i, i, i, i, f,
-                                                   i, p]
+                                                   i, p, ctypes.POINTER(i)]
     lib.ldt_packed_self_attention_int8.restype = i
     lib.ldt_cross_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                             i, i, i, f, i, p]
@@ -472,22 +509,24 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, n, d3 = qkv.shape
     d = d3 // 3
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
-    mma = ctypes.c_int(0)
+    schedule = ctypes.c_int(0)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = _lib().ldt_packed_self_attention(
             qkv.data_ptr(), out.data_ptr(), b, n, d, num_heads, dh ** -0.5,
-            _DTYPE_CODES[qkv.dtype], stream, ctypes.byref(mma))
+            _DTYPE_CODES[qkv.dtype], stream, ctypes.byref(schedule))
     _raise_on(err, name)
     packed_self_attention.launches += 1
-    packed_self_attention.mma_launches += mma.value
+    packed_self_attention.mma_launches += int(schedule.value == 1)
+    packed_self_attention.tiled_launches += int(schedule.value == 2)
     return out
 
 
 packed_self_attention.launches = 0
-# the launches (counted in `launches` too) that took the tensor cores, as
-# the library reports the schedule it launched
+# the launches (counted in `launches` too) that took the tensor cores and
+# the register-tiled f32 schedule, as the library reports what it launched
 packed_self_attention.mma_launches = 0
+packed_self_attention.tiled_launches = 0
 
 
 def _check_packed(name: str, qkv: torch.Tensor, num_heads: int) -> int:
@@ -509,7 +548,9 @@ def packed_self_attention_int8(qkv: torch.Tensor, num_heads: int,
                                elems: int = 4) -> torch.Tensor:
     """K8: int8 self-attention on the packed [B, N, 3D] qkv -> [B, N, D],
     scales per group of `elems` batch elements (B must be a multiple).
-    One call is one count in `.launches` (two CUDA launches)."""
+    One call is one count in `.launches` (two CUDA launches); the calls
+    that took the int8 tensor cores, as the library reports, are counted in
+    `.mma_launches` too."""
     name = "packed_self_attention_int8"
     dh = _check_packed(name, qkv, num_heads)
     b, n, d3 = qkv.shape
@@ -519,19 +560,31 @@ def packed_self_attention_int8(qkv: torch.Tensor, num_heads: int,
         return packed_self_attention_int8_plain(qkv, num_heads, elems)
     d = d3 // 3
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
-    scales = torch.empty((b // elems, 3), dtype=torch.float32,
+    # the group scales, then room for the tensor-core schedule's partial
+    # maxima (the C entry's contract)
+    scales = torch.empty(int8_scratch(b, n, elems), dtype=torch.float32,
                          device=qkv.device)
+    schedule = ctypes.c_int(0)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = _lib().ldt_packed_self_attention_int8(
             qkv.data_ptr(), scales.data_ptr(), out.data_ptr(), b, n, d,
-            num_heads, elems, dh ** -0.5, _DTYPE_CODES[qkv.dtype], stream)
+            num_heads, elems, dh ** -0.5, _DTYPE_CODES[qkv.dtype], stream,
+            ctypes.byref(schedule))
     _raise_on(err, name)
     packed_self_attention_int8.launches += 1
+    packed_self_attention_int8.mma_launches += schedule.value
     return out
 
 
 packed_self_attention_int8.launches = 0
+packed_self_attention_int8.mma_launches = 0
+
+
+def int8_scratch(b: int, n: int, elems: int) -> int:
+    """f32 values of K8's scratch: the [b / elems, 3] group scales, then
+    up to one partial maximum per row of a group and part."""
+    return b // elems * 3 * (1 + elems * n)
 
 
 def _check_cross(name: str, q: torch.Tensor, k: torch.Tensor,

@@ -1,16 +1,22 @@
-"""Time the port's two host-bound paths on the card, for a before/after of
-two checkouts in one machine: the flagship bf16 generation (B=64, 1000
-ancestral steps + decode, random weights from seed 0) and the flagship
-stage-1 train step (B=16, 2048 points, f32).
+"""Time the port's flagship paths on the card, for a before/after of two
+checkouts in one machine. Paths (`--paths`, comma-separated):
+  bf16     the bf16 generation (B=64, 1000 ancestral steps + decode, random
+           weights from seed 0): seconds and clouds/min per run;
+  stage1   the stage-1 train step (B=16, 2048 points, f32): ms/step;
+  int8_k8  the int8 W8A8 generation with K8 attention (B=64): one 32-step
+           run under torch.profiler (device busy, K8's device time in it)
+           and the 1000-step run's seconds;
+  stage2   the stage-2 train step (B=64, f32): ms/step, and one step under
+           torch.profiler (device busy, K1's device time in it).
 
-    python scripts/torch_ab.py --root <checkout> [--reps 3] [--steps 10]
+    python scripts/torch_ab.py --root <checkout> [--paths bf16,stage1]
+                               [--reps 3] [--steps 10]
 
 `--root` is the checkout whose `ldt_torch` is imported (the default is the
 one holding this script), so one copy of the script times an older commit
 unpacked beside it. Run the checkouts alternately (A, B, B, A) in one call
-to the card, and compare only within that call. Prints one JSON line:
-each generation's seconds and clouds/min, the train steps' ms/step, and the
-card's name and power limit.
+to the card, and compare only within that call. Prints one JSON line with
+each path's numbers and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -22,34 +28,43 @@ import sys
 import time
 from pathlib import Path
 
+PATHS = ("bf16", "stage1", "int8_k8", "stage2")
+BATCH = 64
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--steps", type=int, default=10)
-    args = ap.parse_args()
-    sys.path.insert(0, str(Path(args.root).resolve()))
-    import torch
 
-    if not torch.cuda.is_available():
-        print("torch_ab: torch.cuda.is_available() is false", file=sys.stderr)
-        return 2
-    from ldt_torch.configs import (compressor_cfg, compressor_trainer_cfg,
-                                   score_cfg, sde_cfg)
+def profiled(torch, fn) -> dict:
+    """{kernel name: device us} of one `fn()` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0.0)
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key] = out.get(e.key, 0.0) + us
+    return out
+
+
+def timed(torch, fn) -> float:
+    """Seconds of `fn()`, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_bf16(torch, gen, reps: int) -> dict:
+    from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
     from ldt_torch.diffusion import make_diffusion
     from ldt_torch.generate import generate
     from ldt_torch.models import Compressor, Score
-    from ldt_torch.training import compressor_trainer as ct
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    batch, steps = 64, 1000
+    steps = 1000
     weights = Score(score_cfg(), device="cuda", generator=gen).state_dict()
     score = Score(score_cfg(), dtype=torch.bfloat16, device="cuda").eval()
     score.load_state_dict(weights)
@@ -60,20 +75,24 @@ def main() -> int:
     # warm-up: builds the kernels, fills the allocator and the caches
     generate(score, comp, make_diffusion(sde_cfg(sample_N=32),
                                          device="cuda"),
-             batch, 32, device="cuda", generator=gen)
+             BATCH, 32, device="cuda", generator=gen)
     gen_s = []
-    for _ in range(args.reps):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = generate(score, comp, sde, batch, steps, device="cuda",
+        out = generate(score, comp, sde, BATCH, steps, device="cuda",
                        generator=gen)
         torch.cuda.synchronize()
         gen_s.append(time.perf_counter() - t0)
         if not torch.isfinite(out).all():
-            print("torch_ab: a generated cloud is not finite",
-                  file=sys.stderr)
-            return 1
-    del score, comp, sde
+            raise RuntimeError("torch_ab: a generated cloud is not finite")
+    return {"generation_s": gen_s,
+            "clouds_per_min": [BATCH / s * 60.0 for s in gen_s]}
+
+
+def run_stage1(torch, gen, steps: int) -> dict:
+    from ldt_torch.configs import compressor_trainer_cfg
+    from ldt_torch.training import compressor_trainer as ct
 
     cfg = compressor_trainer_cfg()
     trainer = ct.Trainer(cfg, device="cuda", generator=torch.Generator(
@@ -84,17 +103,90 @@ def main() -> int:
     trainer.maybe_init(data)
     for _ in range(2):
         trainer.update(data)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
+    dt = timed(torch, lambda: [trainer.update(data) for _ in range(steps)])
+    return {"stage1_ms_per_step": dt * 1e3 / steps}
+
+
+def run_int8_k8(torch, gen) -> dict:
+    from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import generate
+    from ldt_torch.models import Compressor, Score
+
+    weights = Score(score_cfg(), device="cuda", generator=gen).state_dict()
+    score = Score(score_cfg(), dtype=torch.bfloat16, device="cuda").eval()
+    score.load_state_dict(weights)
+    comp = Compressor(compressor_cfg(), dtype=torch.bfloat16, device="cuda",
+                      generator=gen).eval()
+
+    def run(steps):
+        sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
+        return lambda: generate(score, comp, sde, BATCH, steps,
+                                device="cuda", generator=gen, int8=True,
+                                int8_weights=weights, attn_int8=True)
+
+    run(32)()  # warm-up
+    kernels = profiled(torch, run(32))
+    k8 = sum(us for k, us in kernels.items() if "self_attention_int8" in k
+             or "int8_group_scales" in k)
+    return {"int8_k8_busy_ms_32_steps": sum(kernels.values()) / 1e3,
+            "int8_k8_k8_ms_32_steps": k8 / 1e3,
+            "int8_k8_generation_s": timed(torch, run(1000))}
+
+
+def run_stage2(torch, gen, steps: int) -> dict:
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    cfg = latent_trainer_cfg()
+    trainer = Trainer(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(0))
+    data = {"tr_points": torch.randn(BATCH, cfg.data.tr_max_sample_points,
+                                     3, device="cuda", generator=gen)}
+    trainer.maybe_init(data)
+    for _ in range(2):
         trainer.update(data)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-    print(json.dumps({
-        "root": args.root, "card": card,
-        "generation_s": gen_s,
-        "clouds_per_min": [batch / s * 60.0 for s in gen_s],
-        "stage1_ms_per_step": step_ms}))
+    dt = timed(torch, lambda: [trainer.update(data) for _ in range(steps)])
+    kernels = profiled(torch, lambda: trainer.update(data))
+    k1 = sum(us for k, us in kernels.items()
+             if "packed_self_attention" in k and "bwd" not in k)
+    return {"stage2_ms_per_step": dt * 1e3 / steps,
+            "stage2_busy_ms_per_step": sum(kernels.values()) / 1e3,
+            "stage2_k1_ms_per_step": k1 / 1e3}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--paths", default="bf16,stage1")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+    paths = args.paths.split(",")
+    if not set(paths) <= set(PATHS):
+        ap.error(f"--paths: choose from {', '.join(PATHS)}")
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_ab: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"root": args.root, "card": card}
+    runs = {"bf16": lambda: run_bf16(torch, gen, args.reps),
+            "stage1": lambda: run_stage1(torch, gen, args.steps),
+            "int8_k8": lambda: run_int8_k8(torch, gen),
+            "stage2": lambda: run_stage2(torch, gen, args.steps)}
+    for path in paths:
+        result.update(runs[path]())
+        torch.cuda.empty_cache()
+    print(json.dumps(result))
     return 0
 
 

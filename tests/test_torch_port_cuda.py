@@ -89,60 +89,97 @@ def test_packed_self_attention_kernel(card, b, n, h, dh, dtype):
     _assert_within(got, want, TOL[dtype])
 
 
-# (b, n, h, dh, schedule) of K1 in bf16: the tensor cores at the DiT's shape
-# and at the edges of their rule (N = 16, 48, 64; dh = 16, 32, 128; B = 1; a
-# head group of 4 left ragged), the CUDA cores past it (N = 17, dh = 24)
-K1_BF16 = [(8, 32, 16, 64, "mma"), (2, 16, 4, 64, "mma"),
-           (2, 48, 4, 64, "mma"), (2, 64, 2, 64, "mma"),
-           (2, 32, 6, 32, "mma"), (2, 64, 2, 128, "mma"),
-           (1, 32, 16, 64, "mma"), (1, 16, 5, 16, "mma"),
-           (2, 17, 4, 64, "fma"), (2, 32, 4, 24, "fma"),
-           (2, 80, 2, 64, "fma")]
+BF16, F32 = torch.bfloat16, torch.float32
+# (b, n, h, dh, dtype, schedule) of K1: in bf16 the tensor cores at the
+# DiT's shape and at the edges of their rule (N = 16, 48, 64; dh = 16, 32,
+# 128; B = 1; a head group of 4 left ragged), the CUDA cores past it (N =
+# 17, dh = 24); in f32 the register-tiled schedule at the train step's
+# shape, at ragged sizes (N = 17, dh = 24, a head pair left ragged) and past
+# 48 KB of shared memory, the first CUDA-core kernel past its budget (N =
+# 128) or with dh not a multiple of 4
+K1_CASES = [(8, 32, 16, 64, BF16, "mma"), (2, 16, 4, 64, BF16, "mma"),
+            (2, 48, 4, 64, BF16, "mma"), (2, 64, 2, 64, BF16, "mma"),
+            (2, 32, 6, 32, BF16, "mma"), (2, 64, 2, 128, BF16, "mma"),
+            (1, 32, 16, 64, BF16, "mma"), (1, 16, 5, 16, BF16, "mma"),
+            (2, 17, 4, 64, BF16, "fma"), (2, 32, 4, 24, BF16, "fma"),
+            (2, 80, 2, 64, BF16, "fma"),
+            (8, 32, 16, 64, F32, "tiled"), (3, 17, 3, 24, F32, "tiled"),
+            (2, 64, 2, 96, F32, "tiled"), (1, 5, 1, 4, F32, "tiled"),
+            (2, 64, 2, 128, F32, "tiled"), (1, 128, 2, 64, F32, "fma"),
+            (2, 32, 2, 30, F32, "fma")]
+# the kernel each schedule of K1 launches, as torch.profiler names it
+K1_KERNELS = {"mma": "packed_self_attention_mma_kernel",
+              "tiled": "packed_self_attention_tiled_kernel",
+              "fma": "packed_self_attention_kernel<"}
 
 
-@pytest.mark.parametrize("b,n,h,dh,schedule", K1_BF16)
-def test_packed_self_attention_schedules_repeat_their_bits(card, b, n, h, dh,
-                                                           schedule):
-    """K1 bf16 on the schedule `packed_schedule` names, against its twin,
-    repeating its bits; `.mma_launches` counts exactly the tensor-core
-    calls, and the profiler sees that schedule's kernel run."""
-    qkv = _randn(card, b, n, 3 * h * dh, dtype=torch.bfloat16)
-    assert ops.packed_schedule(n, dh, torch.bfloat16) == schedule
+def _k1_counts():
     fn = ops.packed_self_attention
-    before = (fn.launches, fn.mma_launches)
+    return fn.launches, fn.mma_launches, fn.tiled_launches
+
+
+@pytest.mark.parametrize("b,n,h,dh,dtype,schedule", K1_CASES)
+def test_packed_self_attention_schedules_repeat_their_bits(card, b, n, h, dh,
+                                                           dtype, schedule):
+    """K1 on the schedule `packed_schedule` names, against its twin,
+    repeating its bits; `.mma_launches` and `.tiled_launches` count exactly
+    the calls the library reports on those schedules, and the profiler sees
+    that schedule's kernel run."""
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
+    assert ops.packed_schedule(n, dh, dtype) == schedule
+    fn = ops.packed_self_attention
+    before = _k1_counts()
     got = fn(qkv, h)
     again = fn(qkv, h)
     torch.cuda.synchronize()
-    mma = 2 if schedule == "mma" else 0
-    assert (fn.launches, fn.mma_launches) == (before[0] + 2, before[1] + mma)
+    assert _k1_counts() == (before[0] + 2,
+                            before[1] + 2 * (schedule == "mma"),
+                            before[2] + 2 * (schedule == "tiled"))
     assert torch.equal(got, again)
     names = _launched(lambda: fn(qkv, h))
-    assert ("packed_self_attention_mma_kernel" in names) == (
-        schedule == "mma"), names
-    _assert_within(got, ops.packed_self_attention_plain(qkv, h),
-                   TOL[torch.bfloat16])
+    for sched, kernel in K1_KERNELS.items():
+        assert (kernel in names) == (sched == schedule), names
+    _assert_within(got, ops.packed_self_attention_plain(qkv, h), TOL[dtype])
     _assert_within(got.cpu(), ops.packed_self_attention_plain(qkv.cpu(), h),
-                   TOL[torch.bfloat16])
+                   TOL[dtype])
 
 
-def test_packed_self_attention_unaligned_and_f32_take_the_cuda_cores(card):
-    """A qkv whose rows start 2 bytes off a 16-byte boundary, and every f32
-    input, take the CUDA-core schedule."""
-    b, n, h, dh = 2, 32, 4, 64
-    flat = _randn(card, b * n * 3 * h * dh + 1, dtype=torch.bfloat16)
-    qkv = flat[1:].view(b, n, 3 * h * dh)
-    assert qkv.is_contiguous() and qkv.data_ptr() % 16 != 0
+def _unaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    off = flat[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    return off
+
+
+@pytest.mark.parametrize("b,n,h,dh", [(8, 32, 16, 64),   # the DiT's shape
+                                      (3, 17, 3, 24),    # ragged sizes
+                                      (2, 64, 2, 96)])   # > 48 KB smem
+def test_packed_self_attention_unaligned_and_f32_take_the_cuda_cores(
+        card, b, n, h, dh):
+    """A qkv whose rows start off a 16-byte boundary takes the first CUDA-core
+    kernel in either dtype; an aligned f32 qkv takes the register-tiled
+    schedule, which gives that kernel's bits."""
     fn = ops.packed_self_attention
-    for x in (qkv, qkv.float()):
-        before = (fn.launches, fn.mma_launches)
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=F32)
+    assert ops.packed_schedule(n, dh, F32) == "tiled"
+    assert ops.packed_schedule(n, dh, F32, aligned=False) == "fma"
+    outs = {}
+    for x, want in ((qkv, "tiled"), (_unaligned(qkv), "fma"),
+                    (_unaligned(qkv.bfloat16()), "fma")):
+        before = _k1_counts()
         got = fn(x, h)
         torch.cuda.synchronize()
-        assert (fn.launches, fn.mma_launches) == (before[0] + 1, before[1])
-        assert "packed_self_attention_mma_kernel" not in _launched(
-            lambda: fn(x, h))
+        assert _k1_counts() == (before[0] + 1, before[1],
+                                before[2] + (want == "tiled"))
+        names = _launched(lambda: fn(x, h))
+        assert K1_KERNELS[want] in names and "mma" not in names, names
         _assert_within(got, ops.packed_self_attention_plain(x, h),
                        TOL[x.dtype])
-    assert ops.packed_schedule(n, dh, torch.float32) == "fma"
+        outs[(x.dtype, want)] = got
+    assert torch.equal(outs[(F32, "tiled")], outs[(F32, "fma")])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -161,18 +198,28 @@ def test_cross_attention_kernel(card, b, n, m, d, h, dtype):
     _assert_within(got, want, TOL[dtype])
 
 
-def test_a_refused_launch_raises(card):
+@pytest.mark.parametrize("entry", ["ldt_packed_self_attention",
+                                   "ldt_packed_self_attention_int8"])
+def test_a_refused_launch_raises(card, entry):
     """The C entry points return the CUDA error; the wrapper's check turns
-    it into an exception (here: an unknown dtype code)."""
-    qkv = _randn(card, 1, 4, 24, dtype=torch.float32)
-    out = torch.empty(1, 4, 8, device="cuda")
-    mma = ctypes.c_int(-1)
-    err = ops._lib().ldt_packed_self_attention(
-        qkv.data_ptr(), out.data_ptr(), 1, 4, 8, 2, 0.5, 7,
-        torch.cuda.current_stream().cuda_stream, ctypes.byref(mma))
-    assert err != 0 and mma.value == 0  # no launch, no schedule
+    it into an exception (here: an unknown dtype code). K1 and K8 report no
+    schedule for a launch they refused."""
+    qkv = _randn(card, 4, 4, 24, dtype=torch.float32)
+    out = torch.empty(4, 4, 8, device="cuda")
+    scratch = torch.empty(ops.int8_scratch(4, 4, 4), device="cuda")
+    schedule = ctypes.c_int(-1)
+    stream = torch.cuda.current_stream().cuda_stream
+    if entry == "ldt_packed_self_attention":
+        err = ops._lib().ldt_packed_self_attention(
+            qkv.data_ptr(), out.data_ptr(), 4, 4, 8, 2, 0.5, 7, stream,
+            ctypes.byref(schedule))
+    else:
+        err = ops._lib().ldt_packed_self_attention_int8(
+            qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(), 4, 4, 8, 2,
+            4, 0.5, 7, stream, ctypes.byref(schedule))
+    assert err != 0 and schedule.value == 0  # no launch, no schedule
     with pytest.raises(RuntimeError, match="CUDA error"):
-        ops._raise_on(err, "packed_self_attention")
+        ops._raise_on(err, entry)
 
 
 def test_small_generate_through_the_kernels(card):
@@ -212,23 +259,75 @@ def test_small_generate_through_the_kernels(card):
         _assert_within(g, w, tol, w.float().abs().max().item())
 
 
+# (b, n, h, dh, schedule) of K8: the int8 tensor cores at the DiT's shape,
+# at ragged sizes (N = 48 and 16, whose keys pad to 64 and 32; head groups
+# of 4 left ragged) and past 48 KB of shared memory; the CUDA-core kernels
+# at N = 17, dh = 24
+K8_CASES = [(64, 32, 16, 64, "mma"), (8, 48, 3, 96, "mma"),
+            (4, 16, 5, 32, "mma"), (4, 64, 2, 128, "mma"),
+            (8, 17, 3, 24, "fma")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,h,dh", [(64, 32, 16, 64),  # the DiT's shape
-                                      (8, 17, 3, 24),    # ragged sizes
-                                      (4, 64, 2, 128)])  # > 48 KB smem
-def test_packed_self_attention_int8_kernel(card, b, n, h, dh, dtype):
+@pytest.mark.parametrize("b,n,h,dh,schedule", K8_CASES)
+def test_packed_self_attention_int8_kernel(card, b, n, h, dh, schedule,
+                                           dtype):
+    """K8 against its twin on the card and on the CPU, repeating its bits,
+    on the schedule the library reports (`.mma_launches`) and the profiler
+    names; per-element scales (E=1) fail the limit."""
     qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
-    before = ops.packed_self_attention_int8.launches
-    got = ops.packed_self_attention_int8(qkv, h)
+    fn = ops.packed_self_attention_int8
+    before = (fn.launches, fn.mma_launches)
+    got = fn(qkv, h)
     torch.cuda.synchronize()
-    assert ops.packed_self_attention_int8.launches == before + 1
+    assert (fn.launches, fn.mma_launches) == (
+        before[0] + 1, before[1] + (schedule == "mma"))
     assert got.dtype == dtype and got.shape == (b, n, h * dh)
+    assert torch.equal(got, fn(qkv, h))
+    names = _launched(lambda: fn(qkv, h))
+    assert ("packed_self_attention_int8_mma_kernel" in names) == (
+        schedule == "mma"), names
     _assert_within(got, ops.packed_self_attention_int8_plain(qkv, h), K8_TOL)
     _assert_within(got.cpu(), ops.packed_self_attention_int8_plain(
         qkv.cpu(), h), K8_TOL)
     wrong = ops.packed_self_attention_int8_plain(qkv, h, 1)
     with pytest.raises(AssertionError):
         _assert_within(got, wrong, K8_TOL)
+
+
+def _k8_direct(qkv, h, elems=4):
+    """K8 through its C entry: (out, the group scales, the schedule)."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    out = torch.empty(b, n, d, dtype=qkv.dtype, device=qkv.device)
+    scratch = torch.full((ops.int8_scratch(b, n, elems),), float("nan"),
+                         device=qkv.device)
+    schedule = ctypes.c_int(-1)
+    err = ops._lib().ldt_packed_self_attention_int8(
+        qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, n, d, h,
+        elems, (d // h) ** -0.5, ops._DTYPE_CODES[qkv.dtype],
+        torch.cuda.current_stream().cuda_stream, ctypes.byref(schedule))
+    ops._raise_on(err, "ldt_packed_self_attention_int8")
+    torch.cuda.synchronize()
+    return out, scratch[:b // elems * 3].view(b // elems, 3), schedule.value
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", [(64, 32, 16, 64), (8, 48, 3, 96),
+                                      (4, 64, 2, 128)])
+def test_k8_tensor_cores_give_the_cuda_core_kernels_bits(card, b, n, h, dh,
+                                                         dtype):
+    """The int8 tensor-core schedule and the CUDA-core kernels (taken by a copy
+    off 16-byte alignment) give the same output and group scales bit for
+    bit; the scales are max|x| / 127 + 1e-20 per group and part."""
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
+    out, scales, schedule = _k8_direct(qkv, h)
+    old_out, old_scales, old_schedule = _k8_direct(_unaligned(qkv), h)
+    assert (schedule, old_schedule) == (1, 0)
+    assert torch.equal(out, old_out) and torch.equal(scales, old_scales)
+    x = qkv.float().reshape(b // 4, 4 * n, 3, h * dh)
+    want = ops.true_divide(x.abs().amax(dim=(1, 3)), 127.0) + 1e-20
+    assert torch.equal(scales, want)
 
 
 def test_k8_refuses_a_batch_not_a_multiple_of_its_group(card):
@@ -271,12 +370,15 @@ def test_small_int8_generate_through_k8(card):
     comp = Compressor(compressor_cfg(), dtype=torch.bfloat16,
                       generator=card)
     sde = make_diffusion(sde_cfg(sample_N=32))
-    k1, k8 = (ops.packed_self_attention.launches,
-              ops.packed_self_attention_int8.launches)
+    k1, k8, mma = (ops.packed_self_attention.launches,
+                   ops.packed_self_attention_int8.launches,
+                   ops.packed_self_attention_int8.mma_launches)
     got = generate(score, comp, sde, 4, 32, int8=True, attn_int8=True,
                    generator=card)
     assert ops.packed_self_attention.launches == k1
     assert ops.packed_self_attention_int8.launches - k8 == 2 * 32
+    # every K8 launch at the DiT's shape took the int8 tensor cores
+    assert ops.packed_self_attention_int8.mma_launches - mma == 2 * 32
     assert got.shape == (4, 2048, 3) and torch.isfinite(got.float()).all()
 
 

@@ -1,4 +1,4 @@
-"""K1's two schedules on the CPU: which one a shape takes
+"""K1's three schedules on the CPU: which one a shape takes
 (`ops.attention.packed_schedule`), the constants `ops.attention` mirrors
 from `ldt_torch/csrc/attention.cu`, and the tensor-core schedule's
 arithmetic as a plain-PyTorch emulation held against the plain twin and
@@ -27,13 +27,20 @@ from ldt_torch.ops import _build
 from ldt_torch.ops import attention as ops
 
 SOURCE = (_build.CSRC / "attention.cu").read_text()
-BF16 = torch.bfloat16
+BF16, F32 = torch.bfloat16, torch.float32
 
 # (n, dh, dtype, aligned, schedule)
 RULE = [(32, 64, BF16, True, "mma"),        # the DiT's generation shape
         (16, 16, BF16, True, "mma"), (48, 32, BF16, True, "mma"),
         (64, 128, BF16, True, "mma"), (64, 64, BF16, True, "mma"),
-        (32, 64, torch.float32, True, "fma"),   # training's f32
+        (32, 64, F32, True, "tiled"),       # training's f32
+        (17, 24, F32, True, "tiled"), (5, 4, F32, True, "tiled"),
+        (64, 96, F32, True, "tiled"), (80, 64, F32, True, "tiled"),
+        (32, 64, F32, False, "fma"),        # unaligned rows
+        (32, 30, F32, True, "fma"),         # dh not a multiple of 4
+        (64, 128, F32, True, "tiled"), (100, 64, F32, True, "tiled"),
+        (128, 64, F32, True, "fma"),        # past the shared memory
+        (64, 256, F32, True, "fma"),
         (32, 64, BF16, False, "fma"),           # unaligned rows
         (17, 64, BF16, True, "fma"), (8, 64, BF16, True, "fma"),
         (80, 64, BF16, True, "fma"), (32, 24, BF16, True, "fma"),
@@ -75,6 +82,34 @@ def test_constants_mirror_the_source():
                      SOURCE)
     # the generation shape: 2 blocks per SM fit in shared memory
     assert 2 * ops.self_mma_smem_bytes(32, 64) <= ops.SMEM_LIMIT
+
+
+def test_tiled_constants_mirror_the_source():
+    """The register-tiled f32 rule and its shared memory, read from the
+    source: kTileHeads, the rule's terms and the byte count."""
+    c = _constants()
+    assert c["kTileHeads"] == ops._TILE_HEADS
+    # a block's threads take one 4 x 4 output tile each at the train
+    # step's shape (N = 32, dh = 64: 8 x 16 tiles a head)
+    assert c["kTileThreads"] == ops._TILE_HEADS * (32 // 4) * (64 // 4)
+    rule = re.search(r"bool self_tiled\(.*?\n}", SOURCE, re.S).group(0)
+    for term in ("dtype == kDtypeF32", "dh % 4 == 0", "aligned16(qkv)",
+                 "aligned16(out)", "self_tiled_smem_bytes(n, dh) <= kMaxSmem"):
+        assert term in rule, term
+    body = re.search(r"size_t self_tiled_smem_bytes\(int n, int dh\) {\s*"
+                     r"const size_t n4 = (.+?);\s*return (.+?);", SOURCE,
+                     re.S)
+    n4_expr, expr = body.groups()
+    expr = (expr.replace("sizeof(float)", "4").replace("kTileHeads", "2")
+            .replace("lk_ld(dh)", "lk_ld"))
+    for n, dh in [(32, 64), (17, 24), (64, 96), (5, 4), (128, 64)]:
+        n4 = eval(n4_expr.replace("/", "//"), {}, dict(n=n))
+        assert eval(expr, {}, dict(n4=n4, lk_ld=ops.lk_ld(dh))) \
+            == ops.self_tiled_smem_bytes(n, dh)
+    # the train step's shape: a block needs no more than the default 48 KB,
+    # and 4 blocks fit an SM, so its 512 blocks are resident at once
+    assert ops.self_tiled_smem_bytes(32, 64) <= 48 * 1024
+    assert 4 * ops.self_tiled_smem_bytes(32, 64) <= ops.SMEM_LIMIT
 
 
 def mma_emulation(qkv, num_heads, round_weights=True):
