@@ -71,33 +71,43 @@ Stage-1 training (`ldt_torch.training.compressor_trainer.Trainer.update`):
      (B=16, 32x32, 32x2048 long-key, 2048x32 long-query) against its plain
      twin on the card and on the CPU and against wrong variants (no rowsum;
      dk/dv or dq/dk swapped; one dk/dv partial tile dropped; bf16: ds from
-     the rounded weights), f32 and bf16; its times, bounds, twin times and
-     the SDPA backward yardstick.
+     the rounded weights), f32 and bf16, on its register-tiled kernels (the
+     library's report and the profiler's names); equal bit for bit to the
+     scalar kernels run through unaligned copies; both timed (event loop and
+     device time), with the bounds, twin times and the SDPA backward
+     yardstick.
  16. (after 13) The flagship stage-1 train step (B=16, 2048 points, 6
      layers, f32) on synthetic clouds: 10 steps timed, launch counts K2 24
-     (5 tiled) and K4 24 (5 long-key, 6 long-query) per step, one step's
-     parts by CUDA events, one step under torch.profiler by class, and the
-     chamfer and auction-EMD losses alone under it.
+     (5 tiled) and K4 24 (5 long-key, 6 long-query, all 24 register-tiled)
+     per step, one step's parts by CUDA events, one step under
+     torch.profiler by class, and the chamfer and auction-EMD losses alone
+     under it.
  17. (after 14) One stage-1 step at flagship width cut to two layers, f32,
      same weights, clouds, pinned noise, chamfer neighbours and EMD
-     assignment, on the card against the CPU, and against a K4 with dq and
-     dk swapped; the auction alone on dyadic-grid clouds, card == CPU.
+     assignment, on the card (K4 on its tiled kernels) against the CPU, and
+     against a K4 with dq and dk swapped; the auction alone on dyadic-grid
+     clouds, card == CPU.
 Evaluation (`ldt_torch.eval.metrics`, the trainers' `valsample` and
 `reconstruction`), on clouds at ShapeNet's scale (`synthetic_shapes`):
  18. (after 15) K5 (`pairwise_cd_means`) and K6/K7 (`approx_match_cost`,
      d streamed / built on the fly) on 32 pairs of 2048-point clouds against
      their twins on the card and on the CPU and against wrong variants (K5:
-     one direction, on sqrt d; K6: 8 levels, no consumption clamp, the cost
-     on d); K6 == K7 bit for bit, each repeating itself; one pair against the
-     exact optimum (scipy's linear_sum_assignment); times, bounds and twin
-     times at a full eval tile (64 pairs).
+     one direction, on sqrt d, one row tile's column minima dropped; K6: 8
+     levels, no consumption clamp, the cost on d); K5 on its split schedule
+     (the cluster size the library reports against the rule), a pair alone
+     equal to it in its tile, its block schedule (unaligned y) within the
+     limit too; K6 == K7 bit for bit, each repeating itself; one pair against
+     the exact optimum (scipy's linear_sum_assignment); times, bounds and
+     twin times at a full eval tile (64 pairs), K5's split and block
+     schedules in both units.
  19. (after 16) The eval path at full width on 64 references and 64
      samples of 2048 points: `compute_all_metrics(smp, ref, 128)` (pairs/s),
      `compute_CD_metrics(smp, ref, 256)`, `EMD_CD` through K7, the JSD, the
      phase-16 stage-1 trainer's `reconstruction` and `valsample` on a test
      loader of 4 batches of 16, and a stage-2 `valsample` (one batch, 32
-     steps); K5/K6/K7 launch counts against those `_tile_shape` predicts;
-     one matrix's tiles under torch.profiler.
+     steps); K5/K6/K7 launch counts against those `_tile_shape` predicts
+     (every K5 launch on its split schedule, every K6/K7 one on the cluster
+     schedule); one matrix's tiles under torch.profiler.
  20. (after 17) 8 x 8 pairs, card against CPU: the CD and EMD matrices of
      `compute_all_metrics` (and against a card run with wrong kernels), the
      metric dicts on sets with margin, and the JSD.
@@ -192,7 +202,9 @@ K4_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (8e-3, 1e-5)}
 # |twin|: the minima have the twin's bits (the same direct-form roundings),
 # only the means' sums run in another order (read on the H100: 2.3e-7 /
 # 4.9e-8, card and CPU twins). Wrong: "one direction" (2 mean dist1: 0.35 /
-# 0.10), "on sqrt d" (the means of sqrt(dist)).
+# 0.10), "on sqrt d" (the means of sqrt(dist)), "one row tile's column
+# minima dropped" (the split schedule's merge losing a block of the
+# cluster).
 K5_TOL = (1e-5, 1e-6)
 # Phase 18, K6/K7 vs their twin, the same readings: sums over 2048 rows and
 # columns in another order through nine levels (read on the H100: twin
@@ -800,6 +812,11 @@ def phase_train_kernels(batch: int, gen) -> dict:
                 got, k3_variant(qkv, g, h, round_dv=False), rel=True)
             wrong += ("dv unrounded",)
         ms = cuda_ms(k3)
+        k3_parts = launch_us(k3)
+        if not any("packed_self_attention_bwd_kernel" in k
+                   for k in k3_parts):
+            fail(f"phase 12: K3 {dn} ran {list(k3_parts)}: the profiler did "
+                 "not see packed_self_attention_bwd_kernel")
         plain_ms = cuda_ms(k3_plain, iters=20)
         library_ms = sdpa_backward_ms(
             *(heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3)),
@@ -813,6 +830,8 @@ def phase_train_kernels(batch: int, gen) -> dict:
               f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.3f} GFLOP)")
+        print("    device time per call: " + ", ".join(
+            f"{k} {us:.2f} us" for k, us in k3_parts.items()))
         held(f"K3 {dn} (relative) vs", readings, K3_TOL[dn],
              right=("twin", "cpu twin", "f64"), wrong=wrong)
         if dtype == torch.float32:  # the train step's dtype
@@ -822,7 +841,8 @@ def phase_train_kernels(batch: int, gen) -> dict:
                 "replaces": "ldt_tpu/ops/pallas_attention.py:312",
                 "launches": 0, "max_abs_err": errs(got, twin)[0], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
+                "bound_by": bound_by, "library_ms": library_ms,
+                "device_ms": sum(k3_parts.values()) / 1e3}
 
         q = torch.randn(batch, nq, dc, device="cuda", dtype=dtype,
                         generator=gen)
@@ -882,25 +902,30 @@ def phase_train_kernels(batch: int, gen) -> dict:
 
 def launch_us(fn, iters: int = 20) -> dict:
     """{kernel: device microseconds per call} of each CUDA launch that `fn`
-    makes, from torch.profiler (without the host's share)."""
+    makes, from torch.profiler (without the host's share). A session that
+    records no kernel at all (the profiler has dropped a whole session's
+    records in a long process) is taken again, twice at most."""
     import re
 
     import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
 
     def short(key):
         m = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
         return m.group(1) if m else key[:60]
 
-    return {short(k): us / iters
-            for k, us in device_time_by_kernel(prof).items()}
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {short(k): us / iters
+               for k, us in device_time_by_kernel(prof).items()}
+        if out:
+            break
+    return out
 
 
 def k2_launch_us(fn, iters: int = 20) -> str:
@@ -1010,14 +1035,49 @@ K4_ROWS = {"encoder": "cross_attention_bwd",
            "decoder": "cross_attention_bwd_long_query"}
 
 
+def k4_pr4_kernels(q, k, v, g, h: int, got, what: str):
+    """K4's scalar kernels at the shape where the register-tiled ones ran
+    (`got`), for the before and after in one run: unaligned copies of q, k,
+    v and g take them (the rule). They must give `got` bit for bit; timed by
+    the event loop and by the profiler, as the tiled kernels are."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    fn = attn_ops.cross_attention_bwd
+    off = [unaligned_copy(t) for t in (q, k, v, g)]
+    before = (fn.launches, fn.tiled_launches)
+    old = fn(*off, h)
+    counts = (fn.launches, fn.tiled_launches)
+    parts = launch_us(lambda: fn(*off, h))
+    if counts != (before[0] + 1, before[1]) or not parts or \
+            ", true>" in " ".join(parts):
+        fail(f"phase 15: the unaligned K4 copy ({what}) did not take the "
+             f"scalar kernels: {list(parts)}")
+    if not all(torch.equal(a, b) for a, b in zip(got, old)):
+        fail(f"phase 15: K4's tiled and scalar kernels differ ({what}: max "
+             f"{max(errs(a, b)[0] for a, b in zip(got, old)):.3e})")
+    out = {"pr4_ms": cuda_ms(lambda: fn(*off, h)),
+           "pr4_device_ms": sum(parts.values()) / 1e3}
+    print(f"    the scalar kernels (unaligned copies): == the tiled kernels "
+          f"bit for bit; kernel {out['pr4_ms']:.4f} ms, device time per "
+          f"call {out['pr4_device_ms']:.4f} ms (" + ", ".join(
+              f"{k} {us:.2f} us" for k, us in parts.items()) + ")")
+    return out
+
+
 def phase_k4(batch: int, gen) -> dict:
     """K4 at the stage-1 step's three shapes against its twin, f64 products
-    and wrong variants, in f32 and bf16; rows for f32, the step's dtype."""
+    and wrong variants, in f32 and bf16, on its register-tiled kernels (the
+    library's report and the profiler's names), equal bit for bit to the
+    scalar kernels run through unaligned copies; rows for f32, the step's
+    dtype."""
     import torch
 
     from ldt_torch.ops import attention as attn_ops
 
     d, h = 128, 4
+    fn = attn_ops.cross_attention_bwd
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -1029,12 +1089,17 @@ def phase_k4(batch: int, gen) -> dict:
             sched = attn_ops.cross_bwd_schedule(n, m, d // h)
 
             def k4():
-                return attn_ops.cross_attention_bwd(q, k, v, g, h)
+                return fn(q, k, v, g, h)
 
             def plain():
                 return attn_ops.cross_attention_bwd_plain(q, k, v, g, h)
 
+            before = fn.tiled_launches
             got = k4()
+            if not attn_ops.cross_bwd_tiled(n, m, d // h) or \
+                    fn.tiled_launches != before + 1:
+                fail(f"phase 15: K4 {dn} {shape} did not take its "
+                     "register-tiled kernels")
             twin = plain()
             readings = {
                 "twin": errs3(got, twin),
@@ -1061,6 +1126,12 @@ def phase_k4(batch: int, gen) -> dict:
                     got, k4_variant(q, k, v, g, h, ds_from_rounded_w=True))
                 wrong += ("ds from rounded w",)
             ms = cuda_ms(k4)
+            parts = launch_us(k4)
+            if not parts or not all(", true>" in k for k in parts
+                                    if "reduce" not in k):
+                fail(f"phase 15: K4 {dn} {shape} ran {list(parts)}, not the "
+                     "register-tiled kernels")
+            device_ms = sum(parts.values()) / 1e3
             plain_ms = cuda_ms(plain, iters=20)
             library_ms = sdpa_backward_ms(*(
                 t.unflatten(-1, (h, -1)).transpose(1, 2) for t in (q, k, v,
@@ -1079,10 +1150,13 @@ def phase_k4(batch: int, gen) -> dict:
                   f"backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.3f} GFLOP)")
+            print(f"    device time per call: {device_ms:.4f} ms (" + ", ".join(
+                f"{k} {us:.2f} us" for k, us in parts.items()) + ")")
             held(f"K4 {dn} {shape} (relative) vs", readings, K4_TOL[dn],
                  right=("twin", "cpu twin", "f64"), wrong=wrong)
             if not all(torch.equal(a, b) for a, b in zip(got, k4())):
                 fail(f"phase 15: K4 {dn} {shape} did not repeat its bits")
+            pr4 = k4_pr4_kernels(q, k, v, g, h, got, f"{dn} {shape}")
             if dtype == torch.float32:
                 name = K4_ROWS[shape]
                 rows[name] = {
@@ -1093,7 +1167,8 @@ def phase_k4(batch: int, gen) -> dict:
                     "max_abs_err": max(errs(a, b)[0]
                                        for a, b in zip(got, twin)),
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms}
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "device_ms": device_ms, **pr4}
     return rows
 
 
@@ -1217,6 +1292,10 @@ def counted(fn):
                      attn_ops.cross_attention_bwd, "long_key_launches"),
                  "cross_attention_bwd_long_query": (
                      attn_ops.cross_attention_bwd, "long_query_launches"),
+                 "cross_attention_bwd_tiled": (attn_ops.cross_attention_bwd,
+                                               "tiled_launches"),
+                 "pairwise_cd_means_split": (pairwise_cd_means,
+                                             "split_launches"),
                  "approx_match_cost_otf": (approx_match_cost,
                                            "otf_launches"),
                  "approx_match_cost_cluster": (approx_match_cost,
@@ -1243,7 +1322,8 @@ def per_step_launches(**counts) -> dict:
 
              "packed_self_attention_bwd", "cross_attention_bwd",
              "cross_attention_tiled", "cross_attention_bwd_long_key",
-             "cross_attention_bwd_long_query", "pairwise_cd_means",
+             "cross_attention_bwd_long_query", "cross_attention_bwd_tiled",
+             "pairwise_cd_means", "pairwise_cd_means_split",
              "approx_match_cost", "approx_match_cost_otf",
              "approx_match_cost_cluster")
     return {k: counts.get(k, 0) for k in names}
@@ -1614,7 +1694,8 @@ def phase_stage1_train(steps: int, gen):
     losses = losses.cpu()
     per_step = per_step_launches(
         cross_attention=24, cross_attention_tiled=5, cross_attention_bwd=24,
-        cross_attention_bwd_long_key=5, cross_attention_bwd_long_query=6)
+        cross_attention_bwd_long_key=5, cross_attention_bwd_long_query=6,
+        cross_attention_bwd_tiled=24)
     expect = {k: v * steps for k, v in per_step.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[16] {steps} stage-1 train steps at B={batch}, f32: "
@@ -1745,7 +1826,8 @@ def phase_stage1_reference() -> None:
         return (dk, dq, dv) if q.shape == k.shape else (dq, dk, dv)
 
     # K4 counts its launches on whatever its module name holds
-    for attr in ("launches", "long_key_launches", "long_query_launches"):
+    for attr in ("launches", "long_key_launches", "long_query_launches",
+                 "tiled_launches"):
         setattr(k4_dq_dk_swapped, attr, 0)
 
     def run(dev):
@@ -1767,11 +1849,14 @@ def phase_stage1_reference() -> None:
                 "Adam mu": flat(st.opt_state.mu)}
 
     out = {"cpu": run("cpu")}
-    before = k4.launches
+    before = (k4.launches, k4.tiled_launches)
     out["card"] = run("cuda")
-    # per layer: 2 encoder blocks, a posterior and a decoder block
-    if k4.launches - before != 4 * mc.n_layers:
-        fail("phase 17: the card's step did not go through K4")
+    # per layer: 2 encoder blocks, a posterior and a decoder block, all on
+    # the register-tiled kernels
+    if (k4.launches - before[0], k4.tiled_launches - before[1]) != (
+            4 * mc.n_layers, 4 * mc.n_layers):
+        fail("phase 17: the card's step did not go through K4's tiled "
+             "kernels")
     with mock.patch.object(attn_ops, "cross_attention_bwd",
                            k4_dq_dk_swapped):
         out["dq dk swapped"] = run("cuda")
@@ -1947,14 +2032,21 @@ def eval_pairs(p: int, n: int, seed: int):
     return (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
 
 
-def cd_variant(x, y, one_direction: bool = False, on_sqrt: bool = False):
-    """K5's twin with a slip: 2 mean(dist1) (one direction), or the means
-    of sqrt(dist) (the l1 loss's form, not the metric's)."""
+def cd_variant(x, y, one_direction: bool = False, on_sqrt: bool = False,
+               drop_rows=None):
+    """K5's twin with a slip: 2 mean(dist1) (one direction), the means of
+    sqrt(dist) (the l1 loss's form, not the metric's), or the column minima
+    taken without the rows `drop_rows` (a slice: one row tile of the split
+    schedule left out of the merge)."""
     import torch
 
     from ldt_torch.ops.chamfer import chamfer_distance
 
     d1, d2, _, _ = chamfer_distance(x, y)
+    if drop_rows is not None:
+        keep = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+        keep[drop_rows] = False
+        d2 = chamfer_distance(x[:, keep], y)[1]
     if on_sqrt:
         d1, d2 = torch.sqrt(d1), torch.sqrt(d2)
     return 2 * d1.mean(dim=1) if one_direction else d1.mean(dim=1) + \
@@ -2019,6 +2111,30 @@ def emd_cluster_launched(x, y, otf: bool = False) -> int:
     return cluster.value
 
 
+def cd_cluster_launched(x, y) -> int:
+    """The cluster size (0: the block schedule) that the library reports
+    for K5 on x, y; fails unless it is the one its rule
+    (`_eval_kernels.cd_schedule`, asked without a launch) gives on this
+    card."""
+    import torch
+
+    from ldt_torch.ops import _eval_kernels
+
+    p, n, m = x.shape[0], x.shape[1], y.shape[1]
+    out = torch.empty(p, device=x.device)
+    cluster = ctypes.c_int(-1)
+    _eval_kernels.raise_on(_eval_kernels.lib().ldt_pairwise_cd_means(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), p, n, m,
+        _eval_kernels.stream(x), ctypes.byref(cluster)), "pairwise_cd_means")
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    aligned = y.data_ptr() % 16 == 0
+    want = _eval_kernels.cd_schedule(p, n, m, sms, aligned)
+    if cluster.value != want:
+        fail(f"phase 18: K5 at {p} pairs of {n} x {m} launched cluster size "
+             f"{cluster.value}; the rule says {want} on {sms} SMs")
+    return cluster.value
+
+
 def phase_eval_kernels() -> dict:
     """Phase 18: K5 and K6/K7 against their twins and wrong variants, K6 ==
     K7, repeatability, one pair against the exact optimum; times at a full
@@ -2034,19 +2150,39 @@ def phase_eval_kernels() -> dict:
     p, n = EVAL_PAIRS, EVAL_POINTS
     x, y = eval_pairs(p, n, SEED)
     xc, yc = x.cpu(), y.cpu()
-    # K5
-    got = chamfer.pairwise_cd_means(x, y)
+    # K5, on its split schedule
+    cd_fn = chamfer.pairwise_cd_means
+    before = cd_fn.split_launches
+    got = cd_fn(x, y)
+    c = cd_cluster_launched(x, y)
+    if cd_fn.split_launches != before + 1 or c == 0:
+        fail("phase 18: K5 did not take its split schedule")
+    rb = -(-n // c)  # rows of a block of the cluster
     readings = {
         "twin": rel_errs(got, chamfer.pairwise_cd_means_plain(x, y)),
         "cpu twin": rel_errs(got, chamfer.pairwise_cd_means_plain(xc, yc)),
         "one direction": rel_errs(got, cd_variant(x, y, one_direction=True)),
-        "on sqrt d": rel_errs(got, cd_variant(x, y, on_sqrt=True))}
-    print(f"[18] pairwise_cd_means (K5), {p} pairs of {n}-point clouds, "
-          f"f32: cd {got.min().item():.6f}..{got.max().item():.6f}")
+        "on sqrt d": rel_errs(got, cd_variant(x, y, on_sqrt=True)),
+        "one row tile's column minima dropped": rel_errs(
+            got, cd_variant(x, y, drop_rows=slice(rb, 2 * rb)))}
+    alone = cd_fn(x[:1], y[:1])
+    print(f"[18] pairwise_cd_means (K5, split schedule, cluster size {c}; "
+          f"one pair: {cd_cluster_launched(x[:1], y[:1])}), {p} pairs of "
+          f"{n}-point clouds, f32: cd {got.min().item():.6f}.."
+          f"{got.max().item():.6f}; pair 0 alone == in the tile: "
+          f"{torch.equal(alone, got[:1])}")
     held("K5 (relative per pair) vs", readings, K5_TOL,
-         right=("twin", "cpu twin"), wrong=("one direction", "on sqrt d"))
-    if not torch.equal(got, chamfer.pairwise_cd_means(x, y)):
+         right=("twin", "cpu twin"),
+         wrong=("one direction", "on sqrt d",
+                "one row tile's column minima dropped"))
+    if not torch.equal(got, cd_fn(x, y)):
         fail("phase 18: K5 did not repeat its bits")
+    if not torch.equal(alone, got[:1]):
+        fail("phase 18: a pair's K5 value depends on its tile")
+    old = cd_fn(x, unaligned_copy(y))  # the block schedule (the rule)
+    held("K5 block schedule (unaligned y; relative per pair) vs",
+         {"twin": rel_errs(old, chamfer.pairwise_cd_means_plain(x, y))},
+         K5_TOL, right=("twin",), wrong=())
     # K6 / K7
     k6 = emd.approx_match_cost(x, y)
     k7 = emd.approx_match_cost(x, y, otf=True)
@@ -2111,14 +2247,27 @@ def phase_eval_kernels() -> dict:
                     for otf in (False, True)}
 
     clock = sm_clock_hz()
-    exp_rate = 16 * 132 * clock  # SFU exponentials per second
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    exp_rate = 16 * sms * clock  # SFU exponentials per second
     nm = tp * n * n
     cloud_bytes = 2 * tp * n * 3 * 4 + 4 * tp
     bounds = {
-        # 10 f32 ops per (i, j): three differences, three squares, two
-        # adds, two minima
+        # The least work K5's function needs under K5_TOL: 8 instructions
+        # per (i, j), three differences, a square, two FMAs (fmaf(dz, dz,
+        # fmaf(dy, dy, dx * dx)): each d within 2 ulps of the rounded
+        # direct form, and the means the same at the eval's 2048 points,
+        # tests/test_torch_port_cd_split.py), a row and a column minimum;
+        # issued at 128 lanes per SM per clock. The expanded form
+        # |x|^2 - 2 x.y + |y|^2 (4 + 2) misses K5_TOL's mean (2.0e-6 on
+        # eight eval pairs, the same test). The two minima run on the ALU
+        # pipe (64 lanes per SM per clock in the CUDA C Programming Guide's
+        # throughput table for compute capability 9.0: "compare, minimum,
+        # maximum"), 2 / 64 = 4 / 128 of a clock per element, below the
+        # issue's 8 / 128: issue bounds it. The kernel itself issues 10
+        # (no FMA, so that the minima keep the CPU's bits): `model` below.
         "pairwise_cd_means": {"bytes": cloud_bytes,
-                              "operations": 10 * nm / PEAK_FLOPS["float32"]},
+                              "issue": 8 * nm / (128 * sms * clock),
+                              "alu": 2 * nm / (64 * sms * clock)},
         # per level and (i, j): one exponential on the SFUs; four FMAs (the
         # row sum, the column sum, the cost, the row drain) = 8 flops
         "approx_match_cost": {"bytes": 4 * nm + 4 * tp,
@@ -2129,6 +2278,23 @@ def phase_eval_kernels() -> dict:
                                   "fma": 9 * 8 * nm / PEAK_FLOPS["float32"]},
     }
     emd_twin_ms = cuda_ms(lambda: emd.approx_match_cost_plain(x, y), 3, 1)
+    # K5's split schedule and, through an unaligned copy of y (the rule), the
+    # block schedule it replaces: event loop and device time per call
+    yu = unaligned_copy(y)
+    k5_parts = launch_us(lambda: chamfer.pairwise_cd_means(x, y))
+    pr5_parts = launch_us(lambda: chamfer.pairwise_cd_means(x, yu))
+    if list(k5_parts) != ["pairwise_cd_split_kernel"] or \
+            list(pr5_parts) != ["pairwise_cd_means_kernel"]:
+        fail(f"phase 18: K5 ran {list(k5_parts)} (aligned) and "
+             f"{list(pr5_parts)} (unaligned y)")
+    k5 = {"device_ms": sum(k5_parts.values()) / 1e3,
+          "pr5_ms": cuda_ms(lambda: chamfer.pairwise_cd_means(x, yu), 20, 2),
+          "pr5_device_ms": sum(pr5_parts.values()) / 1e3}
+    # the kernels' own issue model (above the bound's 8): the split
+    # schedule ~10.4 instructions per element on the card, the block
+    # schedule 18 on min(pairs, SMs) SMs
+    model = {"split": 10.44 * nm / (128 * sms * clock) * 1e3,
+             "pr5": 18 * nm / (128 * min(tp, sms) * clock) * 1e3}
     times = {
         "pairwise_cd_means": (
             cuda_ms(lambda: chamfer.pairwise_cd_means(x, y), 20, 2),
@@ -2175,6 +2341,12 @@ def phase_eval_kernels() -> dict:
                       "max_abs_err": max_err[name], "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None}
+    rows["pairwise_cd_means"].update(k5)
+    print(f"[18] pairwise_cd_means at the eval tile: split schedule device "
+          f"time {k5['device_ms']:.4f} ms (issue model {model['split']:.4f} "
+          f"ms); the block schedule it replaces (unaligned y): kernel "
+          f"{k5['pr5_ms']:.4f} ms, device {k5['pr5_device_ms']:.4f} ms "
+          f"(issue model {model['pr5']:.4f} ms) ({smi_name_and_power()})")
     return rows
 
 def tile_launches(ns: int, nr: int, batch: int, points: int,
@@ -2279,7 +2451,9 @@ def phase_eval(stage1) -> dict:
         with contextlib.redirect_stdout(io.StringIO()):
             res, dt, launches = counted(fn)
         expect = per_step_launches(**expect)
-        # every cloud has 2048 points: K6/K7 take the cluster schedule
+        # every cloud has 2048 points: K5 takes the split schedule, K6/K7
+        # the cluster one
+        expect["pairwise_cd_means_split"] = expect["pairwise_cd_means"]
         expect["approx_match_cost_cluster"] = expect["approx_match_cost"]
         values = {k: float(v) for k, v in res.items()}
         rate = (f", {pairs / dt:.1f} pairs/s" if what.startswith(
@@ -2313,7 +2487,7 @@ def phase_eval(stage1) -> dict:
     by_kernel = device_time_by_kernel(prof)
     busy = sum(by_kernel.values()) / 1e3
     classes = {"K6 (approx_match_cost_kernel)": "approx_match",
-               "K5 (pairwise_cd_means_kernel)": "pairwise_cd",
+               "K5 (pairwise_cd_split_kernel)": "pairwise_cd",
                "other (the d build's elementwise passes, copies)": ""}
     shares = dict.fromkeys(classes, 0.0)
     for key, us in by_kernel.items():

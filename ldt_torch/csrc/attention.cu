@@ -100,6 +100,27 @@
 //    D = rowsum(dw * w), writes the chunk's complete dk and dv and its dq
 //    partial sums, which a third launch adds in chunk order. No block holds
 //    a row's [M] weights.
+//    Bound on an H100 at the stage-1 step's long shapes (B=16, 4 heads of
+//    dh=32, f32): its 0.67 G FMAs, 0.020 ms at 67 TFLOP/s, above its 51-68
+//    MB. The scalar products feed each FMA from scalar shared loads (two per
+//    FMA of the scores and of dk/dv, one of dq), so the shared-memory pipe
+//    set their time (~0.16 ms of loads at the long-query shape). Both
+//    schedules therefore take register-tiled products where dh % 4 == 0,
+//    q, k, v and g are 16-byte aligned and the tiled layout's shared memory
+//    fits (cross_bwd_tiled in rules.h; the entry reports it, and the
+//    library exports it as ldt_cross_bwd_tiled): q, g, k, v staged into
+//    rows of stride lk_ld(dh) (f32 by cp.async, all in flight at once; the
+//    long-key kernel merges the chunk statistics meanwhile), a thread owning
+//    4 x 4 tiles of the scores and dw (rows x keys), of dk and dv (keys x
+//    channels) and of dq (rows x channels), read as float4 slices, 8 FMAs a
+//    shared load. The long-query kernel runs 512 threads, two blocks a SM
+//    (its 128-row tile holds 79 KB of shared memory at the stage-1 shape),
+//    so 16 warps share the softmax rows and a block's latency-bound phases
+//    overlap the other's. The FMA chains run in the scalar kernels' order
+//    (scores and dw over the channels, dk and dv over the rows, dq over the
+//    keys, each ascending) and the softmax rows are the same code, so the
+//    tiled kernels give the scalar kernels' bits; the scalar kernels stay
+//    for the rest.
 // K8 ldt_packed_self_attention_int8: K1 with int8 operands. q, k and v are
 //    quantized to int8 with one symmetric scale each per group of `elems`
 //    consecutive batch elements (max|x| / 127 + 1e-20 over the group's rows
@@ -157,12 +178,12 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "rules.h"
+
 namespace {
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
-// Most dynamic shared memory an sm_90 block may use.
-constexpr size_t kMaxSmem = 232448;
 // Above this a kernel needs cudaFuncAttributeMaxDynamicSharedMemorySize.
 constexpr size_t kDefaultSmem = 48 * 1024;
 
@@ -194,11 +215,13 @@ constexpr int kLkThreads = 256;
 constexpr int kLkRows = 32;
 constexpr int kLkKeys = 128;
 constexpr int kLkMinKeys = 32;
-// K4: threads per block, and keys per tile of its long-key schedule
-// (ldt_torch/ops/attention.py mirrors kBwdKeys in its shared-memory bound and
-// picks the long-query schedule's rows per block).
+// K4: threads per block (its keys per long-key tile, kBwdKeys, are in
+// rules.h).
 constexpr int kBwdThreads = 256;
-constexpr int kBwdKeys = 64;
+// Threads of K4's register-tiled long-query kernel: 16 warps share its
+// softmax rows, and two blocks fit a SM (their registers are bounded to
+// that, and the shared memory at the stage-1 shape leaves room).
+constexpr int kBwdLqThreads = 512;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -291,11 +314,6 @@ int whole_width(int dh) {
 size_t cross_whole_smem_bytes(int m, int dh) {
   return sizeof(float) * 2 * (size_t)m * whole_width(dh);
 }
-
-// Row stride (floats) of the long-key schedule's q, k and v in shared
-// memory: dh padded with zeros to a multiple of 8, plus 4, so that the 8
-// lanes of a quarter warp reading 8 rows as float4 hit 8 bank groups.
-__host__ __device__ int lk_ld(int dh) { return (dh + 7) / 8 * 8 + 4; }
 
 // Row stride of the long-key schedule's weights, stored [key][row].
 constexpr int kLkLdw = kLkRows + 4;
@@ -1451,7 +1469,7 @@ __device__ __forceinline__ void scores_and_dw(const float* qs, const float* gs,
 }
 
 // dk and dv of tm keys over nr rows (weights ws, unrounded, and round(ds),
-// row stride ldw): thread i owns (key j, channel c); `out(j, c, sk, sv)`
+// row stride ldw): thread i owns (key j, channel c); `out(j, c, sum, is_dv)`
 // takes the sums.
 template <typename T, typename Out>
 __device__ __forceinline__ void dk_dv_sums(const float* ws, const float* ds,
@@ -1467,7 +1485,8 @@ __device__ __forceinline__ void dk_dv_sums(const float* ws, const float* ds,
                 sv);
       sk = fmaf(ds[(size_t)r * ldw + j], qs[(size_t)r * dh + c], sk);
     }
-    out(j, c, sk, sv);
+    out(j, c, sk, false);
+    out(j, c, sv, true);
   }
 }
 
@@ -1488,61 +1507,340 @@ __device__ __forceinline__ void dq_sums(const float* ds, const float* ks,
   }
 }
 
+// stage_rows for f32 rows that start 16-byte aligned with dh % 4 == 0: the
+// copies go out as cp.async, all in flight at once; the caller waits
+// (cp_async_wait_all) before its barrier.
+__device__ __forceinline__ void stage_rows_async(float* dst, int ld,
+                                                 const float* __restrict__ src,
+                                                 size_t stride, int rows,
+                                                 int valid, int dh,
+                                                 int width) {
+  const int groups = width / 4;
+  for (int i = threadIdx.x; i < rows * groups; i += blockDim.x) {
+    const int r = i / groups;
+    const int c = (i - r * groups) * 4;
+    float* p = dst + (size_t)r * ld + c;
+    if (r < valid && c < dh)
+      cp_async16(p, src + r * stride + c);
+    else
+      *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// K4's register-tiled stages (the tiled schedule; dh % 4 == 0, rows 16-byte
+// aligned). Rows [r0, r0 + nr) of q and g into [nr4, lk_ld(dh)] and keys
+// [t0, t0 + tm) of k and v into [tm4, lk_ld(dh)], f32, zero in the padding
+// up to nr4 and tm4 (multiples of 4) and past dh. f32 rows go by cp.async
+// (the caller waits), bf16 ones through stage_rows.
+template <typename T>
+__device__ __forceinline__ void stage_rows_and_keys(
+    const T* __restrict__ q, const T* __restrict__ g, const T* __restrict__ k,
+    const T* __restrict__ v, float* qs, float* gs, float* ks, float* vs,
+    int b, int h, int n, int m, int d, int dh, int r0, int nr, int nr4,
+    int t0, int tm, int tm4) {
+  const int ld = lk_ld(dh);
+  const int width = (dh + 7) / 8 * 8;
+  const size_t q0 = ((size_t)b * n + r0) * d + (size_t)h * dh;
+  const size_t kv0 = ((size_t)b * m + t0) * d + (size_t)h * dh;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    stage_rows_async(qs, ld, q + q0, d, nr4, nr, dh, width);
+    stage_rows_async(gs, ld, g + q0, d, nr4, nr, dh, width);
+    stage_rows_async(ks, ld, k + kv0, d, tm4, tm, dh, width);
+    stage_rows_async(vs, ld, v + kv0, d, tm4, tm, dh, width);
+  } else {
+    const bool vec = dh % kVec<T> == 0;
+    stage_rows(qs, ld, q + q0, d, nr4, nr, dh, width, vec);
+    stage_rows(gs, ld, g + q0, d, nr4, nr, dh, width, vec);
+    stage_rows(ks, ld, k + kv0, d, tm4, tm, dh, width, vec);
+    stage_rows(vs, ld, v + kv0, d, tm4, tm, dh, width, vec);
+  }
+}
+
+// scores_and_dw by 4 x 4 register tiles: with rn = nr4 / 4 and kn = tm4 / 4,
+// a thread's tile holds rows rt + rn i and keys kt + kn j (i, j < 4), of the
+// scores (q, k) or, in the second half of the work, of dw (g, v). Per 4
+// channels it reads 4 float4 of each operand for 64 FMAs; the 8 lanes of a
+// quarter warp read one row (a broadcast) and 8 consecutive keys (lk_ld: 8
+// bank groups). Each element is scores_and_dw's fmaf chain over the
+// channels, ascending: the same bits.
+__device__ __forceinline__ void scores_and_dw_tiled(
+    const float* qs, const float* gs, const float* ks, const float* vs,
+    float* ws, float* ds, int nr, int tm, int ldw, int dh, float scale) {
+  const int ld = lk_ld(dh);
+  const int rn = (nr + 3) / 4;
+  const int kn = (tm + 3) / 4;
+  const int tiles = rn * kn;
+  for (int t = threadIdx.x; t < 2 * tiles; t += blockDim.x) {
+    const bool dw = t >= tiles;
+    const int u = dw ? t - tiles : t;
+    const int rt = u / kn;
+    const int kt = u - rt * kn;
+    const float* a = (dw ? gs : qs) + (size_t)rt * ld;
+    const float* bk = (dw ? vs : ks) + (size_t)kt * ld;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < dh; c += 4) {
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = *reinterpret_cast<const float4*>(a + (size_t)(i * rn) * ld + c);
+        bv[i] = *reinterpret_cast<const float4*>(bk + (size_t)(i * kn) * ld +
+                                                 c);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(lane4(av[i], e), lane4(bv[j], e), acc[i][j]);
+    }
+    float* o = dw ? ds : ws;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = rt + rn * i;
+        const int key = kt + kn * j;
+        if (r < nr && key < tm)
+          o[(size_t)r * ldw + key] = dw ? acc[i][j] : acc[i][j] * scale;
+      }
+  }
+}
+
+// dk_dv_sums by 4 x 4 register tiles: a thread's tile holds keys 4 jt ..
+// 4 jt + 3 and channels 4 ct .. 4 ct + 3 of dk's sums (round(ds), q) or, in
+// the second half of the work, of dv's (round(w), g). Per row it reads one
+// float4 of each operand for 16 FMAs. Each element is dk_dv_sums' fmaf chain
+// over the rows, ascending: the same bits. ldw >= tm4; keys past tm are
+// computed from the padding and dropped.
+template <typename T, typename Out>
+__device__ __forceinline__ void dk_dv_tiled(const float* ws, const float* ds,
+                                            const float* qs, const float* gs,
+                                            int nr, int tm, int ldw, int dh,
+                                            Out out) {
+  const int ld = lk_ld(dh);
+  const int kn = (tm + 3) / 4;
+  const int cn = dh / 4;
+  const int tiles = kn * cn;
+  for (int t = threadIdx.x; t < 2 * tiles; t += blockDim.x) {
+    const bool dv = t >= tiles;
+    const int u = dv ? t - tiles : t;
+    const int jt = u / cn;
+    const int ct = u - jt * cn;
+    const float* w = (dv ? ws : ds) + 4 * jt;
+    const float* x = (dv ? gs : qs) + 4 * ct;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int r = 0; r < nr; ++r) {
+      float4 wv = *reinterpret_cast<const float4*>(w + (size_t)r * ldw);
+      if (dv)  // the weights rounded to T before the AV product's backward
+        wv = make_float4(round_to<T>(wv.x), round_to<T>(wv.y),
+                         round_to<T>(wv.z), round_to<T>(wv.w));
+      const float4 xv = *reinterpret_cast<const float4*>(x + (size_t)r * ld);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(lane4(wv, i), lane4(xv, j), acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * jt + i < tm)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out(4 * jt + i, 4 * ct + j, acc[i][j], dv);
+  }
+}
+
+// dq_sums by 4 x 4 register tiles: a thread's tile holds rows rt + rn i and
+// channels 4 ct .. 4 ct + 3. Per 4 keys it reads 4 float4 of round(ds) (a
+// broadcast across the quarter warp) and 4 of k for 64 FMAs. Each element is
+// dq_sums' fmaf chain over the keys, ascending: the same bits.
+template <typename Out>
+__device__ __forceinline__ void dq_tiled(const float* ds, const float* ks,
+                                         int nr, int tm, int ldw, int dh,
+                                         Out out) {
+  const int ld = lk_ld(dh);
+  const int rn = (nr + 3) / 4;
+  const int cn = dh / 4;
+  for (int t = threadIdx.x; t < rn * cn; t += blockDim.x) {
+    const int rt = t / cn;
+    const int ct = t - rt * cn;
+    const float* dr = ds + (size_t)rt * ldw;
+    const float* kc = ks + 4 * ct;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    int j0 = 0;
+    for (; j0 + 4 <= tm; j0 += 4) {
+      float4 wv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wv[i] = *reinterpret_cast<const float4*>(dr + (size_t)(i * rn) * ldw +
+                                                 j0);
+        kv[i] = *reinterpret_cast<const float4*>(kc + (size_t)(j0 + i) * ld);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(lane4(wv[i], e), lane4(kv[e], j), acc[i][j]);
+    }
+    for (; j0 < tm; ++j0) {
+      const float4 kv = *reinterpret_cast<const float4*>(kc + (size_t)j0 * ld);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = dr[(size_t)(i * rn) * ldw + j0];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(w, lane4(kv, j), acc[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rt + rn * i;
+      if (r < nr)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out(r, 4 * ct + j, acc[i][j]);
+    }
+  }
+}
+
+// One schedule's shared-memory rows: the row counts and strides of K4's
+// staged operands. The scalar kernels (kTiled false) keep q and g at stride
+// dh, k and v at dh + 1 and the weights at the key count; the tiled ones pad
+// the counts to multiples of 4 and the strides to lk_ld(dh) (q, g, k, v)
+// and the padded key count (the weights), for float4 reads.
+template <bool kTiled>
+struct BwdLayout {
+  int ldq, ldk;
+  __device__ BwdLayout(int dh)
+      : ldq(kTiled ? lk_ld(dh) : dh), ldk(kTiled ? lk_ld(dh) : dh + 1) {}
+  __device__ static int count(int x) { return kTiled ? (x + 3) / 4 * 4 : x; }
+};
+
+// The staged operands and the three products in either schedule. The
+// tiled stages may leave copies in flight: wait (cp_async_wait_all) before
+// the barrier that follows.
+template <typename T, bool kTiled>
+__device__ __forceinline__ void bwd_stage(
+    const T* __restrict__ q, const T* __restrict__ g, const T* __restrict__ k,
+    const T* __restrict__ v, float* qs, float* gs, float* ks, float* vs,
+    int b, int h, int n, int m, int d, int dh, int r0, int nr, int t0,
+    int tm) {
+  if (kTiled)
+    stage_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, r0, nr,
+                        BwdLayout<true>::count(nr), t0, tm,
+                        BwdLayout<true>::count(tm));
+  else
+    load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, r0, nr,
+                       t0, tm);
+}
+
+template <bool kTiled>
+__device__ __forceinline__ void bwd_scores(const float* qs, const float* gs,
+                                           const float* ks, const float* vs,
+                                           float* ws, float* ds, int nr,
+                                           int tm, int ldw, int dh,
+                                           float scale) {
+  if (kTiled)
+    scores_and_dw_tiled(qs, gs, ks, vs, ws, ds, nr, tm, ldw, dh, scale);
+  else
+    scores_and_dw(qs, gs, ks, vs, ws, ds, nr, tm, ldw, dh, scale);
+}
+
+template <typename T, bool kTiled, typename Out>
+__device__ __forceinline__ void bwd_dk_dv(const float* ws, const float* ds,
+                                          const float* qs, const float* gs,
+                                          int nr, int tm, int ldw, int dh,
+                                          Out out) {
+  if (kTiled)
+    dk_dv_tiled<T>(ws, ds, qs, gs, nr, tm, ldw, dh, out);
+  else
+    dk_dv_sums<T>(ws, ds, qs, gs, nr, tm, ldw, dh, out);
+}
+
+template <bool kTiled, typename Out>
+__device__ __forceinline__ void bwd_dq(const float* ds, const float* ks,
+                                       int nr, int tm, int ldw, int dh,
+                                       Out out) {
+  if (kTiled)
+    dq_tiled(ds, ks, nr, tm, ldw, dh, out);
+  else
+    dq_sums(ds, ks, nr, tm, ldw, dh, out);
+}
+
 // K4's long-query schedule. Grid (query tile, head, batch), `rows` query rows
 // per tile. The head's k and v stay whole in shared memory; dq of the tile's
 // rows is complete here. dk and dv sum over every query row: with one tile
 // they are written here, else this tile's f32 partial sums go to `part`
 // ([2][batch][tile][m][d]: dk's, then dv's) for the reduction launch.
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
+// kTiled: the register-tiled products (the header's tiled schedule).
+template <typename T, bool kTiled>
+__global__ void __launch_bounds__(kTiled ? kBwdLqThreads : kBwdThreads,
+                                  kTiled ? 2 : 1)
 cross_attention_bwd_lq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ g,
                               T* __restrict__ dq, T* __restrict__ dk,
                               T* __restrict__ dv, float* __restrict__ part,
                               int n, int m, int d, int dh, int rows,
                               float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int r0 = tile * rows;
   const int nr = min(rows, n - r0);
-  const int ld = dh + 1;
-  float* ks = smem;                       // [m, dh+1]
-  float* vs = ks + (size_t)m * ld;        // [m, dh+1]
-  float* qs = vs + (size_t)m * ld;        // [rows, dh]
-  float* gs = qs + (size_t)rows * dh;     // [rows, dh]
-  float* ws = gs + (size_t)rows * dh;     // [rows, m] weights, f32
-  float* ds = ws + (size_t)rows * m;      // [rows, m] dw, then round(ds)
+  const BwdLayout<kTiled> lay(dh);
+  const int mk = BwdLayout<kTiled>::count(m);     // keys staged, weight stride
+  const int rk = BwdLayout<kTiled>::count(rows);  // rows staged
+  float* ks = smem;                          // [mk, ldk]
+  float* vs = ks + (size_t)mk * lay.ldk;     // [mk, ldk]
+  float* qs = vs + (size_t)mk * lay.ldk;     // [rk, ldq]
+  float* gs = qs + (size_t)rk * lay.ldq;     // [rk, ldq]
+  float* ws = gs + (size_t)rk * lay.ldq;     // [rk, mk] weights, f32
+  float* ds = ws + (size_t)rk * mk;          // [rk, mk] dw, then round(ds)
 
-  load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, r0, nr,
-                     0, m);
+  bwd_stage<T, kTiled>(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, r0, nr,
+                       0, m);
+  cp_async_wait_all();
   __syncthreads();
-  scores_and_dw(qs, gs, ks, vs, ws, ds, nr, m, m, dh, scale);
+  bwd_scores<kTiled>(qs, gs, ks, vs, ws, ds, nr, m, mk, dh, scale);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   for (int r = warp; r < nr; r += nwarps)
-    softmax_ds_row<T>(ws + (size_t)r * m, ds + (size_t)r * m, m, lane);
+    softmax_ds_row<T>(ws + (size_t)r * mk, ds + (size_t)r * mk, m, lane);
   __syncthreads();
 
   const size_t q0 = ((size_t)b * n + r0) * d + (size_t)h * dh;
-  dq_sums(ds, ks, nr, m, m, dh, [&](int r, int c, float s) {
+  bwd_dq<kTiled>(ds, ks, nr, m, mk, dh, [&](int r, int c, float s) {
     dq[q0 + (size_t)r * d + c] = from_f32<T>(s * scale);
   });
   const size_t kv0 = (size_t)b * m * d + (size_t)h * dh;
   const size_t tiles = gridDim.x;
-  dk_dv_sums<T>(ws, ds, qs, gs, nr, m, m, dh,
-                [&](int j, int c, float sk, float sv) {
+  bwd_dk_dv<T, kTiled>(ws, ds, qs, gs, nr, m, mk, dh,
+                       [&](int j, int c, float s, bool is_dv) {
     if (tiles == 1) {
-      dk[kv0 + (size_t)j * d + c] = from_f32<T>(sk * scale);
-      dv[kv0 + (size_t)j * d + c] = from_f32<T>(sv);
+      if (is_dv)
+        dv[kv0 + (size_t)j * d + c] = from_f32<T>(s);
+      else
+        dk[kv0 + (size_t)j * d + c] = from_f32<T>(s * scale);
     } else {
       const size_t p = (((size_t)b * tiles + tile) * m + j) * d +
                        (size_t)h * dh + c;
-      part[p] = sk;
-      part[(size_t)gridDim.z * tiles * m * d + p] = sv;
+      part[(is_dv ? (size_t)gridDim.z * tiles * m * d : 0) + p] = s;
     }
   });
 }
@@ -1579,7 +1877,7 @@ cross_attention_bwd_reduce_kernel(const float* __restrict__ part,
 // head's n query rows against the chunk's kBwdKeys keys. Per row, the
 // chunk's score max mx_c, exp-sum sum_c = sum exp(s - mx_c) and
 // dot_c = sum dw exp(s - mx_c) go to stats ([batch][head][chunk][n][3]).
-template <typename T>
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kBwdThreads)
 cross_attention_bwd_stats_kernel(const T* __restrict__ q,
                                  const T* __restrict__ k,
@@ -1587,24 +1885,26 @@ cross_attention_bwd_stats_kernel(const T* __restrict__ q,
                                  const T* __restrict__ g,
                                  float* __restrict__ stats, int n, int m,
                                  int d, int dh, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int t0 = chunk * kBwdKeys;
   const int tm = min(kBwdKeys, m - t0);
-  const int ld = dh + 1;
-  float* qs = smem;                           // [n, dh]
-  float* gs = qs + (size_t)n * dh;            // [n, dh]
-  float* ks = gs + (size_t)n * dh;            // [kBwdKeys, dh+1]
-  float* vs = ks + (size_t)kBwdKeys * ld;     // [kBwdKeys, dh+1]
-  float* ws = vs + (size_t)kBwdKeys * ld;     // [n, kBwdKeys] scores
-  float* ds = ws + (size_t)n * kBwdKeys;      // [n, kBwdKeys] dw
+  const BwdLayout<kTiled> lay(dh);
+  const int nk = BwdLayout<kTiled>::count(n);
+  float* qs = smem;                               // [nk, ldq]
+  float* gs = qs + (size_t)nk * lay.ldq;          // [nk, ldq]
+  float* ks = gs + (size_t)nk * lay.ldq;          // [kBwdKeys, ldk]
+  float* vs = ks + (size_t)kBwdKeys * lay.ldk;    // [kBwdKeys, ldk]
+  float* ws = vs + (size_t)kBwdKeys * lay.ldk;    // [nk, kBwdKeys] scores
+  float* ds = ws + (size_t)nk * kBwdKeys;         // [nk, kBwdKeys] dw
 
-  load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, 0, n, t0,
-                     tm);
+  bwd_stage<T, kTiled>(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, 0, n,
+                       t0, tm);
+  cp_async_wait_all();
   __syncthreads();
-  scores_and_dw(qs, gs, ks, vs, ws, ds, n, tm, kBwdKeys, dh, scale);
+  bwd_scores<kTiled>(qs, gs, ks, vs, ws, ds, n, tm, kBwdKeys, dh, scale);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1638,7 +1938,7 @@ cross_attention_bwd_stats_kernel(const T* __restrict__ q,
 // exp-sum and D = rowsum(dw * w)), then recomputes its chunk's scores and
 // dw, writes the chunk's dk and dv (complete: every query row is here) and
 // its f32 dq partial sums ([batch][chunk][n][d]) for the reduction launch.
-template <typename T>
+template <typename T, bool kTiled>
 __global__ void __launch_bounds__(kBwdThreads)
 cross_attention_bwd_lk_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               const T* __restrict__ v, const T* __restrict__ g,
@@ -1646,30 +1946,38 @@ cross_attention_bwd_lk_kernel(const T* __restrict__ q, const T* __restrict__ k,
                               float* __restrict__ dq_part, T* __restrict__ dk,
                               T* __restrict__ dv, int n, int m, int d, int dh,
                               float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int chunk = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int chunks = gridDim.x;
   const int t0 = chunk * kBwdKeys;
   const int tm = min(kBwdKeys, m - t0);
-  const int ld = dh + 1;
-  float* qs = smem;                           // [n, dh]
-  float* gs = qs + (size_t)n * dh;            // [n, dh]
-  float* ks = gs + (size_t)n * dh;            // [kBwdKeys, dh+1]
-  float* vs = ks + (size_t)kBwdKeys * ld;     // [kBwdKeys, dh+1]
-  float* ws = vs + (size_t)kBwdKeys * ld;     // [n, kBwdKeys] weights
-  float* ds = ws + (size_t)n * kBwdKeys;      // [n, kBwdKeys] dw, then ds
-  float* rmax = ds + (size_t)n * kBwdKeys;    // [n]
-  float* rsum = rmax + n;                     // [n]
-  float* rdot = rsum + n;                     // [n] D
+  const BwdLayout<kTiled> lay(dh);
+  const int nk = BwdLayout<kTiled>::count(n);
+  float* qs = smem;                               // [nk, ldq]
+  float* gs = qs + (size_t)nk * lay.ldq;          // [nk, ldq]
+  float* ks = gs + (size_t)nk * lay.ldq;          // [kBwdKeys, ldk]
+  float* vs = ks + (size_t)kBwdKeys * lay.ldk;    // [kBwdKeys, ldk]
+  float* ws = vs + (size_t)kBwdKeys * lay.ldk;    // [nk, kBwdKeys] weights
+  float* ds = ws + (size_t)nk * kBwdKeys;         // [nk, kBwdKeys] dw, then ds
+  float* rmax = ds + (size_t)nk * kBwdKeys;       // [n]
+  float* rsum = rmax + n;                         // [n]
+  float* rdot = rsum + n;                         // [n] D
 
+  // the chunk's operands (in flight while the statistics merge)
+  bwd_stage<T, kTiled>(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, 0, n,
+                       t0, tm);
   const float* st = stats + ((size_t)b * gridDim.y + h) * chunks * n * 3;
   for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    // unrolled, so that the statistics' loads are in flight together; the
+    // sums still run in chunk order
     float mx = -INFINITY;
+#pragma unroll 8
     for (int c = 0; c < chunks; ++c)
       mx = fmaxf(mx, st[((size_t)c * n + r) * 3]);
     float sum = 0.f, dot = 0.f;
+#pragma unroll 8
     for (int c = 0; c < chunks; ++c) {
       const float* sc = st + ((size_t)c * n + r) * 3;
       const float f = expf(sc[0] - mx);
@@ -1680,10 +1988,9 @@ cross_attention_bwd_lk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     rsum[r] = sum;
     rdot[r] = dot / sum;
   }
-  load_rows_and_keys(q, g, k, v, qs, gs, ks, vs, b, h, n, m, d, dh, 0, n, t0,
-                     tm);
+  cp_async_wait_all();
   __syncthreads();
-  scores_and_dw(qs, gs, ks, vs, ws, ds, n, tm, kBwdKeys, dh, scale);
+  bwd_scores<kTiled>(qs, gs, ks, vs, ws, ds, n, tm, kBwdKeys, dh, scale);
   __syncthreads();
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1701,14 +2008,16 @@ cross_attention_bwd_lk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const size_t kv0 = ((size_t)b * m + t0) * d + (size_t)h * dh;
-  dk_dv_sums<T>(ws, ds, qs, gs, n, tm, kBwdKeys, dh,
-                [&](int j, int c, float sk, float sv) {
-    dk[kv0 + (size_t)j * d + c] = from_f32<T>(sk * scale);
-    dv[kv0 + (size_t)j * d + c] = from_f32<T>(sv);
+  bwd_dk_dv<T, kTiled>(ws, ds, qs, gs, n, tm, kBwdKeys, dh,
+                       [&](int j, int c, float s, bool is_dv) {
+    if (is_dv)
+      dv[kv0 + (size_t)j * d + c] = from_f32<T>(s);
+    else
+      dk[kv0 + (size_t)j * d + c] = from_f32<T>(s * scale);
   });
   float* dp = dq_part + ((size_t)b * chunks + chunk) * n * d + (size_t)h * dh;
-  dq_sums(ds, ks, n, tm, kBwdKeys, dh,
-          [&](int r, int c, float s) { dp[(size_t)r * d + c] = s; });
+  bwd_dq<kTiled>(ds, ks, n, tm, kBwdKeys, dh,
+                 [&](int r, int c, float s) { dp[(size_t)r * d + c] = s; });
 }
 
 // q8(x, s) = clip(round_half_even(x / s), -127, 127).
@@ -2280,12 +2589,79 @@ cudaError_t launch_cross(const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
-cudaError_t launch_cross_bwd(const void* q, const void* k, const void* v,
-                             const void* g, void* dq, void* dk, void* dv,
-                             void* part, int b, int n, int m, int d, int h,
-                             int rows, float scale, cudaStream_t stream) {
+template <typename Kernel>
+cudaError_t allow_bwd_smem(Kernel kernel, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, bool kTiled>
+cudaError_t launch_cross_bwd(const T* q, const T* k, const T* v, const T* g,
+                             T* dq, T* dk, T* dv, float* part, int b, int n,
+                             int m, int d, int h, int rows, float scale,
+                             cudaStream_t stream) {
   const int dh = d / h;
+  if (rows == 0) {
+    const int chunks = (m + kBwdKeys - 1) / kBwdKeys;
+    const size_t smem = kTiled ? cross_bwd_lk_tiled_smem_bytes(n, dh)
+                               : cross_bwd_lk_smem_bytes(n, dh);
+    cudaError_t e =
+        allow_bwd_smem(cross_attention_bwd_stats_kernel<T, kTiled>, smem);
+    if (e == cudaSuccess)
+      e = allow_bwd_smem(cross_attention_bwd_lk_kernel<T, kTiled>, smem);
+    if (e != cudaSuccess) return e;
+    float* stats = part;
+    float* dq_part = stats + (size_t)b * h * chunks * n * 3;
+    const dim3 grid(chunks, h, b);
+    cross_attention_bwd_stats_kernel<T, kTiled>
+        <<<grid, kBwdThreads, smem, stream>>>(q, k, v, g, stats, n, m, d, dh,
+                                               scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    cross_attention_bwd_lk_kernel<T, kTiled>
+        <<<grid, kBwdThreads, smem, stream>>>(q, k, v, g, stats, dq_part, dk,
+                                               dv, n, m, d, dh, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const size_t blocks = ((size_t)b * n * d + kBwdThreads - 1) / kBwdThreads;
+    cross_attention_bwd_reduce_kernel<T>
+        <<<(unsigned)(blocks < 65535 ? blocks : 65535), kBwdThreads, 0,
+           stream>>>(dq_part, dq, scale, static_cast<T*>(nullptr), b, chunks,
+                     n * d);
+    return cudaGetLastError();
+  }
+  const int tiles = (n + rows - 1) / rows;
+  const size_t smem = kTiled ? cross_bwd_lq_tiled_smem_bytes(m, dh, rows)
+                             : cross_bwd_lq_smem_bytes(m, dh, rows);
+  cudaError_t e =
+      allow_bwd_smem(cross_attention_bwd_lq_kernel<T, kTiled>, smem);
+  if (e == cudaSuccess && kTiled)  // all of the SM's shared memory, so
+    e = cudaFuncSetAttribute(       // that two blocks fit
+        cross_attention_bwd_lq_kernel<T, kTiled>,
+        cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (e != cudaSuccess) return e;
+  cross_attention_bwd_lq_kernel<T, kTiled>
+      <<<dim3(tiles, h, b), kTiled ? kBwdLqThreads : kBwdThreads, smem,
+         stream>>>(
+          q, k, v, g, dq, dk, dv, part, n, m, d, dh, rows, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || tiles == 1) return e;
+  const size_t total = (size_t)b * m * d;
+  const size_t blocks = (total + kBwdThreads - 1) / kBwdThreads;
+  cross_attention_bwd_reduce_kernel<T>
+      <<<(unsigned)(blocks < 65535 ? blocks : 65535), kBwdThreads, 0,
+         stream>>>(part, dk, scale, dv, b, tiles, m * d);
+  return cudaGetLastError();
+}
+
+// K4 in the schedule its rule picks (*schedule: 1 for the tiled one).
+template <typename T>
+cudaError_t launch_cross_bwd_any(const void* q, const void* k, const void* v,
+                                 const void* g, void* dq, void* dk, void* dv,
+                                 void* part, int b, int n, int m, int d,
+                                 int h, int rows, float scale,
+                                 cudaStream_t stream, int* schedule) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -2293,58 +2669,15 @@ cudaError_t launch_cross_bwd(const void* q, const void* k, const void* v,
   T* dqt = static_cast<T*>(dq);
   T* dkt = static_cast<T*>(dk);
   T* dvt = static_cast<T*>(dv);
-  if (rows == 0) {
-    const int chunks = (m + kBwdKeys - 1) / kBwdKeys;
-    const size_t smem = cross_bwd_lk_smem_bytes(n, dh);
-    if (smem > kDefaultSmem) {
-      cudaError_t e = cudaFuncSetAttribute(
-          cross_attention_bwd_stats_kernel<T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(cross_attention_bwd_lk_kernel<T>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (e != cudaSuccess) return e;
-    }
-    float* stats = static_cast<float*>(part);
-    float* dq_part = stats + (size_t)b * h * chunks * n * 3;
-    const dim3 grid(chunks, h, b);
-    cross_attention_bwd_stats_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
-        qt, kt, vt, gt, stats, n, m, d, dh, scale);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    cross_attention_bwd_lk_kernel<T><<<grid, kBwdThreads, smem, stream>>>(
-        qt, kt, vt, gt, stats, dq_part, dkt, dvt, n, m, d, dh, scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    const size_t blocks = ((size_t)b * n * d + kBwdThreads - 1) / kBwdThreads;
-    cross_attention_bwd_reduce_kernel<T>
-        <<<(unsigned)(blocks < 65535 ? blocks : 65535), kBwdThreads, 0,
-           stream>>>(dq_part, dqt, scale, static_cast<T*>(nullptr), b, chunks,
-                     n * d);
-    return cudaGetLastError();
+  float* pt = static_cast<float*>(part);
+  if (cross_bwd_tiled(n, m, d / h, rows, aligned16(q) && aligned16(k) &&
+                                           aligned16(v) && aligned16(g))) {
+    *schedule = 1;
+    return launch_cross_bwd<T, true>(qt, kt, vt, gt, dqt, dkt, dvt, pt, b, n,
+                                     m, d, h, rows, scale, stream);
   }
-  const int tiles = (n + rows - 1) / rows;
-  const size_t smem = cross_bwd_lq_smem_bytes(m, dh, rows);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cross_attention_bwd_lq_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  cross_attention_bwd_lq_kernel<T><<<dim3(tiles, h, b), kBwdThreads, smem,
-                                     stream>>>(
-      qt, kt, vt, gt, dqt, dkt, dvt, static_cast<float*>(part), n, m, d, dh,
-      rows, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || tiles == 1) return e;
-  const size_t total = (size_t)b * m * d;
-  const size_t blocks = (total + kBwdThreads - 1) / kBwdThreads;
-  cross_attention_bwd_reduce_kernel<T>
-      <<<(unsigned)(blocks < 65535 ? blocks : 65535), kBwdThreads, 0,
-         stream>>>(static_cast<const float*>(part), dkt, scale, dvt, b, tiles,
-                   m * d);
-  return cudaGetLastError();
+  return launch_cross_bwd<T, false>(qt, kt, vt, gt, dqt, dkt, dvt, pt, b, n,
+                                    m, d, h, rows, scale, stream);
 }
 
 bool bad_shape(int b, int n, int d, int h) {
@@ -2445,11 +2778,15 @@ int ldt_cross_attention(const void* q, const void* k, const void* v,
 // kBwdKeys keys). part: f32 scratch of 2 * b * ceil(n / rows) * m * d values
 // when the long-query schedule takes more than one tile (unused with one);
 // of b * ceil(m / kBwdKeys) * (3 * h * n + n * d) values for the long-key
-// schedule. Every element of dq, dk, dv is written.
+// schedule. Every element of dq, dk, dv is written. *schedule: 1 where the
+// launch took the register-tiled kernels (cross_bwd_tiled), 0 the scalar
+// kernels or no launch.
 int ldt_cross_attention_bwd(const void* q, const void* k, const void* v,
                             const void* g, void* dq, void* dk, void* dv,
                             void* part, int b, int n, int m, int d, int h,
-                            int rows, float scale, int dtype, void* stream) {
+                            int rows, float scale, int dtype, void* stream,
+                            int* schedule) {
+  *schedule = 0;
   if (bad_shape(b, n, d, h) || m <= 0 || rows < 0 || b > 65535)
     return (int)cudaErrorInvalidValue;
   const int dh = d / h;
@@ -2459,11 +2796,13 @@ int ldt_cross_attention_bwd(const void* q, const void* k, const void* v,
   if (b == 0 || n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
-    return (int)launch_cross_bwd<float>(q, k, v, g, dq, dk, dv, part, b, n, m,
-                                        d, h, rows, scale, s);
+    return (int)launch_cross_bwd_any<float>(q, k, v, g, dq, dk, dv, part, b,
+                                            n, m, d, h, rows, scale, s,
+                                            schedule);
   if (dtype == kDtypeBF16)
-    return (int)launch_cross_bwd<__nv_bfloat16>(q, k, v, g, dq, dk, dv, part,
-                                                b, n, m, d, h, rows, scale, s);
+    return (int)launch_cross_bwd_any<__nv_bfloat16>(q, k, v, g, dq, dk, dv,
+                                                    part, b, n, m, d, h, rows,
+                                                    scale, s, schedule);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,13 +3,46 @@
 // K5 ldt_pairwise_cd_means: for each pair p of clouds x [P, N, 3] and
 //    y [P, M, 3], mean_i min_j d_ij + mean_j min_i d_ij with the squared
 //    distances d_ij = |x_i - y_j|^2. Replaces ldt_tpu/ops/chamfer.py::
-//    _pairwise_cd_kernel. One block per pair: both clouds in shared memory
-//    (coordinate-major, 48 KB at 2048 points each); a first pass gives each
-//    thread four rows of x (in registers) and runs them over every point of
-//    y for their minima, a second pass the same with the roles swapped for
-//    the column minima. A minimum is exact, so both are deterministic; the
-//    minima are summed per thread in row order and then over the block in a
-//    fixed tree (no atomics: a run repeats itself bit for bit).
+//    _pairwise_cd_kernel. Bound on an H100: instruction issue. The least
+//    work the function needs within chip_smoke.py's K5_TOL is 8
+//    instructions an element: d_ij in the direct form with its two adds
+//    fused (three differences, a square, two FMAs; within 2 ulps of the
+//    rounded form) and two minima (its row's and its column's), so 8 N M
+//    per pair at 128 lanes per SM per clock: 0.065 ms for the eval tile (64
+//    pairs of 2048 points) at 1980 MHz. The two minima go to the ALU pipe
+//    (64 lanes per SM per clock, 4 / 128 of a clock per element), which
+//    issue outruns; the clouds are 3 MB. The kernels below issue more (no
+//    FMA, so that every minimum keeps the CPU's bits): about 10.5 an
+//    element on the split schedule, 18 on the block one.
+//    Two schedules, chosen by one rule (cd_split in rules.h; the entry point
+//    reports the cluster size it launched, and the library exports the
+//    rule as ldt_cd_schedule):
+//    - Split (pairwise_cd_split_kernel), where N, M <= 2048, M % 4 == 0 and
+//      y is 16-byte aligned: the eval's path. A pair's rows are split over a
+//      thread-block cluster of c blocks (cd_cluster in rules.h: of 2, 4, 8
+//      the one whose busiest SM holds the fewest rows, read against the
+//      card's SM count at each call; c = 2 for a 64-pair tile: 128 blocks
+//      on 132 SMs).
+//      y sits in the block's shared memory (coordinate-major); a thread
+//      holds 4 rows of x in registers and runs them over every column,
+//      taking each d_ij once: its rows' minima in registers, and the
+//      minimum over its 4 rows of each column, which one redux.sync on the
+//      float's bits (d >= 0, so the bits order as the values) turns into the
+//      warp's, stored in the warp's own row of column minima; about 10.5
+//      instructions an element in all. The block merges its warps' rows;
+//      after a cluster barrier the first block reads the cluster's row and
+//      column minima through distributed shared memory, merges the columns'
+//      (a minimum is exact in any order) and sums each set in a fixed order
+//      that depends on N and M alone: 256 slots of every 256th value in
+//      index order, then a balanced tree. So a pair's bits do not depend on
+//      c or on its tile, and a run repeats them.
+//    - Block (pairwise_cd_means_kernel, the first version) for the rest: one
+//      block per pair with both clouds in shared memory; row minima, then
+//      column minima with the roles swapped, each d_ij computed twice (18
+//      instructions an element on P SMs); the minima summed per thread in
+//      row order and then over the block in a fixed tree.
+//    Both take every minimum with the CPU's bits; they sum them in other
+//    orders.
 // K6/K7 ldt_approx_match_cost: the annealed approx-match transport cost
 //    sum_ij match_ij * sqrt(d_ij) of each pair over the 9 levels
 //    L = -4^7 ... -4^-1 (ldt_tpu/ops/emd.py::_approx_match_cost_single's
@@ -76,9 +109,6 @@
 // has no --use_fast_math): the fast intrinsic's error grows with |x|, and
 // here x reaches -4^7 d.
 //
-// Bound on an H100 at the eval tile: K5 is bound by f32 operations (~10 N M
-// per pair; its bytes are the clouds).
-//
 // C interface for ctypes: each entry point returns cudaGetLastError() after
 // the launch (0 on success); x, y, d and out are contiguous float32.
 
@@ -89,14 +119,21 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "rules.h"
+
 namespace {
 
-// Most dynamic shared memory an sm_90 block may use, and what it may use
-// without opting in.
-constexpr int kMaxSmem = 232448;
+// The dynamic shared memory an sm_90 block may use without opting in (the
+// most it may use, kMaxSmem, is in rules.h).
 constexpr int kDefaultSmem = 49152;
 constexpr int kCdThreads = 256;
 constexpr int kCdRows = 4;        // rows of a K5 thread per pass
+// K5's split schedule: the most threads a block and the slots of its
+// fixed-order sums (its threads hold kCdRows rows each; its rule, cluster
+// sizes and point limit are in rules.h). tests/test_torch_port_cd_split.py
+// reads them.
+constexpr int kCdSplitThreads = 256;
+constexpr int kCdSumSlots = 256;
 constexpr int kEmdThreads = 512;
 constexpr int kEmdWarps = kEmdThreads / 32;
 constexpr int kEmdCols = 4;       // columns of a K6/K7 thread per pass
@@ -186,6 +223,145 @@ pairwise_cd_means_kernel(const float* __restrict__ x,
   // d(y_j, x_i) has the bits of d(x_i, y_j): a - b is exactly -(b - a)
   const float cols = block_sum(row_min_sum(ys, m, xs, n), red);
   if (threadIdx.x == 0) out[p] = rows / (float)n + cols / (float)m;
+}
+
+// The split schedule's sum of v[0, k) (k <= kCdSplitMaxPoints) into
+// slots[s]: slot s adds v[s], v[s + kCdSumSlots], ... in index order; `at(i)`
+// reads v[i]. The caller then reduces the slots with slot_tree.
+template <typename At>
+__device__ __forceinline__ void slot_sums(float* slots, int k, At at) {
+  for (int s = threadIdx.x; s < kCdSumSlots; s += blockDim.x) {
+    float t = 0.f;
+    for (int i = s; i < k; i += kCdSumSlots) t += at(i);
+    slots[s] = t;
+  }
+}
+
+// The balanced tree over `count` arrays of kCdSumSlots slots at once
+// (slots[a * kCdSumSlots + s]): slot s + w into slot s for w = 128, 64, ...,
+// 1; the totals end in slots[a * kCdSumSlots]. Starts with a barrier.
+__device__ __forceinline__ void slot_tree(float* slots, int count) {
+  for (int w = kCdSumSlots / 2; w > 0; w >>= 1) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < count * w; e += blockDim.x) {
+      const int a = e / w;
+      const int s = e - a * w;
+      slots[a * kCdSumSlots + s] += slots[a * kCdSumSlots + s + w];
+    }
+  }
+  __syncthreads();
+}
+
+// K5's split schedule (the header's first). Grid: c blocks per pair in a
+// cluster of c; the block of rank r takes rows [r rb, (r + 1) rb) of x, rb =
+// ceil(n / c) <= 1024 (n <= 2048, c >= 2), kCdRows a thread (thread t's
+// rows r0 + i blockDim + t; past the block's last row it repeats that
+// row, which moves no minimum and is not summed). Each warp writes its
+// column minima to its own row of shared memory (no atomics: the warps of a
+// block would contend for one word a column); the block then merges them.
+// m % 4 == 0, y 16-byte aligned.
+__global__ void __launch_bounds__(kCdSplitThreads)
+pairwise_cd_split_kernel(const float* __restrict__ x,
+                         const float* __restrict__ y,
+                         float* __restrict__ out, int n, int m) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) float smem[];
+  const int c = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const size_t p = blockIdx.x / c;
+  const int rb = (n + c - 1) / c;
+  const int r0 = min(n, rank * rb);
+  const int r1 = min(n, r0 + rb);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* ys = smem;                                         // [3][m]
+  // the warps' column minima [nwarps][m] (bits); then the block's in row 0
+  unsigned* colmin = reinterpret_cast<unsigned*>(ys + 3 * m);
+  float* rowmin = reinterpret_cast<float*>(colmin + nwarps * m);  // [rb]
+  float* slots = rowmin + rb;                               // [2][slots]
+
+  // y, coordinate-major, by 16-byte loads
+  const float4* y4 = reinterpret_cast<const float4*>(y + p * m * 3);
+  for (int e = tid; e < 3 * m / 4; e += blockDim.x) {
+    const float4 v = __ldg(y4 + e);
+    const float f[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = 4 * e + k;
+      ys[(i % 3) * m + i / 3] = f[k];
+    }
+  }
+  __syncthreads();
+
+  if (r0 < r1) {  // rb <= blockDim * kCdRows (the rule): one pass
+    const float* xp = x + p * n * 3;
+    float ax[kCdRows], ay[kCdRows], az[kCdRows], best[kCdRows];
+#pragma unroll
+    for (int r = 0; r < kCdRows; ++r) {
+      const int i = min(r0 + r * (int)blockDim.x + tid, r1 - 1);
+      ax[r] = __ldg(xp + 3 * i);
+      ay[r] = __ldg(xp + 3 * i + 1);
+      az[r] = __ldg(xp + 3 * i + 2);
+      best[r] = FLT_MAX;
+    }
+    unsigned* mine = colmin + warp * m;
+#pragma unroll 4
+    for (int j = 0; j < m; j += 4) {
+      const float4 bx = *reinterpret_cast<const float4*>(ys + j);
+      const float4 by = *reinterpret_cast<const float4*>(ys + m + j);
+      const float4 bz = *reinterpret_cast<const float4*>(ys + 2 * m + j);
+      const float cx[4] = {bx.x, bx.y, bx.z, bx.w};
+      const float cy[4] = {by.x, by.y, by.z, by.w};
+      const float cz[4] = {bz.x, bz.y, bz.z, bz.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float col = 0.f;
+#pragma unroll
+        for (int r = 0; r < kCdRows; ++r) {
+          const float dd = sq_dist(ax[r], ay[r], az[r], cx[e], cy[e], cz[e]);
+          best[r] = fminf(best[r], dd);
+          col = r == 0 ? dd : fminf(col, dd);
+        }
+        // d >= 0: the unsigned order of the bits is the order of the values
+        const unsigned w = __reduce_min_sync(0xffffffffu, __float_as_uint(col));
+        if (lane == 0) mine[j + e] = w;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kCdRows; ++r) {
+      const int i = r0 + r * (int)blockDim.x + tid;
+      if (i < r1) rowmin[i - r0] = best[r];
+    }
+    __syncthreads();
+    for (int j = tid; j < m; j += blockDim.x) {  // the block's column minima
+      unsigned v = colmin[j];
+      for (int w = 1; w < nwarps; ++w) v = min(v, colmin[w * m + j]);
+      colmin[j] = v;
+    }
+  } else {  // a block without rows (n < c): no column minimum
+    for (int j = tid; j < m; j += blockDim.x)
+      colmin[j] = __float_as_uint(FLT_MAX);
+  }
+  cluster.sync();  // every block's row and column minima are in place
+
+  if (rank == 0) {
+    slot_sums(slots, n, [&](int i) {
+      return cluster.map_shared_rank(rowmin, i / rb)[i % rb];
+    });
+    slot_sums(slots + kCdSumSlots, m, [&](int j) {
+      unsigned v = colmin[j];
+      for (int q = 1; q < c; ++q)
+        v = min(v, cluster.map_shared_rank(colmin, q)[j]);
+      return __uint_as_float(v);
+    });
+    slot_tree(slots, 2);
+    if (tid == 0)
+      out[p] = slots[0] / (float)n + slots[kCdSumSlots] / (float)m;
+  }
+  cluster.sync();  // no block leaves while the first reads its minima
 }
 
 __device__ __forceinline__ float level_of(int lv) {
@@ -550,6 +726,25 @@ size_t cd_smem_bytes(int n, int m) {
   return sizeof(float) * (3 * (size_t)n + 3 * (size_t)m + kCdThreads / 32);
 }
 
+// Threads of a split block with rb rows: kCdRows rows each, in whole warps,
+// at most kCdSplitThreads.
+int cd_split_threads(int rb) {
+  const int warps = (rb + 32 * kCdRows - 1) / (32 * kCdRows);
+  return 32 * max(1, min(kCdSplitThreads / 32, warps));
+}
+
+// Shared memory of a split block: y [3][m], its warps' column minima
+// [warps][m], its row minima [ceil(n / c)] and two sets of sum slots.
+size_t cd_split_smem_bytes(int n, int m, int c) {
+  const int rb = (n + c - 1) / c;
+  return sizeof(float) * ((3 + cd_split_threads(rb) / 32) * (size_t)m + rb +
+                          2 * kCdSumSlots);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 size_t emd_smem_bytes(int n, int m, bool otf) {
   size_t f = 2 * (size_t)n + 3 * (size_t)m + kEmdWarps;
   if (otf) f += 3 * (size_t)n + 3 * (size_t)m;
@@ -642,25 +837,60 @@ cudaError_t launch_emd(const float* x, const float* y, const float* d,
   return cudaGetLastError();
 }
 
+cudaError_t launch_cd_split(const float* x, const float* y, float* out, int p,
+                            int n, int m, int c, cudaStream_t stream) {
+  const size_t smem = cd_split_smem_bytes(n, m, c);
+  cudaError_t e = allow_smem(pairwise_cd_split_kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p * c);
+  cfg.blockDim = dim3(cd_split_threads((n + c - 1) / c));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, pairwise_cd_split_kernel, x, y, out, n, m);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 bool bad_pairs(int p, int n, int m) { return p < 0 || n <= 0 || m <= 0; }
 
 }  // namespace
 
 extern "C" {
 
-// K5. out: [p] float32.
+// K5. out: [p] float32. *cluster: the cluster size of the split schedule
+// where it was launched, 0 where the block schedule was or nothing was.
 int ldt_pairwise_cd_means(const void* x, const void* y, void* out, int p,
-                          int n, int m, void* stream) {
-  const size_t smem = cd_smem_bytes(n, m);
-  if (bad_pairs(p, n, m) || smem > (size_t)kMaxSmem)
+                          int n, int m, void* stream, int* cluster) {
+  *cluster = 0;
+  const bool split = cd_split(n, m, aligned16(y));
+  if (bad_pairs(p, n, m) || (!split && cd_smem_bytes(n, m) > kMaxSmem))
     return (int)cudaErrorInvalidValue;
   if (p == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* yf = static_cast<const float*>(y);
+  float* of = static_cast<float*>(out);
+  if (split) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    *cluster = cd_cluster(p, sms);
+    return (int)launch_cd_split(xf, yf, of, p, n, m, *cluster, s);
+  }
+  const size_t smem = cd_smem_bytes(n, m);
   cudaError_t e = allow_smem(pairwise_cd_means_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  pairwise_cd_means_kernel<<<p, kCdThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<float*>(out), n, m);
+  pairwise_cd_means_kernel<<<p, kCdThreads, smem, s>>>(xf, yf, of, n, m);
   return (int)cudaGetLastError();
 }
 

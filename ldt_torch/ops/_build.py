@@ -2,9 +2,10 @@
 
 Each `ldt_torch/csrc/<name>.cu` exposes a plain C interface and is compiled
 by `nvcc` for sm_90a into `build/ldt_torch/<name>-<hash>.so` at the root of
-the checkout, where the hash covers the source and the flags, so an edit
-rebuilds. The library is loaded with `ctypes`. Nothing is built when a
-module is imported: the first launch (or an explicit `build(...)`) builds.
+the checkout, where the hash covers the source, the headers beside it
+(`csrc/*.h`) and the flags, so an edit rebuilds. The library is loaded with
+`ctypes`. Nothing is built when a module is imported: the first launch (or
+an explicit `build(...)`) builds.
 """
 
 from __future__ import annotations
@@ -38,9 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.h"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(s.read_bytes() for s in sources)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

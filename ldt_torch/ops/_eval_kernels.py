@@ -1,6 +1,7 @@
 """ctypes binding of `csrc/eval.cu` (K5 `ldt_pairwise_cd_means`, K6/K7
-`ldt_approx_match_cost`) and the checks the wrappers in `ops.chamfer` and
-`ops.emd` share."""
+`ldt_approx_match_cost`), K5's schedule rule as the library decides it
+(`cd_schedule`), the Python mirror of K6/K7's, and the checks the wrappers
+in `ops.chamfer` and `ops.emd` share."""
 
 from __future__ import annotations
 
@@ -85,14 +86,27 @@ def emd_schedule(p: int, n: int, m: int, otf: bool, sms: int):
 def lib() -> ctypes.CDLL:
     out = _build.load("eval")
     p, i = ctypes.c_void_p, ctypes.c_int
-    out.ldt_pairwise_cd_means.argtypes = [p, p, p, i, i, i, p]
+    out.ldt_pairwise_cd_means.argtypes = [p, p, p, i, i, i, p,
+                                          ctypes.POINTER(i)]
     out.ldt_pairwise_cd_means.restype = i
+    out.ldt_cd_schedule.argtypes = [i] * 5
+    out.ldt_cd_schedule.restype = i
     out.ldt_approx_match_cost.argtypes = [p, p, p, p, i, i, i, i, p,
                                           ctypes.POINTER(i)]
     out.ldt_approx_match_cost.restype = i
     out.ldt_eval_error_string.argtypes = [i]
     out.ldt_eval_error_string.restype = ctypes.c_char_p
     return out
+
+
+def cd_schedule(p: int, n: int, m: int, sms: int,
+                aligned: bool = True) -> int:
+    """K5's schedule for p pairs of N x M points on a card of `sms` SMs, y
+    16-byte aligned or not, asked of the library without a launch (its
+    `cd_split` / `cd_cluster` in csrc/rules.h): the split schedule's cluster
+    size, 0 for the block schedule. `pairwise_cd_means` reports the same
+    for its launch."""
+    return lib().ldt_cd_schedule(p, n, m, int(aligned), sms)
 
 
 def raise_on(err: int, name: str) -> None:

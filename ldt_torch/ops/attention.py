@@ -88,8 +88,8 @@ N=2048, M=32). `CrossAttention` is the autograd.Function whose forward is K2
 and whose backward is K4; it saves (q, k, v), as the JAX VJP does.
   * Replaces `ldt_tpu/ops/pallas_attention.py::_bwd_kernel`, K3's formulas
     on a query set against a key set.
-  * Bound on an H100: f32 FMAs and device-memory bytes about equally at the
-    long shapes (B=16, dh=32: ~1.3 GFLOP against 51-68 MB each).
+  * Bound on an H100: f32 FMAs at the long shapes (B=16, dh=32: 0.67 G FMAs,
+    0.020 ms, against 51-68 MB).
   * Design: where a head's k and v fit in shared memory, the long-query
     schedule: grid (query tile, head, batch), k and v whole, dq of the
     tile's rows complete in the block; dk and dv, sums over every query, are
@@ -102,6 +102,15 @@ and whose backward is K4; it saves (q, k, v), as the JAX VJP does.
     softmax statistics and D = rowsum(dw * w), writes the chunk's complete
     dk and dv and its dq partial sums, and a third adds those in chunk
     order. The launches of one call count as one in `.launches`.
+    In both, where dh % 4 == 0, q, k, v and g are 16-byte aligned and the
+    layout fits (`cross_bwd_tiled`, decided in the library, which reports
+    it and answers the query; `.tiled_launches` counts those calls), the
+    products are register-tiled: a thread owns 4 x 4 tiles (rows x keys of
+    the scores and dw, keys x channels of dk and dv, rows x channels of dq)
+    read as float4 slices of shared rows, 8 FMAs a shared load where the
+    first kernels fed each FMA from scalar loads. Every FMA chain keeps the
+    first kernels' order and the softmax rows are the same code, so the two
+    give the same bits; the first kernels take the rest.
 
 K1-K4 accumulate in f32, run the softmax in f32 and round the weights to the
 input dtype before the AV product, as the Pallas kernels do. They take f32
@@ -313,6 +322,18 @@ def cross_bwd_schedule(n: int, m: int, dh: int) -> Optional[int]:
     return 0 if cross_bwd_lk_smem_bytes(n, dh) <= SMEM_LIMIT else None
 
 
+def cross_bwd_tiled(n: int, m: int, dh: int, aligned: bool = True) -> bool:
+    """Whether K4 at n queries over m keys of width dh, with q, k, v and g
+    16-byte aligned or not, takes its register-tiled kernels in the
+    schedule `cross_bwd_schedule` picks, asked of the library without a
+    launch (`cross_bwd_tiled` in csrc/rules.h: dh % 4 == 0, aligned, and
+    the tiled layout's shared memory within a block's). The wrapper
+    reports the same for its launch."""
+    rows = cross_bwd_schedule(n, m, dh)
+    return rows is not None and bool(
+        _lib().ldt_cross_bwd_tiled(n, m, dh, rows, int(aligned)))
+
+
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
@@ -485,8 +506,11 @@ def _lib() -> ctypes.CDLL:
                                                    i, p, ctypes.POINTER(i)]
     lib.ldt_packed_self_attention_int8.restype = i
     lib.ldt_cross_attention_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                            i, i, i, f, i, p]
+                                            i, i, i, f, i, p,
+                                            ctypes.POINTER(i)]
     lib.ldt_cross_attention_bwd.restype = i
+    lib.ldt_cross_bwd_tiled.argtypes = [i] * 5
+    lib.ldt_cross_bwd_tiled.restype = i
     lib.ldt_error_string.argtypes = [i]
     lib.ldt_error_string.restype = ctypes.c_char_p
     return lib
@@ -697,7 +721,8 @@ def cross_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA launches where the long-query schedule takes more than one query
     tile, three for the long-key schedule); `.long_key_launches` and
     `.long_query_launches` count the calls that took the long-key schedule
-    and the multi-tile long-query one."""
+    and the multi-tile long-query one, `.tiled_launches` those that took
+    the register-tiled kernels (as the library reports it)."""
     name = "cross_attention_bwd"
     b, n, m, d, dh = _check_cross(name, q, k, v, num_heads)
     _check(name, (q, g))
@@ -722,15 +747,18 @@ def cross_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             else b * tiles * (3 * num_heads * n + n * d))
     part = (torch.empty(size, dtype=torch.float32, device=q.device)
             if tiles > 1 or not rows else None)
+    schedule = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().ldt_cross_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             None if part is None else part.data_ptr(), b, n, m, d,
-            num_heads, rows, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
+            num_heads, rows, dh ** -0.5, _DTYPE_CODES[q.dtype], stream,
+            ctypes.byref(schedule))
     _raise_on(err, name)
     cross_attention_bwd.launches += 1
+    cross_attention_bwd.tiled_launches += schedule.value
     if rows == 0:
         cross_attention_bwd.long_key_launches += 1
     elif tiles > 1:
@@ -740,9 +768,11 @@ def cross_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 cross_attention_bwd.launches = 0
 # the launches (counted in `launches` too) that took the long-key schedule,
-# and those that took the long-query schedule with more than one tile
+# those that took the long-query schedule with more than one tile, and those
+# on the register-tiled kernels (either schedule)
 cross_attention_bwd.long_key_launches = 0
 cross_attention_bwd.long_query_launches = 0
+cross_attention_bwd.tiled_launches = 0
 
 
 class CrossAttention(torch.autograd.Function):

@@ -24,19 +24,34 @@ K5 `pairwise_cd_means(x, y)` — mean_n dist1 + mean_m dist2 of each pair, the
 only number the eval tiles take from a pair (`eval.metrics._pair_block`).
   * Replaces `ldt_tpu/ops/chamfer.py::_pairwise_cd_kernel`
     (`pairwise_cd_means_pallas`).
-  * Bound on an H100: f32 operations, ~10 N M per pair (three differences,
-    three squares, two adds, two minima); its bytes are the two clouds.
-  * Design (`csrc/eval.cu`): one block per pair with both clouds in shared
-    memory, row minima then column minima, each d_ij the direct form with
-    the products and sums rounded one at a time as here, so every minimum
-    has the CPU's bits; the minima are summed in a fixed order (a run
-    repeats itself bit for bit). Its plain twin `pairwise_cd_means_plain` is
-    the means of `chamfer_distance`. On a CPU tensor the wrapper takes the
+  * Bound on an H100: instruction issue, 8 N M per pair at 128 lanes per
+    SM per clock: the least work within the card limit (`chip_smoke.K5_TOL`)
+    takes each d_ij in the direct form with its adds fused (three
+    differences, a square, two FMAs) and a row and a column minimum; its
+    bytes are the two clouds. The kernels issue more (no FMA, so that the
+    minima keep this module's bits): ~10.5 N M on the split schedule.
+  * Design (`csrc/eval.cu`): two schedules, picked in the library by
+    `csrc/rules.h`, which `_eval_kernels.cd_schedule` asks. "split" (N, M
+    <= 2048, M % 4 == 0, y 16-byte aligned: the eval's path) spreads a
+    pair's rows over a thread-block cluster of 2, 4 or 8 blocks, chosen from
+    the pair count and the card's SM count, takes each d_ij once for both
+    its row's and its column's minimum, merges the column minima across the
+    cluster (a minimum is exact in any order) and sums both sets in a fixed
+    order that depends on N and M alone, so a pair's bits do not depend on
+    its tile. "block"
+    (the rest; the first version) runs one block per pair, rows then
+    columns. Each d_ij is the direct form with the products and sums
+    rounded one at a time as here, so every minimum has the CPU's bits; a
+    run repeats itself bit for bit. Its plain twin `pairwise_cd_means_plain`
+    is the means of `chamfer_distance`. On a CPU tensor the wrapper takes the
     twin; on a CUDA tensor it launches the kernel or raises; it counts its
-    launches in `pairwise_cd_means.launches`.
+    launches in `pairwise_cd_means.launches`, those on the split schedule
+    in `.split_launches` too.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -95,13 +110,18 @@ def pairwise_cd_means(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return pairwise_cd_means_plain(x, y)
     p, n, _ = x.shape
     out = torch.empty(p, dtype=torch.float32, device=x.device)
+    cluster = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         err = _eval_kernels.lib().ldt_pairwise_cd_means(
             x.data_ptr(), y.data_ptr(), out.data_ptr(), p, n, y.shape[1],
-            _eval_kernels.stream(x))
+            _eval_kernels.stream(x), ctypes.byref(cluster))
     _eval_kernels.raise_on(err, name)
     pairwise_cd_means.launches += 1
+    pairwise_cd_means.split_launches += int(cluster.value > 0)
     return out
 
 
 pairwise_cd_means.launches = 0
+# the launches (counted in `launches` too) that took the split schedule, as
+# the library reports what it launched
+pairwise_cd_means.split_launches = 0

@@ -7,16 +7,29 @@ checkouts in one machine. Paths (`--paths`, comma-separated):
            run under torch.profiler (device busy, K8's device time in it)
            and the 1000-step run's seconds;
   stage2   the stage-2 train step (B=64, f32): ms/step, and one step under
-           torch.profiler (device busy, K1's device time in it).
+           torch.profiler (device busy, K1's device time in it);
+  k3       K3 alone at the stage-2 step's shape (f32);
+  k4       K4 alone at the stage-1 step's three shapes (f32), on its
+           register-tiled kernels and, through unaligned copies of q, k, v
+           and g, on the scalar kernels they replaced (`_pr4`; the two must
+           give the same bits);
+  k5       K5 alone at the eval tile (64 pairs of 2048 points) on its split
+           schedule and, through an unaligned copy of y, on the block
+           schedule it replaced (`_pr5`).
+The kernel paths give each reading as the device time per call from
+torch.profiler (`device_ms`, by kernel `device_us`) and the event loop over
+back-to-back wrapper calls (`ms`, host work included), taken with
+chip_smoke.py's helpers.
 
     python scripts/torch_ab.py --root <checkout> [--paths bf16,stage1]
                                [--reps 3] [--steps 10]
 
 `--root` is the checkout whose `ldt_torch` is imported (the default is the
-one holding this script), so one copy of the script times an older commit
-unpacked beside it. Run the checkouts alternately (A, B, B, A) in one call
-to the card, and compare only within that call. Prints one JSON line with
-each path's numbers and the card's name and power limit.
+one holding this script), so one copy of the script times an older commit,
+or a variant of a kernel's source, unpacked beside it. Run the checkouts
+alternately (A, B, B, A) in one call to the card, and compare only within
+that call. Prints one JSON line with each path's numbers and the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ import sys
 import time
 from pathlib import Path
 
-PATHS = ("bf16", "stage1", "int8_k8", "stage2")
+PATHS = ("bf16", "stage1", "int8_k8", "stage2", "k3", "k4", "k5")
 BATCH = 64
 
 
@@ -155,6 +168,64 @@ def run_stage2(torch, gen, steps: int) -> dict:
             "stage2_k1_ms_per_step": k1 / 1e3}
 
 
+def reading(fn) -> dict:
+    """The event loop (`ms`) and the device time per call (`device_ms`, and
+    by kernel `device_us`) of `fn`, as chip_smoke.py times its kernels."""
+    from chip_smoke import cuda_ms, launch_us
+
+    parts = launch_us(fn)
+    return {"ms": cuda_ms(fn), "device_ms": sum(parts.values()) / 1e3,
+            "device_us": parts}
+
+
+def run_k3(torch, gen) -> dict:
+    from ldt_torch.ops import attention as ops
+
+    qkv = torch.randn(BATCH, 32, 3072, device="cuda", generator=gen)
+    g = torch.randn(BATCH, 32, 1024, device="cuda", generator=gen)
+    return {"k3": reading(lambda: ops.packed_self_attention_bwd(qkv, g, 16))}
+
+
+def run_k4(torch, gen) -> dict:
+    from chip_smoke import unaligned_copy
+    from ldt_torch.ops import attention as ops
+
+    out = {}
+    fn = ops.cross_attention_bwd
+    for shape, (n, m) in {"encoder": (32, 32), "posterior": (32, 2048),
+                          "decoder": (2048, 32)}.items():
+        q, k, v, g = (torch.randn(16, x, 128, device="cuda", generator=gen)
+                      for x in (n, m, m, n))
+        off = [unaligned_copy(t) for t in (q, k, v, g)]
+        if not all(torch.equal(a, b) for a, b in zip(fn(q, k, v, g, 4),
+                                                     fn(*off, 4))):
+            raise RuntimeError(f"torch_ab: K4 {shape}: the tiled and the "
+                               "scalar kernels differ")
+        out[f"k4_{shape}"] = reading(lambda: fn(q, k, v, g, 4))
+        out[f"k4_{shape}_pr4"] = reading(lambda: fn(*off, 4))
+    return out
+
+
+def run_k5(torch) -> dict:
+    import numpy as np
+
+    from chip_smoke import synthetic_shapes, unaligned_copy
+    from ldt_torch.ops import chamfer
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(synthetic_shapes(64, 2048, rng)).cuda()
+    y = torch.from_numpy(synthetic_shapes(64, 2048, rng)).cuda()
+    yu = unaligned_copy(y)
+    fn = chamfer.pairwise_cd_means
+    twin = chamfer.pairwise_cd_means_plain(x, y)
+    for got in (fn(x, y), fn(x, yu)):
+        rel = ((got - twin).abs() / twin.abs()).max().item()
+        if rel > 1e-5:
+            raise RuntimeError(f"torch_ab: K5 off its twin by {rel:.3e}")
+    return {"k5": reading(lambda: fn(x, y)),
+            "k5_pr5": reading(lambda: fn(x, yu))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -166,6 +237,8 @@ def main() -> int:
     if not set(paths) <= set(PATHS):
         ap.error(f"--paths: choose from {', '.join(PATHS)}")
     sys.path.insert(0, str(Path(args.root).resolve()))
+    # chip_smoke.py's helpers, where the root has none
+    sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
     import torch
 
     if not torch.cuda.is_available():
@@ -182,7 +255,10 @@ def main() -> int:
     runs = {"bf16": lambda: run_bf16(torch, gen, args.reps),
             "stage1": lambda: run_stage1(torch, gen, args.steps),
             "int8_k8": lambda: run_int8_k8(torch, gen),
-            "stage2": lambda: run_stage2(torch, gen, args.steps)}
+            "stage2": lambda: run_stage2(torch, gen, args.steps),
+            "k3": lambda: run_k3(torch, gen),
+            "k4": lambda: run_k4(torch, gen),
+            "k5": lambda: run_k5(torch)}
     for path in paths:
         result.update(runs[path]())
         torch.cuda.empty_cache()

@@ -535,26 +535,40 @@ def test_small_train_step_through_the_kernels(card):
     assert clouds.shape == (2, 256, 3) and torch.isfinite(clouds).all()
 
 
+def _k4_counts():
+    fn = ops.cross_attention_bwd
+    return (fn.launches, fn.long_key_launches, fn.long_query_launches,
+            fn.tiled_launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,m,d,h", [(16, 32, 32, 128, 4),    # encoder
                                        (16, 32, 2048, 128, 4),  # posterior
                                        (16, 2048, 32, 128, 4),  # decoder
                                        (3, 45, 3000, 96, 2),    # ragged keys
                                        (2, 300, 8, 64, 2),      # 3 row tiles
-                                       (2, 8, 300, 64, 2)])     # 8 rows
+                                       (2, 8, 300, 64, 2),      # 8 rows
+                                       (2, 37, 70, 60, 5),      # dh = 12
+                                       (2, 50, 9, 36, 3),       # dh = 12
+                                       (2, 40, 50, 30, 3)])     # dh = 10
 def test_cross_attention_bwd_kernel(card, b, n, m, d, h, dtype):
+    """K4 against its twin under K4_TOL, repeating its bits; the counts
+    follow the schedule and the tiled rule (dh = 10 takes the scalar
+    kernels)."""
     q = _randn(card, b, n, d, dtype=dtype)
     k = _randn(card, b, m, d, dtype=dtype)
     v = _randn(card, b, m, d, dtype=dtype)
     g = _randn(card, b, n, d, dtype=dtype)
     fn = ops.cross_attention_bwd
-    before = (fn.launches, fn.long_key_launches, fn.long_query_launches)
+    before = _k4_counts()
     got = fn(q, k, v, g, h)
     torch.cuda.synchronize()
     rows = ops.cross_bwd_schedule(n, m, d // h)
-    assert (fn.launches, fn.long_key_launches, fn.long_query_launches) == (
+    tiled = ops.cross_bwd_tiled(n, m, d // h)
+    assert tiled == (d // h % 4 == 0)
+    assert _k4_counts() == (
         before[0] + 1, before[1] + (rows == 0),
-        before[2] + (rows > 0 and n > rows))
+        before[2] + (rows > 0 and n > rows), before[3] + tiled)
     want = ops.cross_attention_bwd_plain(q, k, v, g, h)
     for got_t, want_t, like in zip(got, want, (q, k, v)):
         assert got_t.dtype == dtype and got_t.shape == like.shape
@@ -562,6 +576,35 @@ def test_cross_attention_bwd_kernel(card, b, n, m, d, h, dtype):
                        want_t.float().abs().max().item())
     again = fn(q, k, v, g, h)  # no atomics: the same bits every run
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,d,h", [(16, 32, 32, 128, 4),    # encoder
+                                       (16, 32, 2048, 128, 4),  # posterior
+                                       (16, 2048, 32, 128, 4),  # decoder
+                                       (3, 45, 3000, 96, 2),    # ragged keys
+                                       (2, 300, 8, 64, 2),      # 3 row tiles
+                                       (2, 37, 70, 60, 5)])     # dh = 12
+def test_k4_tiled_kernels_give_the_pr4_kernels_bits(card, b, n, m, d, h,
+                                                    dtype):
+    """Unaligned copies of q, k, v and g take the scalar kernels (the tiled
+    rule refuses them), which must give the register-tiled kernels' bits;
+    the library reports each schedule, and the profiler sees the one it
+    names run."""
+    q, k, v, g = (_randn(card, b, x, d, dtype=dtype) for x in (n, m, m, n))
+    fn = ops.cross_attention_bwd
+    assert not ops.cross_bwd_tiled(n, m, d // h, aligned=False)
+    before = _k4_counts()
+    tiled = fn(q, k, v, g, h)
+    off = [_unaligned(t) for t in (q, k, v, g)]
+    old = fn(*off, h)
+    torch.cuda.synchronize()
+    assert _k4_counts()[0] == before[0] + 2
+    assert _k4_counts()[3] == before[3] + 1
+    for a, c in zip(tiled, old):
+        assert torch.equal(a, c)
+    assert ", true>" in _launched(lambda: fn(q, k, v, g, h))
+    assert ", true>" not in _launched(lambda: fn(*off, h))
 
 
 def test_cross_attention_function_on_the_card(card):
@@ -624,22 +667,65 @@ def _rel_within(got, want, tol):
     assert rel.mean().item() <= tol[1], rel.mean().item()
 
 
-@pytest.mark.parametrize("p,n,m", [(8, 2048, 2048),   # the eval tiles
-                                   (3, 1000, 333),    # ragged, N != M
-                                   (2, 100, 4000)])   # > 48 KB smem
+# (p, n, m) of K5: the split schedule at the eval tile and at 8 pairs, one
+# pair (a cluster of 8), 132 pairs (of 2), ragged N with N != M, an N that
+# no split divides; the block schedule past its rule (M % 4 != 0, M > 2048)
+K5_CASES = [(64, 2048, 2048), (8, 2048, 2048), (1, 2048, 2048),
+            (132, 256, 512), (3, 1000, 332), (5, 777, 2048), (3, 1000, 333),
+            (2, 100, 4000)]
+
+
+@pytest.mark.parametrize("p,n,m", K5_CASES)
 def test_pairwise_cd_means_kernel(card, p, n, m):
-    from ldt_torch.ops import chamfer
+    """K5 against its twin and the CPU twin under K5_TOL, repeating its
+    bits, on the schedule the library's rule (`cd_schedule`, asked without
+    a launch) names: the entry reports the cluster size it launched
+    (chip_smoke.py's phase 18 also reads the kernel's name from
+    torch.profiler); a split pair alone has the bits it has in its tile."""
+    from ldt_torch.ops import _eval_kernels, chamfer
 
     x, y = _eval_clouds(p, n, m)
-    before = chamfer.pairwise_cd_means.launches
-    got = chamfer.pairwise_cd_means(x, y)
+    fn = chamfer.pairwise_cd_means
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    c = _eval_kernels.cd_schedule(p, n, m, sms)
+    schedule = "split" if c else "block"
+    assert schedule == ("split" if m <= 2048 and m % 4 == 0 else "block")
+    before = (fn.launches, fn.split_launches)
+    got = fn(x, y)
     torch.cuda.synchronize()
-    assert chamfer.pairwise_cd_means.launches == before + 1
+    assert (fn.launches, fn.split_launches) == (
+        before[0] + 1, before[1] + (schedule == "split"))
     assert got.shape == (p,) and got.dtype == torch.float32
     _rel_within(got, chamfer.pairwise_cd_means_plain(x, y), K5_TOL)
     _rel_within(got.cpu(), chamfer.pairwise_cd_means_plain(x.cpu(), y.cpu()),
                 K5_TOL)
-    assert torch.equal(got, chamfer.pairwise_cd_means(x, y))  # no atomics
+    assert torch.equal(got, fn(x, y))  # no order that depends on timing
+    cluster = ctypes.c_int(-1)
+    out = torch.empty_like(got)
+    _eval_kernels.raise_on(_eval_kernels.lib().ldt_pairwise_cd_means(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), p, n, m,
+        _eval_kernels.stream(x), ctypes.byref(cluster)), "pairwise_cd_means")
+    assert cluster.value == c
+    if schedule == "split":
+        assert torch.equal(fn(x[:1], y[:1]), got[:1])
+
+
+def test_k5_split_and_block_schedules_agree(card):
+    """An unaligned copy of y takes the first kernel at the eval's shape;
+    both hold the twin under K5_TOL (their sums run in other orders)."""
+    from ldt_torch.ops import _eval_kernels, chamfer
+
+    x, y = _eval_clouds(8, 2048, 2048)
+    fn = chamfer.pairwise_cd_means
+    off = _unaligned(y)
+    assert _eval_kernels.cd_schedule(8, 2048, 2048, 132, aligned=False) == 0
+    before = fn.split_launches
+    split, block = fn(x, y), fn(x, off)
+    torch.cuda.synchronize()
+    assert fn.split_launches == before + 1
+    twin = chamfer.pairwise_cd_means_plain(x, y)
+    _rel_within(split, twin, K5_TOL)
+    _rel_within(block, twin, K5_TOL)
 
 
 @pytest.mark.parametrize("p,n,m", [(4, 2048, 2048),   # the eval tiles
