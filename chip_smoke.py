@@ -56,16 +56,21 @@ Stage-2 training (`ldt_torch.training.latent_sde_trainer.Trainer.update`):
      long-key schedule at the posterior's shape (M=2048) and its whole-set
      schedule at the encoder's (N=M=32, f32) against their plain twins on
      the card and on the CPU and against wrong variants, each kernel
-     repeating its bits; their times, bounds, twin times and the SDPA
-     yardsticks.
+     repeating its bits; K3 on its register-tiled kernel (the library's
+     report and the profiler's name), equal bit for bit to its scalar
+     kernel run through an unaligned copy; their times (K3's scalar kernel
+     and the SDPA backward yardstick by device time too), bounds, twin
+     times and the SDPA yardsticks.
  13. (after 10) The flagship train step at B=64, f32: the frozen full
      Compressor encodes synthetic [64, 2048, 3] clouds, then loss, K1
      forward / K3 backward through the 24-block Score, clip, Adam, EMA;
-     launch counts K1 24 (register-tiled), K3 24, K2 24 per step; ms per
-     step; one step under torch.profiler by kernel class.
+     launch counts K1 24 (register-tiled), K3 24 (register-tiled), K2 24
+     per step; ms per step; one step under torch.profiler by kernel
+     class.
  14. (after 11) One train step at flagship width cut to two Score blocks,
-     f32, same weights, clouds and pinned draws, on the card against the
-     CPU, and against a K3 with dq and dk swapped.
+     f32, same weights, clouds and pinned draws, on the card (K3 on its
+     register-tiled kernel) against the CPU, and against a K3 with dq and
+     dk swapped.
 Stage-1 training (`ldt_torch.training.compressor_trainer.Trainer.update`):
  15. (after 12) K4 (the backward of K2) at the stage-1 step's three shapes
      (B=16, 32x32, 32x2048 long-key, 2048x32 long-query) against its plain
@@ -746,6 +751,52 @@ def k3_variant(qkv, g, num_heads: int, acc=None, rowsum: bool = True,
                       for t in (dq, dk, dv)], dim=-1)
 
 
+def sdpa_backward_device_ms(q, k, v, g) -> float:
+    """The device time of one `scaled_dot_product_attention` backward on
+    [B, H, N, dh] heads: every kernel that `torch.autograd.grad` launches on
+    a retained forward, by torch.profiler (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(q, k, v)
+        parts = launch_us(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                      retain_graph=True))
+    return sum(parts.values()) / 1e3
+
+
+def k3_scalar_kernel(qkv, g, h: int, got, dn: str) -> dict:
+    """K3's scalar kernel at the shape where the register-tiled one ran
+    (`got`), for the before and after in one run: an unaligned copy of qkv
+    takes it (the rule). It must give `got` bit for bit; timed by the event
+    loop and by the profiler, as the tiled kernel is."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+
+    fn = attn_ops.packed_self_attention_bwd
+    off = unaligned_copy(qkv)
+    before = (fn.launches, fn.tiled_launches)
+    old = fn(off, g, h)
+    counts = (fn.launches, fn.tiled_launches)
+    parts = launch_us(lambda: fn(off, g, h))
+    if counts != (before[0] + 1, before[1]) or not any(
+            "packed_self_attention_bwd_kernel" in k for k in parts):
+        fail(f"phase 12: the unaligned K3 copy ({dn}) did not take the "
+             f"scalar kernel: {list(parts)}")
+    if not torch.equal(got, old):
+        fail(f"phase 12: K3's tiled and scalar kernels differ ({dn}: max "
+             f"{errs(got, old)[0]:.3e})")
+    out = {"pr3_ms": cuda_ms(lambda: fn(off, g, h)),
+           "pr3_device_ms": sum(parts.values()) / 1e3}
+    print(f"    the scalar kernel (unaligned copy): == the tiled kernel bit "
+          f"for bit; kernel {out['pr3_ms']:.4f} ms, device time per call "
+          f"{out['pr3_device_ms']:.4f} ms (" + ", ".join(
+              f"{k} {us:.2f} us" for k, us in parts.items()) + ")")
+    return out
+
+
 def sdpa_backward_ms(q, k, v, g) -> float:
     """One `scaled_dot_product_attention` backward on [B, H, N, dh] heads:
     forward + backward time minus forward time (a yardstick only)."""
@@ -793,7 +844,15 @@ def phase_train_kernels(batch: int, gen) -> dict:
         def k3_plain():
             return attn_ops.packed_self_attention_bwd_plain(qkv, g, h)
 
+        fn = attn_ops.packed_self_attention_bwd
+        before = (fn.launches, fn.tiled_launches)
         got = k3()
+        if (fn.launches, fn.tiled_launches) != (before[0] + 1,
+                                                before[1] + 1):
+            fail(f"phase 12: K3 {dn} at the train step's shape did not take "
+                 "its register-tiled kernel")
+        if not torch.equal(got, k3()):
+            fail(f"phase 12: K3 {dn} did not repeat its bits")
         twin = k3_plain()
         readings = {
             "twin": errs(got, twin, rel=True),
@@ -813,25 +872,28 @@ def phase_train_kernels(batch: int, gen) -> dict:
             wrong += ("dv unrounded",)
         ms = cuda_ms(k3)
         k3_parts = launch_us(k3)
-        if not any("packed_self_attention_bwd_kernel" in k
+        if not any("packed_self_attention_bwd_tiled_kernel" in k
                    for k in k3_parts):
             fail(f"phase 12: K3 {dn} ran {list(k3_parts)}: the profiler did "
-                 "not see packed_self_attention_bwd_kernel")
+                 "not see packed_self_attention_bwd_tiled_kernel")
         plain_ms = cuda_ms(k3_plain, iters=20)
-        library_ms = sdpa_backward_ms(
-            *(heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3)),
-            heads(g, h))
+        sdpa_heads = [heads(qkv[..., i * d:(i + 1) * d], h)
+                      for i in range(3)] + [heads(g, h)]
+        library_ms = sdpa_backward_ms(*sdpa_heads)
+        library_device_ms = sdpa_backward_device_ms(*sdpa_heads)
         nbytes = (2 * qkv.numel() + g.numel()) * qkv.element_size()
         flops = batch * h * (10 * n * n * (d // h) + 8 * n * n)
         bound_ms, bound_by = _bound(nbytes, {dn: flops})
         print(f"[12] packed_self_attention_bwd (K3) {dn} qkv "
               f"{list(qkv.shape)}, g {list(g.shape)}, H={h}: max|twin| "
               f"{twin.float().abs().max().item():.4f}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"plain {plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms "
+              f"(device {library_device_ms:.4f} ms), bound {bound_ms:.4f} "
+              f"ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
               f"{flops / 1e9:.3f} GFLOP)")
         print("    device time per call: " + ", ".join(
             f"{k} {us:.2f} us" for k, us in k3_parts.items()))
+        pr3 = k3_scalar_kernel(qkv, g, h, got, dn)
         held(f"K3 {dn} (relative) vs", readings, K3_TOL[dn],
              right=("twin", "cpu twin", "f64"), wrong=wrong)
         if dtype == torch.float32:  # the train step's dtype
@@ -842,7 +904,8 @@ def phase_train_kernels(batch: int, gen) -> dict:
                 "launches": 0, "max_abs_err": errs(got, twin)[0], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms,
-                "device_ms": sum(k3_parts.values()) / 1e3}
+                "library_device_ms": library_device_ms,
+                "device_ms": sum(k3_parts.values()) / 1e3, **pr3}
 
         q = torch.randn(batch, nq, dc, device="cuda", dtype=dtype,
                         generator=gen)
@@ -1286,6 +1349,8 @@ def counted(fn):
                      attn_ops.packed_self_attention, "tiled_launches"),
                  "packed_self_attention_int8_mma": (
                      attn_ops.packed_self_attention_int8, "mma_launches"),
+                 "packed_self_attention_bwd_tiled": (
+                     attn_ops.packed_self_attention_bwd, "tiled_launches"),
                  "cross_attention_tiled": (attn_ops.cross_attention,
                                            "tiled_launches"),
                  "cross_attention_bwd_long_key": (
@@ -1319,9 +1384,9 @@ def per_step_launches(**counts) -> dict:
     names = ("packed_self_attention", "packed_self_attention_mma",
              "packed_self_attention_tiled", "cross_attention",
              "packed_self_attention_int8", "packed_self_attention_int8_mma",
-
-             "packed_self_attention_bwd", "cross_attention_bwd",
-             "cross_attention_tiled", "cross_attention_bwd_long_key",
+             "packed_self_attention_bwd", "packed_self_attention_bwd_tiled",
+             "cross_attention_bwd", "cross_attention_tiled",
+             "cross_attention_bwd_long_key",
              "cross_attention_bwd_long_query", "cross_attention_bwd_tiled",
              "pairwise_cd_means", "pairwise_cd_means_split",
              "approx_match_cost", "approx_match_cost_otf",
@@ -1596,7 +1661,8 @@ def phase_train(batch: int, steps: int, gen) -> dict:
     losses = losses.cpu()
     per_step = per_step_launches(
         packed_self_attention=24, packed_self_attention_bwd=24,
-        cross_attention=24, cross_attention_tiled=5,
+        packed_self_attention_bwd_tiled=24, cross_attention=24,
+        cross_attention_tiled=5,
         **k1_schedule_launches(trainer.score, 24))
     expect = {k: v * steps for k, v in per_step.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1933,10 +1999,12 @@ def phase_train_reference() -> None:
                 "Adam mu": flat(st.opt_state.mu)}
 
     out = {"cpu": run("cpu")}
-    k3 = attn_ops.packed_self_attention_bwd.launches
+    fn = attn_ops.packed_self_attention_bwd
+    k3 = (fn.launches, fn.tiled_launches)
     out["card"] = run("cuda")
-    if attn_ops.packed_self_attention_bwd.launches - k3 != 2:
-        fail("phase 14: the card's step did not go through K3")
+    if (fn.launches - k3[0], fn.tiled_launches - k3[1]) != (2, 2):
+        fail("phase 14: the card's step did not go through K3's "
+             "register-tiled kernel")
     with mock.patch.object(
             attn_ops, "packed_self_attention_bwd",
             lambda qkv, gg, h: k3_variant(qkv, gg, h, swap_dq_dk=True)):

@@ -54,7 +54,27 @@
 //      dq = round(ds) k * dh^-1/2,  dk = round(ds)^T q * dh^-1/2,
 //    with round() to the input dtype, products in f32.
 //    Replaces ldt_tpu/ops/pallas_attention.py::_bwd_kernel_packed_phased (and
-//    _bwd_kernel_packed, the same function).
+//    _bwd_kernel_packed, the same function). Bound on an H100: bytes. At the
+//    train step's shape (B=64, N=32, D=1024, 16 heads of dh=64, f32) it reads
+//    33.6 MB and writes 25.2 MB, 0.0175 ms at 3.35 TB/s; its 0.34 G FMAs take
+//    0.010 ms at 67 TFLOP/s. Fed from scalar shared loads (two a FMA of the
+//    scores, dw, dk and dv), the shared-memory pipe sets a kernel's time, so
+//    two schedules, chosen by self_bwd_tiled (rules.h; the entry reports the
+//    one it launched, and the library exports the rule as
+//    ldt_self_bwd_tiled):
+//    - Register-tiled CUDA cores (packed_self_attention_bwd_tiled_kernel<T>)
+//      where dh % 4 == 0, qkv, g and dqkv are 16-byte aligned and the tiled
+//      layout fits: training's path. A block of 256 threads per (element,
+//      head), four blocks a SM (44 KB of shared memory each at the train
+//      step's shape); q, k, v and g staged into rows of stride lk_ld(dh), f32
+//      by cp.async; K4's register-tiled products (4 x 4 tiles of the scores
+//      and dw, of dk and dv, of dq, read as float4 slices: 8 FMAs a shared
+//      load); dqkv written 16 bytes a store (f32). Every FMA chain runs in
+//      the scalar kernel's order and the softmax rows are the same code: the
+//      same bits.
+//    - CUDA cores (packed_self_attention_bwd_kernel<T>) for the rest: a block
+//      of 256 threads per (element, head), each element an FMA chain over
+//      scalar shared loads.
 // K2 ldt_cross_attention: the same function as K1 for q [B, N, D] against
 //    k, v [B, M, D], any M. Replaces ldt_tpu/ops/pallas_attention.py::
 //    _fwd_kernel (and the grouped schedule _fwd_kernel_grouped, which
@@ -222,6 +242,12 @@ constexpr int kBwdThreads = 256;
 // softmax rows, and two blocks fit a SM (their registers are bounded to
 // that, and the shared memory at the stage-1 shape leaves room).
 constexpr int kBwdLqThreads = 512;
+// K3's register-tiled kernel: threads per block (one head), and the blocks
+// a SM holds (their registers are bounded to that, 64 a thread; 44 KB of
+// shared memory each at the train step's shape). Of 128 (5 blocks), 192
+// (5), 256 (4) and 384 (3) threads, 256 took the least time there.
+constexpr int kSelfBwdTileThreads = 256;
+constexpr int kSelfBwdTileBlocks = 4;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -334,13 +360,6 @@ int cross_lk_keys(int dh) {
   for (int keys = kLkKeys; keys >= kLkMinKeys; keys >>= 1)
     if (cross_lk_smem_bytes(dh, keys) <= kMaxSmem) return keys;
   return 0;
-}
-
-// Shared memory of K3: q [n, dh], k and v [n, dh+1], g [n, dh], and the
-// [n, n] weights and their gradient; all f32.
-size_t self_bwd_smem_bytes(int n, int dh) {
-  return sizeof(float) * (2 * (size_t)n * dh + 2 * (size_t)n * (dh + 1) +
-                          2 * (size_t)n * n);
 }
 
 // Shared memory of K4's long-query schedule with `rows` query rows per block:
@@ -1780,6 +1799,92 @@ __device__ __forceinline__ void bwd_dq(const float* ds, const float* ks,
     dq_sums(ds, ks, nr, tm, ldw, dh, out);
 }
 
+// 4 consecutive values x into T at p (f32: 16 bytes, 16-byte aligned;
+// bf16: 8 bytes, 8-byte aligned).
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
+  uint2 u;
+  u.x = pack_bf16(x[0], x[1]);  // nearest even, as from_f32
+  u.y = pack_bf16(x[2], x[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// K3 on the CUDA cores, register-tiled (the header's tiled schedule). Grid
+// (element, head), kSelfBwdTileThreads threads; kSelfBwdTileBlocks blocks
+// share a SM. q, k, v and g of the head come into rows of stride lk_ld(dh)
+// (f32 by cp.async, all in flight at once), rows padded to n4 with zeros.
+// The products are K4's register-tiled ones on the head's n x n problem: a
+// thread owns 4 x 4 tiles of the scores or dw (rows rt + rn i, keys kt + rn
+// j), then of dk and dv (keys x channels) and of dq (rows x channels), read
+// as float4 slices, 8 FMAs a shared load; the softmax rows are
+// softmax_ds_row. Each element is packed_self_attention_bwd_kernel's fmaf
+// chain in its order (scores and dw over the channels, dk and dv over the
+// query rows, dq over the keys, each ascending): the same bits. The
+// products hand a row's channels 4 ct .. 4 ct + 3 over in ascending order,
+// so the fourth goes out with the other three in one store.
+template <typename T>
+__global__ void __launch_bounds__(kSelfBwdTileThreads, kSelfBwdTileBlocks)
+packed_self_attention_bwd_tiled_kernel(const T* __restrict__ qkv,
+                                       const T* __restrict__ g,
+                                       T* __restrict__ dqkv, int n, int d,
+                                       int dh, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int ld = lk_ld(dh);
+  const int width = (dh + 7) / 8 * 8;
+  const int n4 = (n + 3) / 4 * 4;
+  const int lds = n4 + 8;
+  float* qs = smem;                   // [n4, ld]
+  float* ks = qs + (size_t)n4 * ld;   // [n4, ld]
+  float* vs = ks + (size_t)n4 * ld;   // [n4, ld]
+  float* gs = vs + (size_t)n4 * ld;   // [n4, ld]
+  float* ws = gs + (size_t)n4 * ld;   // [n4, lds] weights, f32
+  float* ds = ws + (size_t)n4 * lds;  // [n4, lds] dw, then round(ds)
+
+  const size_t row = 3 * (size_t)d;
+  const T* base = qkv + (size_t)b * n * row + (size_t)h * dh;
+  const T* gbase = g + (size_t)b * n * d + (size_t)h * dh;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    stage_rows_async(qs, ld, base, row, n4, n, dh, width);
+    stage_rows_async(ks, ld, base + d, row, n4, n, dh, width);
+    stage_rows_async(vs, ld, base + 2 * (size_t)d, row, n4, n, dh, width);
+    stage_rows_async(gs, ld, gbase, d, n4, n, dh, width);
+  } else {
+    const bool vec = dh % kVec<T> == 0;
+    stage_rows(qs, ld, base, row, n4, n, dh, width, vec);
+    stage_rows(ks, ld, base + d, row, n4, n, dh, width, vec);
+    stage_rows(vs, ld, base + 2 * (size_t)d, row, n4, n, dh, width, vec);
+    stage_rows(gs, ld, gbase, d, n4, n, dh, width, vec);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  scores_and_dw_tiled(qs, gs, ks, vs, ws, ds, n, n, lds, dh, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < n; r += nwarps)
+    softmax_ds_row<T>(ws + (size_t)r * lds, ds + (size_t)r * lds, n, lane);
+  __syncthreads();
+
+  T* obase = dqkv + (size_t)b * n * row + (size_t)h * dh;
+  float four[4];
+  dq_tiled(ds, ks, n, n, lds, dh, [&](int r, int c, float s) {
+    four[c & 3] = s * scale;
+    if ((c & 3) == 3) store4(obase + (size_t)r * row + c - 3, four);
+  });
+  dk_dv_tiled<T>(ws, ds, qs, gs, n, n, lds, dh,
+                 [&](int j, int c, float s, bool is_dv) {
+    four[c & 3] = is_dv ? s : s * scale;
+    if ((c & 3) == 3)
+      store4(obase + (size_t)j * row + (is_dv ? 2 : 1) * (size_t)d + c - 3,
+             four);
+  });
+}
+
 // K4's long-query schedule. Grid (query tile, head, batch), `rows` query rows
 // per tile. The head's k and v stay whole in shared memory; dq of the tile's
 // rows is complete here. dk and dv sum over every query row: with one tile
@@ -2474,22 +2579,36 @@ cudaError_t launch_self(const void* qkv, void* out, int b, int n, int d,
   return cudaGetLastError();
 }
 
+// K3 in the schedule its rule picks (*schedule: 1 for the register-tiled
+// kernel, 0 the scalar one).
 template <typename T>
 cudaError_t launch_self_bwd(const void* qkv, const void* g, void* dqkv, int b,
                             int n, int d, int h, float scale,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, int* schedule) {
   const int dh = d / h;
-  const size_t smem = self_bwd_smem_bytes(n, dh);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        packed_self_attention_bwd_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const T* qt = static_cast<const T*>(qkv);
+  const T* gt = static_cast<const T*>(g);
+  T* dt = static_cast<T*>(dqkv);
+  if (self_bwd_tiled(n, dh, aligned16(qkv) && aligned16(g) &&
+                                aligned16(dqkv))) {
+    *schedule = 1;
+    const size_t smem = self_bwd_tiled_smem_bytes(n, dh);
+    const auto kernel = packed_self_attention_bwd_tiled_kernel<T>;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e == cudaSuccess)  // all of the SM's shared memory, so that
+      e = cudaFuncSetAttribute(  // kSelfBwdTileBlocks blocks fit
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     if (e != cudaSuccess) return e;
+    kernel<<<dim3(b, h), kSelfBwdTileThreads, smem, stream>>>(qt, gt, dt, n,
+                                                              d, dh, scale);
+    return cudaGetLastError();
   }
+  const size_t smem = self_bwd_smem_bytes(n, dh);
+  const cudaError_t e = allow_smem(packed_self_attention_bwd_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
   packed_self_attention_bwd_kernel<T>
-      <<<dim3(b, h), kSelfThreads, smem, stream>>>(
-          static_cast<const T*>(qkv), static_cast<const T*>(g),
-          static_cast<T*>(dqkv), n, d, dh, scale);
+      <<<dim3(b, h), kSelfThreads, smem, stream>>>(qt, gt, dt, n, d, dh,
+                                                   scale);
   return cudaGetLastError();
 }
 
@@ -2731,18 +2850,22 @@ int ldt_packed_self_attention_int8(const void* qkv, void* scales, void* out,
 }
 
 // dqkv: the packed [b, n, 3d] gradient; every element is written.
+// *schedule: 1 where the launch took the register-tiled kernel
+// (self_bwd_tiled), 0 the scalar kernel or no launch.
 int ldt_packed_self_attention_bwd(const void* qkv, const void* g, void* dqkv,
                                   int b, int n, int d, int h, float scale,
-                                  int dtype, void* stream) {
+                                  int dtype, void* stream, int* schedule) {
+  *schedule = 0;
   if (bad_shape(b, n, d, h) || self_bwd_smem_bytes(n, d / h) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || n == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeF32)
-    return (int)launch_self_bwd<float>(qkv, g, dqkv, b, n, d, h, scale, s);
+    return (int)launch_self_bwd<float>(qkv, g, dqkv, b, n, d, h, scale, s,
+                                       schedule);
   if (dtype == kDtypeBF16)
     return (int)launch_self_bwd<__nv_bfloat16>(qkv, g, dqkv, b, n, d, h,
-                                               scale, s);
+                                               scale, s, schedule);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,12 @@
-// Schedule rules of K4's register-tiled kernels and of K5's split schedule,
-// in host C++ alone. attention.cu and eval.cu include this and launch what
-// it decides; their libraries also export the rules as ldt_cross_bwd_tiled
-// and ldt_cd_schedule, for callers that ask without a launch
-// (chip_smoke.py's expected counts). tests/test_torch_port_csrc_syntax.py
-// builds this header with a host compiler, so the CPU tests ask the same
-// code; no Python copy of these rules exists.
+// Schedule rules of K3's and K4's register-tiled kernels and of K5's split
+// schedule, and K3's shared memory, in host C++ alone. attention.cu and
+// eval.cu include this and launch what it decides; their libraries also
+// export the rules as ldt_self_bwd_tiled, ldt_cross_bwd_tiled and
+// ldt_cd_schedule, for callers that ask without a launch (the K3 wrapper's
+// shape check, chip_smoke.py's expected counts).
+// tests/test_torch_port_csrc_syntax.py builds this header with a host
+// compiler, so the CPU tests ask the same code; no Python copy of these
+// rules exists.
 #ifndef LDT_TORCH_CSRC_RULES_H_
 #define LDT_TORCH_CSRC_RULES_H_
 
@@ -25,10 +27,33 @@ constexpr size_t kMaxSmem = 232448;
 constexpr int kBwdKeys = 64;
 
 // Row stride (floats) of K2's long-key schedule's q, k and v in shared
-// memory, and of K4's register-tiled rows: dh padded with zeros to a
+// memory, and of K3's and K4's register-tiled rows: dh padded with zeros to a
 // multiple of 8, plus 4, so that the 8 lanes of a quarter warp reading 8
 // rows as float4 hit 8 bank groups.
 LDT_HOST_DEVICE inline int lk_ld(int dh) { return (dh + 7) / 8 * 8 + 4; }
+
+// Shared memory of K3's scalar kernel: q [n, dh], k and v [n, dh+1], g [n,
+// dh], and the [n, n] weights and their gradient; f32.
+inline size_t self_bwd_smem_bytes(int n, int dh) {
+  return sizeof(float) * (2 * (size_t)n * dh + 2 * (size_t)n * (dh + 1) +
+                          2 * (size_t)n * n);
+}
+
+// Shared memory of K3's register-tiled kernel: q, k, v and g [n4,
+// lk_ld(dh)], the weights and ds [n4, n4 + 8] (n4: n rounded up to 4; the
+// 8 keep a warp's stores of 4 rows' scores on 32 banks); f32.
+inline size_t self_bwd_tiled_smem_bytes(int n, int dh) {
+  const size_t n4 = (n + 3) / 4 * 4;
+  return sizeof(float) * (4 * n4 * lk_ld(dh) + 2 * n4 * (n4 + 8));
+}
+
+// K3's register-tiled rule: dh a multiple of 4, qkv, g and dqkv 16-byte
+// aligned, and the tiled layout's shared memory within a block's; the
+// scalar kernel takes the rest.
+inline bool self_bwd_tiled(int n, int dh, bool aligned) {
+  return dh % 4 == 0 && aligned &&
+         self_bwd_tiled_smem_bytes(n, dh) <= kMaxSmem;
+}
 
 // Shared memory of K4's register-tiled long-query kernel: k and v [m4,
 // lk_ld(dh)], the rows' q and g [rows4, lk_ld(dh)], their weights and ds
@@ -100,6 +125,21 @@ extern "C" {
 // ldt_pairwise_cd_means reports for the same launch).
 int ldt_cd_schedule(int p, int n, int m, int y_aligned, int sms) {
   return cd_split(n, m, y_aligned != 0) ? cd_cluster(p, sms) : 0;
+}
+
+// K3 at n tokens of head width dh: 1 where it takes the register-tiled
+// kernel (what ldt_packed_self_attention_bwd reports for the same launch),
+// else 0.
+int ldt_self_bwd_tiled(int n, int dh, int aligned) {
+  return self_bwd_tiled(n, dh, aligned != 0) ? 1 : 0;
+}
+
+// K3's shared memory in bytes: the register-tiled kernel's where `tiled`,
+// else the scalar kernel's (the entry refuses a shape where that passes a
+// block's).
+size_t ldt_self_bwd_smem_bytes(int n, int dh, int tiled) {
+  return tiled ? self_bwd_tiled_smem_bytes(n, dh)
+               : self_bwd_smem_bytes(n, dh);
 }
 
 // K4 with `rows` query rows a block (0: the long-key schedule): 1 where it

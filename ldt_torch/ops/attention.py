@@ -50,9 +50,20 @@ only qkv, as the JAX VJP does.
   * Bound on an H100: device-memory bytes. At the train step's shape (B=64,
     N=32, D=1024, 16 heads, f32) it reads 33.6 MB and writes 25.2 MB for
     0.67 GFLOP.
-  * Design: K1's, one block per (batch element, head) with q_h, k_h, v_h,
-    g_h and the [N, N] weights and their gradient in shared memory (41 KB at
-    the train step's shape); every gradient element is written once.
+  * Design: one block per (batch element, head) with q_h, k_h, v_h, g_h and
+    the [N, N] weights and their gradient in shared memory; every gradient
+    element is written once. Where dh % 4 == 0, qkv, g and the output are
+    16-byte aligned and the layout fits (`self_bwd_tiled`, decided in the
+    library, which reports it and answers the query; `.tiled_launches`
+    counts those calls): the register-tiled kernel, training's path. q, k,
+    v and g by `cp.async`, 256 threads a block and four blocks a SM at the
+    train step's shape, K4's register-tiled products (a thread owns 4 x 4
+    tiles of the scores or dw, of dk and dv, of dq, read as float4 slices:
+    8 FMAs a shared-memory load where the first kernel fed each FMA from
+    scalar loads), 16-byte stores. Every FMA chain keeps the first
+    kernel's order and the softmax rows are the same code, so the two give
+    the same bits; the first kernel (256 threads, each element an FMA chain
+    over scalar loads) takes the rest.
 
 K2 `cross_attention(q, k, v, num_heads)` — the set-VAE's cross-attention:
 the decoder's 2048 points over 32 latents (6 launches per generation), and
@@ -289,12 +300,6 @@ def cross_lk_workspace(b: int, n: int, m: int, d: int, num_heads: int) -> int:
     return b * chunks * (2 * num_heads * n + n * d)
 
 
-def self_bwd_smem_bytes(n: int, dh: int) -> int:
-    """K3's shared memory: q and g [n, dh], k and v (stride dh+1), the [n, n]
-    weights and their gradient, f32."""
-    return 4 * (2 * n * dh + 2 * n * (dh + 1) + 2 * n * n)
-
-
 def cross_bwd_lq_smem_bytes(m: int, dh: int, rows: int) -> int:
     """K4's long-query schedule with `rows` query rows per block: k and v
     (stride dh+1), the rows' q and g, and their weights and ds, f32."""
@@ -332,6 +337,15 @@ def cross_bwd_tiled(n: int, m: int, dh: int, aligned: bool = True) -> bool:
     rows = cross_bwd_schedule(n, m, dh)
     return rows is not None and bool(
         _lib().ldt_cross_bwd_tiled(n, m, dh, rows, int(aligned)))
+
+
+def self_bwd_tiled(n: int, dh: int, aligned: bool = True) -> bool:
+    """Whether K3 at n tokens of head width dh, with qkv, g and the output
+    16-byte aligned or not, takes its register-tiled kernel, asked of the
+    library without a launch (`self_bwd_tiled` in csrc/rules.h: dh % 4 ==
+    0, aligned, and the tiled layout's shared memory within a block's). The
+    wrapper reports the same for its launch."""
+    return bool(_lib().ldt_self_bwd_tiled(n, dh, int(aligned)))
 
 
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
@@ -500,8 +514,12 @@ def _lib() -> ctypes.CDLL:
                                         p]
     lib.ldt_cross_attention.restype = i
     lib.ldt_packed_self_attention_bwd.argtypes = [p, p, p, i, i, i, i, f, i,
-                                                  p]
+                                                  p, ctypes.POINTER(i)]
     lib.ldt_packed_self_attention_bwd.restype = i
+    lib.ldt_self_bwd_tiled.argtypes = [i] * 3
+    lib.ldt_self_bwd_tiled.restype = i
+    lib.ldt_self_bwd_smem_bytes.argtypes = [i] * 3
+    lib.ldt_self_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.ldt_packed_self_attention_int8.argtypes = [p, p, p, i, i, i, i, i, f,
                                                    i, p, ctypes.POINTER(i)]
     lib.ldt_packed_self_attention_int8.restype = i
@@ -666,7 +684,8 @@ cross_attention.tiled_launches = 0
 def packed_self_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
                               num_heads: int) -> torch.Tensor:
     """K3: the packed [B, N, 3D] gradient of K1's qkv from the output's
-    gradient g [B, N, D]."""
+    gradient g [B, N, D]. The calls that took the register-tiled kernel, as
+    the library reports, are counted in `.tiled_launches` too."""
     name = "packed_self_attention_bwd"
     dh = _check_packed(name, qkv, num_heads)
     _check(name, (qkv, g))
@@ -675,24 +694,31 @@ def packed_self_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
     if tuple(g.shape) != (b, n, d):
         raise ValueError(f"{name}: g {tuple(g.shape)} is not the output "
                          f"shape {(b, n, d)}")
-    if self_bwd_smem_bytes(n, dh) > SMEM_LIMIT:
-        raise ValueError(f"{name}: N={n}, dh={dh} need "
-                         f"{self_bwd_smem_bytes(n, dh)} B of shared memory, "
-                         f"more than the {SMEM_LIMIT} B a block may use")
     if qkv.device.type == "cpu":
         return packed_self_attention_bwd_plain(qkv, g, num_heads)
+    smem = _lib().ldt_self_bwd_smem_bytes(n, dh, 0)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: N={n}, dh={dh} need {smem} B of shared "
+                         f"memory, more than the {SMEM_LIMIT} B a block may "
+                         "use")
     dqkv = torch.empty_like(qkv)
+    schedule = ctypes.c_int(0)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = _lib().ldt_packed_self_attention_bwd(
             qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), b, n, d,
-            num_heads, dh ** -0.5, _DTYPE_CODES[qkv.dtype], stream)
+            num_heads, dh ** -0.5, _DTYPE_CODES[qkv.dtype], stream,
+            ctypes.byref(schedule))
     _raise_on(err, name)
     packed_self_attention_bwd.launches += 1
+    packed_self_attention_bwd.tiled_launches += schedule.value
     return dqkv
 
 
 packed_self_attention_bwd.launches = 0
+# the launches (counted in `launches` too) that took the register-tiled
+# kernel, as the library reports what it launched
+packed_self_attention_bwd.tiled_launches = 0
 
 
 class PackedSelfAttention(torch.autograd.Function):

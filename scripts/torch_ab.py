@@ -8,7 +8,9 @@ checkouts in one machine. Paths (`--paths`, comma-separated):
            and the 1000-step run's seconds;
   stage2   the stage-2 train step (B=64, f32): ms/step, and one step under
            torch.profiler (device busy, K1's device time in it);
-  k3       K3 alone at the stage-2 step's shape (f32);
+  k3       K3 alone at the stage-2 step's shape (f32), on its register-tiled
+           kernel and, through an unaligned copy of qkv, on the scalar
+           kernel it replaced (`_pr3`; the two must give the same bits);
   k4       K4 alone at the stage-1 step's three shapes (f32), on its
            register-tiled kernels and, through unaligned copies of q, k, v
            and g, on the scalar kernels they replaced (`_pr4`; the two must
@@ -179,11 +181,18 @@ def reading(fn) -> dict:
 
 
 def run_k3(torch, gen) -> dict:
+    from chip_smoke import unaligned_copy
     from ldt_torch.ops import attention as ops
 
+    fn = ops.packed_self_attention_bwd
     qkv = torch.randn(BATCH, 32, 3072, device="cuda", generator=gen)
     g = torch.randn(BATCH, 32, 1024, device="cuda", generator=gen)
-    return {"k3": reading(lambda: ops.packed_self_attention_bwd(qkv, g, 16))}
+    off = unaligned_copy(qkv)
+    if not torch.equal(fn(qkv, g, 16), fn(off, g, 16)):
+        raise RuntimeError("torch_ab: K3: the tiled and the scalar kernels "
+                           "differ")
+    return {"k3": reading(lambda: fn(qkv, g, 16)),
+            "k3_pr3": reading(lambda: fn(off, g, 16))}
 
 
 def run_k4(torch, gen) -> dict:

@@ -9,7 +9,7 @@ the source on the card.
 `host_rules()` builds `csrc/rules.h`, the schedule rules that the CUDA
 sources launch by, with the same host compiler into a library that the
 CPU tests ask (`tests/test_torch_port_cd_split.py`,
-`tests/test_torch_port_bwd_tiles.py`)."""
+`tests/test_torch_port_bwd_tiles.py`, `tests/test_torch_port_k3_tiles.py`)."""
 
 import ctypes
 import functools
@@ -47,8 +47,9 @@ def _host_rules_path() -> str:
 
 def host_rules() -> ctypes.CDLL:
     """`csrc/rules.h` built by the host compiler: `ldt_cd_schedule`,
-    `ldt_cross_bwd_tiled` and `ldt_cross_bwd_tiled_smem_bytes`, the code the
-    CUDA libraries decide and export with."""
+    `ldt_cross_bwd_tiled`, `ldt_cross_bwd_tiled_smem_bytes`,
+    `ldt_self_bwd_tiled` and `ldt_self_bwd_smem_bytes`, the code the CUDA
+    libraries decide and export with."""
     lib = ctypes.CDLL(_host_rules_path())
     i = ctypes.c_int
     lib.ldt_cd_schedule.argtypes = [i] * 5
@@ -57,6 +58,10 @@ def host_rules() -> ctypes.CDLL:
     lib.ldt_cross_bwd_tiled.restype = i
     lib.ldt_cross_bwd_tiled_smem_bytes.argtypes = [i] * 4
     lib.ldt_cross_bwd_tiled_smem_bytes.restype = ctypes.c_size_t
+    lib.ldt_self_bwd_tiled.argtypes = [i] * 3
+    lib.ldt_self_bwd_tiled.restype = i
+    lib.ldt_self_bwd_smem_bytes.argtypes = [i] * 3
+    lib.ldt_self_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -80,3 +85,4 @@ def test_the_rules_header_builds_alone_and_exports_its_rules():
     lib = host_rules()
     assert lib.ldt_cd_schedule(64, 2048, 2048, 1, 132) == 2
     assert lib.ldt_cross_bwd_tiled(32, 32, 32, 32, 1) == 1
+    assert lib.ldt_self_bwd_tiled(32, 64, 1) == 1

@@ -51,15 +51,23 @@ def _assert_within(got, want, tol, scale=1.0):
     assert diff.mean().item() <= tol[1] * scale, diff.mean().item()
 
 
-def _launched(fn) -> str:
+def _launched(fn, calls: int = 10) -> str:
     """The names of the CUDA kernels that `fn` launches, from
-    torch.profiler."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return " ".join(e.key for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    torch.profiler over `calls` calls. A session that records no kernel at
+    all (the profiler has dropped a whole session's records in a long
+    process, as chip_smoke.launch_us also finds) is taken again, twice at
+    most."""
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = " ".join(e.key for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        if names:
+            break
+    return names
 
 
 @pytest.fixture
@@ -199,11 +207,12 @@ def test_cross_attention_kernel(card, b, n, m, d, h, dtype):
 
 
 @pytest.mark.parametrize("entry", ["ldt_packed_self_attention",
-                                   "ldt_packed_self_attention_int8"])
+                                   "ldt_packed_self_attention_int8",
+                                   "ldt_packed_self_attention_bwd"])
 def test_a_refused_launch_raises(card, entry):
     """The C entry points return the CUDA error; the wrapper's check turns
-    it into an exception (here: an unknown dtype code). K1 and K8 report no
-    schedule for a launch they refused."""
+    it into an exception (here: an unknown dtype code). K1, K8 and K3
+    report no schedule for a launch they refused."""
     qkv = _randn(card, 4, 4, 24, dtype=torch.float32)
     out = torch.empty(4, 4, 8, device="cuda")
     scratch = torch.empty(ops.int8_scratch(4, 4, 4), device="cuda")
@@ -213,10 +222,15 @@ def test_a_refused_launch_raises(card, entry):
         err = ops._lib().ldt_packed_self_attention(
             qkv.data_ptr(), out.data_ptr(), 4, 4, 8, 2, 0.5, 7, stream,
             ctypes.byref(schedule))
-    else:
+    elif entry == "ldt_packed_self_attention_int8":
         err = ops._lib().ldt_packed_self_attention_int8(
             qkv.data_ptr(), scratch.data_ptr(), out.data_ptr(), 4, 4, 8, 2,
             4, 0.5, 7, stream, ctypes.byref(schedule))
+    else:
+        dqkv = torch.empty_like(qkv)
+        err = ops._lib().ldt_packed_self_attention_bwd(
+            qkv.data_ptr(), out.data_ptr(), dqkv.data_ptr(), 4, 4, 8, 2, 0.5,
+            7, stream, ctypes.byref(schedule))
     assert err != 0 and schedule.value == 0  # no launch, no schedule
     with pytest.raises(RuntimeError, match="CUDA error"):
         ops._raise_on(err, entry)
@@ -382,20 +396,60 @@ def test_small_int8_generate_through_k8(card):
     assert got.shape == (4, 2048, 3) and torch.isfinite(got.float()).all()
 
 
+def _k3_counts():
+    fn = ops.packed_self_attention_bwd
+    return fn.launches, fn.tiled_launches
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,h,dh", [(8, 32, 16, 64),   # the DiT's shape
                                       (3, 17, 3, 24),    # ragged sizes
-                                      (2, 64, 2, 96)])   # > 48 KB smem
+                                      (2, 64, 2, 96),    # > 48 KB smem
+                                      (2, 20, 3, 10)])   # dh = 10
 def test_packed_self_attention_bwd_kernel(card, b, n, h, dh, dtype):
+    """K3 against its twin under K3_TOL, repeating its bits; the counts
+    follow the tiled rule (dh = 10 takes the scalar kernel)."""
     qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
     g = _randn(card, b, n, h * dh, dtype=dtype)
-    before = ops.packed_self_attention_bwd.launches
+    before = _k3_counts()
     got = ops.packed_self_attention_bwd(qkv, g, h)
     torch.cuda.synchronize()
-    assert ops.packed_self_attention_bwd.launches == before + 1
+    tiled = ops.self_bwd_tiled(n, dh)
+    assert tiled == (dh % 4 == 0)
+    assert _k3_counts() == (before[0] + 1, before[1] + tiled)
     want = ops.packed_self_attention_bwd_plain(qkv, g, h)
     assert got.dtype == dtype and got.shape == qkv.shape
     _assert_within(got, want, K3_TOL[dtype], want.float().abs().max().item())
+    assert torch.equal(got, ops.packed_self_attention_bwd(qkv, g, h))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,h,dh", [(64, 32, 16, 64),  # the train step's
+                                      (8, 30, 16, 64),   # ragged N
+                                      (3, 17, 3, 24)])   # ragged sizes
+def test_k3_tiled_kernel_gives_the_scalar_kernels_bits(card, b, n, h, dh,
+                                                       dtype):
+    """An unaligned copy of qkv takes the scalar kernel (the tiled rule
+    refuses it), which must give the register-tiled kernel's bits; the
+    library reports each schedule, and the profiler sees the one it names
+    run."""
+    qkv = _randn(card, b, n, 3 * h * dh, dtype=dtype)
+    g = _randn(card, b, n, h * dh, dtype=dtype)
+    fn = ops.packed_self_attention_bwd
+    assert ops.self_bwd_tiled(n, dh)
+    assert not ops.self_bwd_tiled(n, dh, aligned=False)
+    before = _k3_counts()
+    tiled = fn(qkv, g, h)
+    off = _unaligned(qkv)
+    old = fn(off, g, h)
+    torch.cuda.synchronize()
+    assert _k3_counts() == (before[0] + 2, before[1] + 1)
+    assert torch.equal(tiled, old)
+    assert "packed_self_attention_bwd_tiled_kernel" in _launched(
+        lambda: fn(qkv, g, h))
+    names = _launched(lambda: fn(off, g, h))
+    assert "packed_self_attention_bwd_kernel" in names
+    assert "tiled" not in names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -492,13 +546,12 @@ def test_packed_self_attention_function_on_the_card(card):
     qkv = _randn(card, 4, 32, 3 * 256, dtype=torch.float32)
     g = _randn(card, 4, 32, 256, dtype=torch.float32)
     x = qkv.clone().requires_grad_(True)
-    k1, k3 = (ops.packed_self_attention.launches,
-              ops.packed_self_attention_bwd.launches)
+    k1, k3 = ops.packed_self_attention.launches, _k3_counts()
     out = ops.PackedSelfAttention.apply(x, h)
     out.backward(g)
     torch.cuda.synchronize()
-    assert (ops.packed_self_attention.launches - k1,
-            ops.packed_self_attention_bwd.launches - k3) == (1, 1)
+    assert ops.packed_self_attention.launches - k1 == 1
+    assert _k3_counts() == (k3[0] + 1, k3[1] + 1)  # the tiled kernel
     _assert_within(out.detach(), ops.packed_self_attention_plain(qkv, h),
                    TOL[torch.float32])
     want = ops.packed_self_attention_bwd_plain(qkv, g, h)
@@ -522,15 +575,18 @@ def test_small_train_step_through_the_kernels(card):
     data = {"tr_points": _randn(card, 4, 256, 3, dtype=torch.float32)}
     counts = (ops.packed_self_attention.launches,
               ops.packed_self_attention_bwd.launches,
-              ops.cross_attention.launches)
+              ops.cross_attention.launches,
+              ops.packed_self_attention_bwd.tiled_launches)
     losses = torch.stack([trainer.update(data) for _ in range(2)])
     torch.cuda.synchronize()
     assert torch.isfinite(losses).all()
-    # per step: 2 blocks of K1 and K3; K2: 2 encoder blocks, 2 posteriors,
-    # 2 decoder blocks
+    # per step: 2 blocks of K1 and K3 (K3 all register-tiled); K2: 2
+    # encoder blocks, 2 posteriors, 2 decoder blocks
     assert (ops.packed_self_attention.launches - counts[0],
             ops.packed_self_attention_bwd.launches - counts[1],
-            ops.cross_attention.launches - counts[2]) == (4, 4, 12)
+            ops.cross_attention.launches - counts[2],
+            ops.packed_self_attention_bwd.tiled_launches - counts[3]) == (
+                4, 4, 12, 4)
     clouds, _ = trainer.sample(2, 256)
     assert clouds.shape == (2, 256, 3) and torch.isfinite(clouds).all()
 
