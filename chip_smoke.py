@@ -117,6 +117,23 @@ Evaluation (`ldt_torch.eval.metrics`, the trainers' `valsample` and
      `compute_all_metrics` (and against a card run with wrong kernels), the
      metric dicts on sets with margin, and the JSD.
 
+The training entries (`ldt_torch.entries`), from config files:
+ 21. (last) Config files copied from experiments/Compressor_Trainer/airplane
+     and experiments/Latent_Diffusion_Trainer/airplane (the models at full
+     width and depth; the epochs, the save / eval / log cadences, the data
+     and the stage-2 eval's sample_N cut, each cut printed) and a synthetic
+     PC15k tree of 64 train and 16 val clouds: `train_compressor` for 2
+     epochs (B=16, a save each, one reconstruction eval),
+     `train_latent_diffusion` through `load_pretrain` from stage 1's `.pt`
+     for 2 epochs (B=64, one save of f32 params and EMA and bf16 moments,
+     one `valsample`), a `--resume True` leg that trains epoch 3, and
+     `val_sample` on the saved samples. The restored tensors must equal the
+     state at the save (the moments their bf16 rounding) with the counters
+     continuing, training.csv must gain the leg's row, every loss and
+     metric must be finite and K1-K6 must have run; prints seconds per
+     epoch and the checkpoint's save and load seconds and GB. The tree and
+     the checkpoints are deleted at the end, pass or fail.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -2671,6 +2688,370 @@ def phase_eval_reference() -> None:
         fail("phase 20: the JSD differs between the card and the CPU")
 
 
+# Phase 21: the training entries. The configs' cuts (the models keep their
+# published width and depth; the data, the epochs and the cadences shrink
+# so that both stages, a save, a resume and the evaluations run in about a
+# minute).
+ENTRY_TRAIN, ENTRY_VAL = 64, 16   # synthetic PC15k clouds of 15000 points
+ENTRY_CUTS = {
+    "Compressor_Trainer": {"common.epochs": 2, "log.save_epoch_freq": 1,
+                           "log.eval_epoch_freq": 2,
+                           "log.log_epoch_freq": 1},
+    "Latent_Diffusion_Trainer": {"common.epochs": 2,
+                                 "log.save_epoch_freq": 2,
+                                 "log.eval_epoch_freq": 2,
+                                 "log.log_epoch_freq": 1,
+                                 "sde.sample_N": CHECK_STEPS},
+}
+
+
+def copied_config(src: str, dst: str, edits: dict, tag: str) -> None:
+    """Copy the YAML file `src` to `dst` with `edits` {"section.key":
+    value} replaced on their lines; print each change."""
+    import os
+    import re
+
+    from ldt_torch.tools.io import load_yaml
+
+    old = load_yaml(src)
+    lines = open(src).read().splitlines()
+    section, done = None, set()
+    for i, line in enumerate(lines):
+        top = re.match(r"(\w+):\s*$", line)
+        if top:
+            section = top.group(1)
+        key = re.match(r"  (\w+):", line)
+        name = f"{section}.{key.group(1)}" if key else None
+        if name in edits:
+            value = edits[name]
+            text = f"'{value}'" if isinstance(value, str) else str(value)
+            lines[i] = f"  {key.group(1)}: {text}"
+            done.add(name)
+            print(f"[21] {tag}: {name} {old[section][key.group(1)]!r} -> "
+                  f"{value!r}")
+    if done != set(edits):
+        fail(f"phase 21: {src} has no {sorted(set(edits) - done)}")
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    with open(dst, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def csv_rows(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def finite_rows(path: str, what: str) -> list:
+    """The rows of a CSV log; fails unless every value but the epoch and
+    itr columns is a finite number."""
+    import math
+
+    rows = csv_rows(path)
+    for row in rows:
+        for k, v in row.items():
+            if k not in ("epoch", "itr") and not math.isfinite(float(v)):
+                fail(f"phase 21: {what} {k} = {v} in {row}")
+    return rows
+
+
+def host_state(tree, moments_bf16: bool = False, path=()):
+    """A CPU copy of a trainer's state tree (the moments rounded to bf16
+    where the save stores them so)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: host_state(v, moments_bf16, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        moment = moments_bf16 and ("mu" in path or "nu" in path)
+        return tree.detach().to("cpu", torch.bfloat16 if moment
+                                else tree.dtype, copy=True)
+    return tree
+
+
+def differing(live, saved, path="") -> list:
+    """The leaves of the live state tree that are not equal to the saved
+    copy (a bf16 moment: to its value cast back to f32)."""
+    import torch
+
+    if isinstance(saved, dict):
+        if not isinstance(live, dict) or set(live) != set(saved):
+            return [path or "/"]
+        return [p for k in saved
+                for p in differing(live[k], saved[k], f"{path}/{k}")]
+    if isinstance(saved, torch.Tensor):
+        got = live.detach().cpu()
+        if not torch.equal(got, saved.to(got.dtype)):
+            return [path]
+        return []
+    return [] if live == saved else [path]
+
+
+def phase_entries() -> None:
+    """Phase 21: the entries a user runs, on the card, from config files
+    copied from `experiments/` (full width and depth, cuts printed) and a
+    synthetic PC15k tree: stage 1 (`train_compressor`, 2 epochs, a save
+    each, one reconstruction eval), stage 2 (`train_latent_diffusion`)
+    through `load_pretrain` from stage 1's `.pt` for 2 epochs with one
+    save and one `valsample`, a `--resume` leg that trains epoch 3, and
+    `val_sample` on the saved samples. Every restored tensor must equal the
+    state at its save, the counters must continue, every loss and metric
+    must be finite, and K1-K6 must have run; prints each stage's seconds per
+    epoch and the stage-2 checkpoint's save and load seconds and size."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.cli import get_config, get_parser
+    from ldt_torch.entries import train_compressor as entry1
+    from ldt_torch.entries import train_latent_diffusion as entry2
+    from ldt_torch.entries import val_sample
+    from ldt_torch.training import checkpoint as ckpt
+    from ldt_torch.training.compressor_trainer import Trainer as Stage1
+    from ldt_torch.training.latent_sde_trainer import Trainer as Stage2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ldt_phase21_")
+    cwd = os.getcwd()
+    try:
+        data_dir = os.path.join(tmp, "PC15k")
+        clouds = synthetic_shapes(ENTRY_TRAIN + ENTRY_VAL, 15000,
+                                  np.random.default_rng(SEED + 21))
+        for split, part in (("train", clouds[:ENTRY_TRAIN]),
+                            ("val", clouds[ENTRY_TRAIN:])):
+            d = os.path.join(data_dir, "02691156", split)
+            os.makedirs(d)
+            for i, cloud in enumerate(part):
+                np.save(os.path.join(d, f"m{i:03d}.npy"), cloud)
+        print(f"[21] data: {ENTRY_TRAIN} train and {ENTRY_VAL} val clouds of "
+              f"15000 points ({tmp}; the airplane split of ShapeNetCore.v2."
+              f"PC15k holds thousands)")
+        ws = os.path.join(tmp, "experiments")
+        paths = {}
+        for kind, cuts in ENTRY_CUTS.items():
+            paths[kind] = os.path.join(ws, kind, "airplane")
+            edits = dict(cuts, **{"data.data_dir": data_dir,
+                                  "log.save_path": paths[kind]})
+            if kind == "Latent_Diffusion_Trainer":
+                edits["compressor.pretrain_path"] = os.path.join(
+                    paths["Compressor_Trainer"], "checkpt_2.pt")
+            copied_config(os.path.join(root, "experiments", kind, "airplane",
+                                       "config.yaml"),
+                          os.path.join(paths[kind], "config.yaml"), edits,
+                          kind)
+
+        saved, timing, seen = {}, {"epochs": {}}, {}
+
+        def wrap(cls, name, after):
+            real = getattr(cls, name)
+
+            def run(self, *a, **kw):
+                t0 = time.perf_counter()
+                out = real(self, *a, **kw)
+                torch.cuda.synchronize()
+                after(self, time.perf_counter() - t0)
+                return out
+            return mock.patch.object(cls, name, run)
+
+        def stage(self):
+            return 1 if isinstance(self, Stage1) else 2
+
+        def counters(self):
+            return (self.epoch, self.itr, self._itr_epoch_start,
+                    self.state.step)
+
+        def before_save(self):
+            if stage(self) == 2:
+                need = sum(ckpt.tree_nbytes(t) for t in (
+                    self.state.params, self.state.ema_params,
+                    self.compressor.state_dict())) + sum(
+                    ckpt.tree_nbytes(t) // 2 for t in (
+                        self.state.opt_state.mu, self.state.opt_state.nu))
+                free = shutil.disk_usage(tmp).free
+                print(f"[21] before the stage-2 save: {free / 1e9:.2f} GB "
+                      f"free under {tmp}, the checkpoint needs "
+                      f"{need / 1e9:.2f} GB")
+                if free < need * 1.05:
+                    fail(f"phase 21: {free / 1e9:.2f} GB free under {tmp} "
+                         f"cannot hold the {need / 1e9:.2f} GB checkpoint")
+
+        def after_save(self, dt):
+            s = stage(self)
+            saved[s] = (host_state(self.state_tree(), s == 2),
+                        counters(self))
+            timing[f"save{s}"] = dt
+
+        real_save = {1: Stage1.save, 2: Stage2.save}
+
+        def save(self):
+            before_save(self)
+            t0 = time.perf_counter()
+            real_save[stage(self)](self)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if stage(self) == 2:  # the write, on its thread: waited here
+                t0 = time.perf_counter()
+                ckpt.wait_pending_saves()
+                timing["write"] = time.perf_counter() - t0
+            after_save(self, dt)
+
+        def after_resume(self, dt):
+            timing["load"] = dt
+            tree, (epoch, itr, _, step) = saved[2]
+            bad = differing(self.state_tree(), tree)
+            want = (epoch + 1, itr, itr, step)
+            print(f"[21] resume: {dt:.3f} s; counters (epoch, itr, "
+                  f"itr at the epoch's start, step) {counters(self)} "
+                  f"(saved at {(epoch, itr, step)}); restored tensors "
+                  f"that differ from the state at the save: {len(bad)}")
+            if bad or counters(self) != want:
+                fail(f"phase 21: the resumed state differs from the saved "
+                     f"one: {bad[:5]}, counters {counters(self)} != {want}")
+            seen["resumed"] = True
+
+        def after_pretrain(self, dt):
+            tree = saved[1][0]["state"]
+            want = {**tree["params"], **tree["batch_stats"]}
+            bad = differing(dict(self.compressor.state_dict()), want)
+            print(f"[21] load_pretrain from stage 1's checkpt_2.pt: "
+                  f"{dt:.3f} s; Compressor tensors that differ from stage "
+                  f"1's at its save: {len(bad)}")
+            if bad:
+                fail(f"phase 21: load_pretrain gave other weights: {bad[:5]}")
+            seen["pretrained"] = True
+
+        def update_start(self):
+            if self.itr == self._itr_epoch_start:
+                torch.cuda.synchronize()
+                timing["epochs"][(stage(self), self.epoch)] = [
+                    time.perf_counter()]
+
+        def epoch_end_time(self):
+            torch.cuda.synchronize()
+            timing["epochs"][(stage(self), self.epoch)].append(
+                time.perf_counter())
+
+        def hooked(cls):
+            real_update, real_end = cls.update, cls.epoch_end
+
+            def update(self, *a, **kw):
+                update_start(self)
+                return real_update(self, *a, **kw)
+
+            def epoch_end(self):
+                epoch_end_time(self)
+                return real_end(self)
+            return (mock.patch.object(cls, "update", update),
+                    mock.patch.object(cls, "epoch_end", epoch_end))
+
+        def args(kind, *extra):
+            a = get_parser(kind).parse_args(["--save", ws, *extra])
+            return a, get_config(a)
+
+        def run_all():
+            a, cfg = args("Compressor_Trainer")
+            entry1.main(a, cfg)
+            rows = {"stage1": csv_rows(os.path.join(
+                paths["Compressor_Trainer"], "training.csv"))}
+            a, cfg = args("Latent_Diffusion_Trainer")
+            trainer = entry2.main(a, cfg)
+            epochs = trainer.epoch
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            train_csv = os.path.join(paths["Latent_Diffusion_Trainer"],
+                                     "training.csv")
+            rows["stage2"] = csv_rows(train_csv)
+            copied_config(os.path.join(paths["Latent_Diffusion_Trainer"],
+                                       "config.yaml"),
+                          os.path.join(paths["Latent_Diffusion_Trainer"],
+                                       "config.yaml"),
+                          {"common.epochs": 3}, "resume leg")
+            a, cfg = args("Latent_Diffusion_Trainer", "--resume", "True")
+            trainer = entry2.main(a, cfg)
+            if (epochs, trainer.epoch) != (3, 4):
+                fail(f"phase 21: stage 2 ended at epochs {epochs} and "
+                     f"{trainer.epoch}, not 3 and 4")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows["resumed"] = csv_rows(train_csv)
+            # val_sample reads test/<sample_path>/<dataset>/<sample> and
+            # test/val_config.yaml under the working directory
+            vs = os.path.join(tmp, "val_sample")
+            os.makedirs(os.path.join(vs, "test", "smp", "airplane"))
+            shutil.copy(os.path.join(paths["Latent_Diffusion_Trainer"],
+                                     "smp_ep3.npy"),
+                        os.path.join(vs, "test", "smp", "airplane"))
+            copied_config(os.path.join(root, "test", "val_config.yaml"),
+                          os.path.join(vs, "test", "val_config.yaml"),
+                          {"data.data_dir": data_dir}, "val_sample")
+            os.chdir(vs)
+            res = val_sample.main(val_sample.get_parser().parse_args(
+                ["--sample", "smp_ep3.npy", "--dataset", "airplane"]),
+                val_sample.get_config())
+            return rows, res
+
+        with contextlib.ExitStack() as stack:
+            for cls in (Stage1, Stage2):
+                stack.enter_context(mock.patch.object(cls, "save", save))
+                for p in hooked(cls):
+                    stack.enter_context(p)
+            stack.enter_context(wrap(Stage2, "resume", after_resume))
+            stack.enter_context(wrap(Stage2, "load_pretrain",
+                                     after_pretrain))
+            (rows, res), dt, launches = counted(run_all)
+        os.chdir(cwd)
+        if not (seen.get("resumed") and seen.get("pretrained")):
+            fail(f"phase 21: a restore was not checked: {seen}")
+        for s, what in ((1, "stage 1 (B=16, 2048 points)"),
+                        (2, "stage 2 (B=64)")):
+            secs = [round(t[1] - t[0], 3) for (st, _), t in
+                    sorted(timing["epochs"].items()) if st == s]
+            print(f"[21] {what} seconds per epoch: {secs} "
+                  f"({smi_name_and_power()})")
+        size = os.path.getsize(os.path.join(paths["Latent_Diffusion_Trainer"],
+                                            "checkpt_2.pt"))
+        print(f"[21] stage-2 checkpoint: {size / 1e9:.3f} GB (f32 params "
+              f"and EMA, bf16 moments); save {timing['save2']:.3f} s on the "
+              f"step path (the copy to the host) + {timing['write']:.3f} s "
+              f"of write on its thread (waited for at once here), load "
+              f"(resume) {timing['load']:.3f} s; stage-1 checkpoint save "
+              f"{timing['save1']:.3f} s ({smi_name_and_power()})")
+        if len(rows["resumed"]) != len(rows["stage2"]) + 1:
+            fail(f"phase 21: training.csv went from {len(rows['stage2'])} "
+                 f"to {len(rows['resumed'])} rows over the resume leg")
+        for kind in ENTRY_CUTS:
+            for name in ("training.csv", "eval.csv", "test.csv"):
+                finite_rows(os.path.join(paths[kind], name),
+                            f"{kind} {name}")
+        if not all(np.isfinite(v) for v in res.values()):
+            fail(f"phase 21: val_sample gave {res}")
+        print(f"[21] training.csv rows: stage 1 {len(rows['stage1'])}, "
+              f"stage 2 {len(rows['stage2'])} then {len(rows['resumed'])}; "
+              f"val_sample: {res}")
+        k6 = launches["approx_match_cost"] - launches["approx_match_cost_otf"]
+        ran = {"K1": launches["packed_self_attention"],
+               "K2": launches["cross_attention"],
+               "K3": launches["packed_self_attention_bwd"],
+               "K4": launches["cross_attention_bwd"],
+               "K5": launches["pairwise_cd_means"], "K6": k6}
+        print(f"[21] the entries' run: {dt:.2f} s, launches {ran}")
+        if not all(ran.values()):
+            fail(f"phase 21: a kernel of the path did not run: {ran}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2713,6 +3094,7 @@ def main() -> int:
     phase_stage1_reference()
     phase_eval_reference()
     phase_reference(CHECK_STEPS)
+    phase_entries()
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the

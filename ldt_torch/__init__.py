@@ -3,8 +3,8 @@
 A port of `ldt_tpu` (JAX/flax/Pallas), which stays the reference. The module
 layout and names follow `ldt_tpu` so each part has an obvious counterpart:
 
-  * `configs`                 <- ldt_tpu/configs.py (+ tools/io.py dict2namespace,
-                                 the stage-1 and stage-2 config.yaml's values)
+  * `configs`                 <- ldt_tpu/configs.py (the stage-1 and stage-2
+                                 config.yaml's values)
   * `ops.attention`           <- ldt_tpu/ops/pallas_attention.py (CUDA kernels
                                  in `csrc/attention.cu`, built by `ops._build`)
   * `ops.geometry`            <- ldt_tpu/ops/geometry.py (FPS, kNN, grouping)
@@ -24,7 +24,16 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
   * `training`                <- ldt_tpu/training/ (state, base; stage 1:
                                  compressor_trainer; stage 2:
                                  latent_sde_trainer; both with their
-                                 `valsample`, stage 1 `reconstruction`)
+                                 `valsample`, stage 1 `reconstruction`;
+                                 checkpoint: `checkpt_{epoch}.pt`, and
+                                 jax_checkpoint: the JAX package's
+                                 `.msgpack` files, both ways)
+  * `tools`, `data`, `cli`    <- ldt_tpu/tools/{io,log,utils}.py (with a
+                                 YAML reader), ldt_tpu/data/ (PC15k
+                                 ShapeNet), ldt_tpu/cli.py
+  * `entries`                 <- train_Compressor.py,
+                                 train_Latent_Diffusion.py, val_sample.py
+                                 (`python -m ldt_torch.entries.<name>`)
   * `weights`                 flax variable trees -> torch state_dicts
   * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate,
                                  bf16 or int8 serving)

@@ -6,25 +6,13 @@ set-VAE whose decoder turns those latents into 2048-point clouds; `opt_cfg()`
 the stage-2 optimizer and `latent_trainer_cfg()` the whole stage-2 config,
 the values of `experiments/Latent_Diffusion_Trainer/airplane/config.yaml`;
 `compressor_trainer_cfg()` the stage-1 config, the values of
-`experiments/Compressor_Trainer/airplane/config.yaml` (there is no YAML
-loader: the card's machine has no PyYAML).
+`experiments/Compressor_Trainer/airplane/config.yaml` (the entries read
+those files with `ldt_torch.tools.io.load_yaml`).
 """
 
 from __future__ import annotations
 
-from types import SimpleNamespace
-
-
-def dict2namespace(config):
-    """Recursively convert a dict into attribute-style namespaces
-    (counterpart of `ldt_tpu/tools/io.py::dict2namespace`, whose nodes hash
-    by identity for flax; nothing here hashes a config)."""
-    namespace = SimpleNamespace()
-    for key, value in config.items():
-        if isinstance(value, dict):
-            value = dict2namespace(value)
-        setattr(namespace, key, value)
-    return namespace
+from ldt_torch.tools.io import dict2namespace  # noqa: F401 (re-export)
 
 
 def compressor_cfg(**over):

@@ -1,16 +1,25 @@
-"""Base trainer: the epoch and iteration counters, the learning rate and
-the validation scoring, counterpart of `ldt_tpu/training/base.py` (no mesh,
-no CSV logger and no wall-time counter; `epoch_end` does not save yet:
-checkpoints are later work). A subclass sets `self.device`."""
+"""Base trainer: the epoch and iteration counters, the learning rate, the
+wall-time counter, the CSV logging, the checkpoint cadence and the
+validation scoring, counterpart of `ldt_tpu/training/base.py` (no mesh).
+
+A trainer whose config's `log:` section names the CSV columns (the
+experiments' config.yaml files) writes the logs of `tools.log.logger` under
+`log.save_path`, and one whose section sets `save_epoch_freq` saves
+(`self.save()`) at the end of every such epoch; the in-memory configs of
+`ldt_torch.configs` have no `log:` section and do neither. A subclass sets
+`self.device` and implements `save`."""
 
 from __future__ import annotations
 
+import logging
 import os
+import time
 
 import numpy as np
 import torch
 
 from ldt_torch.eval.metrics import compute_all_metrics
+from ldt_torch.tools.log import logger
 from ldt_torch.training.state import make_lr_fn
 
 
@@ -24,14 +33,25 @@ def to_numpy(a) -> np.ndarray:
 class BaseTrainer:
     def __init__(self, cfg):
         self.cfg = cfg
+        log = getattr(cfg, "log", None)
+        self.logger = logger(cfg) if hasattr(log, "traincolumns") else None
         self.itr = 0
         self.epoch = 1
         # global itr at the current epoch's first update: the gate of the
         # cosine schedule (make_lr_fn)
         self._itr_epoch_start = 0
-        self.base_lr = cfg.opt.lr
+        self.time = 0.0  # training seconds, carried across resumes
+        self.tmp = time.time()
+        self.base_lr = cfg.opt.lr  # the divergence watchdog halves it
         self._lr_fn = None
         self._lr_fn_base = None
+
+    def updata_time(self):
+        """(sic, the JAX package's name) Add the seconds since the last
+        call to `self.time`."""
+        now = time.time()
+        self.time += now - self.tmp
+        self.tmp = now
 
     def current_lr(self) -> float:
         """Warm-up, then the epoch-gated cosine (`make_lr_fn`); the closure
@@ -43,8 +63,42 @@ class BaseTrainer:
         return self._lr_fn(self.itr, self.epoch, self._itr_epoch_start)
 
     def epoch_end(self):
+        freq = getattr(getattr(self.cfg, "log", None), "save_epoch_freq",
+                       None)
+        if freq and self.epoch % freq == 0:
+            self.save()
         self.epoch += 1
         self._itr_epoch_start = self.itr
+
+    def save(self):
+        raise NotImplementedError
+
+    def write_log(self, message, mode="train"):
+        self.logger.write(message, mode)
+
+    def write_eval(self, epoch, all_res):
+        """Append an eval.csv row: the configured `evalcolumns` matched by
+        name against the metric dict (the key 'val/gen/mmd-CD' fills the
+        column 'mmd-CD'); where the names do not cover the columns, the
+        values in the dict's order after the epoch, with a note in the
+        log."""
+        by_name = {k.rsplit("/", 1)[-1]: v for k, v in all_res.items()}
+        cols = self.logger.evalcolumns
+        if all(c == "epoch" or c in by_name for c in cols):
+            row = [epoch if c == "epoch" else by_name[c] for c in cols]
+        else:
+            missing = [c for c in cols if c != "epoch" and c not in by_name]
+            self.info(f"write_eval: evalcolumns {missing} not in metric "
+                      f"names {sorted(by_name)}: writing the values by "
+                      "position")
+            row = [epoch] + list(all_res.values())
+        self.write_log(row, mode="eval")
+
+    def info(self, message):
+        if self.logger is not None:
+            self.logger.info(message)
+        else:
+            logging.getLogger("ldt_torch").info(message)
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (a no-op on the CPU)."""

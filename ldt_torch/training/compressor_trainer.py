@@ -14,9 +14,11 @@ One `update(batch)`:
      BatchNorms' running statistics take the forward's update.
 `valsample` (decode the prior) and `reconstruction` (encode-decode the
 test split, denormalized) score with `eval.metrics.compute_all_metrics`
-(K5 and K6 on the card). `save` and `resume` need checkpoints, a later
-slice of the port; they raise, as do `valsample(vis=True)` (the renderer is
-not ported) and a class-conditional reconstruction.
+(K5 and K6 on the card). `save` writes `checkpt_<epoch>.pt` under
+`cfg.log.save_path` ({"state": the TrainState's tree}, `training.checkpoint`)
+and `resume` restores one, or the JAX package's `.msgpack`, into the live
+parameters. `valsample(vis=True)` (the renderer is not ported) and a
+class-conditional reconstruction raise.
 """
 
 from __future__ import annotations
@@ -31,6 +33,14 @@ from ldt_torch import resolve_device
 from ldt_torch.eval.loss import CD_loss, EMD_loss
 from ldt_torch.models import Compressor
 from ldt_torch.training.base import BaseTrainer, to_numpy
+from ldt_torch.training.checkpoint import (
+    checkpoint_file,
+    checkpoint_path,
+    load_checkpoint,
+    resolve_checkpoint_epoch,
+    restore_into,
+    save_checkpoint,
+)
 from ldt_torch.training.state import TrainState, apply_update, make_optimizer
 
 
@@ -203,8 +213,42 @@ class Trainer(BaseTrainer):
     # the reference's public (misspelled) method name
     reconstrustion = reconstruction
 
-    def save(self, *args, **kwargs):
-        _not_ported("save", "checkpoints are a later slice")
+    def _need_state(self, what: str) -> None:
+        if self.state is None:
+            raise RuntimeError(f"Trainer.{what} needs the model: call "
+                               "maybe_init(first_batch) first")
 
-    def resume(self, *args, **kwargs):
-        _not_ported("resume", "checkpoints are a later slice")
+    def state_tree(self) -> dict:
+        """The checkpoint's state: {"state": the TrainState's tree}."""
+        self._need_state("save")
+        return {"state": self.state.to_tree()}
+
+    def save(self):
+        """Save `checkpt_<epoch>.pt` under `cfg.log.save_path`."""
+        tree = self.state_tree()
+        save_checkpoint(checkpoint_path(self.cfg.log.save_path, self.epoch),
+                        tree, cfg=self.cfg, epoch=self.epoch, itr=self.itr,
+                        time=self.time)
+
+    def resume(self, epoch: Optional[int] = None, finetune: bool = False,
+               strict: bool = False, load_optim: bool = True) -> None:
+        """Restore the checkpoint of `epoch` (default: the last one,
+        `resolve_checkpoint_epoch`) into the live tensors. Unless
+        `finetune`, the counters continue from it: epoch + 1, its itr and
+        time, and the cosine's gate at its itr. `load_optim=False` (without
+        `finetune`) keeps the current optimizer state."""
+        self._need_state("resume")
+        save_path = self.cfg.log.save_path
+        epoch = resolve_checkpoint_epoch(save_path, epoch)
+        ckpt = load_checkpoint(checkpoint_file(save_path, epoch))
+        restored = restore_into(self.state_tree(), ckpt["state"],
+                                strict=strict)
+        self.state.load_tree(restored["state"],
+                             load_optim=load_optim or finetune)
+        if not finetune:
+            self.epoch = ckpt["epoch"] + 1
+            self.itr = ckpt["itr"]
+            self.time = ckpt["time"]
+            # a resume lands on an epoch boundary: the resumed itr starts
+            # the epoch (the cosine is engaged past the warm-up)
+            self._itr_epoch_start = self.itr

@@ -21,6 +21,14 @@ batch per test batch with the EMA params and scores it with
 `eval.metrics.compute_all_metrics` (K5 and K6 on the card); its
 several-category branch needs class conditioning, a later slice, and
 raises, as does `vis=True` (the renderer is not ported).
+
+`save` writes `checkpt_<epoch>.pt` under `cfg.log.save_path` with both
+nets' states, {"score": the TrainState's tree, "compressor": the frozen
+Compressor's state_dict}, the Adam moments rounded to bf16 (as the JAX
+trainer saves them) and the file written on a thread; `resume` restores
+one, or the JAX package's `.msgpack`, into the live tensors;
+`load_pretrain` takes the frozen Compressor from a stage-1 checkpoint of
+either package (`cfg.compressor.pretrain_path`).
 """
 
 from __future__ import annotations
@@ -38,6 +46,14 @@ from ldt_torch.diffusion.sampling import timesteps as schedule
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
 from ldt_torch.training.base import BaseTrainer, to_numpy
+from ldt_torch.training.checkpoint import (
+    checkpoint_file,
+    checkpoint_path,
+    load_checkpoint,
+    resolve_checkpoint_epoch,
+    restore_into,
+    save_checkpoint,
+)
 from ldt_torch.training.state import TrainState, apply_update, make_optimizer
 
 
@@ -243,3 +259,63 @@ class Trainer(BaseTrainer):
         print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
         self.save_npy(f"smp_ep{self.epoch}.npy", smp)
         return self.eval_metrics(smp, ref, 64)
+
+    def state_tree(self) -> dict:
+        """The checkpoint's state: {"score": the TrainState's tree,
+        "compressor": the Compressor's state_dict}, live tensors."""
+        if self.state is None:
+            raise RuntimeError("the stage-2 Trainer needs its nets: call "
+                               "maybe_init(first_batch) first")
+        return {"score": self.state.to_tree(),
+                "compressor": dict(self.compressor.state_dict())}
+
+    def save(self):
+        """Save `checkpt_<epoch>.pt` under `cfg.log.save_path`: the Adam
+        moments in bf16 (params and EMA stay f32), written on a thread
+        (`checkpoint.wait_pending_saves` joins it)."""
+        tree = self.state_tree()
+        save_checkpoint(checkpoint_path(self.cfg.log.save_path, self.epoch),
+                        tree, cfg=self.cfg, epoch=self.epoch, itr=self.itr,
+                        time=self.time, moments_bf16=True, async_write=True)
+
+    def resume(self, epoch: Optional[int] = None, strict: bool = False,
+               load_optim: bool = True, finetune: bool = False,
+               pretrain: Optional[str] = None) -> None:
+        """Restore both nets from the checkpoint file `pretrain`, or from
+        that of `epoch` under `cfg.log.save_path` (default: the last one).
+        The optimizer state is kept when `finetune` or not `load_optim`;
+        the counters restart at epoch 1, itr 0 when `finetune`, else
+        continue from the checkpoint's (epoch + 1, the cosine's gate at its
+        itr); the wall time is the checkpoint's."""
+        tree = self.state_tree()
+        if pretrain is None:
+            save_path = self.cfg.log.save_path
+            pretrain = checkpoint_file(
+                save_path, resolve_checkpoint_epoch(save_path, epoch))
+        ckpt = load_checkpoint(pretrain)
+        restored = restore_into(tree, ckpt["state"], strict=strict)
+        self.state.load_tree(restored["score"],
+                             load_optim=load_optim and not finetune)
+        self.compressor.load_state_dict(restored["compressor"])
+        if finetune:
+            self.epoch, self.itr = 1, 0
+        else:
+            self.epoch = ckpt["epoch"] + 1
+            self.itr = ckpt["itr"]
+            self._itr_epoch_start = self.itr  # an epoch boundary
+        self.time = ckpt["time"]
+
+    def load_pretrain(self) -> None:
+        """Load the frozen Compressor (parameters and BatchNorm statistics)
+        from the stage-1 checkpoint `cfg.compressor.pretrain_path`, a port
+        `.pt` or a JAX `.msgpack`."""
+        path = getattr(self.cfg.compressor, "pretrain_path", None)
+        if not path:
+            raise ValueError(
+                "stage-2 training bootstraps its frozen compressor from a "
+                "stage-1 checkpoint: set compressor.pretrain_path in "
+                "config.yaml (or pass --resume to continue a stage-2 run)")
+        live = self.state_tree()["compressor"]
+        state = load_checkpoint(path)["state"]["state"]
+        loaded = {**state["params"], **(state["batch_stats"] or {})}
+        self.compressor.load_state_dict(restore_into(live, loaded))

@@ -17,7 +17,8 @@ Parameters, moments, EMA and BatchNorm statistics are dicts of tensors
 (name -> tensor: the module's `named_parameters()` and, for the Compressor,
 its running-statistic buffers), updated in place with `torch._foreach_*`
 ops, where the JAX package builds new trees: one copy of each lives on the
-device. The bf16-moment option (`scale_by_adam_q`) is later work.
+device. `TrainState.to_tree` / `load_tree` give and take the checkpoint's
+layout. The bf16-moment option (`scale_by_adam_q`) is later work.
 """
 
 from __future__ import annotations
@@ -60,6 +61,34 @@ class TrainState:
                    opt_state=tx.init(params),
                    batch_stats=None if batch_stats is None
                    else dict(batch_stats))
+
+    def to_tree(self) -> dict:
+        """The state as plain dicts (the checkpoint's layout), holding the
+        live tensors: {step, params, ema_params, opt_state: {count, mu,
+        nu}, batch_stats}."""
+        adam = self.opt_state
+        return {"step": self.step, "params": self.params,
+                "ema_params": self.ema_params,
+                "opt_state": {"count": adam.count, "mu": adam.mu,
+                              "nu": adam.nu},
+                "batch_stats": self.batch_stats}
+
+    @torch.no_grad()
+    def load_tree(self, tree: dict, load_optim: bool = True) -> None:
+        """Copy a tree of `to_tree`'s layout into the state's own tensors
+        (so the module's parameters stay the state's); the optimizer state
+        too when `load_optim`."""
+        live = self.to_tree()
+        pairs = [(live[k], tree[k])
+                 for k in ("params", "ema_params", "batch_stats")]
+        if load_optim:
+            pairs += [(live["opt_state"][k], tree["opt_state"][k])
+                      for k in ("mu", "nu")]
+            self.opt_state.count = int(tree["opt_state"]["count"])
+        for dst, src in pairs:
+            for k, t in (dst or {}).items():
+                t.copy_(src[k])
+        self.step = int(tree["step"])
 
 
 def _values(tree: Params, keys: List[str]) -> List[torch.Tensor]:

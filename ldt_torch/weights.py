@@ -1,4 +1,4 @@
-"""flax parameter trees (nested dicts of arrays) -> torch state_dicts.
+"""flax parameter trees (nested dicts of arrays) <-> torch state_dicts.
 
 Layout rules, flax -> torch:
   * `Dense` kernel [in, out] -> `weight` [out, in]; bias as is
@@ -14,7 +14,9 @@ Layout rules, flax -> torch:
 A leaf that no rule maps raises. `compressor_decode_state_dict` converts the
 decode half alone (what `generate` needs) and returns the paths it leaves.
 The converters take any tree of the params' structure: a JAX gradient or an
-Adam moment maps as the params do.
+Adam moment maps as the params do. `score_params` and
+`compressor_variables` map back, torch -> flax, by the same rules (an entry
+that no rule maps raises there too), keeping each tensor's dtype.
 """
 
 from __future__ import annotations
@@ -276,3 +278,146 @@ def is_decode_key(key: str) -> bool:
     parts = key.split(".")
     return (parts[0] in ("output_dense", "init_set")
             or (parts[0] == "decoder" and parts[2] in ("att1", "ln")))
+
+
+class _Entries:
+    """A state_dict's entries, taken one by one by the inverse converters;
+    `done` raises for any left."""
+
+    def __init__(self, sd: Dict[str, torch.Tensor]):
+        self.sd = dict(sd)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.sd
+
+    def take(self, key: str) -> torch.Tensor:
+        if key not in self.sd:
+            raise ValueError(f"state_dict has no {key}")
+        return self.sd.pop(key)
+
+    def done(self) -> None:
+        if self.sd:
+            raise ValueError(f"unmapped state_dict entries: "
+                             f"{sorted(self.sd)}")
+
+
+def _dense_inv(e: _Entries, key: str) -> dict:
+    return {"kernel": e.take(f"{key}.weight").T.contiguous(),
+            "bias": e.take(f"{key}.bias")}
+
+
+def _norm_inv(e: _Entries, key: str) -> dict:
+    return {"scale": e.take(f"{key}.weight"), "bias": e.take(f"{key}.bias")}
+
+
+def _two_dense_inv(e: _Entries, key: str) -> dict:
+    return {f"Dense_{i}": _dense_inv(e, f"{key}.dense_{i}") for i in (0, 1)}
+
+
+def _residual_block_inv(e: _Entries, key: str) -> dict:
+    w = e.take(f"{key}.attn.qkv.weight")
+    b = e.take(f"{key}.attn.qkv.bias")
+    d = w.shape[0] // 3  # [Wq | Wkv]: fc_q has dim_out rows, fc_kv 2 dim_out
+    out = {"attn": {
+        "fc_q": {"kernel": w[:d].T.contiguous(), "bias": b[:d].clone()},
+        "fc_kv": {"kernel": w[d:].T.contiguous(), "bias": b[d:].clone()},
+        "fc_o": _dense_inv(e, f"{key}.attn.fc_o")},
+        "mlp": _two_dense_inv(e, f"{key}.mlp")}
+    for name, flax_name in (("norm1", "LayerNorm_0"),
+                            ("norm2", "LayerNorm_1")):
+        if f"{key}.{name}.weight" in e:
+            out[flax_name] = _norm_inv(e, f"{key}.{name}")
+    if f"{key}.adaLN.weight" in e:
+        out["adaLN"] = _dense_inv(e, f"{key}.adaLN")
+    return out
+
+
+def score_params(sd: Dict[str, torch.Tensor]) -> dict:
+    """`ldt_torch.models.Score` state_dict (or a tree of its structure: an
+    Adam moment) -> `ldt_tpu` Score params."""
+    e = _Entries(sd)
+    p = {"ln_in": _dense_inv(e, "ln_in"),
+         "time_embedding": _two_dense_inv(e, "time_embedding")}
+    i = 0
+    while f"transformer.{i}.attn.qkv.weight" in e:
+        p[f"transformer_{i}"] = _residual_block_inv(e, f"transformer.{i}")
+        i += 1
+    p["ln_out"] = {"adaLN": _dense_inv(e, "ln_out.adaLN"),
+                   "ln": _dense_inv(e, "ln_out.ln")}
+    e.done()
+    return p
+
+
+def _dense_bn_inv(e: _Entries, key: str, names, stats: dict) -> dict:
+    """The Dense and BatchNorm children `names` of one module: its params;
+    the BatchNorms' running statistics, where `e` holds them, go to
+    `stats`."""
+    params = {}
+    for name in names:
+        if "bn" not in name:
+            params[name] = _dense_inv(e, f"{key}.{name}")
+            continue
+        params[name] = _norm_inv(e, f"{key}.{name}")
+        if f"{key}.{name}.running_mean" in e:
+            stats[name] = {"mean": e.take(f"{key}.{name}.running_mean"),
+                           "var": e.take(f"{key}.{name}.running_var")}
+    return params
+
+
+def compressor_variables(sd: Dict[str, torch.Tensor]) -> dict:
+    """`ldt_torch.models.Compressor` state_dict -> `ldt_tpu` Compressor
+    variables {'params', 'batch_stats'}; a tree of the parameters alone (an
+    Adam moment) gives empty 'batch_stats'."""
+    e = _Entries(sd)
+    p = {"input_dense": _dense_inv(e, "input_dense")}
+    if "conv_in.shift" in e:
+        p["conv_in"] = {n: e.take(f"conv_in.{n}")
+                        for n in ("shift", "log_scale")}
+    group = {n: e.take(f"group.{n}") for n in ("affine_alpha", "affine_beta")
+             if f"group.{n}" in e}
+    ext_stats: dict = {}
+    ext = _dense_bn_inv(e, "group.extraction",
+                        ("transfer_dense", "transfer_bn"), ext_stats)
+    i = 0
+    while f"group.extraction.ops.{i}.net1_dense.weight" in e:
+        op_stats: dict = {}
+        ext[f"op{i}"] = _dense_bn_inv(
+            e, f"group.extraction.ops.{i}",
+            ("net1_dense", "net1_bn", "net2_dense"), op_stats)
+        if op_stats:
+            ext_stats[f"op{i}"] = op_stats
+        i += 1
+    group["extraction"] = ext
+    p["group"] = group
+    stats: dict = {}
+    if ext_stats:
+        stats["group"] = {"extraction": ext_stats}
+    pos_stats: dict = {}
+    p["pos_embedding"] = _dense_bn_inv(
+        e, "pos_embedding", ("conv1", "bn1", "conv2", "bn2", "fc"),
+        pos_stats)
+    if pos_stats:
+        stats["pos_embedding"] = pos_stats
+    i = 0
+    while f"encoder.{i}.att0.attn.qkv.weight" in e:
+        enc, j = {}, 0
+        while f"encoder.{i}.att{j}.attn.qkv.weight" in e:
+            enc[f"att{j}"] = _residual_block_inv(e, f"encoder.{i}.att{j}")
+            j += 1
+        enc["conv_out"] = {n: _dense_inv(e, f"encoder.{i}.conv_out.{n}")
+                           for n in ("adaLN", "ln")}
+        p[f"encoder_{i}"] = enc
+        i += 1
+    i = 0
+    while f"decoder.{i}.att.attn.qkv.weight" in e:
+        key = f"decoder.{i}"
+        p[f"decoder_{i}"] = {
+            "att": _residual_block_inv(e, f"{key}.att"),
+            "prior_dense": _dense_inv(e, f"{key}.prior_dense"),
+            "att1": _residual_block_inv(e, f"{key}.att1"),
+            "ln": _dense_inv(e, f"{key}.ln")}
+        i += 1
+    p["output_dense"] = _dense_inv(e, "output_dense")
+    p["init_set"] = {"prior": e.take("init_set.prior")}
+    e.done()
+    return {"params": p, "batch_stats": stats}

@@ -104,7 +104,8 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_import_no_jax(path):
-    """No import of jax, flax or ldt_tpu anywhere in the port, lazy or not."""
+    """No import of jax, flax, optax, yaml, msgpack or ldt_tpu anywhere in
+    the port, lazy or not (the card's machine has none of them)."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -114,8 +115,9 @@ def test_port_sources_import_no_jax(path):
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "flax",
-                                              "ldt_tpu"), (path, name)
+            assert name.split(".")[0] not in (
+                "jax", "jaxlib", "flax", "optax", "yaml", "msgpack",
+                "ldt_tpu"), (path, name)
 
 
 def test_import_leaves_jax_and_ldt_tpu_unloaded():
@@ -129,11 +131,19 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.training.compressor_trainer", "ldt_torch.ops.chamfer",
             "ldt_torch.ops.emd", "ldt_torch.eval.loss", "ldt_torch.eval",
             "ldt_torch.eval.metrics", "ldt_torch.ops._eval_kernels",
-            "chip_smoke"]
+            "ldt_torch.tools", "ldt_torch.tools.io", "ldt_torch.tools.log",
+            "ldt_torch.tools.utils", "ldt_torch.data",
+            "ldt_torch.data.loader", "ldt_torch.data.shapenet55",
+            "ldt_torch.training.checkpoint",
+            "ldt_torch.training.jax_checkpoint", "ldt_torch.cli",
+            "ldt_torch.entries", "ldt_torch.entries.train_compressor",
+            "ldt_torch.entries.train_latent_diffusion",
+            "ldt_torch.entries.val_sample", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'ldt_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'msgpack', "
+            "'ldt_tpu')]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -145,6 +155,7 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
 def _entry_points():
     from ldt_torch import resolve_device
     from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
+    from ldt_torch.tools.utils import common_init
     from ldt_torch.diffusion import make_diffusion
     from ldt_torch.diffusion.sampling import sample_discrete, timesteps
     from ldt_torch.generate import generate, sample_latents
@@ -225,6 +236,7 @@ def _entry_points():
         "approx_match_cost": on_device(approx_match_cost),
         "pairwise_cd_means": on_device(pairwise_cd_means),
         "resolve_device": lambda **kw: resolve_device(**kw),
+        "common_init": lambda **kw: common_init(0, **kw),
         "Trainer": trainer,
         "stage1_Trainer": stage1_trainer,
         "Score": lambda **kw: Score(score_cfg(num_blocks=1), **kw),
@@ -238,7 +250,8 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["resolve_device", "Score", "Compressor",
+@pytest.mark.parametrize("name", ["resolve_device", "common_init", "Score",
+                                  "Compressor",
                                   "make_diffusion", "sample_discrete",
                                   "generate", "generate_int8",
                                   "sample_latents", "calibrate_act_scales",

@@ -8,6 +8,7 @@ EMD, K2 and K4 through the Pallas kernels in interpret mode, pinned
 reparameterization noise)."""
 
 import functools
+from types import SimpleNamespace
 
 import flax.linen as fnn
 import jax
@@ -384,15 +385,28 @@ def test_trainer_random_init_and_its_state():
 
 @pytest.mark.parametrize("method", ["valsample", "reconstruction", "save",
                                     "resume"])
-def test_unported_trainer_methods_say_why(method):
-    """Checkpoints are a later slice; of the evaluation, the renderer of
-    `valsample(vis=True)` and a class-conditional reconstruction are."""
+def test_unported_trainer_methods_say_why(method, tmp_path):
+    """Of the evaluation, the renderer of `valsample(vis=True)` and a
+    class-conditional reconstruction are a later slice; `save` before
+    `maybe_init` says that it needs the model, and `resume` with neither a
+    training.csv nor a checkpoint under the save path raises."""
     trainer = Trainer(_cfg(), device="cpu")
+
+    def resume():
+        empty = Trainer(_cfg(), device="cpu")
+        empty.cfg.log = SimpleNamespace(save_path=str(tmp_path))
+        empty.maybe_init({"tr_points": _rand((B, N, 3), 0)})
+        empty.resume()
+
     calls = {
-        "valsample": lambda: trainer.valsample([], N, vis=True),
-        "reconstruction": lambda: Trainer(compressor_trainer_cfg(
+        "valsample": (lambda: trainer.valsample([], N, vis=True),
+                      NotImplementedError, "not ported yet"),
+        "reconstruction": (lambda: Trainer(compressor_trainer_cfg(
             model=dict(C, class_condition=True),
             data=dict(num_categorys=2)), device="cpu").reconstruction([]),
-        "save": trainer.save, "resume": trainer.resume}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        calls[method]()
+            NotImplementedError, "not ported yet"),
+        "save": (trainer.save, RuntimeError, "maybe_init"),
+        "resume": (resume, FileNotFoundError, "no checkpoints")}
+    call, error, match = calls[method]
+    with pytest.raises(error, match=match):
+        call()
