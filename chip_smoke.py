@@ -134,6 +134,30 @@ The training entries (`ldt_torch.entries`), from config files:
      epoch and the checkpoint's save and load seconds and GB. The tree and
      the checkpoints are deleted at the end, pass or fail.
 
+The reference's head merge and the 55-category configs:
+ 22. (last) a) The flagship Score cut to 2 blocks (hidden 1024, 16 heads)
+     and the full 6-block decoder, bf16, built with `ref_merge=True` on
+     random weights from the seed: a 32-step sampler run and the decode of
+     N(0, 1) latents through K1 and K2 against the plain attention with the
+     same merge and against the standard merge (`MERGE_TOL`); then phases
+     14 and 17's f32 train steps (K1-K3, K2 + K4) with both nets merged as
+     the reference does, card vs CPU, the standard merge as the wrong
+     variant. b) The configs of experiments/Compressor_Trainer/all and
+     experiments/Latent_Diffusion_Trainer/all (55 categories, class
+     conditioning, full width and depth; epochs, cadences and the stage-2
+     eval's sample_N cut, each cut printed) on a synthetic PC15k tree of
+     three synsets (airplane, car, chair = category 14, the config's
+     val_cate): `train_compressor` (B=16, labels) with a save and a resume
+     leg that runs one `reconstruction` at val_cate, then
+     `train_latent_diffusion` through `load_pretrain` (B=32, labels) with a
+     save and a resume leg that runs one `valsample` at val_cate. Finite
+     logs and metrics, the label tables' rows of the data's categories (and
+     no other) moved by Adam, K1-K5 run; seconds per epoch, checkpoint
+     sizes. c) `Trainer.sample(32, label=14)` of that stage-2 trainer with
+     the full 1000 steps: the whole f32 Score each step (no hoisted
+     modulations), launch counts K1 24 x 1000 and K2 6; clouds/min with
+     the card's name and power limit.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -175,6 +199,16 @@ KERNEL_TOL = {"float32": (1e-5, 1e-6), "bfloat16": (8e-3, 1e-5)}
 # wiring slip can be told; the decoder, on N(0, 1) latents, tells both.
 PATH_TOL = {"sampler": ((5e-3, 5e-4), ("kv swapped",)),
             "decoder": ((1e-2, 6e-5), ("wrong", "kv swapped"))}
+# Phase 22a, the bf16 path with the reference's head merge, kernels vs the
+# plain attention with the same merge, (max, mean) relative: phase 3's
+# sampler limit for both halves. Under that merge a decoder point's next
+# state takes the attention rows of 4 other points (the [B, H, N, dh] ->
+# [B, N, D] reshape), so each bf16 rounding flip spreads over the set as it
+# does over the sampler's steps (read on the H100: decoder 3.8e-3 /
+# 2.4e-4, beyond phase 3's decoder mean of 6e-5; sampler 1.1e-3 / 1.6e-5).
+# Wrong: "standard merge", the same weights merged the standard way
+# (decoder 0.32 / 6.7e-2; the sampler's 4.4e-3 / 6.8e-4 is printed only).
+MERGE_TOL = PATH_TOL["sampler"][0]
 # Phase 6, card vs CPU in f32, (max, mean) relative to the largest |value|,
 # for the sampler and the decoder: the sums run in other orders.
 REF_TOL = {"sampler": (1e-5, 1.2e-7), "decoder": (1e-5, 2e-6)}
@@ -1875,12 +1909,26 @@ def pinned_rec(rec: "torch.Tensor", pts: "torch.Tensor"):
     return cd, emd
 
 
-def phase_stage1_reference() -> None:
+def merged_nets(module, merge: bool, names=("Score", "Compressor")):
+    """Patches that make the trainer module `module` build its nets with
+    the reference's head merge (`ref_merge=True`) when `merge`."""
+    import functools
+
+    if not merge:
+        return ()
+    return tuple(mock.patch.object(module, name, functools.partial(
+        getattr(module, name), ref_merge=True)) for name in names
+        if hasattr(module, name))
+
+
+def phase_stage1_reference(ref_merge: bool = False) -> None:
     """One stage-1 step at flagship width cut to two layers, f32, B=4: the
     same weights, clouds, pinned noise, chamfer neighbours and EMD
     assignment on the card and on the CPU (the path the CPU tests hold
     against ldt_tpu), and against a K4 with dq and dk swapped; then the
-    auction alone on clouds on a dyadic grid, card against CPU."""
+    auction alone on clouds on a dyadic grid, card against CPU. With
+    `ref_merge` (phase 22a) the nets merge heads as the reference does, and
+    the wrong variant is the standard merge on the card."""
     import torch
 
     from ldt_torch.configs import compressor_trainer_cfg
@@ -1889,11 +1937,12 @@ def phase_stage1_reference() -> None:
     from ldt_torch.ops.emd import auction_emd
     from ldt_torch.training import compressor_trainer as ct
 
+    tag = "22a" if ref_merge else "17"
     batch = 4
     cfg = compressor_trainer_cfg(model=dict(n_layers=2))
     mc = cfg.model
     g = torch.Generator().manual_seed(SEED)
-    comp = Compressor(mc, device="cpu", generator=g)
+    comp = Compressor(mc, device="cpu", generator=g, ref_merge=ref_merge)
     pts = torch.randn(batch, 2048, 3, generator=g)
     comp.init_actnorm(pts, train=True)
     weights = comp.state_dict()
@@ -1913,12 +1962,15 @@ def phase_stage1_reference() -> None:
                  "tiled_launches"):
         setattr(k4_dq_dk_swapped, attr, 0)
 
-    def run(dev):
-        tr = ct.Trainer(cfg, device=dev)
-        tr.maybe_init({"tr_points": pts}, weights=weights)
-        with mock.patch.object(ct, "CD_loss", cd), \
-                mock.patch.object(ct, "EMD_loss", emd):
-            loss = tr.update({"tr_points": pts}, noise=noise)[0]
+    def run(dev, merge=ref_merge):
+        with contextlib.ExitStack() as stack:
+            for patch in merged_nets(ct, merge):
+                stack.enter_context(patch)
+            tr = ct.Trainer(cfg, device=dev)
+            tr.maybe_init({"tr_points": pts}, weights=weights)
+            with mock.patch.object(ct, "CD_loss", cd), \
+                    mock.patch.object(ct, "EMD_loss", emd):
+                loss = tr.update({"tr_points": pts}, noise=noise)[0]
         st = tr.state
 
         def flat(tree):
@@ -1932,29 +1984,37 @@ def phase_stage1_reference() -> None:
                 "Adam mu": flat(st.opt_state.mu)}
 
     out = {"cpu": run("cpu")}
-    before = (k4.launches, k4.tiled_launches)
+    k2 = attn_ops.cross_attention
+    before = (k4.launches, k4.tiled_launches, k2.launches)
     out["card"] = run("cuda")
     # per layer: 2 encoder blocks, a posterior and a decoder block, all on
     # the register-tiled kernels
-    if (k4.launches - before[0], k4.tiled_launches - before[1]) != (
-            4 * mc.n_layers, 4 * mc.n_layers):
-        fail("phase 17: the card's step did not go through K4's tiled "
-             "kernels")
-    with mock.patch.object(attn_ops, "cross_attention_bwd",
-                           k4_dq_dk_swapped):
-        out["dq dk swapped"] = run("cuda")
-    print(f"[17] one stage-1 step at flagship width, {mc.n_layers} layers, "
-          f"f32, B={batch}, card vs CPU (chamfer neighbours and EMD "
-          f"assignment from the CPU): loss {out['cpu']['loss'].item():.6f}")
+    if (k4.launches - before[0], k4.tiled_launches - before[1],
+            k2.launches - before[2]) != (4 * mc.n_layers,) * 3:
+        fail(f"phase {tag}: the card's step did not go through K2 and K4's "
+             "tiled kernels")
+    if ref_merge:
+        wrong = "standard merge"
+        out[wrong] = run("cuda", merge=False)
+    else:
+        wrong = "dq dk swapped"
+        with mock.patch.object(attn_ops, "cross_attention_bwd",
+                               k4_dq_dk_swapped):
+            out[wrong] = run("cuda")
+    print(f"[{tag}] one stage-1 step at flagship width, {mc.n_layers} "
+          f"layers, f32, B={batch}, {'reference head merge, ' * ref_merge}"
+          f"card vs CPU (chamfer neighbours and EMD assignment from the "
+          f"CPU): loss {out['cpu']['loss'].item():.6f}")
     for part in out["cpu"]:
         if not torch.isfinite(out["card"][part]).all():
-            fail(f"phase 17: {part} on the card is not finite")
+            fail(f"phase {tag}: {part} on the card is not finite")
         held(f"{part} (relative), CPU vs",
              {k: errs(out[k][part], out["cpu"][part], rel=True)
-              for k in ("card", "dq dk swapped")}, TRAIN_STEP_TOL,
+              for k in ("card", wrong)}, TRAIN_STEP_TOL,
              right=("card",),
-             wrong=("dq dk swapped",) if part in ("gradients", "Adam mu")
-             else ())
+             wrong=(wrong,) if part in ("gradients", "Adam mu") else ())
+    if ref_merge:
+        return
 
     # the auction alone: distances exact in f32 on a grid of eighths
     x, y = (torch.randint(-8, 9, (2, 2048, 3), generator=g).float() / 8
@@ -1972,22 +2032,27 @@ def phase_stage1_reference() -> None:
              f"{int((cpu != card).sum())} rows")
 
 
-def phase_train_reference() -> None:
+def phase_train_reference(ref_merge: bool = False) -> None:
     """One stage-2 train step at flagship width cut to two Score blocks,
     f32, B=4: the same weights, clouds and pinned draws on the card and on
-    the CPU (the path the CPU tests hold against ldt_tpu)."""
+    the CPU (the path the CPU tests hold against ldt_tpu), and against a K3
+    with dq and dk swapped. With `ref_merge` (phase 22a) both nets merge
+    heads as the reference does, and the wrong variant is the standard
+    merge on the card."""
     import torch
 
     from ldt_torch.configs import latent_trainer_cfg
     from ldt_torch.models import Compressor, Score
     from ldt_torch.ops import attention as attn_ops
-    from ldt_torch.training.latent_sde_trainer import Trainer
+    from ldt_torch.training import latent_sde_trainer as lt
 
+    tag = "22a" if ref_merge else "14"
     batch = 4
     cfg = latent_trainer_cfg(score=dict(num_blocks=2))
     g = torch.Generator().manual_seed(SEED)
     score_w = Score(cfg.score, device="cpu", generator=g).state_dict()
-    comp = Compressor(cfg.compressor, device="cpu", generator=g)
+    comp = Compressor(cfg.compressor, device="cpu", generator=g,
+                      ref_merge=ref_merge)
     pts = torch.randn(batch, 2048, 3, generator=g)
     comp.init_actnorm(pts[:2])
     comp_w = comp.state_dict()
@@ -1999,11 +2064,14 @@ def phase_train_reference() -> None:
                                cfg.compressor.z_dim, generator=g)
                    for _ in range(cfg.compressor.n_layers)])
 
-    def run(dev):
-        tr = Trainer(cfg, device=dev)
-        tr.maybe_init({"tr_points": pts}, score_weights=score_w,
-                      compressor_weights=comp_w)
-        loss = tr.update({"tr_points": pts}, **pins)
+    def run(dev, merge=ref_merge):
+        with contextlib.ExitStack() as stack:
+            for patch in merged_nets(lt, merge):
+                stack.enter_context(patch)
+            tr = lt.Trainer(cfg, device=dev)
+            tr.maybe_init({"tr_points": pts}, score_weights=score_w,
+                          compressor_weights=comp_w)
+            loss = tr.update({"tr_points": pts}, **pins)
         st = tr.state
 
         def flat(tree):
@@ -2016,27 +2084,39 @@ def phase_train_reference() -> None:
                 "Adam mu": flat(st.opt_state.mu)}
 
     out = {"cpu": run("cpu")}
-    fn = attn_ops.packed_self_attention_bwd
-    k3 = (fn.launches, fn.tiled_launches)
+    fns = (attn_ops.packed_self_attention_bwd, attn_ops.packed_self_attention,
+           attn_ops.cross_attention)
+    before = [(f.launches, f.tiled_launches) for f in fns]
     out["card"] = run("cuda")
-    if (fn.launches - k3[0], fn.tiled_launches - k3[1]) != (2, 2):
-        fail("phase 14: the card's step did not go through K3's "
-             "register-tiled kernel")
-    with mock.patch.object(
-            attn_ops, "packed_self_attention_bwd",
-            lambda qkv, gg, h: k3_variant(qkv, gg, h, swap_dq_dk=True)):
-        out["dq dk swapped"] = run("cuda")
-    print(f"[14] one train step at flagship width, 2 Score blocks, f32, "
-          f"B={batch}, card vs CPU: loss {out['cpu']['loss'].item():.6f}")
+    (k3, k3_tiled), (k1, k1_tiled), (k2, _) = [
+        (f.launches - b[0], f.tiled_launches - b[1])
+        for f, b in zip(fns, before)]
+    # the 2 blocks' K1 (register-tiled in f32) and K3; the frozen
+    # Compressor's encode through K2
+    if (k3, k3_tiled, k1, k1_tiled) != (2, 2, 2, 2) or not k2:
+        fail(f"phase {tag}: the card's step did not go through K1, K2 and "
+             f"K3's register-tiled kernels: K1 {k1} ({k1_tiled} tiled), K2 "
+             f"{k2}, K3 {k3} ({k3_tiled} tiled)")
+    if ref_merge:
+        wrong = "standard merge"
+        out[wrong] = run("cuda", merge=False)
+    else:
+        wrong = "dq dk swapped"
+        with mock.patch.object(
+                attn_ops, "packed_self_attention_bwd",
+                lambda qkv, gg, h: k3_variant(qkv, gg, h, swap_dq_dk=True)):
+            out[wrong] = run("cuda")
+    print(f"[{tag}] one train step at flagship width, 2 Score blocks, f32, "
+          f"B={batch}, {'reference head merge, ' * ref_merge}card vs CPU: "
+          f"loss {out['cpu']['loss'].item():.6f}")
     for part in out["cpu"]:
         if not torch.isfinite(out["card"][part]).all():
-            fail(f"phase 14: {part} on the card is not finite")
+            fail(f"phase {tag}: {part} on the card is not finite")
         held(f"{part} (relative), CPU vs",
              {k: errs(out[k][part], out["cpu"][part], rel=True)
-              for k in ("card", "dq dk swapped")}, TRAIN_STEP_TOL,
+              for k in ("card", wrong)}, TRAIN_STEP_TOL,
              right=("card",),
-             wrong=("dq dk swapped",) if part in ("gradients", "Adam mu")
-             else ())
+             wrong=(wrong,) if part in ("gradients", "Adam mu") else ())
 
 
 def phase_reference(steps: int) -> None:
@@ -2705,7 +2785,28 @@ ENTRY_CUTS = {
 }
 
 
-def copied_config(src: str, dst: str, edits: dict, tag: str) -> None:
+def synthetic_tree(data_dir: str, synsets, train: int, val: int,
+                   seed: int) -> None:
+    """A PC15k tree under `data_dir`: for each synset, `train` and `val`
+    clouds of 15000 points (`synthetic_shapes`), m000.npy on."""
+    import os
+
+    import numpy as np
+
+    per = train + val
+    clouds = synthetic_shapes(per * len(synsets), 15000,
+                              np.random.default_rng(seed))
+    for k, synset in enumerate(synsets):
+        part = clouds[k * per:(k + 1) * per]
+        for split, sub in (("train", part[:train]), ("val", part[train:])):
+            d = os.path.join(data_dir, synset, split)
+            os.makedirs(d)
+            for i, cloud in enumerate(sub):
+                np.save(os.path.join(d, f"m{i:03d}.npy"), cloud)
+
+
+def copied_config(src: str, dst: str, edits: dict, tag: str,
+                  phase: str = "21") -> None:
     """Copy the YAML file `src` to `dst` with `edits` {"section.key":
     value} replaced on their lines; print each change."""
     import os
@@ -2727,10 +2828,10 @@ def copied_config(src: str, dst: str, edits: dict, tag: str) -> None:
             text = f"'{value}'" if isinstance(value, str) else str(value)
             lines[i] = f"  {key.group(1)}: {text}"
             done.add(name)
-            print(f"[21] {tag}: {name} {old[section][key.group(1)]!r} -> "
-                  f"{value!r}")
+            print(f"[{phase}] {tag}: {name} {old[section][key.group(1)]!r} "
+                  f"-> {value!r}")
     if done != set(edits):
-        fail(f"phase 21: {src} has no {sorted(set(edits) - done)}")
+        fail(f"phase {phase}: {src} has no {sorted(set(edits) - done)}")
     os.makedirs(os.path.dirname(dst), exist_ok=True)
     with open(dst, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -2743,7 +2844,7 @@ def csv_rows(path: str) -> list:
         return list(csv.DictReader(f))
 
 
-def finite_rows(path: str, what: str) -> list:
+def finite_rows(path: str, what: str, phase: str = "21") -> list:
     """The rows of a CSV log; fails unless every value but the epoch and
     itr columns is a finite number."""
     import math
@@ -2752,7 +2853,7 @@ def finite_rows(path: str, what: str) -> list:
     for row in rows:
         for k, v in row.items():
             if k not in ("epoch", "itr") and not math.isfinite(float(v)):
-                fail(f"phase 21: {what} {k} = {v} in {row}")
+                fail(f"phase {phase}: {what} {k} = {v} in {row}")
     return rows
 
 
@@ -2823,14 +2924,8 @@ def phase_entries() -> None:
     cwd = os.getcwd()
     try:
         data_dir = os.path.join(tmp, "PC15k")
-        clouds = synthetic_shapes(ENTRY_TRAIN + ENTRY_VAL, 15000,
-                                  np.random.default_rng(SEED + 21))
-        for split, part in (("train", clouds[:ENTRY_TRAIN]),
-                            ("val", clouds[ENTRY_TRAIN:])):
-            d = os.path.join(data_dir, "02691156", split)
-            os.makedirs(d)
-            for i, cloud in enumerate(part):
-                np.save(os.path.join(d, f"m{i:03d}.npy"), cloud)
+        synthetic_tree(data_dir, ("02691156",), ENTRY_TRAIN, ENTRY_VAL,
+                       SEED + 21)
         print(f"[21] data: {ENTRY_TRAIN} train and {ENTRY_VAL} val clouds of "
               f"15000 points ({tmp}; the airplane split of ShapeNetCore.v2."
               f"PC15k holds thousands)")
@@ -3051,6 +3146,301 @@ def phase_entries() -> None:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
 
+# Phase 22: the reference's head merge, and the 55-category configs. The
+# categories of the synthetic tree (indices into the 55 of
+# `ldt_torch.data.shapenet55`): airplane 0, car 13 and chair 14, the `all`
+# config's val_cate.
+ALL_SYNSETS = ("02691156", "02958343", "03001627")
+VAL_CATE = 14
+ALL_TRAIN, ALL_VAL = 16, 6  # synthetic clouds of 15000 points per synset
+LABEL_BATCH = 32  # the label-conditioned generation (the config's batch)
+# The cuts (the models keep their published width and depth): stage 1 two
+# epochs with a save, then a resume leg of two epochs with one
+# reconstruction eval; stage 2 one epoch with a save, then a resume leg of
+# one epoch with one valsample.
+ALL_CUTS = {
+    "Compressor_Trainer": ({"common.epochs": 2, "log.save_epoch_freq": 2,
+                            "log.eval_epoch_freq": 3,
+                            "log.log_epoch_freq": 1},
+                           {"common.epochs": 4}),
+    "Latent_Diffusion_Trainer": ({"common.epochs": 1,
+                                  "log.save_epoch_freq": 1,
+                                  "log.eval_epoch_freq": 2,
+                                  "log.log_epoch_freq": 1,
+                                  "sde.sample_N": CHECK_STEPS},
+                                 {"common.epochs": 2,
+                                  "log.save_epoch_freq": 3}),
+}
+
+
+def phase_ref_merge_path() -> None:
+    """Phase 22a, first half: the flagship Score cut to 2 blocks (hidden
+    1024, 16 heads) and the full 6-block decoder, bf16, both built with the
+    reference's head merge (`ref_merge=True`) on random weights from a
+    generator of its own seeded with the seed (so that the readings do not
+    depend on what the phases before drew): a short sampler run and the
+    decode of N(0, 1) latents through the kernels (K1, K2), against the
+    plain attention with the same merge and against the standard merge on
+    the same weights, within phase 3's sampler limit (`MERGE_TOL`)."""
+    import torch
+
+    from ldt_torch.configs import compressor_cfg, score_cfg, sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import sample_latents
+    from ldt_torch.models import Compressor, Score
+    from ldt_torch.ops import attention as attn_ops
+
+    batch, steps = BATCH, CHECK_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    scfg, ccfg = score_cfg(num_blocks=2), compressor_cfg()
+    score_w = Score(scfg, device="cuda", generator=gen).state_dict()
+    comp_w = Compressor(ccfg, device="cuda", generator=gen).state_dict()
+    nets = {}
+    for merge in (True, False):
+        score = Score(scfg, dtype=torch.bfloat16, device="cuda",
+                      ref_merge=merge).eval()
+        score.load_state_dict(score_w)
+        comp = Compressor(ccfg, dtype=torch.bfloat16, device="cuda",
+                          ref_merge=merge).eval()
+        comp.load_state_dict(comp_w)
+        nets[merge] = (score, comp)
+    sde = make_diffusion(sde_cfg(sample_N=steps), device="cuda")
+    shape = (batch, scfg.z_scale, scfg.z_dim)
+    x0 = torch.randn(shape, device="cuda", generator=gen)
+    noise = torch.randn((steps,) + shape, device="cuda", generator=gen)
+    eps = torch.randn(shape, device="cuda", generator=gen)
+
+    def run(merge=True):
+        score, comp = nets[merge]
+        lat = sample_latents(score, sde, batch, steps, device="cuda", x0=x0,
+                             noise=noise)
+        with torch.inference_mode():
+            clouds = comp.sample((batch, ccfg.outsize), eps)
+        return {"sampler": lat.float(), "decoder": clouds.float()}
+
+    got, dt, launches = counted(run)
+    want = {}
+    with mock.patch.object(attn_ops, "packed_self_attention",
+                           attn_ops.packed_self_attention_plain), \
+            mock.patch.object(attn_ops, "cross_attention",
+                              attn_ops.attention_plain):
+        want["twin"] = run()
+    want["standard merge"] = run(merge=False)
+    k1, k2 = launches["packed_self_attention"], launches["cross_attention"]
+    print(f"[22a] reference head merge, 2 Score blocks at flagship width "
+          f"and the 6-block decoder, bf16: {steps} sampler steps at "
+          f"B={batch} and the decode of N(0, 1) latents, {dt:.3f} s, "
+          f"launches K1 {k1} K2 {k2}")
+    if (k1, k2) != (scfg.num_blocks * steps, ccfg.n_layers):
+        fail(f"phase 22a: launches K1 {k1}, K2 {k2}")
+    if not all(torch.isfinite(t).all() for t in got.values()):
+        fail("phase 22a: the merged path's output is not finite")
+    # the 2-block random Score's attention moves its latents little, so
+    # the sampler's standard-merge reading sits near the limit (6.0e-4 /
+    # 6.8e-4 mean): the decoder and the train steps below tell the merge
+    for part, wrong in (("sampler", ()), ("decoder", ("standard merge",))):
+        held(f"{part} (relative), kernels vs",
+             {k: errs(got[part], w[part], rel=True) for k, w in want.items()},
+             MERGE_TOL, right=("twin",), wrong=wrong)
+
+
+def moved_rows(t) -> tuple:
+    """The rows of a [rows, features] tensor that are not all zero."""
+    return tuple((t.abs().sum(dim=1) > 0).nonzero().flatten().tolist())
+
+
+def phase_all_configs():
+    """Phase 22b: the 55-category configs (`experiments/*/all`) through the
+    entries at full width and depth (cuts printed), on a synthetic PC15k
+    tree of three synsets: `train_compressor` (B=16, labels) with a save
+    and a resume leg that runs one `reconstruction` at val_cate, then
+    `train_latent_diffusion` through `load_pretrain` (B=32, labels) with a
+    save and a resume leg that runs one `valsample` at val_cate. Every loss
+    and metric must be finite, the labels' rows of both label tables (and
+    no other) must have moved, and K1-K5 must have run; prints seconds per
+    epoch and the checkpoints' sizes. Returns the stage-2 trainer (its
+    tensors on the card) and removes the tree."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.cli import get_config, get_parser
+    from ldt_torch.data.shapenet55 import cate_to_synsetid
+    from ldt_torch.entries import train_compressor as entry1
+    from ldt_torch.entries import train_latent_diffusion as entry2
+    from ldt_torch.training.compressor_trainer import Trainer as Stage1
+    from ldt_torch.training.latent_sde_trainer import Trainer as Stage2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    index = {s: i for i, s in enumerate(cate_to_synsetid.values())}
+    labels = {index[s] for s in ALL_SYNSETS}
+    if index["03001627"] != VAL_CATE:
+        fail(f"phase 22b: chair is category {index['03001627']}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ldt_phase22_")
+    try:
+        data_dir = os.path.join(tmp, "PC15k")
+        synthetic_tree(data_dir, ALL_SYNSETS, ALL_TRAIN, ALL_VAL, SEED + 22)
+        print(f"[22b] data: {ALL_TRAIN} train and {ALL_VAL} val clouds of "
+              f"15000 points for each of {', '.join(ALL_SYNSETS)} "
+              f"(categories {sorted(labels)} of 55; ShapeNetCore.v2.PC15k "
+              f"holds thousands of each)")
+        ws = os.path.join(tmp, "experiments")
+        paths = {k: os.path.join(ws, k, "all") for k in ALL_CUTS}
+        for kind, (cuts, _) in ALL_CUTS.items():
+            edits = dict(cuts, **{"data.data_dir": data_dir,
+                                  "log.save_path": paths[kind]})
+            if kind == "Latent_Diffusion_Trainer":
+                edits["compressor.pretrain_path"] = os.path.join(
+                    paths["Compressor_Trainer"], "checkpt_4.pt")
+            copied_config(os.path.join(root, "experiments", kind, "all",
+                                       "config.yaml"),
+                          os.path.join(paths[kind], "config.yaml"), edits,
+                          kind, "22b")
+
+        stamps = {}
+        real_end = {cls: cls.epoch_end for cls in (Stage1, Stage2)}
+        real_update = {cls: cls.update for cls in (Stage1, Stage2)}
+
+        def update(self, *a, **kw):
+            if self.itr == self._itr_epoch_start:
+                torch.cuda.synchronize()
+                stamps[(type(self), self.epoch)] = [time.perf_counter()]
+            return real_update[type(self)](self, *a, **kw)
+
+        def epoch_end(self):
+            torch.cuda.synchronize()
+            stamps[(type(self), self.epoch)].append(time.perf_counter())
+            return real_end[type(self)](self)
+
+        def leg(kind, entry, *extra):
+            a = get_parser(kind).parse_args(
+                ["--save", ws, "--dataset", "all", "--val_cate",
+                 str(VAL_CATE), *extra])
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer = entry.main(a, get_config(a))
+            lines = buf.getvalue().splitlines()
+            missing = sum(ln.startswith("Directory missing") for ln in lines)
+            for ln in lines:
+                if not ln.startswith("Directory missing"):
+                    print(f"    {ln}")
+            print(f"    ({missing} 'Directory missing' lines: the synsets "
+                  "the tree lacks)")
+            return trainer
+
+        def run_all():
+            out = {}
+            kind = "Compressor_Trainer"
+            leg(kind, entry1)
+            copied_config(os.path.join(paths[kind], "config.yaml"),
+                          os.path.join(paths[kind], "config.yaml"),
+                          ALL_CUTS[kind][1], "stage 1 resume leg", "22b")
+            s1 = leg(kind, entry1, "--resume", "True")
+            out["stage1"] = (s1.epoch, s1.state.opt_state.mu[
+                "label_embedding.embed.weight"].clone())
+            del s1
+            gc.collect()
+            kind = "Latent_Diffusion_Trainer"
+            s2 = leg(kind, entry2)
+            out["stage2 first leg"] = s2.epoch
+            del s2
+            gc.collect()
+            torch.cuda.empty_cache()
+            copied_config(os.path.join(paths[kind], "config.yaml"),
+                          os.path.join(paths[kind], "config.yaml"),
+                          ALL_CUTS[kind][1], "stage 2 resume leg", "22b")
+            s2 = leg(kind, entry2, "--resume", "True")
+            out["stage2"] = (s2.epoch, s2.state.opt_state.mu[
+                "label_embedding.embed.weight"].clone())
+            return out, s2
+
+        with mock.patch.object(Stage1, "update", update), \
+                mock.patch.object(Stage2, "update", update), \
+                mock.patch.object(Stage1, "epoch_end", epoch_end), \
+                mock.patch.object(Stage2, "epoch_end", epoch_end):
+            (out, stage2), dt, launches = counted(run_all)
+        if (out["stage1"][0], out["stage2 first leg"],
+                out["stage2"][0]) != (5, 2, 3):
+            fail(f"phase 22b: the runs ended at epochs {out}")
+        for stage in ("stage1", "stage2"):
+            moved = moved_rows(out[stage][1])
+            print(f"[22b] {stage}: rows of the label table with gradients "
+                  f"(Adam's mu moved): {moved}, the data's categories "
+                  f"{tuple(sorted(labels))}")
+            if moved != tuple(sorted(labels)):
+                fail(f"phase 22b: {stage}'s labels did not reach the net "
+                     f"as expected: rows {moved}")
+        for kind, names in (("Compressor_Trainer", ("training.csv",
+                                                    "eval.csv")),
+                            ("Latent_Diffusion_Trainer",
+                             ("training.csv", "eval.csv", "test.csv"))):
+            for name in names:
+                rows = finite_rows(os.path.join(paths[kind], name),
+                                   f"{kind} {name}", "22b")
+                if not rows:
+                    fail(f"phase 22b: {kind} {name} has no row")
+        # named by the epoch counter after the evaluated epoch's end
+        for kind, name in (("Compressor_Trainer", "rec_ep4.npy"),
+                           ("Latent_Diffusion_Trainer", "smp_ep3.npy")):
+            arr = np.load(os.path.join(paths[kind], name))
+            if arr.shape != (ALL_VAL, 2048, 3) or not np.isfinite(arr).all():
+                fail(f"phase 22b: {kind} {name} {arr.shape} is not "
+                     f"{ALL_VAL} finite clouds of val_cate {VAL_CATE}")
+        for cls, what in ((Stage1, "stage 1 (B=16, 2048 points)"),
+                          (Stage2, "stage 2 (B=32)")):
+            secs = [round(t[1] - t[0], 3) for (c, _), t in
+                    sorted(stamps.items(), key=lambda kv: kv[0][1])
+                    if c is cls]
+            print(f"[22b] {what} seconds per epoch: {secs} "
+                  f"({smi_name_and_power()})")
+        sizes = {kind: os.path.getsize(os.path.join(paths[kind], name))
+                 for kind, name in (("Compressor_Trainer", "checkpt_4.pt"),
+                                    ("Latent_Diffusion_Trainer",
+                                     "checkpt_1.pt"))}
+        print(f"[22b] checkpoints: stage 1 {sizes['Compressor_Trainer']} "
+              f"bytes, stage 2 {sizes['Latent_Diffusion_Trainer'] / 1e9:.3f}"
+              f" GB")
+        k6 = launches["approx_match_cost"] - launches["approx_match_cost_otf"]
+        ran = {"K1": launches["packed_self_attention"],
+               "K2": launches["cross_attention"],
+               "K3": launches["packed_self_attention_bwd"],
+               "K4": launches["cross_attention_bwd"],
+               "K5": launches["pairwise_cd_means"], "K6": k6}
+        print(f"[22b] the all configs' run: {dt:.2f} s, launches {ran}")
+        if not all(ran[k] for k in ("K1", "K2", "K3", "K4", "K5")):
+            fail(f"phase 22b: a kernel of the path did not run: {ran}")
+        return stage2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_label_generate(trainer) -> None:
+    """Phase 22c: `Trainer.sample(32, label=14)` of the 55-category stage-2
+    trainer with the full 1000 ancestral steps: the whole f32 Score at each
+    step (c = t_emb + l_emb: no modulation hoisted), then the decode; launch
+    counts K1 24 x 1000 (register-tiled), K2 6, nothing else; clouds/min
+    with the card's name and power limit."""
+    from ldt_torch.diffusion import make_diffusion
+
+    trainer.cfg.sde.sample_N = STEPS
+    trainer.sde = make_diffusion(trainer.cfg.sde, device="cuda")
+    blocks = trainer.cfg.score.num_blocks
+    expect = per_step_launches(
+        packed_self_attention=blocks * STEPS,
+        packed_self_attention_tiled=blocks * STEPS,
+        cross_attention=trainer.cfg.compressor.n_layers)
+    checked_generation(
+        "22c", f"label-conditioned generation (label {VAL_CATE}, {STEPS} "
+        f"steps, the whole f32 Score each step, {smi_name_and_power()})",
+        lambda: trainer.sample(LABEL_BATCH, label=VAL_CATE)[0],
+        LABEL_BATCH, expect)
+
 
 def main() -> int:
     import torch
@@ -3095,6 +3485,12 @@ def main() -> int:
     phase_eval_reference()
     phase_reference(CHECK_STEPS)
     phase_entries()
+    phase_ref_merge_path()
+    phase_train_reference(ref_merge=True)
+    phase_stage1_reference(ref_merge=True)
+    stage2 = phase_all_configs()
+    phase_label_generate(stage2)
+    del stage2
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the

@@ -8,10 +8,12 @@ reads `<save>/Compressor_Trainer/<dataset>/config.yaml`. Each epoch trains
 on every batch with running meters (loss, kl, rec, max feature), writes a
 training.csv row every `log_epoch_freq` epochs, saves every
 `save_epoch_freq` (`Trainer.epoch_end`) and scores the test split's
-reconstructions every `eval_epoch_freq`. A divergence (a non-finite mean
-loss, or a mean max feature over 10000) rolls the run back to the
-checkpoint of epoch max((epoch - 10) // 10 * 10, save_epoch_freq) with the
-learning rate halved, and raises when that checkpoint does not exist.
+reconstructions every `eval_epoch_freq` (a multi-category run: those of
+the category `--val_cate`, else `common.val_cate`, else 0). A divergence (a
+non-finite mean loss, or a mean max feature over 10000) rolls the run back
+to the checkpoint of epoch max((epoch - 10) // 10 * 10, save_epoch_freq)
+with the learning rate halved, and raises when that checkpoint does not
+exist.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ def main(args, cfg) -> Trainer:
     test_loader = loaders["test_loader"]
     trainer = Trainer(cfg, device=device, generator=generator)
     trainer.info(vars(args))
+    val_cate = args.val_cate if getattr(args, "val_cate", None) is not None \
+        else getattr(cfg.common, "val_cate", 0)
 
     if args.resume:
         trainer.maybe_init(next(iter(train_loader)))
@@ -55,7 +59,8 @@ def main(args, cfg) -> Trainer:
 
     if args.evaluate:
         trainer.maybe_init(next(iter(train_loader)))
-        all_res = trainer.reconstruction(test_loader=test_loader)
+        all_res = trainer.reconstruction(test_loader=test_loader,
+                                         val_cate=val_cate)
         trainer.write_eval(trainer.epoch - 1, all_res)
         return trainer
 
@@ -77,7 +82,8 @@ def main(args, cfg) -> Trainer:
             trainer.epoch_end()
 
             if (trainer.epoch - 1) % cfg.log.eval_epoch_freq == 0:
-                all_res = trainer.reconstruction(test_loader=test_loader)
+                all_res = trainer.reconstruction(test_loader=test_loader,
+                                                 val_cate=val_cate)
                 trainer.info(f"epoch{trainer.epoch - 1}:" + str(all_res))
                 try:
                     trainer.write_eval(trainer.epoch - 1, all_res)

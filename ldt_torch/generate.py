@@ -8,7 +8,10 @@ networks run in their own dtype (bf16 in serving), and the score is
 
 The DiT step is `Score.denoise_with_mods`, or with `int8=True` the W8A8
 twin `serving.int8.denoise_with_mods_int8` (bench.py's serving path), its
-weights quantized once per generation, before the loop.
+weights quantized once per generation, before the loop. With a `label` (or
+an `AdaLN: False` Score) the conditioning is not t's alone: each step runs
+the whole Score, c = t_emb + l_emb, as the JAX trainer's sampler does; the
+int8 path serves the unconditional AdaLN Score only.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
                    int8: bool = False, int8_weights=None,
                    attn_int8: bool = False, bf16_tail: int = 0,
                    act_scales: Optional[torch.Tensor] = None,
+                   label: Optional[torch.Tensor] = None,
                    **sampler) -> torch.Tensor:
     """The reverse diffusion alone: [batch, z_scale, z_dim] f32 latents.
 
@@ -52,6 +56,9 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
     own dtype. `attn_int8`: its attention core is K8 (else K1);
     `bf16_tail`: the last k blocks keep bf16 weights; `act_scales`: static
     activation scales [steps, num_blocks, 4] (else dynamic).
+
+    `label` [batch]: category indices of a label-conditioned Score; each
+    step then runs `score(x, t, label)`.
     """
     dev = resolve_device(device)
     if not int8 and (attn_int8 or bf16_tail or act_scales is not None
@@ -59,6 +66,20 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
         raise ValueError("attn_int8, bf16_tail, act_scales and int8_weights "
                          "are options of the int8 path (int8=True)")
     cfg = score.cfg
+    if label is not None or not cfg.AdaLN:
+        if int8:
+            raise ValueError("the int8 path serves the unconditional AdaLN "
+                             "Score only")
+        if label is not None:
+            label = label.to(dev)
+
+        def score_fn(t, x, step):
+            p = score(x, t, label)
+            return -p.float() / sde.std(t)[:, None, None], p
+
+        return sample_discrete(sde, score_fn, batch,
+                               (cfg.z_scale, cfg.z_dim), steps, TIME_EPS,
+                               device=dev, **sampler)
     mods = score.precompute_mods(timesteps(steps, TIME_EPS).to(dev))
 
     def step_mods(step):

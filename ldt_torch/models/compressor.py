@@ -14,9 +14,17 @@ latents.
 batch's statistics and `forward` returns their updated running statistics,
 as the JAX module's `train=True, mutable=["batch_stats"]`; otherwise they
 take their running statistics (the frozen Compressor of stage-2 training,
-sampling). Dropout, the random seed subset, the mixture-of-Gaussians seeds,
-`pre_group`, the MLP position embedding and class conditioning are later
-work and raise here (every shipped config sets the dropout rates to 0).
+sampling).
+
+Options: `class_condition` (a label embedding added to the position
+embedding, and decoder blocks conditioned on it through AdaLN; `sample`
+passes no label, so there the decoder runs its unconditioned branch, as the
+reference's does), `pre_group` (a first grouping to 256 groups of 32
+neighbours), `pos_embedding: mlp`, the Encoder's `AdaLN` flag, the seed
+set's random subset (`num_points < max_outputs`) and its mixture of
+Gaussians (`max_outputs: None`), whose draws come from a generator or are
+pinned (`seed_draw`), and `ref_merge` (the reference's head merge). Dropout
+is later work and raises (every shipped config sets the rates to 0).
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from ldt_torch.nn.layers import (
     BatchNorm,
     Dense,
     FinalLayer,
+    LabelEmbedding,
+    MLP,
     ResidualBlock,
     get_activation,
     init_weights_,
@@ -174,41 +184,81 @@ class LocalGrouper(nn.Module):
 
 
 class InitialSet(nn.Module):
-    """Learned `[max_outputs, dim_seed]` seed set."""
+    """The decoder's seed set. With `max_outputs`: a learned
+    `[max_outputs, dim_seed]` table, broadcast to the batch, or for
+    `num_points < max_outputs` a random subset of its rows per cloud. With
+    `max_outputs` None: a mixture of `n_mixtures` Gaussians, each draw
+    eps * sig + mu weighted by softmax(logits) and summed over the
+    mixtures, then Dense, SiLU, Dense.
 
-    def __init__(self, dim_seed: int, max_outputs: Optional[int], *,
-                 device=None):
+    `draw` pins the randomness: the rows [B, num_points] of each cloud's
+    subset, or the mixture's eps [B, num_points, n_mixtures, dim_seed];
+    else a permutation per cloud or N(0, 1) from `generator`."""
+
+    def __init__(self, dim_seed: int, max_outputs: Optional[int],
+                 n_mixtures: int = 4, *, device=None):
         super().__init__()
-        if max_outputs is None:
-            raise NotImplementedError(
-                "the mixture-of-Gaussians seed set is not ported yet")
         self.max_outputs = max_outputs
-        self.prior = nn.Parameter(torch.empty(max_outputs, dim_seed,
-                                              dtype=torch.float32,
-                                              device=device))
+        kw = dict(dtype=torch.float32, device=device)
+        if max_outputs is not None:
+            self.prior = nn.Parameter(torch.empty(max_outputs, dim_seed,
+                                                  **kw))
+            return
+        self.logits = nn.Parameter(torch.ones(n_mixtures, **kw))
+        self.mu = nn.Parameter(torch.empty(n_mixtures, dim_seed, **kw))
+        self.sig = nn.Parameter(torch.empty(n_mixtures, dim_seed, **kw))
+        self.dense_0 = Dense(dim_seed, dim_seed, **kw)
+        self.dense_1 = Dense(dim_seed, dim_seed, **kw)
 
-    def forward(self, batch: int, num_points: int) -> torch.Tensor:
-        if num_points >= self.max_outputs:
-            return self.prior[None].expand(batch, *self.prior.shape)
-        raise NotImplementedError(
-            "a random subset of the seed set (num_points < max_outputs) is "
-            "not ported yet")
+    @torch.no_grad()
+    def init_(self, generator: Optional[torch.Generator] = None) -> None:
+        """The JAX initializers: the table U(0, 1); the mixture's mu
+        N(0, 1), sig |N(0, 1)| / sqrt(n_mixtures), logits 1."""
+        if self.max_outputs is not None:
+            self.prior.uniform_(0.0, 1.0, generator=generator)
+            return
+        self.mu.normal_(0.0, 1.0, generator=generator)
+        self.sig.normal_(0.0, 1.0, generator=generator)
+        self.sig.abs_().div_(self.sig.shape[0] ** 0.5)
+        self.logits.fill_(1.0)
+
+    def forward(self, batch: int, num_points: int,
+                draw: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.max_outputs is not None:
+            prior = self.prior
+            if num_points >= self.max_outputs:
+                return prior[None].expand(batch, *prior.shape)
+            if draw is None:
+                draw = torch.stack([torch.randperm(
+                    self.max_outputs, generator=generator,
+                    device=prior.device)[:num_points] for _ in range(batch)])
+            return prior[draw.to(prior.device, torch.long)]
+        mu, sig = self.mu, self.sig
+        shape = (batch, num_points) + tuple(mu.shape)
+        if draw is None:
+            draw = torch.randn(shape, device=mu.device, generator=generator)
+        x = (draw.to(mu.device, mu.dtype) * sig + mu) * torch.softmax(
+            self.logits, dim=0)[:, None]
+        return self.dense_1(F.silu(self.dense_0(x.sum(2))))
 
 
 class Encoder(nn.Module):
-    """`num_layers` AdaLN blocks conditioned on `pos`, then a FinalLayer
-    tap. Keys and values are the raw pre-norm x (the reference's
-    `layer(x, x, c)`), so the attention is K2 at N = M = z_scales."""
+    """`num_layers` blocks conditioned on `pos` (AdaLN, or with `AdaLN`
+    False the additive position embedding), then a FinalLayer tap. Keys and
+    values are the raw pre-norm x (the reference's `layer(x, x, c)`), so
+    the attention is K2 at N = M = z_scales."""
 
     def __init__(self, dim_in: int, p_dim: int, num_heads: int,
                  norm: Optional[str], mlp_ratio: float = 4.0,
-                 num_layers: int = 1, *, dtype=torch.float32, device=None):
+                 num_layers: int = 1, *, AdaLN: bool = True,
+                 ref_merge: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         for i in range(num_layers):
             self.add_module(f"att{i}", ResidualBlock(
                 dim_in, dim_c=p_dim, num_heads=num_heads, norm=norm,
-                mlp_ratio=mlp_ratio, **kw))
+                mlp_ratio=mlp_ratio, AdaLN=AdaLN, ref_merge=ref_merge, **kw))
         self.num_layers = num_layers
         self.conv_out = FinalLayer(dim_in, dim_in, dim_c=p_dim, norm=norm,
                                    **kw)
@@ -220,37 +270,43 @@ class Encoder(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Attentive bottleneck layer. `compute_posterior(x, o)`: the encoder
+    """Attentive bottleneck layer. `compute_posterior(x, o, c)`: the encoder
     tap's tokens attend to the decoded set `o` (or, with `o` None, to their
-    raw selves) -> (mu, logvar); `forward(o, eps)`: the decoded set
-    cross-attends to the projected latents, `att1(o, ln(eps))`."""
+    raw selves) -> (mu, logvar); `forward(o, eps, c)`: the decoded set
+    cross-attends to the projected latents, `att1(o, ln(eps), c)`. With
+    `c_dim` (a class-conditional Compressor) both blocks are AdaLN blocks
+    conditioned on the label embedding `c`, and run their unconditioned
+    branch when `c` is None."""
 
     def __init__(self, dim_in: int, dim_z: int, num_heads: int,
                  norm: Optional[str], mlp_ratio: float = 4.0,
                  min_sigma: float = -30.0, act: Optional[str] = None, *,
+                 c_dim: Optional[int] = None, ref_merge: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
         block = dict(num_heads=num_heads, norm=norm, mlp_ratio=mlp_ratio,
-                     act=act, **kw)
+                     act=act, ref_merge=ref_merge, **kw)
         self.dim_z = dim_z
         self.min_sigma = min_sigma
-        self.att = ResidualBlock(dim_in, None, **block)
+        self.att = ResidualBlock(dim_in, c_dim, **block)
         self.prior_dense = Dense(dim_in, 2 * dim_z, **kw)
-        self.att1 = ResidualBlock(dim_in, None, **block)
+        self.att1 = ResidualBlock(dim_in, c_dim, **block)
         self.ln = Dense(dim_z, dim_in, **kw)
 
     def compute_posterior(self, x: torch.Tensor,
-                          o: Optional[torch.Tensor] = None):
-        x = self.att(x, o if o is not None else x)
+                          o: Optional[torch.Tensor] = None,
+                          c: Optional[torch.Tensor] = None):
+        x = self.att(x, o if o is not None else x, c)
         posterior = self.prior_dense(F.silu(x))
         mu = posterior[..., :self.dim_z]
         logvar = torch.clamp(posterior[..., self.dim_z:], self.min_sigma,
                              10.0)
         return mu, logvar
 
-    def forward(self, o: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
-        return self.att1(o, self.ln(eps))
+    def forward(self, o: torch.Tensor, eps: torch.Tensor,
+                c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.att1(o, self.ln(eps), c)
 
 
 class Compressor(nn.Module):
@@ -258,21 +314,18 @@ class Compressor(nn.Module):
     (`configs.compressor_cfg`). Weights are drawn from `generator` with the
     JAX package's initializers; call `init_actnorm` with a batch for the
     data-dependent ActNorm, or load converted weights
-    (`ldt_torch.weights.load_compressor`)."""
+    (`ldt_torch.weights.load_compressor`). `ref_merge=True` builds every
+    block with the reference's head merge, for weights converted from the
+    reference (`ldt_torch.tools.port`)."""
 
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 ref_merge: bool = False):
         super().__init__()
-        for flag, what in ((cfg.class_condition, "the class-conditional "
-                            "Compressor"),
-                           (cfg.pre_group, "pre_group"),
-                           (cfg.pos_embedding == "mlp",
-                            "the MLP position embedding"),
-                           (cfg.encoder_dropout_p or cfg.decoder_dropout_p,
-                            "dropout (encoder_dropout_p or decoder_dropout_p "
-                            "> 0)")):
-            if flag:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if cfg.encoder_dropout_p or cfg.decoder_dropout_p:
+            raise NotImplementedError(
+                "dropout (encoder_dropout_p or decoder_dropout_p > 0) is not "
+                "ported yet")
         dev = resolve_device(device)
         kw = dict(dtype=dtype, device=dev)
         self.cfg = cfg
@@ -285,22 +338,32 @@ class Compressor(nn.Module):
                 device=dev)
         self.group = LocalGrouper(cfg.hidden_dim, normalize=cfg.cluster_norm,
                                   **kw)
-        self.pos_embedding = MiniPointnet(3, cfg.p_dim, **kw)
+        if cfg.pre_group:
+            self.pre_grouper = LocalGrouper(
+                cfg.hidden_dim, normalize=cfg.cluster_norm, **kw)
+        if cfg.pos_embedding == "mlp":
+            self.pos_embedding = MLP(3, cfg.p_dim, cfg.p_dim, **kw)
+        else:
+            self.pos_embedding = MiniPointnet(3, cfg.p_dim, **kw)
+        label_dim = cfg.p_dim if cfg.class_condition else None
+        if cfg.class_condition:
+            self.label_embedding = LabelEmbedding(cfg.num_categorys,
+                                                  cfg.p_dim, cfg.p_dim, **kw)
         self.encoder = nn.ModuleList(
             Encoder(cfg.hidden_dim, cfg.p_dim, cfg.num_heads, norm=cfg.norm,
                     mlp_ratio=cfg.mlp_ratio, num_layers=cfg.encoder_layers,
-                    **kw)
+                    AdaLN=cfg.AdaLN, ref_merge=ref_merge, **kw)
             for _ in range(cfg.n_layers))
         self.decoder = nn.ModuleList(
             DecoderBlock(cfg.hidden_dim, cfg.z_dim, cfg.num_heads,
                          norm=cfg.norm, mlp_ratio=cfg.mlp_ratio,
-                         min_sigma=cfg.min_sigma, act=cfg.decoder_act, **kw)
+                         min_sigma=cfg.min_sigma, act=cfg.decoder_act,
+                         c_dim=label_dim, ref_merge=ref_merge, **kw)
             for _ in range(cfg.n_layers))
         self.output_dense = Dense(cfg.hidden_dim, 3, **kw)
         self.init_set = InitialSet(cfg.hidden_dim, cfg.max_outputs, device=dev)
         init_weights_(self, generator)
-        with torch.no_grad():
-            self.init_set.prior.uniform_(0.0, 1.0, generator=generator)
+        self.init_set.init_(generator)
 
     @staticmethod
     def norm_pts(pts: torch.Tensor) -> torch.Tensor:
@@ -310,12 +373,16 @@ class Compressor(nn.Module):
 
     def _grouped(self, pts: torch.Tensor, train: bool = False):
         """(centers [B, S, 3], token features [B, S, hidden]) before
-        ActNorm."""
-        if self.cfg.norm_input:
+        ActNorm: with `pre_group`, a first grouping to 256 groups of 32
+        neighbours, then `z_scales` groups of 2 N / z_scales."""
+        cfg = self.cfg
+        if cfg.norm_input:
             pts = self.norm_pts(pts)
+        x = self.input_dense(pts)
+        if cfg.pre_group:
+            pts, x = self.pre_grouper(pts, x, 256, 32, train)
         n = pts.shape[1]
-        return self.group(pts, self.input_dense(pts), self.cfg.z_scales,
-                          n // self.cfg.z_scales * 2, train)
+        return self.group(pts, x, cfg.z_scales, n // cfg.z_scales * 2, train)
 
     def take_batch_stats(self) -> dict:
         """The running statistics that the train-mode BatchNorms of the
@@ -333,16 +400,25 @@ class Compressor(nn.Module):
         the JAX module initializes it at `Module.init(..., train=train)`:
         after the grouping's BatchNorms in train mode (the batch's
         statistics; stage-1's init) or not (their running statistics;
-        stage-2's). Like flax's init it updates no running statistic."""
+        stage-2's). Like flax's init it updates no running statistic. The
+        label of a class-conditional Compressor enters after ActNorm (in the
+        position embedding), so its statistics need none."""
         if hasattr(self, "conv_in"):
             self.conv_in.data_init(self._grouped(pts, train)[1])
         self.take_batch_stats()
 
-    def bottom_up(self, pts: torch.Tensor, train: bool = False) -> dict:
+    def bottom_up(self, pts: torch.Tensor, train: bool = False,
+                  label: Optional[torch.Tensor] = None) -> dict:
         """Encode [B, N, 3] -> {'outputs': the n_layers taps [B, S, hidden],
-        'max': max of the last stage's tokens}."""
+        'max': max of the last stage's tokens}; `label` is a label
+        embedding [B, p_dim], added to the position embedding."""
         center, x = self._grouped(pts, train)
-        pos = self.pos_embedding(center, train)
+        if self.cfg.pos_embedding == "mlp":
+            pos = self.pos_embedding(center)
+        else:
+            pos = self.pos_embedding(center, train)
+        if label is not None:
+            pos = pos + label
         if hasattr(self, "conv_in"):
             x = self.conv_in(x)
         outputs = []
@@ -353,18 +429,22 @@ class Compressor(nn.Module):
 
     def top_down(self, encoder_out: Sequence[torch.Tensor],
                  noise: Optional[Sequence[torch.Tensor]] = None,
-                 generator: Optional[torch.Generator] = None) -> dict:
-        """Top-down posterior sampling and decoding of `outsize` points.
+                 generator: Optional[torch.Generator] = None,
+                 label: Optional[torch.Tensor] = None,
+                 seed_draw: Optional[torch.Tensor] = None) -> dict:
+        """Top-down posterior sampling and decoding of `outsize` points,
+        conditioned on the label embedding `label` [B, p_dim] if given.
         `noise[idx]` [B, S, z_dim] pins the reparameterization draw of decode
-        step idx; else it is N(0, 1) from `generator`."""
+        step idx and `seed_draw` the seed set's (`InitialSet`); else they
+        come from `generator`."""
         cfg = self.cfg
         b = encoder_out[0].shape[0]
-        o = self.init_set(b, cfg.outsize)
+        o = self.init_set(b, cfg.outsize, seed_draw, generator)
         posteriors, all_eps, kls, all_logqz = [(o, None, None)], [], [], []
         for idx in range(cfg.n_layers):
             layer = self.decoder[cfg.n_layers - 1 - idx]
             mu, logvar = layer.compute_posterior(
-                encoder_out[-idx - 1], o if idx != 0 else None)
+                encoder_out[-idx - 1], o if idx != 0 else None, label)
             e = noise[idx] if noise is not None else torch.randn(
                 mu.shape, dtype=mu.dtype, device=mu.device,
                 generator=generator)
@@ -372,7 +452,7 @@ class Compressor(nn.Module):
                                  e.to(device=mu.device, dtype=mu.dtype))
             logqz = log_p_var_normal(eps, mu, logvar)
             kls.append(logqz - log_p_normal(eps))
-            o = layer(o, eps)
+            o = layer(o, eps, label)
             all_eps.append(eps)
             posteriors.append((eps, mu, logvar))
             all_logqz.append(logqz)
@@ -382,24 +462,38 @@ class Compressor(nn.Module):
     def forward(self, x: torch.Tensor,
                 noise: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> dict:
-        """Bidirectional inference on x [B, N, 3]; 'all_eps' is
-        [B, z_scales, n_layers * z_dim] in the JAX package's layout. With
-        `train`, 'batch_stats' holds the BatchNorms' updated running
-        statistics ({state_dict key: tensor}); the buffers do not change."""
-        bup = self.bottom_up(x, train)
-        tdn = self.top_down(bup["outputs"], noise, generator)
+                train: bool = False, label: Optional[torch.Tensor] = None,
+                seed_draw: Optional[torch.Tensor] = None) -> dict:
+        """Bidirectional inference on x [B, N, 3], conditioned on the
+        category indices `label` [B] when the Compressor is
+        class-conditional; 'all_eps' is [B, z_scales, n_layers * z_dim] in
+        the JAX package's layout. With `train`, 'batch_stats' holds the
+        BatchNorms' updated running statistics ({state_dict key: tensor});
+        the buffers do not change."""
+        l_emb = (self.label_embedding(label) if label is not None
+                 and self.cfg.class_condition else None)
+        bup = self.bottom_up(x, train, l_emb)
+        tdn = self.top_down(bup["outputs"], noise, generator, l_emb,
+                            seed_draw)
         out = {"set": self.postprocess(tdn["set"]),
                "posteriors": tdn["posteriors"], "kls": tdn["kls"],
                "all_eps": torch.cat(tdn["all_eps"], dim=-1),
                "all_logqz": tdn["all_logqz"], "max": bup["max"]}
         if train:
-            out["batch_stats"] = self.take_batch_stats()
+            # as flax's mutable collection: every statistic, those of the
+            # norms that always read theirs (a block's batch norm) as they
+            # are
+            out["batch_stats"] = {**dict(self.named_buffers()),
+                                  **self.take_batch_stats()}
         return out
 
-    def sample(self, shape, given_eps: torch.Tensor) -> torch.Tensor:
+    def sample(self, shape, given_eps: torch.Tensor,
+               seed_draw: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Top-down generation. shape: (B, num_points); given_eps:
-        [B, z_scales, n_layers * z_dim].
+        [B, z_scales, n_layers * z_dim]; the seed set's draw as `top_down`.
+        No label: a class-conditional decoder runs its unconditioned
+        branch, as the JAX package's and the reference's `sample` do.
 
         The blocks run in reverse: decode step idx uses
         `decoder[n_layers - 1 - idx]` with eps channels
@@ -407,7 +501,7 @@ class Compressor(nn.Module):
         """
         cfg = self.cfg
         b, num_points = shape[0], shape[1]
-        o = self.init_set(b, num_points)
+        o = self.init_set(b, num_points, seed_draw, generator)
         eps_list = torch.split(given_eps, cfg.z_dim, dim=-1)
         if len(eps_list) != cfg.n_layers or given_eps.shape[-1] % cfg.z_dim:
             raise ValueError(f"given_eps last dim {given_eps.shape[-1]} is not "

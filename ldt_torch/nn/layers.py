@@ -14,6 +14,14 @@ differentiates through `ops.attention.PackedSelfAttention` (K1 forward, K3
 backward) and cross-attention through `ops.attention.CrossAttention` (K2
 forward, K4 backward). `BatchNorm` normalizes with its running statistics,
 or in train mode with the batch's (flax's semantics).
+
+`Attention(ref_merge=True)` reproduces the reference's head merge, a reshape
+of the [B, H, N, dh] output to [B, N, D] without the transpose (a fixed
+scramble of tokens into channels), which the reference's released weights
+were trained under. The JAX package computes it outside its Pallas core;
+here the kernels still run (K1/K2 forward, K3/K4 backward) and the scramble
+is a permutation of their standard-merge output, which autograd carries
+back.
 """
 
 from __future__ import annotations
@@ -65,15 +73,17 @@ class LayerNorm(nn.Module):
 
 def init_weights_(module: nn.Module,
                   generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Draw the Dense and LayerNorm parameters of `module` as the JAX
-    package initializes them: Dense weight and bias U(+-1/sqrt(fan_in)),
-    LayerNorm scale 1 and bias 0."""
+    """Draw the Dense, Embedding and LayerNorm parameters of `module` as the
+    JAX package initializes them: Dense weight and bias U(+-1/sqrt(fan_in)),
+    an embedding table N(0, 1), LayerNorm scale 1 and bias 0."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, Dense):
                 bound = 1.0 / math.sqrt(m.in_features)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
             elif isinstance(m, LayerNorm) and m.weight is not None:
                 m.weight.fill_(1.0)
                 m.bias.zero_()
@@ -166,6 +176,42 @@ class BatchNorm(nn.Module):
         return ((x - mean) * mul + self.bias).to(self.dtype)
 
 
+class GroupNorm(nn.Module):
+    """flax `nn.GroupNorm(num_groups, epsilon=1e-6)` on [B, ..., C]: each
+    batch element's statistics over every middle axis (the tokens) and the
+    channels of each group, in f32 with var = max(E[x^2] - E[x]^2, 0), then
+    scale and bias; the result in `dtype`. Not `torch.nn.GroupNorm`, whose
+    layout is channels-first."""
+
+    def __init__(self, features: int, num_groups: int, eps: float = 1e-6, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {features} "
+                             "channels")
+        kw = dict(dtype=torch.float32, device=device)
+        self.features = features
+        self.num_groups = num_groups
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, **kw))
+        self.bias = nn.Parameter(torch.zeros(features, **kw))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        b, g = x.shape[0], self.num_groups
+        size = self.features // g
+        grouped = x.reshape(b, -1, g, size)
+        mean = grouped.mean(dim=(1, 3))
+        var = torch.clamp(torch.square(grouped).mean(dim=(1, 3))
+                          - torch.square(mean), min=0.0)
+        shape = (b,) + (1,) * (x.dim() - 2) + (self.features,)
+        mean = mean.repeat_interleave(size, dim=-1).reshape(shape)
+        var = var.repeat_interleave(size, dim=-1).reshape(shape)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
 def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
                                                     torch.Tensor]:
     """Activation registry (`ldt_tpu/nn/layers.py::get_activation`)."""
@@ -189,14 +235,22 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
 
 def make_norm(norm: Optional[str], features: int, affine: bool = False, *,
               dtype=torch.float32, device=None) -> nn.Module:
-    """Norm registry over the channel (last) axis; None is the identity."""
+    """Norm registry over the channel (last) axis; None is the identity.
+
+    `affine` reaches the layer norm alone: as in the JAX package, the group
+    norm (min(features // 4, 16) groups) and the batch norm always carry a
+    scale and a bias, and the batch norm always normalizes with its running
+    statistics (flax `use_running_average=True`), in training too."""
     if norm is None:
         return nn.Identity()
     norm = norm.lower()
+    kw = dict(dtype=dtype, device=device)
     if norm == "layer_norm":
-        return LayerNorm(features, affine, dtype=dtype, device=device)
-    if norm in ("group_norm", "batch_norm"):
-        raise NotImplementedError(f"{norm} is not ported yet")
+        return LayerNorm(features, affine, **kw)
+    if norm == "group_norm":
+        return GroupNorm(features, min(features // 4, 16), **kw)
+    if norm == "batch_norm":
+        return BatchNorm(features, **kw)
     raise TypeError(f"norm not supported: {norm}")
 
 
@@ -235,6 +289,22 @@ class TimeEmbedding(nn.Module):
         return self.dense_1(F.silu(self.dense_0(h)))
 
 
+class LabelEmbedding(nn.Module):
+    """Category embedding (a N(0, 1) table) + 2-layer SiLU MLP."""
+
+    def __init__(self, num_categories: int, dim_embed: int, dim_out: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.embed = nn.Embedding(num_categories, dim_embed, dtype=dtype,
+                                  device=device)
+        self.dense_0 = Dense(dim_embed, dim_out, dtype=dtype, device=device)
+        self.dense_1 = Dense(dim_out, dim_out, dtype=dtype, device=device)
+
+    def forward(self, label: torch.Tensor) -> torch.Tensor:
+        h = self.embed(label.to(self.embed.weight.device, torch.long))
+        return self.dense_1(F.silu(self.dense_0(h)))
+
+
 class MLP(nn.Module):
     """One hidden layer: dense_1(gelu(dense_0(x))), GELU the tanh form."""
 
@@ -249,30 +319,40 @@ class MLP(nn.Module):
         return self.dense_1(self.act(self.dense_0(x)))
 
 
+def ref_merge(att: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The reference's head merge of a standard-merge output [B, N, D]
+    (token n, head h at channels [h dh, (h + 1) dh)): the [B, H, N, dh]
+    tensor reshaped to [B, N, D] without the transpose."""
+    b, n, d = att.shape
+    return (att.reshape(b, n, num_heads, d // num_heads).transpose(1, 2)
+            .reshape(b, n, d))
+
+
 class Attention(nn.Module):
     """Multi-head attention with Q from x and K, V from y.
 
-    The q, k and v projections are one packed [3D, D] weight `qkv` (the
-    flax `fc_q` and `fc_kv` kernels stacked). Self-attention (`y is None`)
-    runs the packed GEMM and hands its [B, N, 3D] output to kernel K1; cross-
-    attention projects q from x and k, v from y with row slices of the same
-    weight and runs kernel K2. With grad mode on they go through the
-    autograd.Functions whose backwards are K3 and K4.
+    The q, k and v projections are one packed [3 D_out, D_in] weight `qkv`
+    (the flax `fc_q` and `fc_kv` kernels stacked). Self-attention (`y is
+    None`) runs the packed GEMM and hands its [B, N, 3 D_out] output to
+    kernel K1; cross-attention projects q from x and k, v from y with row
+    slices of the same weight and runs kernel K2. With grad mode on they go
+    through the autograd.Functions whose backwards are K3 and K4.
+    `ref_merge` merges the heads as the reference does (`ref_merge`).
     """
 
-    def __init__(self, dim: int, num_heads: int, *, ref_merge: bool = False,
+    def __init__(self, dim: int, num_heads: int, *,
+                 dim_out: Optional[int] = None, ref_merge: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
-        if ref_merge:
-            raise NotImplementedError(
-                "ref_merge (the reference's token-scrambling head merge) is "
-                "not ported yet")
-        if dim % num_heads:
-            raise ValueError(f"width {dim} not divisible by {num_heads} heads")
-        self.dim = dim
+        dim_out = dim if dim_out is None else dim_out
+        if dim_out % num_heads:
+            raise ValueError(f"width {dim_out} not divisible by {num_heads} "
+                             "heads")
+        self.dim = dim_out
         self.num_heads = num_heads
-        self.qkv = Dense(dim, 3 * dim, dtype=dtype, device=device)
-        self.fc_o = Dense(dim, dim, dtype=dtype, device=device)
+        self.ref_merge = ref_merge
+        self.qkv = Dense(dim, 3 * dim_out, dtype=dtype, device=device)
+        self.fc_o = Dense(dim_out, dim_out, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -293,76 +373,121 @@ class Attention(nn.Module):
                 att = attn_ops.CrossAttention.apply(q, k, v, self.num_heads)
             else:
                 att = attn_ops.cross_attention(q, k, v, self.num_heads)
+        if self.ref_merge:
+            att = ref_merge(att, self.num_heads)
         return self.fc_o(att)
 
 
 class ResidualBlock(nn.Module):
     """Set-transformer block (`ldt_tpu/nn/layers.py::ResidualBlock`).
 
-    forward(x [B,N,C], y [B,M,C] or None, c [B,Dc] or None, *, mods):
-      * AdaLN (`c` or precomputed `mods` [6C]):
-            q = modulate(norm1(x)); x = x + gate_msa * Attn(q, y or q)
+    forward(x [B,N,C_in], y [B,M,C_in] or None, c [B,Dc] or None, *, mods):
+      * AdaLN (`c` or precomputed `mods`):
+            q = modulate(norm1(x))
+            x = shortcut(x) + gate_msa * Attn(q, y or q)
             x = x + gate_mlp * MLP(modulate(norm2(x)))
-      * unconditional: q = act(norm1(x)); x = x + Attn(q, y or q)
+        mods are [6 C] from one head `adaLN`, or with C_out != C_in
+        [2 C_in | 4 C_out] from `adaLN1` (shift and scale of the attention's
+        input) and `adaLN2`;
+      * `AdaLN=False` with `c`: x = act(norm1(x)) + pos_embedding(silu(c));
+            x = shortcut(x) + Attn(x, y or x); x = x + MLP(act(norm2(x)))
+        (the residual starts from the normed, shifted x, as the reference's);
+      * unconditional: q = act(norm1(x)); x = shortcut(x) + Attn(q, y or q)
             x = x + MLP(act(norm2(x)))
-    With y None the block self-attends over the modulated normed x, through
-    the packed path (kernel K1); with y given it cross-attends (kernel K2).
-    Norms carry scale and bias only when unconditioned (`dim_c` None).
+    then x / sqrt(2) with `rescale`. `shortcut` is a Dense C_in -> C_out
+    where the widths differ, else the identity; norm2 and the MLP run at
+    C_out. With y None the block self-attends through the packed path
+    (kernel K1); with y given it cross-attends (kernel K2). Layer norms carry
+    scale and bias only when unconditioned (`dim_c` None).
     """
 
     def __init__(self, dim: int, dim_c: Optional[int] = None,
                  num_heads: int = 4, norm: Optional[str] = "layer_norm",
                  mlp_ratio: float = 4.0, act: Optional[str] = None, *,
+                 dim_out: Optional[int] = None, AdaLN: bool = True,
+                 rescale: bool = False, ref_merge: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
+        dim_out = dim if dim_out is None else dim_out
         affine = dim_c is None
         kw = dict(dtype=dtype, device=device)
+        self.dim_in, self.dim_out = dim, dim_out
+        self.AdaLN = AdaLN
+        self.rescale = rescale
         self.norm1 = make_norm(norm, dim, affine, **kw)
-        self.norm2 = make_norm(norm, dim, affine, **kw)
+        self.norm2 = make_norm(norm, dim_out, affine, **kw)
         self.act = get_activation(act)
-        self.attn = Attention(dim, num_heads, **kw)
-        self.mlp = MLP(dim, int(mlp_ratio * dim), dim, **kw)
-        if dim_c is not None:
+        self.attn = Attention(dim, num_heads, dim_out=dim_out,
+                              ref_merge=ref_merge, **kw)
+        self.mlp = MLP(dim_out, int(mlp_ratio * dim_out), dim_out, **kw)
+        if dim_out != dim:
+            self.shortcut = Dense(dim, dim_out, **kw)
+        if dim_c is None:
+            return
+        if not AdaLN:
+            self.pos_embedding = Dense(dim_c, dim, **kw)
+        elif dim_out == dim:
             self.adaLN = Dense(dim_c, 6 * dim, **kw)
+        else:
+            self.adaLN1 = Dense(dim_c, 2 * dim, **kw)
+            self.adaLN2 = Dense(dim_c, 4 * dim_out, **kw)
 
     def compute_mods(self, c: torch.Tensor) -> torch.Tensor:
-        """The AdaLN head alone: [..., Dc] -> [..., 6C] (hoisted out of the
-        sampler loop by `Score.precompute_mods`)."""
-        return self.adaLN(F.silu(c))
+        """The AdaLN heads alone: [..., Dc] -> [..., 6C] or
+        [..., 2 C_in + 4 C_out] (hoisted out of the sampler loop by
+        `Score.precompute_mods`)."""
+        c = F.silu(c)
+        if self.dim_out == self.dim_in:
+            return self.adaLN(c)
+        return torch.cat([self.adaLN1(c), self.adaLN2(c)], dim=-1)
+
+    def _shortcut(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shortcut(x) if self.dim_out != self.dim_in else x
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 c: Optional[torch.Tensor] = None, *,
                 mods: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if c is not None or mods is not None:
+        if c is not None and c.dim() == 2:
+            c = c[:, None, :]
+        if (c is not None or mods is not None) and self.AdaLN:
             if mods is None:
-                if c.dim() == 2:
-                    c = c[:, None, :]
                 mods = self.compute_mods(c)
             while mods.dim() < 3:
                 mods = mods[None]
-            (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp,
-             gate_mlp) = mods.chunk(6, dim=-1)
+            head = 2 * self.dim_in
+            shift_msa, scale_msa = mods[..., :head].chunk(2, dim=-1)
+            gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[..., head:].chunk(
+                4, dim=-1)
             q = modulate(self.norm1(x), shift_msa, scale_msa)
-            x = x + gate_msa * self.attn(q, y)
+            x = self._shortcut(x) + gate_msa * self.attn(q, y)
             x = x + gate_mlp * self.mlp(
                 modulate(self.norm2(x), shift_mlp, scale_mlp))
+        elif c is not None:
+            x = self.act(self.norm1(x)) + self.pos_embedding(F.silu(c))
+            x = self._shortcut(x) + self.attn(x, y)
+            x = x + self.mlp(self.act(self.norm2(x)))
         else:
             q = self.act(self.norm1(x))
-            x = x + self.attn(q, y)
+            x = self._shortcut(x) + self.attn(q, y)
             x = x + self.mlp(self.act(self.norm2(x)))
+        if self.rescale:
+            x = x / math.sqrt(2.0)
         return x
 
 
 class FinalLayer(nn.Module):
-    """AdaLN output head (`ldt_tpu/nn/layers.py::FinalLayer` with dim_c)."""
+    """Output head (`ldt_tpu/nn/layers.py::FinalLayer`): with `dim_c`,
+    ln(modulate(norm(x))) by an AdaLN shift and scale; without,
+    ln(norm(x)) with an affine norm."""
 
-    def __init__(self, dim_in: int, dim_out: int, dim_c: int,
+    def __init__(self, dim_in: int, dim_out: int, dim_c: Optional[int] = None,
                  norm: Optional[str] = "layer_norm", *, dtype=torch.float32,
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.norm = make_norm(norm, dim_in, **kw)
-        self.adaLN = Dense(dim_c, 2 * dim_in, **kw)
+        self.norm = make_norm(norm, dim_in, dim_c is None, **kw)
+        if dim_c is not None:
+            self.adaLN = Dense(dim_c, 2 * dim_in, **kw)
         self.ln = Dense(dim_in, dim_out, **kw)
 
     def compute_mods(self, c: torch.Tensor) -> torch.Tensor:
@@ -370,7 +495,10 @@ class FinalLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, c: Optional[torch.Tensor] = None, *,
                 mods: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """AdaLN from the conditioning `c` [B, Dc] or precomputed `mods`."""
+        """AdaLN from the conditioning `c` [B, Dc] or precomputed `mods`;
+        neither: the plain head."""
+        if mods is None and c is None:
+            return self.ln(self.norm(x))
         if mods is None:
             mods = self.compute_mods(c[:, None, :] if c.dim() == 2 else c)
         while mods.dim() < 3:

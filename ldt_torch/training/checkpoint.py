@@ -211,8 +211,10 @@ def checkpoint_path(save_path: str, epoch: int) -> str:
 
 
 def checkpoint_file(save_path: str, epoch: int) -> Optional[str]:
-    """The checkpoint of `epoch` on disk: the port's `.pt`, else the JAX
-    package's `.msgpack`; None when there is neither."""
+    """The checkpoint of `epoch` on disk (after the writes in flight): the
+    port's `.pt`, else the JAX package's `.msgpack`; None when there is
+    neither."""
+    wait_pending_saves()
     for suffix in _SUFFIXES:
         path = os.path.join(save_path, f"checkpt_{epoch}{suffix}")
         if os.path.exists(path):
@@ -226,8 +228,10 @@ def resolve_checkpoint_epoch(save_path: str,
 
     An explicitly requested `epoch` must exist. Otherwise training.csv's
     last epoch, or, when the CSV ran past the last save or is absent, the
-    newest checkpoint on disk. Raises FileNotFoundError when nothing is
-    loadable."""
+    newest checkpoint on disk, once the writes in flight have landed (a
+    stage-2 save writes on a thread). Raises FileNotFoundError when nothing
+    is loadable."""
+    wait_pending_saves()
     if epoch is not None:
         if checkpoint_file(save_path, epoch) is None:
             raise FileNotFoundError(

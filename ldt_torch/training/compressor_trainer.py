@@ -12,13 +12,17 @@ One `update(batch)`:
   4. clip by global norm and Adam (`training.state`); no EMA (the JAX
      trainer keeps none, and the stage-1 config's ema_decay is 0); the
      BatchNorms' running statistics take the forward's update.
-`valsample` (decode the prior) and `reconstruction` (encode-decode the
-test split, denormalized) score with `eval.metrics.compute_all_metrics`
-(K5 and K6 on the card). `save` writes `checkpt_<epoch>.pt` under
-`cfg.log.save_path` ({"state": the TrainState's tree}, `training.checkpoint`)
-and `resume` restores one, or the JAX package's `.msgpack`, into the live
-parameters. `valsample(vis=True)` (the renderer is not ported) and a
-class-conditional reconstruction raise.
+With several categories (`data.num_categorys` > 1) each batch's
+`cate_idx` is the label of a class-conditional Compressor, through the
+forward of `update` and `encode`.
+`valsample` (decode the prior; no label, as the JAX trainer) and
+`reconstruction` (encode-decode the test split, denormalized; with several
+categories the clouds of `val_cate` with their labels) score with
+`eval.metrics.compute_all_metrics` (K5 and K6 on the card). `save` writes
+`checkpt_<epoch>.pt` under `cfg.log.save_path` ({"state": the TrainState's
+tree}, `training.checkpoint`) and `resume` restores one, or the JAX
+package's `.msgpack`, into the live parameters. `valsample(vis=True)`
+(the renderer is not ported) raises.
 """
 
 from __future__ import annotations
@@ -48,12 +52,15 @@ def compressor_objective(model: Compressor, pts: torch.Tensor,
                          kl_weight: float,
                          noise: Optional[Sequence[torch.Tensor]] = None,
                          rec_fn: Optional[Callable] = None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         label: Optional[torch.Tensor] = None):
     """(loss, (kl, rec, max, batch_stats)): loss = kl_weight * kl + rec,
     kl = mean(cat(kls)), rec = CD + EMD of the decoded set against `pts`
-    (or `rec_fn(set, pts)`), from the forward in train mode; batch_stats
-    are its BatchNorms' updated running statistics."""
-    out = model(pts, noise=noise, generator=generator, train=True)
+    (or `rec_fn(set, pts)`), from the forward in train mode (conditioned on
+    `label`, category indices [B], if given); batch_stats are its
+    BatchNorms' updated running statistics."""
+    out = model(pts, noise=noise, generator=generator, train=True,
+                label=label)
     kl_loss = torch.mean(torch.cat(out["kls"], dim=1))
     if rec_fn is None:
         rec_loss = CD_loss(out["set"], pts) + EMD_loss(out["set"], pts)
@@ -91,6 +98,14 @@ class Trainer(BaseTrainer):
     def _points(self, pts) -> torch.Tensor:
         return torch.as_tensor(pts, dtype=torch.float32).to(self.device)
 
+    def _label_of(self, batch) -> Optional[torch.Tensor]:
+        """The batch's category indices with several categories, else
+        None."""
+        if self.cfg.data.num_categorys > 1:
+            return torch.as_tensor(batch["cate_idx"]).to(self.device,
+                                                         torch.long)
+        return None
+
     def maybe_init(self, batch, weights=None) -> None:
         """Build the f32 Compressor once: random weights from the generator,
         then ActNorm from the whole first batch after train-mode BatchNorms
@@ -111,13 +126,15 @@ class Trainer(BaseTrainer):
                                        ema=False)
 
     def train_step(self, pts: torch.Tensor, lr: float,
-                   noise: Optional[Sequence[torch.Tensor]] = None):
-        """Loss, gradients and the optimizer step on clouds `pts`; returns
-        (loss, kl, rec, max), 0-d tensors on the device."""
+                   noise: Optional[Sequence[torch.Tensor]] = None,
+                   label: Optional[torch.Tensor] = None):
+        """Loss, gradients and the optimizer step on clouds `pts` (labels
+        `label`); returns (loss, kl, rec, max), 0-d tensors on the
+        device."""
         self.model.zero_grad(set_to_none=True)
         loss, (kl, rec, max_f, new_bs) = compressor_objective(
             self.model, pts, self.kl_weight, noise=noise,
-            generator=self.generator)
+            generator=self.generator, label=label)
         loss.backward()
         grads = {k: p.grad for k, p in self.state.params.items()}
         apply_update(self.state, grads, self.tx, lr, ema_decay=0.0,
@@ -126,11 +143,12 @@ class Trainer(BaseTrainer):
 
     def update(self, data, *,
                noise: Optional[Sequence[torch.Tensor]] = None):
-        """One stage-1 step on `data['tr_points']` [B, N, 3]; returns (loss,
+        """One stage-1 step on `data['tr_points']` [B, N, 3] (and, with
+        several categories, the labels `data['cate_idx']`); returns (loss,
         kl, rec, max) as the JAX trainer's `update`."""
         self.maybe_init(data)
         out = self.train_step(self._points(data["tr_points"]),
-                              self.current_lr(), noise)
+                              self.current_lr(), noise, self._label_of(data))
         self.itr += 1
         return out
 
@@ -149,12 +167,15 @@ class Trainer(BaseTrainer):
                                  given_eps.to(self.device))
 
     @torch.no_grad()
-    def encode(self, pts, noise: Optional[Sequence[torch.Tensor]] = None
-               ) -> dict:
+    def encode(self, pts, noise: Optional[Sequence[torch.Tensor]] = None,
+               label=None) -> dict:
         """The Compressor's forward (running statistics) on clouds
-        [B, N, 3]: the decoded 'set', 'all_eps', 'kls', ..."""
+        [B, N, 3] with labels `label` [B] (or None): the decoded 'set',
+        'all_eps', 'kls', ..."""
+        if label is not None:
+            label = torch.as_tensor(label).to(self.device, torch.long)
         return self.model(self._points(pts), noise=noise,
-                          generator=self.generator)
+                          generator=self.generator, label=label)
 
     def valsample(self, test_loader, sample_points: int, vis: bool = False):
         """Decode one batch of prior samples per test batch and score them
@@ -189,19 +210,20 @@ class Trainer(BaseTrainer):
         batch_size=128)`; the reconstructions go to `rec_ep<epoch>.npy`
         under `cfg.log.save_path` when there is one."""
         several = self.cfg.data.num_categorys > 1
-        if several and self.cfg.model.class_condition:
-            _not_ported("reconstruction", "a class-conditional Compressor "
-                        "(its label embedding) is a later slice")
         all_ref, all_rec = [], []
         for data in test_loader:
             pts, shift, scale = (to_numpy(data[k])
                                  for k in ("te_points", "shift", "scale"))
+            labels = {}  # the labels of a class-conditional Compressor
             if several:
-                idx = to_numpy(data["cate_idx"]) == val_cate
+                cates = to_numpy(data["cate_idx"])
+                idx = cates == val_cate
                 if not idx.any():
                     continue
                 pts, shift, scale = pts[idx], shift[idx], scale[idx]
-            rec = self.encode(pts)["set"]
+                if self.cfg.model.class_condition:
+                    labels["label"] = cates[idx]
+            rec = self.encode(pts, **labels)["set"]
             shift, scale = self._points(shift), self._points(scale)
             all_ref.append((self._points(pts) * scale + shift).cpu().numpy())
             all_rec.append((rec * scale + shift).cpu().numpy())

@@ -21,8 +21,9 @@ decode as tensors, bfloat16 by its name.
 
 The trees map through `ldt_torch.weights`: the params, the EMA and the Adam
 moments as params (the map is linear), `batch_stats` as the BatchNorms'
-running statistics. optax's chain state is {"0": ..., "1": ...}: the Adam
-entry (count, mu, nu) is found by its keys; every other entry must be
+running statistics; writing one, the config's `norm` names the JAX
+norms. optax's chain state is {"0": ..., "1": ...}: the Adam entry (count,
+mu, nu) is found by its keys; every other entry must be
 empty (the clip's and the weight decay's) and is written back empty, which
 a strict JAX restore needs. Moments saved in bf16 are cast to f32, the
 step is a 0-d int32 array. A leaf that maps to nothing raises, either way.
@@ -515,21 +516,31 @@ def _jax_train_state(ts: dict, to_jax, tx, batch_stats=None) -> dict:
             "batch_stats": batch_stats}
 
 
-def state_to_jax(state: dict, tx) -> dict:
+def _norm(cfg, section: str) -> str:
+    """The config section's `norm` (what the JAX names of a state_dict's
+    norms depend on), layer_norm without a config."""
+    return getattr(getattr(cfg, section, None), "norm", None) or "layer_norm"
+
+
+def state_to_jax(state: dict, tx, cfg=None) -> dict:
     """The port's state tree ({"state"} or {"score", "compressor"}) -> the
-    JAX package's, for the optimizer `tx` of the trainer that saved it."""
+    JAX package's, for the optimizer `tx` of the trainer that saved it and
+    its config `cfg` (the nets' `norm`)."""
     out = {}
     for key, value in state.items():
         if key == "state":
+            norm = _norm(cfg, "model")
             stats = value["batch_stats"] or {}
             out[key] = _jax_train_state(
-                value, lambda t: compressor_variables(t)["params"], tx,
-                compressor_variables({**value["params"],
-                                      **stats})["batch_stats"] or None)
+                value, lambda t: compressor_variables(t, norm)["params"], tx,
+                compressor_variables({**value["params"], **stats},
+                                     norm)["batch_stats"] or None)
         elif key == "score":
-            out[key] = _jax_train_state(value, score_params, tx)
+            norm = _norm(cfg, "score")
+            out[key] = _jax_train_state(
+                value, lambda t: score_params(t, norm), tx)
         elif key == "compressor":
-            out[key] = compressor_variables(value)
+            out[key] = compressor_variables(value, _norm(cfg, "compressor"))
         else:
             raise ValueError(f"no JAX layout for the state entry {key!r}")
     return out
@@ -550,7 +561,7 @@ def save_jax_checkpoint(path: str, state: dict, tx, cfg=None,
                         ) -> None:
     """Write the port's state tree as the JAX package's checkpoint: one
     msgpack file below `shard_threshold` bytes, else the sharded format."""
-    jax_state = state_to_jax(state, tx)
+    jax_state = state_to_jax(state, tx, cfg)
     meta = {"cfg": namespace2dict(cfg) if cfg is not None else {},
             "epoch": int(epoch), "itr": int(itr), "time": float(time)}
     total = sum(_nbytes(v) for _, v in _flatten(jax_state) if _is_array(v))

@@ -13,14 +13,21 @@ One `update(batch)`:
   5. clip by global norm, Adam, EMA (`training.state`).
 Sampling and the validation loss use the EMA params.
 
+With several categories (`data.num_categorys` > 1) each batch's `cate_idx`
+labels the clouds: through the frozen (class-conditional) encode, the
+Score's conditioning c = t_emb + l_emb and the validation loss.
+
 Every draw can be pinned: `update(..., t_idx=, eta=, enc_noise=)` (the
 reparameterization noise of the encode, in decode order); otherwise it comes
 from the trainer's `torch.Generator`. Continuous-t training (the JAX
-package's `iw_quantities`) is later work and raises. `valsample` samples one
-batch per test batch with the EMA params and scores it with
-`eval.metrics.compute_all_metrics` (K5 and K6 on the card); its
-several-category branch needs class conditioning, a later slice, and
-raises, as does `vis=True` (the renderer is not ported).
+package's `iw_quantities`) is later work and raises. `sample(n, label=)`
+runs the whole Score at each step with the label (the modulations are not
+hoisted: c depends on the label). `valsample` samples one batch per test
+batch with the EMA params, or with several categories
+ceil(n_ref / test_batch_size) batches of `test_batch_size` at the label
+`val_cate` cut to the n_ref test clouds of that category, and scores them
+with `eval.metrics.compute_all_metrics` (K5 and K6 on the card);
+`vis=True` raises (the renderer is not ported).
 
 `save` writes `checkpt_<epoch>.pt` under `cfg.log.save_path` with both
 nets' states, {"score": the TrainState's tree, "compressor": the frozen
@@ -34,6 +41,7 @@ either package (`cfg.compressor.pretrain_path`).
 from __future__ import annotations
 
 import contextlib
+import math
 import time
 from typing import Optional, Sequence
 
@@ -83,11 +91,12 @@ def draw_train_randoms(eps_shape, *, discrete: bool, timesteps: torch.Tensor,
 
 
 def score_objective(score, eps, t, var, e2int, weight, eta,
-                    loss_type: str = "l2") -> torch.Tensor:
-    """mean(|eta - score(xt, t)|^p * weight), xt = eps e2int + sqrt(var) eta;
-    p = 1 for `loss_type` l1, else 2."""
+                    loss_type: str = "l2",
+                    label: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean(|eta - score(xt, t, label)|^p * weight), xt = eps e2int +
+    sqrt(var) eta; p = 1 for `loss_type` l1, else 2."""
     xt = eps * e2int + torch.sqrt(var) * eta
-    diff = eta - score(xt, t)
+    diff = eta - score(xt, t, label)
     distance = torch.abs(diff) if loss_type == "l1" else torch.square(diff)
     return torch.mean(distance * weight)
 
@@ -122,6 +131,14 @@ class Trainer(BaseTrainer):
     def _points(self, pts) -> torch.Tensor:
         return torch.as_tensor(pts, dtype=torch.float32).to(self.device)
 
+    def _label_of(self, batch) -> Optional[torch.Tensor]:
+        """The batch's category indices with several categories, else
+        None."""
+        if self.cfg.data.num_categorys > 1:
+            return torch.as_tensor(batch["cate_idx"]).to(self.device,
+                                                         torch.long)
+        return None
+
     def maybe_init(self, batch, score_weights=None,
                    compressor_weights=None) -> None:
         """Build the f32 Score and the frozen Compressor once: random from
@@ -147,24 +164,26 @@ class Trainer(BaseTrainer):
 
     @torch.no_grad()
     def encode(self, pts: torch.Tensor,
-               noise: Optional[Sequence[torch.Tensor]] = None
-               ) -> torch.Tensor:
-        """The frozen Compressor's latents `all_eps` of clouds [B, N, 3]."""
-        return self.compressor(pts, noise=noise,
-                               generator=self.generator)["all_eps"]
+               noise: Optional[Sequence[torch.Tensor]] = None,
+               label: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The frozen Compressor's latents `all_eps` of clouds [B, N, 3]
+        (labels `label` for a class-conditional one)."""
+        return self.compressor(pts, noise=noise, generator=self.generator,
+                               label=label)["all_eps"]
 
     def train_step(self, eps: torch.Tensor, lr: float,
                    t_idx: Optional[torch.Tensor] = None,
-                   eta: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Loss, gradients and the optimizer step on latents `eps`; returns
-        the loss (a 0-d tensor on the device)."""
+                   eta: Optional[torch.Tensor] = None,
+                   label: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Loss, gradients and the optimizer step on latents `eps` (labels
+        `label`); returns the loss (a 0-d tensor on the device)."""
         t, var, e2int, weight, eta = draw_train_randoms(
             eps.shape, discrete=self.discrete, timesteps=self.timesteps,
             train_N=self.N, sde=self.sde, generator=self.generator,
             t_idx=t_idx, eta=eta)
         self.score.zero_grad(set_to_none=True)
         loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
-                               self.cfg.opt.loss_type)
+                               self.cfg.opt.loss_type, label)
         loss.backward()
         grads = {k: p.grad for k, p in self.state.params.items()}
         apply_update(self.state, grads, self.tx, lr, self.ema_decay)
@@ -174,10 +193,12 @@ class Trainer(BaseTrainer):
                eta: Optional[torch.Tensor] = None,
                enc_noise: Optional[Sequence[torch.Tensor]] = None
                ) -> torch.Tensor:
-        """One stage-2 step on `data['tr_points']` [B, N, 3]."""
+        """One stage-2 step on `data['tr_points']` [B, N, 3] (and, with
+        several categories, the labels `data['cate_idx']`)."""
         self.maybe_init(data)
-        eps = self.encode(self._points(data["tr_points"]), enc_noise)
-        loss = self.train_step(eps, self.current_lr(), t_idx, eta)
+        label = self._label_of(data)
+        eps = self.encode(self._points(data["tr_points"]), enc_noise, label)
+        loss = self.train_step(eps, self.current_lr(), t_idx, eta, label)
         self.itr += 1
         return loss
 
@@ -202,20 +223,23 @@ class Trainer(BaseTrainer):
                  ) -> torch.Tensor:
         """The objective on `data['te_points']` with the EMA params."""
         self.maybe_init({"tr_points": data["te_points"]})
-        eps = self.encode(self._points(data["te_points"]), enc_noise)
+        label = self._label_of(data)
+        eps = self.encode(self._points(data["te_points"]), enc_noise, label)
         t, var, e2int, weight, eta = draw_train_randoms(
             eps.shape, discrete=True, timesteps=self.timesteps,
             train_N=self.N, sde=self.sde, generator=self.generator,
             t_idx=t_idx, eta=eta)
         with self.ema_weights() as score:
             return score_objective(score, eps, t, var, e2int, weight, eta,
-                                   self.cfg.opt.loss_type)
+                                   self.cfg.opt.loss_type, label)
 
-    def sample(self, num_samples: int, num_points: Optional[int] = None):
+    def sample(self, num_samples: int, num_points: Optional[int] = None,
+               label=None):
         """(clouds [num_samples, num_points, 3], latents): the ported
         discrete sampler (`cfg.sde`'s predictor and corrector, sample_N
-        steps, draws from the generator) on the EMA Score, then the
-        decode."""
+        steps, draws from the generator) on the EMA Score, conditioned on
+        `label` (a category index or [num_samples] of them) if given, then
+        the decode (no label: the Compressor's `sample`)."""
         sde_cfg = self.cfg.sde
         if sde_cfg.sample_mode == "continuous":
             raise NotImplementedError("the ODE sampler is not ported yet")
@@ -225,37 +249,53 @@ class Trainer(BaseTrainer):
                     denoise=sde_cfg.denoise, generator=self.generator)
         n = num_points if num_points is not None else \
             self.cfg.data.tr_max_sample_points
+        if label is not None:
+            label = torch.as_tensor(label, device=self.device).long().expand(
+                num_samples)
         with self.ema_weights() as score, torch.inference_mode():
             eps = sample_latents(score, self.sde, num_samples,
-                                 sde_cfg.sample_N, device=self.device, **opts)
+                                 sde_cfg.sample_N, device=self.device,
+                                 label=label, **opts)
             return self.compressor.sample((num_samples, n), eps), eps
 
     def valsample(self, test_loader, val_cate: int = 0, vis: bool = False):
-        """Sample as many clouds as each test batch holds and score them
-        against the test clouds `data['te_points']`: {'val/gen/<metric>'}
-        of `compute_all_metrics(smp, ref, batch_size=64)`; the samples go to
-        `smp_ep<epoch>.npy` under `cfg.log.save_path` when there is one."""
+        """Sample as many clouds as each test batch holds, or with several
+        categories ceil(n / test_batch_size) batches of test_batch_size at
+        the label `val_cate` cut to the n test clouds of `val_cate`, and
+        score them against those test clouds `data['te_points']`:
+        {'val/gen/<metric>'} of `compute_all_metrics(smp, ref,
+        batch_size=64)`; the samples go to `smp_ep<epoch>.npy` under
+        `cfg.log.save_path` when there is one."""
         if vis:
             raise NotImplementedError(
                 "Trainer.valsample(vis=True) is not ported yet: its renderer "
                 "(tools/vis_utils) is a later slice")
-        if self.cfg.data.num_categorys != 1:
-            raise NotImplementedError(
-                "Trainer.valsample with several categories is not ported "
-                "yet: it samples with class labels, and class conditioning "
-                "is a later slice")
         all_ref, all_smp = [], []
         use_time = 0.0
-        for data in test_loader:
-            ref_pts = data["te_points"]
+        if self.cfg.data.num_categorys == 1:
+            for data in test_loader:
+                ref_pts = data["te_points"]
+                t0 = time.time()
+                smp, _ = self.sample(num_samples=ref_pts.shape[0])
+                self.synchronize()
+                use_time += time.time() - t0
+                all_smp.append(smp.cpu().numpy())
+                all_ref.append(to_numpy(ref_pts))
+            smp = np.concatenate(all_smp)
+            ref = np.concatenate(all_ref)
+        else:
+            for data in test_loader:
+                idx = to_numpy(data["cate_idx"]) == val_cate
+                all_ref.append(to_numpy(data["te_points"])[idx])
+            ref = np.concatenate(all_ref)
+            bsize = self.cfg.data.test_batch_size
             t0 = time.time()
-            smp, _ = self.sample(num_samples=ref_pts.shape[0])
-            self.synchronize()
+            for _ in range(math.ceil(ref.shape[0] / bsize)):
+                smp, _ = self.sample(num_samples=bsize, label=val_cate)
+                self.synchronize()
+                all_smp.append(smp.cpu().numpy())
             use_time += time.time() - t0
-            all_smp.append(smp.cpu().numpy())
-            all_ref.append(to_numpy(ref_pts))
-        smp = np.concatenate(all_smp)
-        ref = np.concatenate(all_ref)
+            smp = np.concatenate(all_smp)[:ref.shape[0]]
         print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
         self.save_npy(f"smp_ep{self.epoch}.npy", smp)
         return self.eval_metrics(smp, ref, 64)

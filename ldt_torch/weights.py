@@ -4,27 +4,39 @@ Layout rules, flax -> torch:
   * `Dense` kernel [in, out] -> `weight` [out, in]; bias as is
   * `attn/fc_q` + `attn/fc_kv` -> `attn.qkv` ([Wq | Wkv] stacked, so one
     GEMM gives the packed [q | k | v] that kernel K1 reads)
-  * `LayerNorm_0`/`LayerNorm_1` scale, bias -> `norm1`/`norm2` weight, bias
-  * `Dense_0`/`Dense_1` (TimeEmbedding, MLP) -> `dense_0`/`dense_1`
-  * `transformer_<i>` / `decoder_<i>` / `encoder_<i>` -> `transformer.<i>` /
-    `decoder.<i>` / `encoder.<i>`; `op<i>` -> `ops.<i>`
+  * a block's norms `<Kind>_0`/`<Kind>_1` (LayerNorm, GroupNorm, BatchNorm)
+    -> `norm1`/`norm2`, a head's `<Kind>_0` -> `norm`: scale, bias ->
+    weight, bias
   * flax `BatchNorm` params scale, bias and `batch_stats` mean, var ->
     weight, bias, running_mean, running_var
+  * `Dense_0`/`Dense_1` (TimeEmbedding, LabelEmbedding, MLP, the seed
+    mixture) -> `dense_0`/`dense_1`; `Embed_0` embedding -> `embed.weight`
+  * `transformer_<i>` / `decoder_<i>` / `encoder_<i>` -> `transformer.<i>` /
+    `decoder.<i>` / `encoder.<i>`; `op<i>` -> `ops.<i>`
 
 A leaf that no rule maps raises. `compressor_decode_state_dict` converts the
 decode half alone (what `generate` needs) and returns the paths it leaves.
 The converters take any tree of the params' structure: a JAX gradient or an
-Adam moment maps as the params do. `score_params` and
+Adam moment maps as the params do. `score_params` / `score_variables` and
 `compressor_variables` map back, torch -> flax, by the same rules (an entry
-that no rule maps raises there too), keeping each tensor's dtype.
+that no rule maps raises there too), keeping each tensor's dtype. A
+state_dict cannot tell a group norm's weight and bias from a layer norm's:
+the inverse converters take the config's `norm` (a batch norm is told by
+its running statistics).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+_NORM_KINDS = ("LayerNorm", "GroupNorm", "BatchNorm")
+_FLAX_NORM = {"layer_norm": "LayerNorm", "group_norm": "GroupNorm",
+              "batch_norm": "BatchNorm"}
+# the Dense children of a block that only some configurations have
+_BLOCK_DENSE = ("adaLN", "adaLN1", "adaLN2", "shortcut", "pos_embedding")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -57,6 +69,22 @@ def _layer_norm(sd: dict, key: str, p: dict, path: str) -> None:
     _done(p, path)
 
 
+def _norm(sd: dict, key: str, p: dict, stats: dict, path: str,
+          index: int) -> None:
+    """The norm `<Kind>_<index>` of the module `p` (popped), if it has one;
+    a BatchNorm's statistics from `stats` (popped)."""
+    for kind in _NORM_KINDS:
+        name = f"{kind}_{index}"
+        if name not in p:
+            continue
+        _layer_norm(sd, key, p.pop(name), f"{path}/{name}")
+        if kind == "BatchNorm":
+            st = _take(stats, name, f"batch_stats/{path}")
+            sd[f"{key}.running_mean"] = _tensor(st.pop("mean"))
+            sd[f"{key}.running_var"] = _tensor(st.pop("var"))
+            _done(st, f"batch_stats/{path}/{name}")
+
+
 def _two_dense(sd: dict, key: str, p: dict, path: str) -> None:
     p = dict(p)
     for i in (0, 1):
@@ -65,8 +93,19 @@ def _two_dense(sd: dict, key: str, p: dict, path: str) -> None:
     _done(p, path)
 
 
-def _residual_block(sd: dict, key: str, p: dict, path: str) -> None:
+def _label_embedding(sd: dict, key: str, p: dict, path: str) -> None:
     p = dict(p)
+    embed = _take(p, "Embed_0", path)
+    sd[f"{key}.embed.weight"] = _tensor(embed.pop("embedding"))
+    _done(embed, f"{path}/Embed_0")
+    _two_dense(sd, key, p, path)
+
+
+def _residual_block(sd: dict, key: str, p: dict, path: str,
+                    stats: Optional[dict] = None) -> None:
+    """One ResidualBlock; `stats` is its `batch_stats` subtree (BatchNorm
+    norms)."""
+    p, stats = dict(p), dict(stats or {})
     attn = _take(p, "attn", path)
     fq, fkv = _take(attn, "fc_q", path), _take(attn, "fc_kv", path)
     sd[f"{key}.attn.qkv.weight"] = torch.cat(
@@ -80,32 +119,48 @@ def _residual_block(sd: dict, key: str, p: dict, path: str) -> None:
            f"{path}/attn/fc_o")
     _done(attn, f"{path}/attn")
     _two_dense(sd, f"{key}.mlp", _take(p, "mlp", path), f"{path}/mlp")
-    for flax_name, name in (("LayerNorm_0", "norm1"), ("LayerNorm_1", "norm2")):
-        if flax_name in p:
-            _layer_norm(sd, f"{key}.{name}", p.pop(flax_name),
-                        f"{path}/{flax_name}")
+    for i, name in enumerate(("norm1", "norm2")):
+        _norm(sd, f"{key}.{name}", p, stats, path, i)
+    for name in _BLOCK_DENSE:
+        if name in p:
+            _dense(sd, f"{key}.{name}", p.pop(name), f"{path}/{name}")
+    _done(p, path)
+    _done(stats, f"batch_stats/{path}")
+
+
+def _final_layer(sd: dict, key: str, p: dict, path: str,
+                 stats: Optional[dict] = None) -> None:
+    p, stats = dict(p), dict(stats or {})
     if "adaLN" in p:
         _dense(sd, f"{key}.adaLN", p.pop("adaLN"), f"{path}/adaLN")
+    _dense(sd, f"{key}.ln", _take(p, "ln", path), f"{path}/ln")
+    _norm(sd, f"{key}.norm", p, stats, path, 0)
     _done(p, path)
+    _done(stats, f"batch_stats/{path}")
 
 
-def score_state_dict(params: dict) -> Dict[str, torch.Tensor]:
-    """`ldt_tpu` Score params -> `ldt_torch.models.Score` state_dict (f32)."""
-    p = dict(params)
+def score_state_dict(params: dict, batch_stats: Optional[dict] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """`ldt_tpu` Score params (and, with batch-norm norms, its
+    `batch_stats`) -> `ldt_torch.models.Score` state_dict (f32)."""
+    p, stats = dict(params), dict(batch_stats or {})
     sd: Dict[str, torch.Tensor] = {}
     _dense(sd, "ln_in", _take(p, "ln_in", ""), "ln_in")
     _two_dense(sd, "time_embedding", _take(p, "time_embedding", ""),
                "time_embedding")
+    if "label_embedding" in p:
+        _label_embedding(sd, "label_embedding", p.pop("label_embedding"),
+                         "label_embedding")
     i = 0
     while f"transformer_{i}" in p:
-        _residual_block(sd, f"transformer.{i}", p.pop(f"transformer_{i}"),
-                        f"transformer_{i}")
+        path = f"transformer_{i}"
+        _residual_block(sd, f"transformer.{i}", p.pop(path), path,
+                        stats.pop(path, None))
         i += 1
-    head = _take(p, "ln_out", "")
-    _dense(sd, "ln_out.adaLN", _take(head, "adaLN", "ln_out"), "ln_out/adaLN")
-    _dense(sd, "ln_out.ln", _take(head, "ln", "ln_out"), "ln_out/ln")
-    _done(head, "ln_out")
+    _final_layer(sd, "ln_out", _take(p, "ln_out", ""), "ln_out",
+                 stats.pop("ln_out", None))
     _done(p, "")
+    _done(stats, "batch_stats")
     return sd
 
 
@@ -118,28 +173,43 @@ def _paths(tree, prefix: str) -> List[str]:
     return out
 
 
-def compressor_decode_state_dict(params: dict
+def _init_set(sd: dict, p: dict) -> None:
+    init_set = _take(p, "init_set", "")
+    for name in ("prior", "logits", "mu", "sig"):
+        if name in init_set:
+            sd[f"init_set.{name}"] = _tensor(init_set.pop(name))
+    if "Dense_0" in init_set:  # the mixture of Gaussians' projection
+        _two_dense(sd, "init_set", {k: init_set.pop(k)
+                                    for k in ("Dense_0", "Dense_1")},
+                   "init_set")
+    _done(init_set, "init_set")
+
+
+def compressor_decode_state_dict(params: dict,
+                                 batch_stats: Optional[dict] = None
                                  ) -> Tuple[Dict[str, torch.Tensor],
                                             List[str]]:
-    """`ldt_tpu` Compressor params -> (state_dict of the decode half,
-    the flax leaf paths it leaves for a later slice: the encoder, the
-    grouper, the posterior heads)."""
+    """`ldt_tpu` Compressor params (and the decode blocks' `batch_stats`,
+    with batch-norm norms) -> (state_dict of the decode half, the flax leaf
+    paths it leaves to `compressor_state_dict`: the encoder, the grouper,
+    the posterior heads)."""
     p = dict(params)
+    stats = dict(batch_stats or {})
     sd: Dict[str, torch.Tensor] = {}
     left: List[str] = []
     i = 0
     while f"decoder_{i}" in p:
         path = f"decoder_{i}"
         blk = dict(p.pop(path))
+        blk_stats = dict(stats.pop(path, {}))
         _residual_block(sd, f"decoder.{i}.att1", _take(blk, "att1", path),
-                        f"{path}/att1")
+                        f"{path}/att1", blk_stats.pop("att1", None))
         _dense(sd, f"decoder.{i}.ln", _take(blk, "ln", path), f"{path}/ln")
         left += _paths(blk, path)  # att, prior_dense: compute_posterior
+        left += _paths(blk_stats, f"batch_stats/{path}")
         i += 1
     _dense(sd, "output_dense", _take(p, "output_dense", ""), "output_dense")
-    init_set = _take(p, "init_set", "")
-    sd["init_set.prior"] = _tensor(init_set.pop("prior"))
-    _done(init_set, "init_set")
+    _init_set(sd, p)
     left += _paths(p, "")
     return sd, left
 
@@ -170,6 +240,33 @@ def _dense_bn(sd: dict, key: str, p: dict, stats: dict, path: str,
     return p, stats
 
 
+def _grouper(sd: dict, key: str, p: dict, stats: dict) -> None:
+    """A LocalGrouper (`group`, `pre_grouper`) and its extraction stack."""
+    group = _take(p, key, "")
+    for name in ("affine_alpha", "affine_beta"):
+        if name in group:
+            sd[f"{key}.{name}"] = _tensor(group.pop(name))
+    group_stats = _take(stats, key, "batch_stats")
+    ext, ext_stats = _dense_bn(
+        sd, f"{key}.extraction", _take(group, "extraction", key),
+        _take(group_stats, "extraction", f"batch_stats/{key}"),
+        f"{key}/extraction", ("transfer_dense", "transfer_bn"))
+    i = 0
+    while f"op{i}" in ext:
+        path = f"{key}/extraction/op{i}"
+        rest, rest_stats = _dense_bn(
+            sd, f"{key}.extraction.ops.{i}", ext.pop(f"op{i}"),
+            _take(ext_stats, f"op{i}", f"batch_stats/{key}/extraction"),
+            path, ("net1_dense", "net1_bn", "net2_dense"))
+        _done(rest, path)
+        _done(rest_stats, f"batch_stats/{path}")
+        i += 1
+    _done(ext, f"{key}/extraction")
+    _done(ext_stats, f"batch_stats/{key}/extraction")
+    _done(group, key)
+    _done(group_stats, f"batch_stats/{key}")
+
+
 def compressor_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
     """`ldt_tpu` Compressor variables {'params', 'batch_stats'} -> the whole
     `ldt_torch.models.Compressor` state_dict (f32); every leaf is mapped."""
@@ -182,63 +279,51 @@ def compressor_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
         for name in ("shift", "log_scale"):
             sd[f"conv_in.{name}"] = _tensor(act.pop(name))
         _done(act, "conv_in")
-    group = _take(p, "group", "")
-    for name in ("affine_alpha", "affine_beta"):
-        if name in group:
-            sd[f"group.{name}"] = _tensor(group.pop(name))
-    group_stats = _take(stats, "group", "batch_stats")
-    ext, ext_stats = _dense_bn(
-        sd, "group.extraction", _take(group, "extraction", "group"),
-        _take(group_stats, "extraction", "batch_stats/group"),
-        "group/extraction", ("transfer_dense", "transfer_bn"))
-    i = 0
-    while f"op{i}" in ext:
-        path = f"group/extraction/op{i}"
-        rest, rest_stats = _dense_bn(
-            sd, f"group.extraction.ops.{i}", ext.pop(f"op{i}"),
-            _take(ext_stats, f"op{i}", "batch_stats/group/extraction"),
-            path, ("net1_dense", "net1_bn", "net2_dense"))
-        _done(rest, path)
-        _done(rest_stats, f"batch_stats/{path}")
-        i += 1
-    _done(ext, "group/extraction")
-    _done(ext_stats, "batch_stats/group/extraction")
-    _done(group, "group")
-    _done(group_stats, "batch_stats/group")
-    pos, pos_stats = _dense_bn(
-        sd, "pos_embedding", _take(p, "pos_embedding", ""),
-        _take(stats, "pos_embedding", "batch_stats"), "pos_embedding",
-        ("conv1", "bn1", "conv2", "bn2", "fc"))
-    _done(pos, "pos_embedding")
-    _done(pos_stats, "batch_stats/pos_embedding")
+    for key in ("group", "pre_grouper"):
+        if key in p:
+            _grouper(sd, key, p, stats)
+    pos = _take(p, "pos_embedding", "")
+    if "Dense_0" in pos:  # pos_embedding: mlp
+        _two_dense(sd, "pos_embedding", pos, "pos_embedding")
+    else:
+        pos, pos_stats = _dense_bn(
+            sd, "pos_embedding", pos,
+            _take(stats, "pos_embedding", "batch_stats"), "pos_embedding",
+            ("conv1", "bn1", "conv2", "bn2", "fc"))
+        _done(pos, "pos_embedding")
+        _done(pos_stats, "batch_stats/pos_embedding")
+    if "label_embedding" in p:
+        _label_embedding(sd, "label_embedding", p.pop("label_embedding"),
+                         "label_embedding")
     i = 0
     while f"encoder_{i}" in p:
         path = f"encoder_{i}"
         enc = dict(p.pop(path))
+        enc_stats = dict(stats.pop(path, {}))
         j = 0
         while f"att{j}" in enc:
             _residual_block(sd, f"encoder.{i}.att{j}", enc.pop(f"att{j}"),
-                            f"{path}/att{j}")
+                            f"{path}/att{j}", enc_stats.pop(f"att{j}", None))
             j += 1
-        head = _take(enc, "conv_out", path)
-        for name in ("adaLN", "ln"):
-            _dense(sd, f"encoder.{i}.conv_out.{name}",
-                   _take(head, name, f"{path}/conv_out"),
-                   f"{path}/conv_out/{name}")
-        _done(head, f"{path}/conv_out")
+        _final_layer(sd, f"encoder.{i}.conv_out", _take(enc, "conv_out", path),
+                     f"{path}/conv_out", enc_stats.pop("conv_out", None))
         _done(enc, path)
+        _done(enc_stats, f"batch_stats/{path}")
         i += 1
     i = 0
+    decoder_stats = {}
     while f"decoder_{i}" in p:
         path = f"decoder_{i}"
         blk = dict(p.pop(path))
+        blk_stats = dict(stats.pop(path, {}))
         _residual_block(sd, f"decoder.{i}.att", _take(blk, "att", path),
-                        f"{path}/att")
+                        f"{path}/att", blk_stats.pop("att", None))
         _dense(sd, f"decoder.{i}.prior_dense",
                _take(blk, "prior_dense", path), f"{path}/prior_dense")
         p[path] = blk
+        decoder_stats[path] = blk_stats
         i += 1
-    decode, left = compressor_decode_state_dict(p)
+    decode, left = compressor_decode_state_dict(p, decoder_stats)
     if left:
         raise ValueError(f"unmapped flax leaves: {left}")
     _done(stats, "batch_stats")
@@ -310,11 +395,33 @@ def _norm_inv(e: _Entries, key: str) -> dict:
     return {"scale": e.take(f"{key}.weight"), "bias": e.take(f"{key}.bias")}
 
 
+def _norm_inv_into(e: _Entries, key: str, out: dict, stats: dict,
+                   norm: str, index: int) -> None:
+    """The norm `key` (if the state_dict has one) as flax's
+    `<Kind>_<index>` in `out`, a BatchNorm's statistics in `stats`."""
+    if f"{key}.weight" not in e:
+        return
+    if f"{key}.running_mean" in e:
+        name = f"BatchNorm_{index}"
+        stats[name] = {"mean": e.take(f"{key}.running_mean"),
+                       "var": e.take(f"{key}.running_var")}
+    else:
+        name = f"{_FLAX_NORM[norm]}_{index}"
+    out[name] = _norm_inv(e, key)
+
+
 def _two_dense_inv(e: _Entries, key: str) -> dict:
     return {f"Dense_{i}": _dense_inv(e, f"{key}.dense_{i}") for i in (0, 1)}
 
 
-def _residual_block_inv(e: _Entries, key: str) -> dict:
+def _label_embedding_inv(e: _Entries, key: str) -> dict:
+    return {"Embed_0": {"embedding": e.take(f"{key}.embed.weight")},
+            **_two_dense_inv(e, key)}
+
+
+def _residual_block_inv(e: _Entries, key: str, stats: dict,
+                        norm: str) -> dict:
+    """One block's params; its BatchNorms' statistics go to `stats`."""
     w = e.take(f"{key}.attn.qkv.weight")
     b = e.take(f"{key}.attn.qkv.bias")
     d = w.shape[0] // 3  # [Wq | Wkv]: fc_q has dim_out rows, fc_kv 2 dim_out
@@ -323,29 +430,63 @@ def _residual_block_inv(e: _Entries, key: str) -> dict:
         "fc_kv": {"kernel": w[d:].T.contiguous(), "bias": b[d:].clone()},
         "fc_o": _dense_inv(e, f"{key}.attn.fc_o")},
         "mlp": _two_dense_inv(e, f"{key}.mlp")}
-    for name, flax_name in (("norm1", "LayerNorm_0"),
-                            ("norm2", "LayerNorm_1")):
+    for i, name in enumerate(("norm1", "norm2")):
+        _norm_inv_into(e, f"{key}.{name}", out, stats, norm, i)
+    for name in _BLOCK_DENSE:
         if f"{key}.{name}.weight" in e:
-            out[flax_name] = _norm_inv(e, f"{key}.{name}")
-    if f"{key}.adaLN.weight" in e:
-        out["adaLN"] = _dense_inv(e, f"{key}.adaLN")
+            out[name] = _dense_inv(e, f"{key}.{name}")
     return out
 
 
-def score_params(sd: Dict[str, torch.Tensor]) -> dict:
+def _final_layer_inv(e: _Entries, key: str, stats: dict, norm: str) -> dict:
+    out = {"ln": _dense_inv(e, f"{key}.ln")}
+    if f"{key}.adaLN.weight" in e:
+        out["adaLN"] = _dense_inv(e, f"{key}.adaLN")
+    _norm_inv_into(e, f"{key}.norm", out, stats, norm, 0)
+    return out
+
+
+def _put(stats: dict, path: str, sub: dict) -> None:
+    """`sub` as `stats[path]` when it holds anything."""
+    if sub:
+        stats[path] = sub
+
+
+def score_variables(sd: Dict[str, torch.Tensor],
+                    norm: str = "layer_norm") -> dict:
     """`ldt_torch.models.Score` state_dict (or a tree of its structure: an
-    Adam moment) -> `ldt_tpu` Score params."""
+    Adam moment) -> `ldt_tpu` Score variables {'params', 'batch_stats'};
+    `norm` is the config's (`score.norm`)."""
     e = _Entries(sd)
+    stats: dict = {}
     p = {"ln_in": _dense_inv(e, "ln_in"),
          "time_embedding": _two_dense_inv(e, "time_embedding")}
+    if "label_embedding.embed.weight" in e:
+        p["label_embedding"] = _label_embedding_inv(e, "label_embedding")
     i = 0
     while f"transformer.{i}.attn.qkv.weight" in e:
-        p[f"transformer_{i}"] = _residual_block_inv(e, f"transformer.{i}")
+        blk_stats: dict = {}
+        p[f"transformer_{i}"] = _residual_block_inv(
+            e, f"transformer.{i}", blk_stats, norm)
+        _put(stats, f"transformer_{i}", blk_stats)
         i += 1
-    p["ln_out"] = {"adaLN": _dense_inv(e, "ln_out.adaLN"),
-                   "ln": _dense_inv(e, "ln_out.ln")}
+    head_stats: dict = {}
+    p["ln_out"] = _final_layer_inv(e, "ln_out", head_stats, norm)
+    _put(stats, "ln_out", head_stats)
     e.done()
-    return p
+    return {"params": p, "batch_stats": stats}
+
+
+def score_params(sd: Dict[str, torch.Tensor],
+                 norm: str = "layer_norm") -> dict:
+    """`ldt_torch.models.Score` state_dict (or a tree of its structure) ->
+    `ldt_tpu` Score params; a Score with running statistics (batch-norm
+    norms) needs `score_variables`."""
+    v = score_variables(sd, norm)
+    if v["batch_stats"]:
+        raise ValueError("the state_dict holds running statistics: convert "
+                         "it with score_variables")
+    return v["params"]
 
 
 def _dense_bn_inv(e: _Entries, key: str, names, stats: dict) -> dict:
@@ -364,60 +505,88 @@ def _dense_bn_inv(e: _Entries, key: str, names, stats: dict) -> dict:
     return params
 
 
-def compressor_variables(sd: Dict[str, torch.Tensor]) -> dict:
+def _grouper_inv(e: _Entries, key: str, p: dict, stats: dict) -> None:
+    group = {n: e.take(f"{key}.{n}") for n in ("affine_alpha", "affine_beta")
+             if f"{key}.{n}" in e}
+    ext_stats: dict = {}
+    ext = _dense_bn_inv(e, f"{key}.extraction",
+                        ("transfer_dense", "transfer_bn"), ext_stats)
+    i = 0
+    while f"{key}.extraction.ops.{i}.net1_dense.weight" in e:
+        op_stats: dict = {}
+        ext[f"op{i}"] = _dense_bn_inv(
+            e, f"{key}.extraction.ops.{i}",
+            ("net1_dense", "net1_bn", "net2_dense"), op_stats)
+        _put(ext_stats, f"op{i}", op_stats)
+        i += 1
+    group["extraction"] = ext
+    p[key] = group
+    if ext_stats:
+        stats[key] = {"extraction": ext_stats}
+
+
+def compressor_variables(sd: Dict[str, torch.Tensor],
+                         norm: str = "layer_norm") -> dict:
     """`ldt_torch.models.Compressor` state_dict -> `ldt_tpu` Compressor
     variables {'params', 'batch_stats'}; a tree of the parameters alone (an
-    Adam moment) gives empty 'batch_stats'."""
+    Adam moment) gives empty 'batch_stats'. `norm` is the config's
+    (`model.norm`)."""
     e = _Entries(sd)
+    stats: dict = {}
     p = {"input_dense": _dense_inv(e, "input_dense")}
     if "conv_in.shift" in e:
         p["conv_in"] = {n: e.take(f"conv_in.{n}")
                         for n in ("shift", "log_scale")}
-    group = {n: e.take(f"group.{n}") for n in ("affine_alpha", "affine_beta")
-             if f"group.{n}" in e}
-    ext_stats: dict = {}
-    ext = _dense_bn_inv(e, "group.extraction",
-                        ("transfer_dense", "transfer_bn"), ext_stats)
-    i = 0
-    while f"group.extraction.ops.{i}.net1_dense.weight" in e:
-        op_stats: dict = {}
-        ext[f"op{i}"] = _dense_bn_inv(
-            e, f"group.extraction.ops.{i}",
-            ("net1_dense", "net1_bn", "net2_dense"), op_stats)
-        if op_stats:
-            ext_stats[f"op{i}"] = op_stats
-        i += 1
-    group["extraction"] = ext
-    p["group"] = group
-    stats: dict = {}
-    if ext_stats:
-        stats["group"] = {"extraction": ext_stats}
-    pos_stats: dict = {}
-    p["pos_embedding"] = _dense_bn_inv(
-        e, "pos_embedding", ("conv1", "bn1", "conv2", "bn2", "fc"),
-        pos_stats)
-    if pos_stats:
-        stats["pos_embedding"] = pos_stats
+    for key in ("group", "pre_grouper"):
+        if f"{key}.extraction.transfer_dense.weight" in e:
+            _grouper_inv(e, key, p, stats)
+    if "pos_embedding.dense_0.weight" in e:
+        p["pos_embedding"] = _two_dense_inv(e, "pos_embedding")
+    else:
+        pos_stats: dict = {}
+        p["pos_embedding"] = _dense_bn_inv(
+            e, "pos_embedding", ("conv1", "bn1", "conv2", "bn2", "fc"),
+            pos_stats)
+        _put(stats, "pos_embedding", pos_stats)
+    if "label_embedding.embed.weight" in e:
+        p["label_embedding"] = _label_embedding_inv(e, "label_embedding")
     i = 0
     while f"encoder.{i}.att0.attn.qkv.weight" in e:
-        enc, j = {}, 0
+        enc, enc_stats, j = {}, {}, 0
         while f"encoder.{i}.att{j}.attn.qkv.weight" in e:
-            enc[f"att{j}"] = _residual_block_inv(e, f"encoder.{i}.att{j}")
+            blk_stats: dict = {}
+            enc[f"att{j}"] = _residual_block_inv(
+                e, f"encoder.{i}.att{j}", blk_stats, norm)
+            _put(enc_stats, f"att{j}", blk_stats)
             j += 1
-        enc["conv_out"] = {n: _dense_inv(e, f"encoder.{i}.conv_out.{n}")
-                           for n in ("adaLN", "ln")}
+        head_stats: dict = {}
+        enc["conv_out"] = _final_layer_inv(e, f"encoder.{i}.conv_out",
+                                           head_stats, norm)
+        _put(enc_stats, "conv_out", head_stats)
         p[f"encoder_{i}"] = enc
+        _put(stats, f"encoder_{i}", enc_stats)
         i += 1
     i = 0
     while f"decoder.{i}.att.attn.qkv.weight" in e:
         key = f"decoder.{i}"
+        att_stats: dict = {}
+        att1_stats: dict = {}
         p[f"decoder_{i}"] = {
-            "att": _residual_block_inv(e, f"{key}.att"),
+            "att": _residual_block_inv(e, f"{key}.att", att_stats, norm),
             "prior_dense": _dense_inv(e, f"{key}.prior_dense"),
-            "att1": _residual_block_inv(e, f"{key}.att1"),
+            "att1": _residual_block_inv(e, f"{key}.att1", att1_stats, norm),
             "ln": _dense_inv(e, f"{key}.ln")}
+        dec_stats: dict = {}
+        _put(dec_stats, "att", att_stats)
+        _put(dec_stats, "att1", att1_stats)
+        _put(stats, f"decoder_{i}", dec_stats)
         i += 1
     p["output_dense"] = _dense_inv(e, "output_dense")
-    p["init_set"] = {"prior": e.take("init_set.prior")}
+    init_set = {n: e.take(f"init_set.{n}")
+                for n in ("prior", "logits", "mu", "sig")
+                if f"init_set.{n}" in e}
+    if "init_set.dense_0.weight" in e:
+        init_set.update(_two_dense_inv(e, "init_set"))
+    p["init_set"] = init_set
     e.done()
     return {"params": p, "batch_stats": stats}

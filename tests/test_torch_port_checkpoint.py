@@ -246,6 +246,28 @@ class TestResolveCheckpointEpoch:
     def _touch(self, d, epoch, suffix=".pt"):
         (d / f"checkpt_{epoch}{suffix}").write_bytes(b"x")
 
+    def test_a_write_in_flight_is_waited_for(self, tmp_path, monkeypatch):
+        """A stage-2 save writes on a thread: a resume in the same process
+        right after it (two entry runs in one program) finds its file."""
+        import threading
+
+        import ldt_torch.training.checkpoint as ckpt
+
+        gate = threading.Event()
+        real = ckpt.torch.save
+
+        def slow_save(*a, **kw):
+            gate.wait(5)
+            return real(*a, **kw)
+
+        monkeypatch.setattr(ckpt.torch, "save", slow_save)
+        (tmp_path / "training.csv").write_text("epoch,loss\n3,1.0\n")
+        save_checkpoint(str(tmp_path / "checkpt_3.pt"), _small_tree(),
+                        async_write=True)
+        threading.Timer(0.2, gate.set).start()
+        assert resolve_checkpoint_epoch(str(tmp_path)) == 3
+        assert ckpt.checkpoint_file(str(tmp_path), 3) is not None
+
     @pytest.mark.parametrize("suffix", [".pt", ".msgpack"])
     def test_explicit_epoch_must_exist(self, tmp_path, suffix):
         self._touch(tmp_path, 10, suffix)

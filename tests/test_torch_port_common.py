@@ -138,7 +138,8 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.training.jax_checkpoint", "ldt_torch.cli",
             "ldt_torch.entries", "ldt_torch.entries.train_compressor",
             "ldt_torch.entries.train_latent_diffusion",
-            "ldt_torch.entries.val_sample", "chip_smoke"]
+            "ldt_torch.entries.val_sample", "ldt_torch.entries.golden_eval",
+            "ldt_torch.tools.port", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -267,3 +268,57 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn()
     fn(device="cpu")
+
+
+def perturbed(variables, seed: int = 3):
+    """flax variables (numpy) with every leaf moved off its initial value,
+    so that each mapping is exercised: params + 0.05 N(0, 1), running means
+    + 0.2 N(0, 1), running variances times U(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        a = np.asarray(a, np.float32)
+        if path[0].key == "batch_stats" and path[-1].key == "var":
+            return (a * rng.uniform(0.5, 2.0, a.shape)).astype(np.float32)
+        scale = 0.2 if path[0].key == "batch_stats" else 0.05
+        return (a + scale * rng.standard_normal(a.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, dict(variables))
+
+
+def compressor_variables(d, pts, label=None, train: bool = False):
+    """numpy variables {'params', 'batch_stats'} of ldt_tpu's Compressor of
+    the config dict `d`, initialized on the clouds `pts` (and `label`)."""
+    import ldt_tpu.models.compressor as jcm
+
+    jcfg, _ = cfgs(d)
+    v = jax.jit(jcm.Compressor(jcfg).init, static_argnames=("train",))(
+        {"params": jax.random.key(1), "sample": jax.random.key(2)},
+        jnp.asarray(pts), label=None if label is None else jnp.asarray(label),
+        train=train)
+    return jax.tree_util.tree_map(lambda a: np.array(a, np.float32),
+                                  {"params": v["params"],
+                                   "batch_stats": v.get("batch_stats", {})})
+
+
+def pin_reparameterize(monkeypatch, noise):
+    """ldt_tpu's Compressor draws its reparameterization noise from `noise`
+    (numpy arrays, in decode order) instead of its rng."""
+    import ldt_tpu.models.compressor as jcm
+
+    draws = iter(noise)
+    monkeypatch.setattr(jcm, "reparameterize",
+                        lambda rng, mu, logvar: mu + jnp.exp(logvar / 2.0)
+                        * jnp.asarray(next(draws)))
+
+
+def trees_equal(a, b) -> bool:
+    """Two trees of the same structure with equal leaves: arrays and
+    tensors bit for bit, anything else (counters, None) by ==."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and set(a) == set(b)
+                and all(trees_equal(a[k], b[k]) for k in a))
+    if hasattr(a, "shape") and hasattr(b, "shape"):
+        return np.array_equal(to_np(a), to_np(b))
+    return a == b

@@ -86,8 +86,13 @@ def test_initial_set_broadcasts_the_prior():
     o = tm.init_set(3, 64)
     assert o.shape == (3, 64, tcfg.hidden_dim)
     assert torch.equal(o[2], tm.init_set.prior)
-    with pytest.raises(NotImplementedError):
-        tm.init_set(3, 32)  # random subset: a later slice
+    # fewer points: a random subset of the prior's rows per cloud (held
+    # against JAX's draws in test_torch_port_layer_branches.py)
+    sub = tm.init_set(3, 32, generator=torch.Generator().manual_seed(0))
+    assert sub.shape == (3, 32, tcfg.hidden_dim)
+    rows = {tuple(r.tolist()) for r in tm.init_set.prior}
+    assert all(tuple(r.tolist()) in rows
+               for r in sub.reshape(-1, tcfg.hidden_dim))
 
 
 def test_weight_converter_reports_what_it_leaves():
@@ -107,15 +112,25 @@ def test_weight_converter_raises_on_an_unmapped_decoder_leaf():
     p = _init()
     p = dict(p, decoder_1=dict(p["decoder_1"]))
     p["decoder_1"]["att1"] = dict(p["decoder_1"]["att1"],
-                                  shortcut={"kernel": np.zeros((2, 2))})
+                                  extra_dense={"kernel": np.zeros((2, 2))})
     with pytest.raises(ValueError, match="decoder_1/att1"):
         compressor_decode_state_dict(p)
 
 
-def test_unported_variants_raise():
-    _, tcfg = cfgs(dict(SMALL_COMPRESSOR, class_condition=True))
-    with pytest.raises(NotImplementedError):
-        Compressor(tcfg, device="cpu")
-    _, tcfg = cfgs(dict(SMALL_COMPRESSOR, max_outputs=None))
-    with pytest.raises(NotImplementedError):
-        Compressor(tcfg, device="cpu")
+@pytest.mark.parametrize("over", [dict(class_condition=True,
+                                       num_categorys=3),
+                                  dict(max_outputs=None)],
+                         ids=["class_condition", "mixture_seeds"])
+def test_ported_variants_build_with_jax_names(over):
+    """The class-conditional Compressor and the mixture-of-Gaussians seed
+    set, once refused: their decode half's state_dict is the converter's of
+    JAX's init (the forwards are held in test_torch_port_labels.py and
+    test_torch_port_layer_branches.py)."""
+    jcfg, tcfg = cfgs(dict(SMALL_COMPRESSOR, **over))
+    label = jnp.zeros((B,), jnp.int32) if "num_categorys" in over else None
+    v = jax.jit(JaxCompressor(jcfg).init)(
+        {"params": jax.random.key(1), "sample": jax.random.key(2)},
+        jnp.zeros((B, 64, 3)), label=label)
+    sd, _ = compressor_decode_state_dict(params_np(v))
+    assert set(sd) == {k for k in Compressor(tcfg, device="cpu").state_dict()
+                       if is_decode_key(k)}

@@ -295,8 +295,16 @@ def test_init_actnorm_matches_the_jax_init():
                                rtol=1e-4, atol=1e-5)
 
 
-def test_unported_encode_options_raise():
-    for over in (dict(pre_group=True), dict(pos_embedding="mlp")):
-        _, tcfg = cfgs(dict(C, **over))
-        with pytest.raises(NotImplementedError):
-            Compressor(tcfg, device="cpu")
+@pytest.mark.parametrize("over", [dict(pre_group=True),
+                                  dict(pos_embedding="mlp")],
+                         ids=["pre_group", "pos_mlp"])
+def test_ported_encode_options_convert_every_leaf(over):
+    """`pre_group` and the MLP position embedding, once refused: the whole
+    state_dict is the converter's of JAX's init (the forwards are held in
+    test_torch_port_layer_branches.py)."""
+    jcfg, tcfg = cfgs(dict(C, **over))
+    v = _np(jax.jit(jcm.Compressor(jcfg).init)(
+        {"params": jax.random.key(1), "sample": jax.random.key(2)},
+        jnp.asarray(_rand((B, 512, 3), 0))))
+    assert set(compressor_state_dict(v)) == set(
+        Compressor(tcfg, device="cpu").state_dict())

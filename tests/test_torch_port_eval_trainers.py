@@ -270,7 +270,3 @@ def test_what_the_evaluation_does_not_port_yet_raises(tmp_path):
     cfg = latent_trainer_cfg(score=SMALL_SCORE, compressor=C, sde=SDE)
     with pytest.raises(NotImplementedError, match="vis_utils"):
         Stage2(cfg, device="cpu").valsample(_loader(6), vis=True)
-    cfg = latent_trainer_cfg(score=SMALL_SCORE, compressor=C, sde=SDE,
-                             data=dict(num_categorys=2))
-    with pytest.raises(NotImplementedError, match="class conditioning"):
-        Stage2(cfg, device="cpu").valsample(_loader(6, categories=2))

@@ -14,6 +14,7 @@ import torch
 import ldt_tpu.nn.layers as jl
 from ldt_torch import weights
 from ldt_torch.nn import layers as tl
+from ldt_torch.ops import attention as attn_ops
 from test_torch_port_common import DTYPES, assert_close, to_np
 
 B, N, M, D, H, DC = 4, 16, 8, 32, 4, 16
@@ -202,6 +203,14 @@ def test_final_layer(path, dtype):
     assert_close(got, want, dtype)
 
 
-def test_attention_ref_merge_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        tl.Attention(D, H, ref_merge=True)
+def test_attention_ref_merge_scrambles_the_standard_merge():
+    """`ref_merge`, once refused, permutes the kernels' standard-merge
+    output (held against ldt_tpu in test_torch_port_ref_merge.py)."""
+    x = _rand((B, N, D), 11)
+    ref, std = tl.Attention(D, H, ref_merge=True), tl.Attention(D, H)
+    std.load_state_dict(ref.state_dict())
+    with torch.no_grad():
+        att = attn_ops.packed_self_attention(ref.qkv(torch.from_numpy(x)), H)
+        want = ref.fc_o(tl.ref_merge(att, H))
+        assert torch.equal(ref(torch.from_numpy(x)), want)
+        assert not torch.allclose(std(torch.from_numpy(x)), want)

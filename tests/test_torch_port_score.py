@@ -93,9 +93,23 @@ def test_state_dict_keys_and_unmapped_leaf():
         score_state_dict(p)
 
 
-@pytest.mark.parametrize("over", [dict(unet=True), dict(condition=True),
-                                  dict(num_categorys=3)])
+@pytest.mark.parametrize("over", [dict(unet=True), dict(condition=True)])
 def test_unported_variants_raise(over):
     _, tcfg = cfgs(dict(SMALL_SCORE, **over))
     with pytest.raises(NotImplementedError):
         Score(tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("over", [dict(num_categorys=3), dict(AdaLN=False)],
+                         ids=["labels", "adaln_off"])
+def test_ported_variants_build_with_jax_names(over):
+    """Label conditioning and the AdaLN=False block, once refused: their
+    state_dict is the converter's of JAX's init (the forwards are held in
+    test_torch_port_labels.py and test_torch_port_layer_branches.py)."""
+    jcfg, tcfg = cfgs(dict(SMALL_SCORE, **over))
+    label = jnp.zeros((B,), jnp.int32) if "num_categorys" in over else None
+    v = jax.jit(JaxScore(jcfg).init)(
+        jax.random.key(1), jnp.zeros((B, jcfg.z_scale, jcfg.z_dim)),
+        jnp.ones((B,)), label)
+    assert set(score_state_dict(params_np(v))) == set(
+        Score(tcfg, device="cpu").state_dict())

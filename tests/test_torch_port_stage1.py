@@ -383,13 +383,12 @@ def test_trainer_random_init_and_its_state():
     assert out["set"].shape == (B, N, 3) and "batch_stats" not in out
 
 
-@pytest.mark.parametrize("method", ["valsample", "reconstruction", "save",
-                                    "resume"])
+@pytest.mark.parametrize("method", ["valsample", "save", "resume"])
 def test_unported_trainer_methods_say_why(method, tmp_path):
-    """Of the evaluation, the renderer of `valsample(vis=True)` and a
-    class-conditional reconstruction are a later slice; `save` before
-    `maybe_init` says that it needs the model, and `resume` with neither a
-    training.csv nor a checkpoint under the save path raises."""
+    """Of the evaluation, the renderer of `valsample(vis=True)` is a later
+    slice; `save` before `maybe_init` says that it needs the model, and
+    `resume` with neither a training.csv nor a checkpoint under the save
+    path raises."""
     trainer = Trainer(_cfg(), device="cpu")
 
     def resume():
@@ -401,10 +400,6 @@ def test_unported_trainer_methods_say_why(method, tmp_path):
     calls = {
         "valsample": (lambda: trainer.valsample([], N, vis=True),
                       NotImplementedError, "not ported yet"),
-        "reconstruction": (lambda: Trainer(compressor_trainer_cfg(
-            model=dict(C, class_condition=True),
-            data=dict(num_categorys=2)), device="cpu").reconstruction([]),
-            NotImplementedError, "not ported yet"),
         "save": (trainer.save, RuntimeError, "maybe_init"),
         "resume": (resume, FileNotFoundError, "no checkpoints")}
     call, error, match = calls[method]
