@@ -158,6 +158,35 @@ The reference's head merge and the 55-category configs:
      modulations), launch counts K1 24 x 1000 and K2 6; clouds/min with
      the card's name and power limit.
 
+ViPC completion (the conditional Score, its ConditionNet, the completion
+trainers and entries):
+ 23. (last) a) K2 (whole-set, dh 64) and K4 (register-tiled long-query, one
+     tile of 32 rows) at the DiT's cross-attention shape (q, k, v [32, 32,
+     1024], 16 heads, f32) against their twins on the card and on the CPU,
+     f64 products and wrong variants, each repeating its bits; timed by
+     the event loop and by device time beside the bound, the twin and SDPA
+     (forward; backward). b) The conditional Score at flagship width cut
+     to 2 blocks and its ConditionNet (64 x 64 views, 2048-point partial
+     clouds), f32, card (cuDNN's global TF32 on) vs CPU, same weights
+     through `ldt_torch.weights`: the condition's tokens and embedding, the
+     Score's output and one completion train step (loss, gradients,
+     params, EMA, Adam's mu, BatchNorm statistics); the wrong variant runs
+     the trunk in TF32. c) The completion entries from
+     experiments/*/completion/plane (full width and depth; epochs,
+     cadences, the stage-2 eval's sample_N and the data cut, each cut
+     printed) on a synthetic ViPC tree written here
+     (`ldt_torch.tools.synth_vipc`: 32 train and 16 test planes x 24 RGBA
+     137 x 137 views, resized by the loader): stage 1 from a stage-1
+     checkpoint written here, 2 epochs with a save and a reconstruction,
+     a resume leg; stage 2 from stage 1's checkpoint through
+     `load_pretrain`, 2 epochs with a save and a valsample, a resume leg;
+     restored tensors equal to the saved state, counters continued, finite
+     logs and scores, K1-K4 run; seconds per epoch, checkpoint sizes and
+     save and load seconds. d) `Trainer.sample(32, condition=...)` with the
+     config's 1000 steps: the trunk run once, launches K1 12 x 1000
+     (register-tiled), K2 12 x 1000 + 6; clouds/min with the card's name
+     and power limit; CD x 1000 and F1 against the batch's GT.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -244,6 +273,16 @@ K3_TOL = {"float32": (1e-5, 1e-7), "bfloat16": (8e-3, 1e-5)}
 # swapped" (K3's dq and dk exchanged: gradients 1.5e-3 / 1.3e-5; at the
 # first step's warm-up lr it cannot move the params past the limit).
 TRAIN_STEP_TOL = (1e-4, 1e-6)
+# Phase 23b, one completion train step (the conditional Score and its
+# ConditionNet), card vs CPU, the gradients and Adam's mu, (max, mean)
+# relative to the largest |value|: the f32 GEMMs of the Score's head and
+# MLPs sum in other orders (read on the H100: 2.3e-4 / 6.5e-7, the largest
+# difference 4.2e-6 in ln_out's weight against a largest gradient of
+# 1.9e-2, smaller than phase 14's because the completion loss's gradients
+# are). Wrong: "tf32 trunk" (the trunk's convolutions in TF32, which moves
+# the image embedding and so every gradient: 1.7e-2 / 9.9e-6). The other
+# parts keep TRAIN_STEP_TOL.
+COND_STEP_TOL = (1e-3, 1e-6)
 # Phase 15, K4 vs its twin, (max, mean) of |kernel - twin| relative to the
 # largest |twin|, the largest over dq, dk and dv, at the three shapes: in f32
 # the dk and dv sums over 2048 query rows (and the long-key schedule's
@@ -3442,6 +3481,619 @@ def phase_label_generate(trainer) -> None:
         LABEL_BATCH, expect)
 
 
+# Phase 23: ViPC completion. The DiT's cross-attention shape (the even
+# blocks: 32 latent tokens over 32 condition tokens, hidden 1024, 16 heads,
+# dh 64), the stage-2 completion batch.
+DIT_CROSS = (32, 32, 1024, 16)  # B, N = M, D, heads
+COMPLETION_BATCH = 32           # the completion stage-2 config's batch
+# The synthetic ViPC tree: models per split, ViPC's 24 views each, RGBA
+# views at the renderings' 137 x 137 (the loader resizes them to 224), GT
+# clouds of 2048 points, partial clouds of 1024 (pad-repeated to 3500).
+VIPC_TRAIN, VIPC_TEST, VIPC_VIEWS, VIPC_SIZE = 32, 16, 24, 137
+# The cuts (the models keep their published width and depth): each stage
+# two epochs with a save, then a resume leg (stage 1 two epochs, stage 2
+# one); stage 1 scores a reconstruction at epoch 2, stage 2 a valsample at
+# epoch 2 with sample_N 32.
+COMPLETION_CUTS = {
+    # stage 1's loop runs while epoch < epochs (the reference's): its leg
+    # asks for 4 and trains epochs 3 and 4
+    "Compressor_Trainer": ({"common.epochs": 2, "log.save_epoch_freq": 2,
+                            "log.eval_epoch_freq": 2,
+                            "log.log_epoch_freq": 1},
+                           {"common.epochs": 4, "log.save_epoch_freq": 5}),
+    "Latent_Diffusion_Trainer": ({"common.epochs": 2,
+                                  "log.save_epoch_freq": 2,
+                                  "log.eval_epoch_freq": 2,
+                                  "log.log_epoch_freq": 1,
+                                  "sde.sample_N": CHECK_STEPS},
+                                 {"common.epochs": 3,
+                                  "log.save_epoch_freq": 5}),
+}
+
+
+def phase_dit_cross_kernels(gen) -> dict:
+    """Phase 23a: K2 (whole-set schedule, dh 64 in its widest register
+    width) and K4 (register-tiled long-query schedule, one tile of 32 rows)
+    at the DiT's cross-attention shape, f32, against their twins on the
+    card and on the CPU, f64 products and wrong variants (K2: the weights
+    rounded to bf16, k and v swapped; K4: no rowsum, dk/dv and dq/dk
+    swapped), each repeating its bits; timed by the event loop and by
+    device time, beside the bound, the twin and SDPA (forward, backward);
+    rows `cross_attention_dit_cross` and `cross_attention_bwd_dit_cross`."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldt_torch.ops import attention as attn_ops
+
+    b, n, d, h = DIT_CROSS
+    dh = d // h
+    q, k, v, g = (torch.randn(b, n, d, device="cuda", generator=gen)
+                  for _ in range(4))
+    rows = {}
+
+    def heads(t):
+        return t.unflatten(-1, (h, -1)).transpose(1, 2)
+
+    if attn_ops.cross_schedule(n, n, dh) != "whole" or \
+            attn_ops.whole_width(dh) != 64:
+        fail(f"phase 23: K2 at N = M = {n}, dh {dh} is not the whole-set "
+             "schedule at width 64")
+    fn = attn_ops.cross_attention
+    before = (fn.launches, fn.tiled_launches)
+
+    def k2():
+        return fn(q, k, v, h)
+
+    got = k2()
+    if (fn.launches, fn.tiled_launches) != (before[0] + 1, before[1]):
+        fail("phase 23: K2 at the DiT's cross shape did not launch its "
+             "whole-set schedule once")
+    if not torch.equal(got, k2()):
+        fail("phase 23: K2 at the DiT's cross shape did not repeat its bits")
+    twin = attn_ops.attention_plain(q, k, v, h)
+    readings = {"twin": errs(got, twin),
+                "cpu twin": errs(got, attn_ops.attention_plain(
+                    q.cpu(), k.cpu(), v.cpu(), h)),
+                "kv swapped": errs(got, attention_variant(
+                    q, v, k, h, torch.float32, torch.float32))}
+    for vname, (acc, w) in variants(torch.float32).items():
+        readings[vname] = errs(got, attention_variant(q, k, v, h, acc, w))
+    ms = cuda_ms(k2)
+    parts = launch_us(k2)
+    if not parts or not all("whole" in key for key in parts):
+        fail(f"phase 23: K2 ran {list(parts)}, not its whole-set kernel")
+    device_ms = sum(parts.values()) / 1e3
+    plain_ms = cuda_ms(lambda: attn_ops.attention_plain(q, k, v, h),
+                       iters=20)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v)))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = b * h * (4 * n * n * dh + 5 * n * n)
+    bound_ms, bound_by = _bound(nbytes, {"float32": flops})
+    print(f"[23a] cross_attention (K2, whole-set, DiT cross) float32 q/k/v "
+          f"{list(q.shape)}, H={h} (dh {dh}): max|twin| "
+          f"{twin.abs().max().item():.4f}, kernel {ms:.4f} ms, device "
+          f"{device_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP) "
+          f"({smi_name_and_power()})")
+    print("    device time per call: " + ", ".join(
+        f"{key} {us:.2f} us" for key, us in parts.items()))
+    held("K2 DiT cross float32 vs", readings, KERNEL_TOL["float32"],
+         right=("twin", "cpu twin", "f64"), wrong=("wrong", "kv swapped"))
+    rows["cross_attention_dit_cross"] = {
+        "name": "cross_attention_dit_cross", "route": "cuda",
+        "source": "ldt_torch/csrc/attention.cu",
+        "replaces": "ldt_tpu/ops/pallas_attention.py:49", "launches": 0,
+        "max_abs_err": readings["twin"][0], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "device_ms": device_ms}
+
+    fn = attn_ops.cross_attention_bwd
+    rows_per_block = attn_ops.cross_bwd_schedule(n, n, dh)
+    if not rows_per_block or not attn_ops.cross_bwd_tiled(n, n, dh):
+        fail(f"phase 23: K4 at N = M = {n}, dh {dh} has no register-tiled "
+             f"schedule ({rows_per_block})")
+
+    def k4():
+        return fn(q, k, v, g, h)
+
+    before = fn.tiled_launches
+    got = k4()
+    if fn.tiled_launches != before + 1:
+        fail("phase 23: K4 at the DiT's cross shape did not take its "
+             "register-tiled kernels")
+    if not all(torch.equal(x, y) for x, y in zip(got, k4())):
+        fail("phase 23: K4 at the DiT's cross shape did not repeat its bits")
+    twin = attn_ops.cross_attention_bwd_plain(q, k, v, g, h)
+    readings = {
+        "twin": errs3(got, twin),
+        "cpu twin": errs3(got, attn_ops.cross_attention_bwd_plain(
+            q.cpu(), k.cpu(), v.cpu(), g.cpu(), h)),
+        "f64": errs3(got, k4_variant(q, k, v, g, h, acc=torch.float64)),
+        "no rowsum": errs3(got, k4_variant(q, k, v, g, h, rowsum=False)),
+        "dk dv swapped": errs3(got, k4_variant(q, k, v, g, h,
+                                               swap="dk dv")),
+        "dq dk swapped": errs3(got, k4_variant(q, k, v, g, h,
+                                               swap="dq dk"))}
+    ms = cuda_ms(k4)
+    parts = launch_us(k4)
+    if not parts or not all(", true>" in key for key in parts
+                            if "reduce" not in key):
+        fail(f"phase 23: K4 ran {list(parts)}, not its register-tiled "
+             "kernels")
+    device_ms = sum(parts.values()) / 1e3
+    plain_ms = cuda_ms(lambda: attn_ops.cross_attention_bwd_plain(
+        q, k, v, g, h), iters=20)
+    sdpa_heads = [heads(t) for t in (q, k, v, g)]
+    library_ms = sdpa_backward_ms(*sdpa_heads)
+    library_device_ms = sdpa_backward_device_ms(*sdpa_heads)
+    nbytes = (3 * q.numel() + 4 * k.numel()) * q.element_size()
+    flops = b * h * (10 * n * n * dh + 8 * n * n)
+    bound_ms, bound_by = _bound(nbytes, {"float32": flops})
+    scales = ", ".join(f"{t.abs().max().item():.4f}" for t in twin)
+    print(f"[23a] cross_attention_bwd (K4, long-query, {rows_per_block} rows "
+          f"x 1 tile, DiT cross) float32 q/k/v/g {list(q.shape)}, H={h}: "
+          f"max|twin| dq/dk/dv {scales}, kernel {ms:.4f} ms, device "
+          f"{device_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+          f"{library_ms:.4f} ms (device {library_device_ms:.4f} ms), bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.3f} GFLOP) ({smi_name_and_power()})")
+    print("    device time per call: " + ", ".join(
+        f"{key} {us:.2f} us" for key, us in parts.items()))
+    held("K4 DiT cross float32 (relative) vs", readings, K4_TOL["float32"],
+         right=("twin", "cpu twin", "f64"),
+         wrong=("no rowsum", "dk dv swapped", "dq dk swapped"))
+    rows["cross_attention_bwd_dit_cross"] = {
+        "name": "cross_attention_bwd_dit_cross", "route": "cuda",
+        "source": "ldt_torch/csrc/attention.cu",
+        "replaces": "ldt_tpu/ops/pallas_attention.py:72", "launches": 0,
+        "max_abs_err": max(errs(x, y)[0] for x, y in zip(got, twin)),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "library_device_ms": library_device_ms, "device_ms": device_ms}
+    return rows
+
+
+def tf32_trunk():
+    """A wrong variant: the ConditionNet's convolutions under cuDNN's TF32
+    (the trap `nn.layers.ieee_cudnn` closes)."""
+    import torch
+
+    from ldt_torch.nn import layers
+
+    return mock.patch.object(layers, "ieee_cudnn", lambda: (
+        torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                   deterministic=False, allow_tf32=True)))
+
+
+def phase_condition_reference() -> None:
+    """Phase 23b: the conditional Score at flagship width cut to 2 blocks
+    and its ConditionNet on 64 x 64 views and 2048-point partial clouds,
+    f32, B=4, the same weights (through `ldt_torch.weights` both ways) and
+    inputs on the card and on the CPU: the ConditionNet's tokens and image
+    embedding and the Score's output (eval mode), then one completion
+    train step with pinned draws (loss, gradients, params, EMA, Adam's mu,
+    the BatchNorm statistics). The card runs with cuDNN's global TF32 on:
+    the trunk's convolutions must stay IEEE f32 by their own scope; the
+    wrong variant runs them in TF32."""
+    import torch
+
+    from ldt_torch import weights
+    from ldt_torch.models import Compressor, Score
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.training import completion_latent_sde_trainer as clt
+
+    batch = 4
+    cfg = completion_cfg(score=dict(num_blocks=2))
+    g = torch.Generator().manual_seed(SEED)
+    v = weights.score_variables(
+        Score(cfg.score, device="cpu", generator=g).state_dict())
+    score_w = weights.score_state_dict(v["params"], v["batch_stats"])
+    comp = Compressor(cfg.compressor, device="cpu", generator=g)
+    pc = torch.randn(batch, 2048, 3, generator=g)
+    comp.init_actnorm(pc[:2])
+    comp_w = comp.state_dict()
+    cond = {"img": torch.rand(batch, 64, 64, 3, generator=g),
+            "pts": 0.5 * torch.randn(batch, 2048, 3, generator=g)}
+    x = torch.randn(batch, cfg.score.z_scale, cfg.score.z_dim, generator=g)
+    t = torch.rand(batch, generator=g)
+    pins = dict(
+        t_idx=torch.randint(0, cfg.sde.train_N, (batch,), generator=g),
+        eta=torch.randn(batch, cfg.score.z_scale, cfg.score.z_dim,
+                        generator=g),
+        enc_noise=[torch.randn(batch, cfg.compressor.z_scales,
+                               cfg.compressor.z_dim, generator=g)
+                   for _ in range(cfg.compressor.n_layers)])
+
+    def run(dev):
+        tr = clt.Trainer(cfg, device=dev)
+        tr.maybe_init({"tr_points": pc}, score_weights=score_w,
+                      compressor_weights=comp_w)
+        on = {k: v.to(dev) for k, v in cond.items()}
+        with torch.no_grad():
+            tokens, img_emb = tr.score.encode_condition(on)
+            pred = tr.score(x.to(dev), t.to(dev), None, (tokens, img_emb))
+        loss = tr.update(pc.to(dev), on, **pins)
+        st = tr.state
+
+        def flat(tree):
+            return torch.cat([v.detach().reshape(-1).cpu()
+                              for v in tree.values()])
+
+        grads = {k: p.grad for k, p in st.params.items()}
+        return {"tokens": tokens.cpu(), "image embedding": img_emb.cpu(),
+                "score": pred.cpu(), "loss": loss.reshape(1).cpu(),
+                "gradients": flat(grads),
+                "by name": {k: v.detach().cpu() for k, v in grads.items()},
+                "params": flat(st.params), "EMA": flat(st.ema_params),
+                "Adam mu": flat(st.opt_state.mu),
+                "BatchNorm statistics": flat(st.batch_stats)}
+
+    out = {"cpu": run("cpu")}
+    fn = attn_ops.cross_attention_bwd
+    before = (fn.launches, fn.tiled_launches)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the library's default
+    try:
+        out["card"] = run("cuda")
+        with tf32_trunk():
+            out["tf32 trunk"] = run("cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    k4 = (fn.launches - before[0], fn.tiled_launches - before[1])
+    # block 0 cross-attends (K2 forward, K4 backward), in each card run
+    if k4 != (2, 2):
+        fail(f"phase 23b: the card's steps launched K4 {k4} (tiled), not "
+             "once each")
+    print(f"[23b] the conditional Score at flagship width, 2 blocks, and its "
+          f"ConditionNet (64 x 64 views, 2048-point partial clouds), f32, "
+          f"B={batch}, card (cuDNN TF32 on globally) vs CPU: loss "
+          f"{out['cpu']['loss'].item():.6f}")
+    worst = sorted(((errs(out["card"]["by name"][k], v)[0], k) for k, v in
+                    out["cpu"]["by name"].items()), reverse=True)[:4]
+    print("    the gradients' largest differences, card vs CPU: " + ", ".join(
+        f"{k} {e:.3e}" for e, k in worst))
+    for part in out["cpu"]:
+        if part == "by name":
+            continue
+        if not torch.isfinite(out["card"][part]).all():
+            fail(f"phase 23b: {part} on the card is not finite")
+        held(f"{part} (relative), CPU vs",
+             {k: errs(out[k][part], out["cpu"][part], rel=True)
+              for k in ("card", "tf32 trunk")},
+             COND_STEP_TOL if part in ("gradients", "Adam mu")
+             else TRAIN_STEP_TOL, right=("card",),
+             wrong=("tf32 trunk",) if part in (
+                 "image embedding", "gradients") else ())
+
+
+def completion_cfg(**over):
+    """The completion stage-2 config of experiments/ (flagship widths),
+    sections updated by `over`, in memory."""
+    import os
+
+    from ldt_torch.configs import dict2namespace
+    from ldt_torch.tools.io import load_yaml
+
+    d = load_yaml(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "experiments",
+        "Latent_Diffusion_Trainer", "completion", "plane", "config.yaml"))
+    for k, v in over.items():
+        d[k] = dict(d[k], **v)
+    d["log"] = {}
+    return dict2namespace(d)
+
+
+def phase_completion_entries():
+    """Phase 23c: the completion entries from the configs of
+    experiments/{Compressor_Trainer,Latent_Diffusion_Trainer}/completion/
+    plane (full width and depth; the epochs, cadences, the stage-2 eval's
+    sample_N and the data cut, each cut printed) on a synthetic ViPC tree
+    (`ldt_torch.tools.synth_vipc`: RGBA 137 x 137 views, resized by the
+    loader): stage 1 from a stage-1 checkpoint written here (the shipped
+    pretrain_path is null), 2 epochs with a save and a reconstruction,
+    then a resume leg; stage 2 from stage 1's checkpoint through
+    `load_pretrain`, 2 epochs with a save and a valsample, then a resume
+    leg. Restored tensors must equal the state at the save (the moments
+    their bf16 rounding), the counters continue, every loss and score must
+    be finite, and K1-K4 must have run; prints seconds per epoch and each
+    checkpoint's size and save and load seconds. Returns (the stage-2
+    trainer, a train batch, the stage-2 legs' launch counts)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.cli import get_completion_config, get_parser
+    from ldt_torch.configs import dict2namespace
+    from ldt_torch.data.vipc import get_data_loaders
+    from ldt_torch.entries import train_completion_compressor as entry1
+    from ldt_torch.entries import train_completion_latent_diffusion as entry2
+    from ldt_torch.tools import synth_vipc
+    from ldt_torch.training import checkpoint as ckpt
+    from ldt_torch.training.completion_compressor_trainer import (
+        Trainer as Stage1,
+    )
+    from ldt_torch.training.completion_latent_sde_trainer import (
+        Trainer as Stage2,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ldt_phase23_")
+    try:
+        data_dir = os.path.join(tmp, "ShapeNetViPC-Dataset")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            synth_vipc.write_tree(data_dir, VIPC_TRAIN, VIPC_TEST,
+                                  VIPC_VIEWS, lists_dir=data_dir,
+                                  view_size=VIPC_SIZE, view_mode="RGBA")
+        print(f"[23c] data: a synthetic ShapeNet-ViPC tree of {VIPC_TRAIN} "
+              f"train and {VIPC_TEST} test planes x {VIPC_VIEWS} views "
+              f"(RGBA {VIPC_SIZE} x {VIPC_SIZE}, as the renderings), GT "
+              f"2048 points, partials 1024, written in "
+              f"{time.perf_counter() - t0:.1f} s (ShapeNet-ViPC's plane "
+              "split holds thousands of models)")
+        ws = os.path.join(tmp, "experiments")
+        paths = {k: os.path.join(ws, k, "completion", "plane")
+                 for k in COMPLETION_CUTS}
+        seed_dir = os.path.join(tmp, "stage1_seed")
+        lists = {"data.data_dir": data_dir,
+                 "data.train_list": os.path.join(data_dir,
+                                                 "train_list2.txt"),
+                 "data.test_list": os.path.join(data_dir, "test_list2.txt")}
+        for kind, (cuts, _) in COMPLETION_CUTS.items():
+            edits = dict(cuts, **lists, **{"log.save_path": paths[kind]})
+            if kind == "Compressor_Trainer":
+                edits["model.pretrain_path"] = os.path.join(
+                    seed_dir, "checkpt_0.pt")
+            else:
+                edits["compressor.pretrain_path"] = os.path.join(
+                    paths["Compressor_Trainer"], "checkpt_2.pt")
+            copied_config(os.path.join(root, "experiments", kind,
+                                       "completion", "plane", "config.yaml"),
+                          os.path.join(paths[kind], "config.yaml"), edits,
+                          kind, "23c")
+
+        def args(kind, *extra):
+            a = get_parser(kind).parse_args(["--save", ws, "--dataset",
+                                             "plane", *extra])
+            return a, get_completion_config(a)
+
+        # the stage-1 checkpoint the completion finetune starts from (the
+        # pretrain_path the shipped config leaves to the user)
+        _, cfg = args("Compressor_Trainer")
+        cfg.log = dict2namespace({"save_path": seed_dir})
+        os.makedirs(seed_dir)
+        seed = Stage1(cfg, device="cuda")
+        seed.maybe_init({"tr_points": torch.from_numpy(synthetic_shapes(
+            cfg.data.batch_size, 2048, np.random.default_rng(SEED + 23)))})
+        seed.epoch = 0
+        seed.save()
+        seed_tree = host_state(seed.state_tree())
+        del seed
+
+        saved, timing, seen = {}, {"epochs": {}}, {}
+        real = {m: {cls: getattr(cls, m) for cls in (Stage1, Stage2)}
+                for m in ("save", "resume", "update", "epoch_end",
+                          "load_pretrain")}
+
+        def stage(self):
+            return 1 if isinstance(self, Stage1) else 2
+
+        def counters(self):
+            return (self.epoch, self.itr, self._itr_epoch_start,
+                    self.state.step)
+
+        def save(self):
+            s = stage(self)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real["save"][type(self)](self)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt.wait_pending_saves()  # stage 2 writes on a thread
+            timing[f"save{s}"] = (dt, time.perf_counter() - t0)
+            saved[s] = (host_state(self.state_tree(), s == 2),
+                        counters(self))
+            timing[f"size{s}"] = os.path.getsize(ckpt.checkpoint_path(
+                self.cfg.log.save_path, self.epoch))
+
+        def resume(self, *a, **kw):
+            s = stage(self)
+            t0 = time.perf_counter()
+            real["resume"][type(self)](self, *a, **kw)
+            torch.cuda.synchronize()
+            timing[f"load{s}"] = time.perf_counter() - t0
+            tree, (epoch, itr, _, step) = saved[s]
+            bad = differing(self.state_tree(), tree)
+            want = (epoch + 1, itr, itr, step)
+            print(f"[23c] stage {s} resume: {timing[f'load{s}']:.3f} s; "
+                  f"counters {counters(self)} (saved at "
+                  f"{(epoch, itr, step)}); restored tensors that differ "
+                  f"from the state at the save: {len(bad)}")
+            if bad or counters(self) != want:
+                fail(f"phase 23c: stage {s}'s resumed state differs from "
+                     f"the saved one: {bad[:5]}, counters "
+                     f"{counters(self)} != {want}")
+            seen[f"resumed{s}"] = True
+
+        def load_pretrain(self):
+            real["load_pretrain"][type(self)](self)
+            if stage(self) == 1:
+                bad = differing(self.state_tree(), seed_tree)
+                what = "the stage-1 seed's whole state"
+            else:
+                tree = saved[1][0]["state"]
+                bad = differing(dict(self.compressor.state_dict()),
+                                {**tree["params"], **tree["batch_stats"]})
+                what = "stage 1's Compressor at its save"
+            print(f"[23c] stage {stage(self)} load_pretrain: tensors that "
+                  f"differ from {what}: {len(bad)}")
+            if bad:
+                fail(f"phase 23c: load_pretrain gave other weights: "
+                     f"{bad[:5]}")
+            seen[f"pretrained{stage(self)}"] = True
+
+        def update(self, *a, **kw):
+            if self.itr == self._itr_epoch_start:
+                torch.cuda.synchronize()
+                timing["epochs"][(stage(self), self.epoch)] = [
+                    time.perf_counter()]
+            return real["update"][type(self)](self, *a, **kw)
+
+        def epoch_end(self):
+            torch.cuda.synchronize()
+            timing["epochs"][(stage(self), self.epoch)].append(
+                time.perf_counter())
+            return real["epoch_end"][type(self)](self)
+
+        launches = {}
+
+        def leg(kind, entry, name, *extra):
+            a, cfg = args(kind, *extra)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                trainer, dt, counts = counted(lambda: entry.main(a, cfg))
+            for ln in buf.getvalue().splitlines():
+                print(f"    {ln}")
+            launches[name] = counts
+            print(f"[23c] {name}: {dt:.2f} s, launches K1 "
+                  f"{counts['packed_self_attention']} K2 "
+                  f"{counts['cross_attention']} K3 "
+                  f"{counts['packed_self_attention_bwd']} K4 "
+                  f"{counts['cross_attention_bwd']}")
+            return trainer
+
+        with contextlib.ExitStack() as stack:
+            for cls in (Stage1, Stage2):
+                for name, fn in (("save", save), ("resume", resume),
+                                 ("update", update),
+                                 ("epoch_end", epoch_end),
+                                 ("load_pretrain", load_pretrain)):
+                    stack.enter_context(mock.patch.object(cls, name, fn))
+            def resume_cuts(kind):
+                copied_config(os.path.join(paths[kind], "config.yaml"),
+                              os.path.join(paths[kind], "config.yaml"),
+                              COMPLETION_CUTS[kind][1],
+                              f"{kind} resume leg", "23c")
+
+            s1 = leg("Compressor_Trainer", entry1, "stage 1")
+            epochs1 = s1.epoch
+            del s1
+            resume_cuts("Compressor_Trainer")
+            s1 = leg("Compressor_Trainer", entry1, "stage 1 resume",
+                     "--resume", "True")
+            epochs1 = (epochs1, s1.epoch)
+            del s1
+            gc.collect()
+            s2 = leg("Latent_Diffusion_Trainer", entry2, "stage 2")
+            epochs2 = s2.epoch
+            del s2
+            gc.collect()
+            torch.cuda.empty_cache()
+            resume_cuts("Latent_Diffusion_Trainer")
+            s2 = leg("Latent_Diffusion_Trainer", entry2, "stage 2 resume",
+                     "--resume", "True")
+            epochs2 = (epochs2, s2.epoch)
+        if (epochs1, epochs2) != ((3, 5), (3, 4)):
+            fail(f"phase 23c: the legs ended at epochs {epochs1}, {epochs2}")
+        want_seen = {"pretrained1", "pretrained2", "resumed1", "resumed2"}
+        if set(seen) != want_seen:
+            fail(f"phase 23c: a restore was not checked: {sorted(seen)}")
+        for s, what in ((1, "stage 1 (B=16)"),
+                        (2, f"stage 2 (B={COMPLETION_BATCH})")):
+            secs = [round(t[1] - t[0], 3) for (st, _), t in
+                    sorted(timing["epochs"].items()) if st == s]
+            save_s, write_s = timing[f"save{s}"]
+            print(f"[23c] {what} seconds per epoch: {secs}; checkpoint "
+                  f"{timing[f'size{s}'] / 1e9:.4f} GB, save {save_s:.3f} s "
+                  f"+ {write_s:.3f} s of write waited for, load (resume) "
+                  f"{timing[f'load{s}']:.3f} s ({smi_name_and_power()})")
+        for kind, names in (("Compressor_Trainer",
+                             ("training.csv", "eval.csv")),
+                            ("Latent_Diffusion_Trainer",
+                             ("training.csv", "eval.csv"))):
+            for name in names:
+                rows = finite_rows(os.path.join(paths[kind], name),
+                                   f"{kind} {name}", "23c")
+                print(f"[23c] {kind} {name}: {rows}")
+                if not rows:
+                    fail(f"phase 23c: {kind} {name} has no row")
+        ran = {"K1": sum(c["packed_self_attention"]
+                         for c in launches.values()),
+               "K2": sum(c["cross_attention"] for c in launches.values()),
+               "K3": sum(c["packed_self_attention_bwd"]
+                         for c in launches.values()),
+               "K4": sum(c["cross_attention_bwd"]
+                         for c in launches.values())}
+        if not all(ran.values()):
+            fail(f"phase 23c: a kernel of the path did not run: {ran}")
+        stage2_k4 = (launches["stage 2"]["cross_attention_bwd"]
+                     + launches["stage 2 resume"]["cross_attention_bwd"])
+        batch = next(iter(get_data_loaders(s2.cfg.data)["train_loader"]))
+        return s2, batch, stage2_k4
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_completion_generate(trainer, batch) -> int:
+    """Phase 23d: `Trainer.sample(32, condition=...)` of the completion
+    stage-2 trainer on a train batch's views and partial clouds (FPS'd to
+    2048) with the config's 1000 ancestral steps: the condition encoded
+    once (the trunk runs once), the whole f32 Score each step (12 blocks
+    self-attend through K1, 12 cross-attend through K2), then the decode
+    (K2 6); clouds/min with the card's name and power limit, and CD x 1000
+    and F1 against the batch's GT clouds (meaningless on these weights:
+    they show that the scores run). Returns K2's launches at the DiT's
+    cross shape."""
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.training.completion_compressor_trainer import (
+        completion_scores,
+        fps_to,
+    )
+
+    trainer.cfg.sde.sample_N = STEPS
+    trainer.sde = make_diffusion(trainer.cfg.sde, device="cuda")
+    blocks = trainer.cfg.score.num_blocks
+    n = COMPLETION_BATCH
+    ref = fps_to(batch["pc"][:n], 2048, "cuda")
+    cond = {"img": batch["views"][:n],
+            "pts": fps_to(batch["pc_part"][:n], 2048, "cuda")}
+    runs = trainer.score.c_net.resnet.runs
+    cross = blocks // 2 * STEPS  # the even blocks, every step
+    expect = per_step_launches(
+        packed_self_attention=(blocks - blocks // 2) * STEPS,
+        packed_self_attention_tiled=(blocks - blocks // 2) * STEPS,
+        cross_attention=cross + trainer.cfg.compressor.n_layers)
+    out = {}
+
+    def run():
+        out["smp"] = trainer.sample(n, condition=cond)[0]
+        return out["smp"]
+
+    checked_generation(
+        "23d", f"completion (the condition of {n} views and partial "
+        f"clouds, {STEPS} steps, the whole f32 Score each step, "
+        f"{smi_name_and_power()})", run, n, expect)
+    trunk = trainer.score.c_net.resnet.runs - runs
+    scores = completion_scores(out["smp"].cpu().numpy(),
+                               ref.cpu().numpy(), "cuda")
+    print(f"[23d] the ResNet trunk ran {trunk} time(s) in the {STEPS}-step "
+          f"run; CD x 1000 {scores['cd']:.4f}, F1 {scores['f1score']:.4f} "
+          "against the batch's GT (random, barely trained weights: the "
+          "numbers show that the scores run)")
+    if trunk != 1:
+        fail(f"phase 23d: the trunk ran {trunk} times, not once")
+    return cross
+
+
 def main() -> int:
     import torch
 
@@ -3491,6 +4143,11 @@ def main() -> int:
     stage2 = phase_all_configs()
     phase_label_generate(stage2)
     del stage2
+    rows.update(phase_dit_cross_kernels(gen))
+    phase_condition_reference()
+    completion, batch, k4_dit = phase_completion_entries()
+    k2_dit = phase_completion_generate(completion, batch)
+    del completion, batch
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the
@@ -3503,6 +4160,10 @@ def main() -> int:
     for name in K4_ROWS.values():
         launches[name] = stage1_launches[name]
     launches.update(eval_launches)
+    # the DiT's cross shape: K2 from the completion generation's Score
+    # (not its decode), K4 from the completion stage-2 training legs
+    launches["cross_attention_dit_cross"] = k2_dit
+    launches["cross_attention_bwd_dit_cross"] = k4_dit
     # K6's row counts the launches with d streamed (the wrapper's count
     # holds both modes)
     launches["approx_match_cost"] -= launches["approx_match_cost_otf"]

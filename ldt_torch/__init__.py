@@ -25,14 +25,18 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
                                  compressor_trainer; stage 2:
                                  latent_sde_trainer; both with their
                                  `valsample`, stage 1 `reconstruction`;
+                                 the completion trainers of both stages;
                                  checkpoint: `checkpt_{epoch}.pt`, and
                                  jax_checkpoint: the JAX package's
                                  `.msgpack` files, both ways)
   * `tools`, `data`, `cli`    <- ldt_tpu/tools/{io,log,utils}.py (with a
                                  YAML reader), ldt_tpu/data/ (PC15k
-                                 ShapeNet), ldt_tpu/cli.py
+                                 ShapeNet; ShapeNet-ViPC with a PNG reader
+                                 of its own), ldt_tpu/cli.py
   * `entries`                 <- train_Compressor.py,
-                                 train_Latent_Diffusion.py, val_sample.py
+                                 train_Latent_Diffusion.py, val_sample.py,
+                                 train_Completion_Compressor.py,
+                                 train_Completion_Latent_Diffusion.py
                                  (`python -m ldt_torch.entries.<name>`)
   * `weights`                 flax variable trees -> torch state_dicts
   * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate,

@@ -1,7 +1,8 @@
 """Command-line plumbing of the entries, counterpart of `ldt_tpu/cli.py`:
 `python -m ldt_torch.entries.<entry> --dataset airplane --save <dir>` reads
 `<dir>/<trainer_type>/<dataset>/config.yaml` (`tools.io.load_yaml`) into
-nested namespaces. One argument more than the JAX parser's: `--device`
+nested namespaces; the completion entries read
+`<dir>/<trainer_type>/completion/<dataset>/config.yaml`. One argument more than the JAX parser's: `--device`
 (default cuda; the CPU only when asked for)."""
 
 from __future__ import annotations
@@ -38,6 +39,14 @@ def get_parser(trainer_type: str, description: str = "LDT (PyTorch)"):
 def get_config(args):
     return dict2namespace(load_yaml(os.path.join(
         args.save, args.trainer_type, args.dataset, "config.yaml")))
+
+
+def get_completion_config(args):
+    """The completion config `<save>/<trainer_type>/completion/<dataset>/
+    config.yaml` (`experiments/*/completion/plane`)."""
+    return dict2namespace(load_yaml(os.path.join(
+        args.save, args.trainer_type, "completion", args.dataset,
+        "config.yaml")))
 
 
 def progress(iterable, desc: str = ""):

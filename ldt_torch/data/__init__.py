@@ -1,5 +1,6 @@
 """Host-side data pipeline (counterpart of ldt_tpu/data): the PC15k
-ShapeNet clouds as numpy batches, prefetched on a thread."""
+ShapeNet clouds as numpy batches, prefetched on a thread; the ShapeNet-ViPC
+completion data in `data.vipc` (its PNG views read by `data.png`)."""
 
 from ldt_torch.data.loader import DataLoader
 from ldt_torch.data.shapenet55 import (

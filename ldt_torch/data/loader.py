@@ -4,6 +4,12 @@ permutation per epoch), the same batches (dicts of stacked numpy arrays),
 and one background thread that assembles the next batches while the device
 computes.
 
+`num_workers` > 0 fetches each batch's items through a pool of that many
+threads (for datasets whose items are read from disk one by one, the
+non-preload ViPC loader's); the items keep their order, but draws a dataset
+makes from a shared generator (ViPC's random view) then follow thread
+timing.
+
 A loop that stops early (`next(iter(loader))` to take a first batch) closes
 its iterator, which lets the thread finish the batches it would have
 prefetched anyway (up to `prefetch` + 1 past the last one taken, as the JAX
@@ -15,6 +21,7 @@ from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Iterator
 
 import numpy as np
@@ -43,12 +50,14 @@ class DataLoader:
     `drop_last`."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, prefetch: int = 2):
+                 drop_last: bool = False, seed: int = 0, prefetch: int = 2,
+                 num_workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.num_workers = int(num_workers or 0)
         self._rng = np.random.RandomState(seed)
 
     def __len__(self) -> int:
@@ -75,13 +84,22 @@ class DataLoader:
         made = [0]  # batches collated so far
         progress = threading.Condition()
 
+        pool = (ThreadPoolExecutor(self.num_workers,
+                                   thread_name_prefix="ldt-loader-item")
+                if self.num_workers > 0 else None)
+
+        def fetch(idxs):
+            items = [int(i) for i in idxs]
+            if pool is not None:
+                return list(pool.map(self.dataset.__getitem__, items))
+            return [self.dataset[i] for i in items]
+
         def producer():
             try:
                 for idxs in batches:
                     if stop.is_set():
                         break
-                    batch = default_collate(
-                        [self.dataset[int(i)] for i in idxs])
+                    batch = default_collate(fetch(idxs))
                     with progress:
                         made[0] += 1
                         progress.notify_all()
@@ -118,6 +136,8 @@ class DataLoader:
                 except queue.Empty:
                     pass
             thread.join()
+            if pool is not None:
+                pool.shutdown()
         if error:
             # a swallowed producer exception would end the epoch early with
             # no error: the loop would train on part of the data

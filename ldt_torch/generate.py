@@ -9,9 +9,11 @@ networks run in their own dtype (bf16 in serving), and the score is
 The DiT step is `Score.denoise_with_mods`, or with `int8=True` the W8A8
 twin `serving.int8.denoise_with_mods_int8` (bench.py's serving path), its
 weights quantized once per generation, before the loop. With a `label` (or
-an `AdaLN: False` Score) the conditioning is not t's alone: each step runs
-the whole Score, c = t_emb + l_emb, as the JAX trainer's sampler does; the
-int8 path serves the unconditional AdaLN Score only.
+an `AdaLN: False` Score, or a UNet) the conditioning is not t's alone: each
+step runs the whole Score, c = t_emb + l_emb, as the JAX trainer's sampler
+does; so does a completion `condition` (c = t_emb + the image embedding,
+the point tokens cross-attended), encoded once before the loop. The int8
+path serves the unconditional AdaLN Score only.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
                    attn_int8: bool = False, bf16_tail: int = 0,
                    act_scales: Optional[torch.Tensor] = None,
                    label: Optional[torch.Tensor] = None,
-                   **sampler) -> torch.Tensor:
+                   condition=None, **sampler) -> torch.Tensor:
     """The reverse diffusion alone: [batch, z_scale, z_dim] f32 latents.
 
     `sampler`: the options of `sample_discrete` (predictor, corrector,
@@ -58,7 +60,10 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
     activation scales [steps, num_blocks, 4] (else dynamic).
 
     `label` [batch]: category indices of a label-conditioned Score; each
-    step then runs `score(x, t, label)`.
+    step then runs `score(x, t, label)`. `condition`: a completion
+    condition ({'img', 'pts'} or the pair `Score.encode_condition` gives);
+    a dict is encoded here, once, and each step runs
+    `score(x, t, label, encoded)`.
     """
     dev = resolve_device(device)
     if not int8 and (attn_int8 or bf16_tail or act_scales is not None
@@ -66,15 +71,19 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
         raise ValueError("attn_int8, bf16_tail, act_scales and int8_weights "
                          "are options of the int8 path (int8=True)")
     cfg = score.cfg
-    if label is not None or not cfg.AdaLN:
+    if label is not None or condition is not None or not cfg.AdaLN \
+            or cfg.unet:
         if int8:
             raise ValueError("the int8 path serves the unconditional AdaLN "
                              "Score only")
         if label is not None:
             label = label.to(dev)
+        if isinstance(condition, dict):
+            condition = score.encode_condition(condition)
 
         def score_fn(t, x, step):
-            p = score(x, t, label)
+            p = (score(x, t, label) if condition is None
+                 else score(x, t, label, condition))
             return -p.float() / sde.std(t)[:, None, None], p
 
         return sample_discrete(sde, score_fn, batch,

@@ -46,6 +46,7 @@ from ldt_torch.nn.layers import (
     ResidualBlock,
     get_activation,
     init_weights_,
+    take_batch_norm_updates,
 )
 from ldt_torch.ops.geometry import cluster, index_points
 
@@ -387,12 +388,7 @@ class Compressor(nn.Module):
     def take_batch_stats(self) -> dict:
         """The running statistics that the train-mode BatchNorms of the
         last forward left ({state_dict key: tensor}); clears them."""
-        out = {}
-        for name, m in self.named_modules():
-            if isinstance(m, BatchNorm) and m.update is not None:
-                out.update({f"{name}.{k}": t for k, t in m.update.items()})
-                m.update = None
-        return out
+        return take_batch_norm_updates(self)
 
     @torch.no_grad()
     def init_actnorm(self, pts: torch.Tensor, train: bool = False) -> None:

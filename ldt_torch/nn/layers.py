@@ -73,12 +73,21 @@ class LayerNorm(nn.Module):
 
 def init_weights_(module: nn.Module,
                   generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Draw the Dense, Embedding and LayerNorm parameters of `module` as the
-    JAX package initializes them: Dense weight and bias U(+-1/sqrt(fan_in)),
-    an embedding table N(0, 1), LayerNorm scale 1 and bias 0."""
+    """Draw the Dense, Conv2d, Embedding and LayerNorm parameters of
+    `module` as the JAX package initializes them: Dense weight and bias
+    U(+-1/sqrt(fan_in)), a convolution's kernel flax's lecun_normal (a
+    normal truncated at 2 sigma, of variance 1 / fan_in), an embedding
+    table N(0, 1), LayerNorm scale 1 and bias 0."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, Dense):
+            if isinstance(m, Conv2d):
+                fan_in = m.weight[0].numel()
+                # 0.8796...: the std of a unit normal truncated at +-2
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                m.weight.mul_(std)
+            elif isinstance(m, Dense):
                 bound = 1.0 / math.sqrt(m.in_features)
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)
@@ -174,6 +183,74 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
+def take_batch_norm_updates(module: nn.Module) -> dict:
+    """The running statistics that the train-mode BatchNorms of `module`'s
+    last forward left ({state_dict key: tensor}); clears them."""
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, BatchNorm) and m.update is not None:
+            out.update({f"{name}.{k}": t for k, t in m.update.items()})
+            m.update = None
+    return out
+
+
+def ieee_cudnn():
+    """A scope in which cuDNN runs f32 convolutions at IEEE precision (no
+    TF32: `torch.backends.cudnn.allow_tf32` is True by default), its other
+    flags as they are; the global setting is restored on exit."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark,
+                   benchmark_limit=None, deterministic=c.deterministic,
+                   allow_tf32=False)
+
+
+class _Conv2dIEEE(torch.autograd.Function):
+    """F.conv2d (no bias) whose forward and backward both run inside
+    `ieee_cudnn`: the backward runs later, outside any scope of the
+    caller's."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int, padding: int):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = (stride, padding)
+        with ieee_cudnn():
+            return F.conv2d(x, w, None, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding = ctx.geometry
+        with ieee_cudnn():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [stride] * 2, [padding] * 2, [1, 1], False,
+                [0, 0], 1, [ctx.needs_input_grad[0],
+                            ctx.needs_input_grad[1], False])
+        return gx, gw, None, None
+
+
+class Conv2d(nn.Module):
+    """flax `nn.Conv(features, (k, k), strides=stride, padding=padding,
+    use_bias=False)` on channels-last [B, H, W, C_in] -> [B, H', W',
+    C_out]. The weight is OIHW [C_out, C_in, k, k] (flax's HWIO kernel
+    transposed); the input is cast to its dtype. cuDNN runs it at IEEE f32
+    (`ieee_cudnn`), forward and backward. A 1 x 1 kernel at stride 2 with
+    flax's 'SAME' padding pads nothing, so `padding` is always symmetric."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, padding: int = 0, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel, kernel, dtype=dtype,
+            device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)  # a channels-last view
+        y = _Conv2dIEEE.apply(x, self.weight, self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
 
 
 class GroupNorm(nn.Module):
@@ -338,11 +415,17 @@ class Attention(nn.Module):
     slices of the same weight and runs kernel K2. With grad mode on they go
     through the autograd.Functions whose backwards are K3 and K4.
     `ref_merge` merges the heads as the reference does (`ref_merge`).
+
+    Keys and values of another width than the queries' (`dim_kv` !=
+    `dim`: a UNet down block, D_in = 2 hidden, cross-attending to condition
+    tokens of width hidden) take two weights instead, `q` [D_out, D_in] and
+    `kv` [2 D_out, dim_kv] (`fc_q` and `fc_kv` as they are); such a block
+    only cross-attends.
     """
 
     def __init__(self, dim: int, num_heads: int, *,
-                 dim_out: Optional[int] = None, ref_merge: bool = False,
-                 dtype=torch.float32, device=None):
+                 dim_out: Optional[int] = None, dim_kv: Optional[int] = None,
+                 ref_merge: bool = False, dtype=torch.float32, device=None):
         super().__init__()
         dim_out = dim if dim_out is None else dim_out
         if dim_out % num_heads:
@@ -351,24 +434,42 @@ class Attention(nn.Module):
         self.dim = dim_out
         self.num_heads = num_heads
         self.ref_merge = ref_merge
-        self.qkv = Dense(dim, 3 * dim_out, dtype=dtype, device=device)
-        self.fc_o = Dense(dim_out, dim_out, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        if dim_kv is None or dim_kv == dim:
+            self.qkv = Dense(dim, 3 * dim_out, **kw)
+        else:
+            self.q = Dense(dim, dim_out, **kw)
+            self.kv = Dense(dim_kv, 2 * dim_out, **kw)
+        self.fc_o = Dense(dim_out, dim_out, **kw)
+
+    def _cross(self, x: torch.Tensor, y: torch.Tensor):
+        """(q, k, v) of a cross-attention."""
+        d = self.dim
+        if hasattr(self, "q"):
+            q = self.q(x)
+            w, b = self.kv.weight, self.kv.bias
+            y = y.to(w.dtype)
+            return q, F.linear(y, w[:d], b[:d]), F.linear(y, w[d:], b[d:])
+        w, b = self.qkv.weight, self.qkv.bias
+        y = y.to(w.dtype)
+        return (F.linear(x.to(w.dtype), w[:d], b[:d]),
+                F.linear(y, w[d:2 * d], b[d:2 * d]),
+                F.linear(y, w[2 * d:], b[2 * d:]))
 
     def forward(self, x: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        d = self.dim
         if y is None:
+            if not hasattr(self, "qkv"):
+                raise ValueError("an attention whose keys and values have "
+                                 "their own width cross-attends only: give "
+                                 "it y")
             qkv = self.qkv(x)
             if torch.is_grad_enabled():
                 att = attn_ops.PackedSelfAttention.apply(qkv, self.num_heads)
             else:
                 att = attn_ops.packed_self_attention(qkv, self.num_heads)
         else:
-            w, b = self.qkv.weight, self.qkv.bias
-            q = F.linear(x.to(w.dtype), w[:d], b[:d])
-            y = y.to(w.dtype)
-            k = F.linear(y, w[d:2 * d], b[d:2 * d])
-            v = F.linear(y, w[2 * d:], b[2 * d:])
+            q, k, v = self._cross(x, y)
             if torch.is_grad_enabled():
                 att = attn_ops.CrossAttention.apply(q, k, v, self.num_heads)
             else:
@@ -397,14 +498,16 @@ class ResidualBlock(nn.Module):
     then x / sqrt(2) with `rescale`. `shortcut` is a Dense C_in -> C_out
     where the widths differ, else the identity; norm2 and the MLP run at
     C_out. With y None the block self-attends through the packed path
-    (kernel K1); with y given it cross-attends (kernel K2). Layer norms carry
-    scale and bias only when unconditioned (`dim_c` None).
+    (kernel K1); with y given it cross-attends (kernel K2); `dim_kv` is y's
+    width where it is not C_in (`Attention`). Layer norms carry scale and
+    bias only when unconditioned (`dim_c` None).
     """
 
     def __init__(self, dim: int, dim_c: Optional[int] = None,
                  num_heads: int = 4, norm: Optional[str] = "layer_norm",
                  mlp_ratio: float = 4.0, act: Optional[str] = None, *,
-                 dim_out: Optional[int] = None, AdaLN: bool = True,
+                 dim_out: Optional[int] = None,
+                 dim_kv: Optional[int] = None, AdaLN: bool = True,
                  rescale: bool = False, ref_merge: bool = False,
                  dtype=torch.float32, device=None):
         super().__init__()
@@ -418,7 +521,7 @@ class ResidualBlock(nn.Module):
         self.norm2 = make_norm(norm, dim_out, affine, **kw)
         self.act = get_activation(act)
         self.attn = Attention(dim, num_heads, dim_out=dim_out,
-                              ref_merge=ref_merge, **kw)
+                              dim_kv=dim_kv, ref_merge=ref_merge, **kw)
         self.mlp = MLP(dim_out, int(mlp_ratio * dim_out), dim_out, **kw)
         if dim_out != dim:
             self.shortcut = Dense(dim, dim_out, **kw)

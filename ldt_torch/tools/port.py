@@ -19,13 +19,16 @@ as a JAX checkpoint:
     "compressor": state_dict}, resumed with `--strict False`).
 
 Leaf transforms: Conv1d(k=1) [out, in, 1] and Linear [out, in] become the
-port's Dense weight [out, in] (through the JAX kernel [in, out]); BatchNorm
-weight/bias and running statistics become the port's BatchNorm parameters
-and buffers; LayerNorm weight/bias as they are; Embedding weight ->
-`embed.weight`; the buffers `initialized` and `num_batches_tracked` are
-dropped. The conditional Score (ConditionNet, its ResNet trunk) and the UNet
-Score have no module in the port yet (ROADMAP Queue 1 #9): their keys raise
-NotImplementedError.
+port's Dense weight [out, in] (through the JAX kernel [in, out]); Conv2d
+[out, in, kh, kw] the port's `Conv2d` weight, the same OIHW layout
+(through flax's HWIO kernel); BatchNorm weight/bias and running statistics
+become the port's BatchNorm parameters and buffers; LayerNorm weight/bias
+as they are; Embedding weight -> `embed.weight`; the buffers `initialized`
+and `num_batches_tracked` are dropped, and so is the ConditionNet's
+`conv_out`, which the reference builds and never calls. The conditional
+Score's `c_net` (its torchvision ResNet-18 `BasicBlock`s, its grouper) and
+the UNet Score's `Transformer_{Up,Mid,Down}` map as the JAX package maps
+them.
 
 The reference merges attention heads with `(w @ v).reshape(B, N, C)` on a
 [B, H, N, dh] tensor, a token/channel scramble that no weight layout
@@ -73,12 +76,18 @@ def _embed(name: str, v):
     return ("embedding" if name == "weight" else name), _np(v)
 
 
+def _conv2d(name: str, v):
+    if name == "weight":
+        return "kernel", _np(v).transpose(2, 3, 1, 0)
+    return name, _np(v)
+
+
 def _direct(name: str, v):
     return name, _np(v)
 
 
-_KINDS = {"conv1": _conv1, "linear": _linear, "layernorm": _layernorm,
-          "embed": _embed, "direct": _direct}
+_KINDS = {"conv1": _conv1, "linear": _linear, "conv2d": _conv2d,
+          "layernorm": _layernorm, "embed": _embed, "direct": _direct}
 
 # BatchNorm splits across collections:
 _BN_PARAMS = {"weight": "scale", "bias": "bias"}
@@ -144,6 +153,17 @@ _MINIPOINTNET_INNER = [
 ]
 
 
+# torchvision resnet18 BasicBlock -> the ConditionNet trunk's BasicBlock
+_RESNET_BASIC_INNER = [
+    (r"^conv1$", "Conv_0", "conv2d"),
+    (r"^bn1$", "BatchNorm_0", "bn"),
+    (r"^conv2$", "Conv_1", "conv2d"),
+    (r"^bn2$", "BatchNorm_1", "bn"),
+    (r"^downsample\.0$", "downsample_conv", "conv2d"),
+    (r"^downsample\.1$", "downsample_bn", "bn"),
+]
+
+
 def _prefix(rules, pat, repl):
     """Scope `rules` under a reference prefix regex and a prefix template;
     backreferences of an inner template are renumbered past the prefix's
@@ -155,6 +175,31 @@ def _prefix(rules, pat, repl):
                            lambda m: "\\" + str(int(m.group(1)) + shift), t)
         out.append((pat + r"\." + r.lstrip("^"), repl + "/" + t_shifted, k))
     return out
+
+
+def _condition_net_rules(prefix_pat: str, prefix_repl: str):
+    """The reference ConditionNet under `prefix_pat`: its convs, `ln`, the
+    ResNet trunk (`resnet.0` conv1, `resnet.1` bn1, `resnet.4` layer1,
+    `resnet.5` layer2) and the grouper; `conv_out` dropped."""
+    rules = [
+        (prefix_pat + r"\.pc_conv_in$", prefix_repl + "/pc_conv_in", "conv1"),
+        (prefix_pat + r"\.pc_conv_out$", prefix_repl + "/pc_conv_out",
+         "conv1"),
+        (prefix_pat + r"\.ln$", prefix_repl + "/ln", "linear"),
+        # built by the reference and never called
+        (prefix_pat + r"\.conv_out$", None, "drop"),
+        (prefix_pat + r"\.resnet\.0$", prefix_repl + "/resnet/conv1",
+         "conv2d"),
+        (prefix_pat + r"\.resnet\.1$", prefix_repl + "/resnet/bn1", "bn"),
+    ]
+    for seq_idx, layer in ((4, "layer1"), (5, "layer2")):
+        rules += _prefix(
+            _RESNET_BASIC_INNER,
+            prefix_pat + r"\.resnet\.%d\.(\d+)" % seq_idx,
+            prefix_repl + "/resnet/" + layer + r"_\1")
+    rules += _prefix(_GROUPER_INNER, prefix_pat + r"\.group",
+                     prefix_repl + "/group")
+    return rules
 
 
 COMPRESSOR_RULES = (
@@ -182,17 +227,15 @@ SCORE_RULES = (
         (r"^ln_in$", "ln_in", "conv1"),
     ]
     + _prefix(_BLOCK_INNER, r"^Transformer\.(\d+)", r"transformer_\1")
+    + _prefix(_BLOCK_INNER, r"^Transformer_Up\.(\d+)", r"transformer_up_\1")
+    + _prefix(_BLOCK_INNER, r"^Transformer_Mid", "transformer_mid")
+    + _prefix(_BLOCK_INNER, r"^Transformer_Down\.(\d+)",
+              r"transformer_down_\1")
     + _prefix(_FINAL_INNER, r"^ln_out", "ln_out")
     + _prefix(_TIME_INNER, r"^TimeEmbedding", "time_embedding")
     + _prefix(_LABEL_INNER, r"^LabelEmbedding", "label_embedding")
+    + _condition_net_rules(r"^c_net", "c_net")
 )
-
-# reference modules with no counterpart in the port yet
-_NOT_PORTED = [
-    (r"^c_net\.", "the conditional Score's ConditionNet (with its ResNet "
-     "trunk)"),
-    (r"^Transformer_(Up|Mid|Down)\b", "the UNet Score"),
-]
 
 # ------------------------------------------------------------------- engine
 
@@ -204,20 +247,9 @@ def _insert(tree: Dict[str, Any], path: str, leaf_name: str, value) -> None:
     node[leaf_name] = value
 
 
-def _refuse_unported(keys) -> None:
-    for pat, what in _NOT_PORTED:
-        hit = [k for k in keys if re.match(pat, k)]
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP Queue 1 #9): no module "
-                f"receives {hit[0]}" + (f" (+{len(hit) - 1} more keys)"
-                                        if len(hit) > 1 else ""))
-
-
 def _port(sd: Dict[str, Any], rules) -> Dict[str, Any]:
     """A reference state_dict -> {'params', 'batch_stats'} in the JAX
     package's layout (numpy leaves); an unmatched key raises."""
-    _refuse_unported(sd)
     params: Dict[str, Any] = {}
     batch_stats: Dict[str, Any] = {}
     unmatched = []
@@ -238,6 +270,8 @@ def _port(sd: Dict[str, Any], rules) -> Dict[str, Any]:
                 if m is None:
                     continue
                 module_key, leaf_key = key, None
+            if kind == "drop":
+                break
             target = m.expand(repl)
             if leaf_key is None:
                 path, _, name = target.rpartition("/")
@@ -285,7 +319,8 @@ def port_ema(state_dict: Dict[str, Any], optim_state: Dict[str, Any],
 
     The reference keeps the shadows in the optimizer state under 'ema',
     indexed by parameter order: the i-th entry of optim_state['state'] is
-    the i-th parameter (buffers excluded) of the state_dict. None if no
+    the i-th parameter (buffers excluded) of the state_dict (a conditional
+    Score's running statistics come from the state_dict). None if no
     shadows are stored."""
     rules = SCORE_RULES if rules is None else rules
     opt = optim_state.get("state", {})
@@ -300,11 +335,12 @@ def port_ema(state_dict: Dict[str, Any], optim_state: Dict[str, Any],
         if entry is None or "ema" not in entry:
             return None
         ema_sd[key] = entry["ema"]
-    if rules is SCORE_RULES:
-        return score_state_dict(_port(ema_sd, rules)["params"])
     stats = {k: v for k, v in state_dict.items()
              if "running_mean" in k or "running_var" in k}
-    return compressor_state_dict(_port({**ema_sd, **stats}, rules))
+    v = _port({**ema_sd, **stats}, rules)
+    if rules is SCORE_RULES:
+        return score_state_dict(v["params"], v["batch_stats"])
+    return compressor_state_dict(v)
 
 
 def _parameters(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -320,22 +356,27 @@ def port_checkpoint(path: str, out: Optional[str] = None,
     A single-net checkpoint ('state_dict', a Compressor) becomes
     {'state': {'params', 'batch_stats'}}, which stage 2's `load_pretrain`
     reads. A dual one ('score_state_dict' + 'compressor_state_dict')
-    becomes {'score': {'params', 'ema_params'}, 'compressor': state_dict}:
+    becomes {'score': {'params', 'ema_params'[, 'batch_stats' of a
+    conditional Score]}, 'compressor': state_dict}:
     the EMA from the reference's optimizer state, else the params (the
     trainers sample with the EMA); resume it with `--strict False` (no
     optimizer moments are ported)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     if "score_state_dict" in ckpt:
-        score = port_score(ckpt["score_state_dict"])
+        sd = port_score(ckpt["score_state_dict"])
+        score = _parameters(sd)
         ema = None
         if with_ema and "score_optim_state_dict" in ckpt:
             ema = port_ema(ckpt["score_state_dict"],
                            ckpt["score_optim_state_dict"])
         tree = {"score": {"params": score,
-                          "ema_params": ema if ema is not None
+                          "ema_params": _parameters(ema) if ema is not None
                           else {k: v.clone() for k, v in score.items()}},
                 "compressor": port_compressor(
                     ckpt["compressor_state_dict"])}
+        stats = {k: v for k, v in sd.items() if "running_" in k}
+        if stats:  # a conditional Score's ConditionNet
+            tree["score"]["batch_stats"] = stats
     elif "state_dict" in ckpt:
         sd = port_compressor(ckpt["state_dict"])
         tree = {"state": {"params": _parameters(sd),

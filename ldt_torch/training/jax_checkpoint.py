@@ -21,7 +21,8 @@ decode as tensors, bfloat16 by its name.
 
 The trees map through `ldt_torch.weights`: the params, the EMA and the Adam
 moments as params (the map is linear), `batch_stats` as the BatchNorms'
-running statistics; writing one, the config's `norm` names the JAX
+running statistics (the stage-1 Compressor's, and a conditional Score's
+ConditionNet's); writing one, the config's `norm` names the JAX
 norms. optax's chain state is {"0": ..., "1": ...}: the Adam entry (count,
 mu, nu) is found by its keys; every other entry must be
 empty (the clip's and the weight decay's) and is written back empty, which
@@ -44,8 +45,8 @@ from ldt_torch.training.checkpoint import write_atomic
 from ldt_torch.weights import (
     compressor_state_dict,
     compressor_variables,
-    score_params,
     score_state_dict,
+    score_variables,
 )
 
 SHARD_FORMAT = "ldt-sharded-v1"
@@ -468,18 +469,20 @@ def _state_from_jax(ts: dict, to_port) -> dict:
             "batch_stats": None}
 
 
-def _compressor_from_jax(ts: dict) -> dict:
+def _stats_state_from_jax(ts: dict, to_sd) -> dict:
+    """A JAX TrainState of a net with BatchNorms (`to_sd(params,
+    batch_stats)` its state_dict converter) -> the port's layout: the
+    params-structured trees without, `batch_stats` the running
+    statistics."""
     stats = _f32(ts.get("batch_stats") or {})
 
     def to_port(tree):
-        sd = compressor_state_dict({"params": _f32(tree),
-                                    "batch_stats": stats})
+        sd = to_sd(_f32(tree), stats)
         return {k: v for k, v in sd.items() if "running_" not in k}
 
     out = _state_from_jax(ts, to_port)
     if stats:
-        sd = compressor_state_dict({"params": _f32(ts["params"]),
-                                    "batch_stats": stats})
+        sd = to_sd(_f32(ts["params"]), stats)
         out["batch_stats"] = {k: v for k, v in sd.items()
                               if "running_" in k}
     return out
@@ -492,10 +495,12 @@ def state_from_jax(state: dict) -> dict:
     it)."""
     out = dict(state)
     if "state" in state:
-        out["state"] = _compressor_from_jax(state["state"])
-    if "score" in state:
-        out["score"] = _state_from_jax(
-            state["score"], lambda t: score_state_dict(_f32(t)))
+        out["state"] = _stats_state_from_jax(
+            state["state"], lambda p, st: compressor_state_dict(
+                {"params": p, "batch_stats": st}))
+    if "score" in state:  # a conditional Score's c_net has BatchNorms
+        out["score"] = _stats_state_from_jax(state["score"],
+                                             score_state_dict)
     if "compressor" in state:
         out["compressor"] = compressor_state_dict(_f32(state["compressor"]))
     return out
@@ -537,8 +542,11 @@ def state_to_jax(state: dict, tx, cfg=None) -> dict:
                                      norm)["batch_stats"] or None)
         elif key == "score":
             norm = _norm(cfg, "score")
+            stats = value.get("batch_stats") or {}
             out[key] = _jax_train_state(
-                value, lambda t: score_params(t, norm), tx)
+                value, lambda t: score_variables(t, norm)["params"], tx,
+                score_variables({**value["params"], **stats},
+                                norm)["batch_stats"] or None)
         elif key == "compressor":
             out[key] = compressor_variables(value, _norm(cfg, "compressor"))
         else:

@@ -92,11 +92,12 @@ def draw_train_randoms(eps_shape, *, discrete: bool, timesteps: torch.Tensor,
 
 def score_objective(score, eps, t, var, e2int, weight, eta,
                     loss_type: str = "l2",
-                    label: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """mean(|eta - score(xt, t, label)|^p * weight), xt = eps e2int +
-    sqrt(var) eta; p = 1 for `loss_type` l1, else 2."""
+                    label: Optional[torch.Tensor] = None, condition=None,
+                    train: bool = False) -> torch.Tensor:
+    """mean(|eta - score(xt, t, label, condition, train)|^p * weight), xt =
+    eps e2int + sqrt(var) eta; p = 1 for `loss_type` l1, else 2."""
     xt = eps * e2int + torch.sqrt(var) * eta
-    diff = eta - score(xt, t, label)
+    diff = eta - score(xt, t, label, condition, train=train)
     distance = torch.abs(diff) if loss_type == "l1" else torch.square(diff)
     return torch.mean(distance * weight)
 

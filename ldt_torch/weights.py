@@ -12,7 +12,16 @@ Layout rules, flax -> torch:
   * `Dense_0`/`Dense_1` (TimeEmbedding, LabelEmbedding, MLP, the seed
     mixture) -> `dense_0`/`dense_1`; `Embed_0` embedding -> `embed.weight`
   * `transformer_<i>` / `decoder_<i>` / `encoder_<i>` -> `transformer.<i>` /
-    `decoder.<i>` / `encoder.<i>`; `op<i>` -> `ops.<i>`
+    `decoder.<i>` / `encoder.<i>`; `op<i>` -> `ops.<i>`; the UNet's
+    `transformer_up_<i>` / `transformer_down_<i>` -> `transformer_up.<i>` /
+    `transformer_down.<i>`
+  * a block whose `fc_kv` reads another width than `fc_q` (a conditional
+    UNet's down block) -> `attn.q` and `attn.kv`, unstacked
+  * the conditional Score's `c_net`: flax `Conv` kernels [kh, kw, in, out]
+    (HWIO) -> `weight` [out, in, kh, kw] (OIHW); a BasicBlock's `Conv_0`,
+    `BatchNorm_0`, `Conv_1`, `BatchNorm_1` -> conv1, bn1, conv2, bn2
+    (`downsample_conv` / `downsample_bn` as they are); its grouper as the
+    Compressor's
 
 A leaf that no rule maps raises. `compressor_decode_state_dict` converts the
 decode half alone (what `generate` needs) and returns the paths it leaves.
@@ -41,6 +50,14 @@ _BLOCK_DENSE = ("adaLN", "adaLN1", "adaLN2", "shortcut", "pos_embedding")
 
 def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _conv(sd: dict, key: str, p: dict, path: str) -> None:
+    """A flax Conv without bias: kernel HWIO -> weight OIHW."""
+    p = dict(p)
+    sd[f"{key}.weight"] = _tensor(p.pop("kernel")).permute(3, 2, 0, 1
+                                                           ).contiguous()
+    _done(p, path)
 
 
 def _take(tree: dict, key: str, path: str) -> dict:
@@ -108,11 +125,17 @@ def _residual_block(sd: dict, key: str, p: dict, path: str,
     p, stats = dict(p), dict(stats or {})
     attn = _take(p, "attn", path)
     fq, fkv = _take(attn, "fc_q", path), _take(attn, "fc_kv", path)
-    sd[f"{key}.attn.qkv.weight"] = torch.cat(
-        [_tensor(fq.pop("kernel")).T, _tensor(fkv.pop("kernel")).T]
-    ).contiguous()
-    sd[f"{key}.attn.qkv.bias"] = torch.cat(
-        [_tensor(fq.pop("bias")), _tensor(fkv.pop("bias"))])
+    if np.shape(fq["kernel"])[0] != np.shape(fkv["kernel"])[0]:
+        # keys and values of their own width: two weights
+        _dense(sd, f"{key}.attn.q", fq, f"{path}/attn/fc_q")
+        _dense(sd, f"{key}.attn.kv", fkv, f"{path}/attn/fc_kv")
+        fq, fkv = {}, {}
+    else:
+        sd[f"{key}.attn.qkv.weight"] = torch.cat(
+            [_tensor(fq.pop("kernel")).T, _tensor(fkv.pop("kernel")).T]
+        ).contiguous()
+        sd[f"{key}.attn.qkv.bias"] = torch.cat(
+            [_tensor(fq.pop("bias")), _tensor(fkv.pop("bias"))])
     _done(fq, f"{path}/attn/fc_q")
     _done(fkv, f"{path}/attn/fc_kv")
     _dense(sd, f"{key}.attn.fc_o", _take(attn, "fc_o", path),
@@ -151,17 +174,71 @@ def score_state_dict(params: dict, batch_stats: Optional[dict] = None
     if "label_embedding" in p:
         _label_embedding(sd, "label_embedding", p.pop("label_embedding"),
                          "label_embedding")
-    i = 0
-    while f"transformer_{i}" in p:
-        path = f"transformer_{i}"
-        _residual_block(sd, f"transformer.{i}", p.pop(path), path,
-                        stats.pop(path, None))
-        i += 1
+    for name in ("transformer", "transformer_up", "transformer_down"):
+        i = 0
+        while f"{name}_{i}" in p:
+            path = f"{name}_{i}"
+            _residual_block(sd, f"{name}.{i}", p.pop(path), path,
+                            stats.pop(path, None))
+            i += 1
+    if "transformer_mid" in p:
+        _residual_block(sd, "transformer_mid", p.pop("transformer_mid"),
+                        "transformer_mid", stats.pop("transformer_mid", None))
     _final_layer(sd, "ln_out", _take(p, "ln_out", ""), "ln_out",
                  stats.pop("ln_out", None))
+    if "c_net" in p:
+        _condition_net(sd, p.pop("c_net"), stats.pop("c_net", {}))
     _done(p, "")
     _done(stats, "batch_stats")
     return sd
+
+
+_BASIC_BLOCK = (("Conv_0", "conv1"), ("BatchNorm_0", "bn1"),
+                ("Conv_1", "conv2"), ("BatchNorm_1", "bn2"),
+                ("downsample_conv", "downsample_conv"),
+                ("downsample_bn", "downsample_bn"))
+_TRUNK_LAYERS = ("layer1_0", "layer1_1", "layer2_0", "layer2_1")
+
+
+def _conv_bn(sd: dict, key: str, p: dict, stats: dict, path: str,
+             names) -> None:
+    """The Conv and BatchNorm children of one trunk module, (flax name,
+    torch name) pairs `names` (a missing one skipped); every leaf of `p`
+    and `stats` must be taken."""
+    p, stats = dict(p), dict(stats)
+    for flax_name, name in names:
+        if flax_name not in p:
+            continue
+        if "Conv" in flax_name or "conv" in flax_name:
+            _conv(sd, f"{key}.{name}", p.pop(flax_name),
+                  f"{path}/{flax_name}")
+        else:
+            _batch_norm(sd, f"{key}.{name}", p.pop(flax_name),
+                        _take(stats, flax_name, f"batch_stats/{path}"),
+                        f"{path}/{flax_name}")
+    _done(p, path)
+    _done(stats, f"batch_stats/{path}")
+
+
+def _condition_net(sd: dict, p: dict, stats: dict) -> None:
+    """The conditional Score's `c_net` (params `p`, batch_stats `stats`):
+    the ResNet-18 trunk, `ln`, `pc_conv_in`, the grouper, `pc_conv_out`."""
+    p, stats = dict(p), dict(stats)
+    resnet = _take(p, "resnet", "c_net")
+    resnet_stats = _take(stats, "resnet", "batch_stats/c_net")
+    for layer in _TRUNK_LAYERS:
+        _conv_bn(sd, f"c_net.resnet.{layer}", _take(resnet, layer,
+                                                    "c_net/resnet"),
+                 _take(resnet_stats, layer, "batch_stats/c_net/resnet"),
+                 f"c_net/resnet/{layer}", _BASIC_BLOCK)
+    _conv_bn(sd, "c_net.resnet", resnet, resnet_stats, "c_net/resnet",
+             (("conv1", "conv1"), ("bn1", "bn1")))
+    for name in ("ln", "pc_conv_in", "pc_conv_out"):
+        _dense(sd, f"c_net.{name}", _take(p, name, "c_net"),
+               f"c_net/{name}")
+    _grouper(sd, "group", p, stats, "c_net.group")
+    _done(p, "c_net")
+    _done(stats, "batch_stats/c_net")
 
 
 def _paths(tree, prefix: str) -> List[str]:
@@ -240,22 +317,26 @@ def _dense_bn(sd: dict, key: str, p: dict, stats: dict, path: str,
     return p, stats
 
 
-def _grouper(sd: dict, key: str, p: dict, stats: dict) -> None:
-    """A LocalGrouper (`group`, `pre_grouper`) and its extraction stack."""
+def _grouper(sd: dict, key: str, p: dict, stats: dict,
+             out: Optional[str] = None) -> None:
+    """A LocalGrouper (`group`, `pre_grouper`) and its extraction stack,
+    popped from `p` and `stats` under `key`, to the state_dict prefix `out`
+    (default `key`)."""
+    out = key if out is None else out
     group = _take(p, key, "")
     for name in ("affine_alpha", "affine_beta"):
         if name in group:
-            sd[f"{key}.{name}"] = _tensor(group.pop(name))
+            sd[f"{out}.{name}"] = _tensor(group.pop(name))
     group_stats = _take(stats, key, "batch_stats")
     ext, ext_stats = _dense_bn(
-        sd, f"{key}.extraction", _take(group, "extraction", key),
+        sd, f"{out}.extraction", _take(group, "extraction", key),
         _take(group_stats, "extraction", f"batch_stats/{key}"),
         f"{key}/extraction", ("transfer_dense", "transfer_bn"))
     i = 0
     while f"op{i}" in ext:
         path = f"{key}/extraction/op{i}"
         rest, rest_stats = _dense_bn(
-            sd, f"{key}.extraction.ops.{i}", ext.pop(f"op{i}"),
+            sd, f"{out}.extraction.ops.{i}", ext.pop(f"op{i}"),
             _take(ext_stats, f"op{i}", f"batch_stats/{key}/extraction"),
             path, ("net1_dense", "net1_bn", "net2_dense"))
         _done(rest, path)
@@ -422,14 +503,19 @@ def _label_embedding_inv(e: _Entries, key: str) -> dict:
 def _residual_block_inv(e: _Entries, key: str, stats: dict,
                         norm: str) -> dict:
     """One block's params; its BatchNorms' statistics go to `stats`."""
-    w = e.take(f"{key}.attn.qkv.weight")
-    b = e.take(f"{key}.attn.qkv.bias")
-    d = w.shape[0] // 3  # [Wq | Wkv]: fc_q has dim_out rows, fc_kv 2 dim_out
-    out = {"attn": {
-        "fc_q": {"kernel": w[:d].T.contiguous(), "bias": b[:d].clone()},
-        "fc_kv": {"kernel": w[d:].T.contiguous(), "bias": b[d:].clone()},
-        "fc_o": _dense_inv(e, f"{key}.attn.fc_o")},
-        "mlp": _two_dense_inv(e, f"{key}.mlp")}
+    if f"{key}.attn.q.weight" in e:  # keys and values of their own width
+        attn = {"fc_q": _dense_inv(e, f"{key}.attn.q"),
+                "fc_kv": _dense_inv(e, f"{key}.attn.kv")}
+    else:
+        w = e.take(f"{key}.attn.qkv.weight")
+        b = e.take(f"{key}.attn.qkv.bias")
+        d = w.shape[0] // 3  # [Wq | Wkv]: fc_q dim_out rows, fc_kv 2 dim_out
+        attn = {"fc_q": {"kernel": w[:d].T.contiguous(),
+                         "bias": b[:d].clone()},
+                "fc_kv": {"kernel": w[d:].T.contiguous(),
+                          "bias": b[d:].clone()}}
+    attn["fc_o"] = _dense_inv(e, f"{key}.attn.fc_o")
+    out = {"attn": attn, "mlp": _two_dense_inv(e, f"{key}.mlp")}
     for i, name in enumerate(("norm1", "norm2")):
         _norm_inv_into(e, f"{key}.{name}", out, stats, norm, i)
     for name in _BLOCK_DENSE:
@@ -463,18 +549,66 @@ def score_variables(sd: Dict[str, torch.Tensor],
          "time_embedding": _two_dense_inv(e, "time_embedding")}
     if "label_embedding.embed.weight" in e:
         p["label_embedding"] = _label_embedding_inv(e, "label_embedding")
-    i = 0
-    while f"transformer.{i}.attn.qkv.weight" in e:
-        blk_stats: dict = {}
-        p[f"transformer_{i}"] = _residual_block_inv(
-            e, f"transformer.{i}", blk_stats, norm)
-        _put(stats, f"transformer_{i}", blk_stats)
-        i += 1
+    for name in ("transformer", "transformer_up", "transformer_down"):
+        i = 0
+        while f"{name}.{i}.attn.fc_o.weight" in e:
+            blk_stats: dict = {}
+            p[f"{name}_{i}"] = _residual_block_inv(e, f"{name}.{i}",
+                                                   blk_stats, norm)
+            _put(stats, f"{name}_{i}", blk_stats)
+            i += 1
+    if "transformer_mid.attn.fc_o.weight" in e:
+        blk_stats = {}
+        p["transformer_mid"] = _residual_block_inv(e, "transformer_mid",
+                                                   blk_stats, norm)
+        _put(stats, "transformer_mid", blk_stats)
     head_stats: dict = {}
     p["ln_out"] = _final_layer_inv(e, "ln_out", head_stats, norm)
     _put(stats, "ln_out", head_stats)
+    if "c_net.ln.weight" in e:
+        c_stats: dict = {}
+        p["c_net"] = _condition_net_inv(e, c_stats)
+        _put(stats, "c_net", c_stats)
     e.done()
     return {"params": p, "batch_stats": stats}
+
+
+def _conv_bn_inv(e: _Entries, key: str, names, stats: dict) -> dict:
+    """The Conv and BatchNorm children of one trunk module ((flax name,
+    torch name) pairs `names`, those the state_dict holds); the running
+    statistics, where `e` holds them, go to `stats`."""
+    params = {}
+    for flax_name, name in names:
+        if f"{key}.{name}.weight" not in e:
+            continue
+        if "Conv" in flax_name or "conv" in flax_name:
+            params[flax_name] = {"kernel": e.take(
+                f"{key}.{name}.weight").permute(2, 3, 1, 0).contiguous()}
+            continue
+        params[flax_name] = _norm_inv(e, f"{key}.{name}")
+        if f"{key}.{name}.running_mean" in e:
+            stats[flax_name] = {"mean": e.take(f"{key}.{name}.running_mean"),
+                                "var": e.take(f"{key}.{name}.running_var")}
+    return params
+
+
+def _condition_net_inv(e: _Entries, stats: dict) -> dict:
+    """The conditional Score's `c_net` params; its running statistics go to
+    `stats`."""
+    resnet_stats: dict = {}
+    resnet = _conv_bn_inv(e, "c_net.resnet", (("conv1", "conv1"),
+                                              ("bn1", "bn1")), resnet_stats)
+    for layer in _TRUNK_LAYERS:
+        layer_stats: dict = {}
+        resnet[layer] = _conv_bn_inv(e, f"c_net.resnet.{layer}",
+                                     _BASIC_BLOCK, layer_stats)
+        _put(resnet_stats, layer, layer_stats)
+    out = {"resnet": resnet}
+    _put(stats, "resnet", resnet_stats)
+    for name in ("ln", "pc_conv_in", "pc_conv_out"):
+        out[name] = _dense_inv(e, f"c_net.{name}")
+    _grouper_inv(e, "c_net.group", out, stats, "group")
+    return out
 
 
 def score_params(sd: Dict[str, torch.Tensor],
@@ -505,7 +639,11 @@ def _dense_bn_inv(e: _Entries, key: str, names, stats: dict) -> dict:
     return params
 
 
-def _grouper_inv(e: _Entries, key: str, p: dict, stats: dict) -> None:
+def _grouper_inv(e: _Entries, key: str, p: dict, stats: dict,
+                 name: Optional[str] = None) -> None:
+    """The grouper under the state_dict prefix `key` as `p[name]` (default
+    `key`), its statistics as `stats[name]`."""
+    name = key if name is None else name
     group = {n: e.take(f"{key}.{n}") for n in ("affine_alpha", "affine_beta")
              if f"{key}.{n}" in e}
     ext_stats: dict = {}
@@ -520,9 +658,9 @@ def _grouper_inv(e: _Entries, key: str, p: dict, stats: dict) -> None:
         _put(ext_stats, f"op{i}", op_stats)
         i += 1
     group["extraction"] = ext
-    p[key] = group
+    p[name] = group
     if ext_stats:
-        stats[key] = {"extraction": ext_stats}
+        stats[name] = {"extraction": ext_stats}
 
 
 def compressor_variables(sd: Dict[str, torch.Tensor],

@@ -139,7 +139,13 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.entries", "ldt_torch.entries.train_compressor",
             "ldt_torch.entries.train_latent_diffusion",
             "ldt_torch.entries.val_sample", "ldt_torch.entries.golden_eval",
-            "ldt_torch.tools.port", "chip_smoke"]
+            "ldt_torch.tools.port", "ldt_torch.data.png",
+            "ldt_torch.data.vipc", "ldt_torch.tools.synth_vipc",
+            "ldt_torch.training.completion_compressor_trainer",
+            "ldt_torch.training.completion_latent_sde_trainer",
+            "ldt_torch.entries.train_completion_compressor",
+            "ldt_torch.entries.train_completion_latent_diffusion",
+            "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K2, K3, K4, K5, K6/K7 and K8 against their plain
-twins, small stage-1 and stage-2 train steps, and the eval metrics, on the
-card.
+twins (K2 and K4 also at the conditional DiT's cross-attention shape),
+small stage-1 and stage-2 train steps, the eval metrics and the
+ConditionNet's trunk at IEEE f32, on the card.
 
 These tests need an NVIDIA GPU (sm_90a) and nvcc; without a card they skip.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -839,3 +840,80 @@ def test_eval_metrics_on_the_card_match_the_cpu(card):
     assert (otf[1] == emd).all()
     res = metrics.compute_all_metrics(smp, ref, 4, verbose=False)
     assert res["mmd-EMD"] > 0 and all(v == v for v in res.values())
+
+
+# --- the conditional Score's cross-attention (the DiT's even blocks: 32
+# latent tokens over 32 condition tokens, hidden 1024, 16 heads, dh 64) --
+
+DIT_CROSS = (4, 32, 1024, 16)  # B, N = M, D, heads
+
+
+def test_k2_and_k4_at_the_dit_cross_shape(card):
+    """K2 on its whole-set schedule at its widest register width (dh 64)
+    and K4 on its register-tiled long-query kernels (32 rows, one tile)
+    against their twins, f32 (chip_smoke.py's phase 23a at B=4)."""
+    b, n, d, h = DIT_CROSS
+    q, k, v, g = (_randn(card, b, n, d, dtype=torch.float32)
+                  for _ in range(4))
+    assert ops.cross_schedule(n, n, d // h) == "whole"
+    assert ops.whole_width(d // h) == 64
+    before = (ops.cross_attention.launches,
+              ops.cross_attention.tiled_launches)
+    got = ops.cross_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (ops.cross_attention.launches,
+            ops.cross_attention.tiled_launches) == (before[0] + 1, before[1])
+    _assert_within(got, ops.attention_plain(q, k, v, h), TOL[torch.float32])
+    assert torch.equal(got, ops.cross_attention(q, k, v, h))
+    assert ops.cross_bwd_schedule(n, n, d // h) == n
+    assert ops.cross_bwd_tiled(n, n, d // h)
+    before = _k4_counts()
+    got = ops.cross_attention_bwd(q, k, v, g, h)
+    torch.cuda.synchronize()
+    assert _k4_counts() == (before[0] + 1, before[1], before[2],
+                            before[3] + 1)
+    want = ops.cross_attention_bwd_plain(q, k, v, g, h)
+    for got_t, want_t in zip(got, want):
+        _assert_within(got_t, want_t, K4_TOL[torch.float32],
+                       want_t.abs().max().item())
+
+
+def test_the_resnet_trunk_runs_at_ieee_f32(card):
+    """cuDNN's global TF32 switch on (the library's default), the
+    ConditionNet's trunk still convolves at IEEE f32 inside its own scope:
+    forward and gradients on the card against the CPU (f32): the output
+    within 1e-5 of its largest |value|, each gradient within 1e-4 of its
+    (chip_smoke.py's TRAIN_STEP_TOL; TF32's 10-bit mantissa misses both by
+    far), and each convolution sees TF32 off."""
+    from ldt_torch.models.score import ResNet18Trunk
+    from ldt_torch.nn import layers
+
+    seen = []
+    real = layers.F.conv2d
+
+    def spy(*a, **kw):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return real(*a, **kw)
+
+    cpu = ResNet18Trunk()
+    layers.init_weights_(cpu, torch.Generator().manual_seed(0))
+    dev = ResNet18Trunk(device="cuda")
+    dev.load_state_dict(cpu.state_dict())
+    x = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    r = torch.randn(4, 8, 8, 128, generator=torch.Generator().manual_seed(2))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with mock.patch.object(layers.F, "conv2d", spy):
+            out = dev(x.cuda(), train=True)
+            (out * r.cuda()).mean().backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert seen and not any(seen)
+    want = cpu(x, train=True)
+    (want * r).mean().backward()
+    scale = want.abs().max().item()
+    assert (out.cpu() - want).abs().max().item() <= 1e-5 * scale
+    for (name, p), q in zip(dev.named_parameters(), cpu.parameters()):
+        err = (p.grad.cpu() - q.grad).abs().max().item()
+        assert err <= 1e-4 * q.grad.abs().max().item() + 1e-9, (name, err)

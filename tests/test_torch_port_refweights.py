@@ -308,13 +308,17 @@ def test_port_ema_matches_the_jax_port():
 
 
 def test_unported_reference_modules_raise():
+    """A reference key that no rule maps raises, `c_net.` and UNet ones
+    included (their rules, ported since, take only the ConditionNet's and
+    the UNet's modules: test_torch_port_condition.py holds them against
+    the JAX package's); the ConditionNet's dead `conv_out` is dropped."""
     sd = _reference("score")
-    for key in ("c_net.pc_conv_in.weight", "c_net.resnet.0.weight",
-                "Transformer_Up.0.fc_q.weight"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #9"):
+    for key in ("mystery.weight", "c_net.mystery.weight",
+                "c_net.resnet.9.weight", "Transformer_Up.0.fc_x.weight"):
+        with pytest.raises(ValueError, match="unmapped reference keys"):
             tport.port_score({**sd, key: torch.zeros(2)})
-    with pytest.raises(ValueError, match="unmapped reference keys"):
-        tport.port_score({**sd, "mystery.weight": torch.zeros(2)})
+    got = tport.port_score({**sd, "c_net.conv_out.weight": torch.zeros(2)})
+    assert set(got) == set(tport.port_score(sd))
 
 
 def test_port_checkpoint_round_trips_through_load_pretrain(tmp_path):

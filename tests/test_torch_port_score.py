@@ -95,9 +95,24 @@ def test_state_dict_keys_and_unmapped_leaf():
 
 @pytest.mark.parametrize("over", [dict(unet=True), dict(condition=True)])
 def test_unported_variants_raise(over):
-    _, tcfg = cfgs(dict(SMALL_SCORE, **over))
-    with pytest.raises(NotImplementedError):
+    """The UNet and the conditional Score are ported (their forwards are
+    held in test_torch_port_condition.py) and build with JAX's names;
+    with them what is still not ported, a nonzero dropout rate, raises."""
+    _, tcfg = cfgs(dict(SMALL_SCORE, **over, dropout=0.1))
+    with pytest.raises(NotImplementedError, match="dropout"):
         Score(tcfg, device="cpu")
+    jcfg, tcfg = cfgs(dict(SMALL_SCORE, **over))
+    cond = None
+    if jcfg.condition:
+        cond = {"img": jnp.zeros((B, 16, 16, 3)),
+                "pts": jnp.asarray(np.random.default_rng(0).standard_normal(
+                    (B, 64, 3)), jnp.float32)}
+    v = jax.jit(JaxScore(jcfg).init)(
+        jax.random.key(1), jnp.zeros((B, jcfg.z_scale, jcfg.z_dim)),
+        jnp.ones((B,)), None, cond)
+    v = jax.tree_util.tree_map(np.asarray, dict(v))
+    sd = score_state_dict(v["params"], v.get("batch_stats"))
+    assert set(sd) == set(Score(tcfg, device="cpu").state_dict())
 
 
 @pytest.mark.parametrize("over", [dict(num_categorys=3), dict(AdaLN=False)],
