@@ -187,6 +187,27 @@ trainers and entries):
      (register-tiled), K2 12 x 1000 + 6; clouds/min with the card's name
      and power limit; CD x 1000 and F1 against the batch's GT.
 
+Stage 3, the Hybrid finetune (`ldt_torch.training.hybrid_trainer`, the
+entry `train_hybrid`) and the SDE families' importance sampling:
+ 24. (last) a) The flagship Score cut to 2 blocks and the full 6-layer
+     Compressor, f32, B=4, the same weights, clouds and pinned draws on the
+     card and on the CPU: one `hybrid_comp_loss` (loss, kl, rec, eps, every
+     Compressor gradient; the Score's parameters unchanged and without a
+     gradient, K1 and K3 on their register-tiled kernels), then one whole
+     `update` (both nets, the EMA, both Adam mus, the BatchNorm
+     statistics); the wrong variant leaves the Score live in the KL term
+     with its gradient reaching the score step. `iw_quantities` of every
+     SDE family and mode, card vs CPU on the same rho. b) The entry from a
+     copy of experiments/Hybrid_Trainer/airplane (full width and depth,
+     B=32; epochs, cadences, the valsample's sample_N and the data cut,
+     each cut printed) on phase 21's synthetic tree, bootstrapped through
+     `load_pretrain` from a stage-2 dual checkpoint written here as a JAX
+     `.msgpack`: 2 epochs with a save and a `valsample`, one `valrecon`, a
+     `--resume` leg that trains epoch 3; restored tensors equal to the
+     saved state, counters continued, finite logs and scores, K1 f32 48 and
+     K3 48 a step, K2 and K4 as a stage-1 step; ms per step, seconds per
+     epoch, the checkpoint's size, save and load seconds.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -1057,7 +1078,8 @@ def launch_us(fn, iters: int = 20) -> dict:
     """{kernel: device microseconds per call} of each CUDA launch that `fn`
     makes, from torch.profiler (without the host's share). A session that
     records no kernel at all (the profiler has dropped a whole session's
-    records in a long process) is taken again, twice at most."""
+    records in a long process; three sessions in a row once, at phase
+    23a's K4) is taken again, five times at most."""
     import re
 
     import torch
@@ -1068,7 +1090,7 @@ def launch_us(fn, iters: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(6):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -1414,11 +1436,9 @@ def phase_path(score, comp, batch: int, steps: int, gen) -> None:
              tol, wrong=wrong)
 
 
-def counted(fn):
-    """Run `fn` with every kernel's launch count set to 0 just before and
-    read just after: (its output, wall seconds, {kernel: launches})."""
-    import torch
-
+def _counters() -> tuple:
+    """({kernel: wrapper}, {schedule: (wrapper, attribute)}): every launch
+    counter of the port's kernels."""
     from ldt_torch.ops import attention as attn_ops
     from ldt_torch.ops.chamfer import pairwise_cd_means
     from ldt_torch.ops.emd import approx_match_cost
@@ -1455,6 +1475,24 @@ def counted(fn):
                                            "otf_launches"),
                  "approx_match_cost_cluster": (approx_match_cost,
                                                "cluster_launches")}
+    return wrappers, schedules
+
+
+def launch_counts() -> dict:
+    """Every kernel's and schedule's launch count as it stands."""
+    wrappers, schedules = _counters()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    counts.update({k: getattr(w, attr)
+                   for k, (w, attr) in schedules.items()})
+    return counts
+
+
+def counted(fn):
+    """Run `fn` with every kernel's launch count set to 0 just before and
+    read just after: (its output, wall seconds, {kernel: launches})."""
+    import torch
+
+    wrappers, schedules = _counters()
     for w in wrappers.values():
         w.launches = 0
     for w, attr in schedules.values():
@@ -1463,10 +1501,7 @@ def counted(fn):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    launches.update({k: getattr(w, attr)
-                     for k, (w, attr) in schedules.items()})
-    return out, time.perf_counter() - t0, launches
+    return out, time.perf_counter() - t0, launch_counts()
 
 
 def per_step_launches(**counts) -> dict:
@@ -4094,6 +4129,497 @@ def phase_completion_generate(trainer, batch) -> int:
     return cross
 
 
+# Phase 24: stage 3, the Hybrid finetune. The importance-sampling
+# quantities, card against CPU: each column's largest |card - cpu| over its
+# largest |cpu| (as `errs(rel=True)`). The same f32 formulas, but CUDA's
+# and the CPU's expf, logf, powf and erfinvf differ by an ulp or so, and
+# some columns are ill-conditioned where they peak: the geometric SDE's g2
+# divides by 1 - sigma2_0 + sigma2_min - sigma2_geom(t), 1.03e-3 at t = 1
+# with sigma2_max 0.999, so an ulp of its pow comes out ~1e3 times larger
+# there (read on the H100, elementwise: 20 of the 186 columns past
+# rtol 3e-5 + atol 1e-6; as this limit reads them: geometric ll_iw's g2
+# 6.9e-4, every other column <= 5.8e-5). The wrong variant draws from rho
+# reversed (the smallest family-mode reads 0.99); every family-mode must
+# fail it.
+IW_REL = 3e-3
+IW_FAMILIES = {
+    "vpsde": {}, "sub_vpsde": {},
+    "geometric_sde": dict(sigma2_min=3e-5, sigma2_max=0.999),
+    "vesde": dict(sigma2_0=0.01, sigma2_min=0.01, sigma2_max=50.0)}
+# Phase 24a, the Compressor's gradients and Adam's mu under the hybrid
+# loss, card vs CPU, (max, mean) relative to the largest |value|: the
+# grouping's gradients (kNN over 128 neighbours, its anchor normalization
+# and BatchNorms) move by ~1e-3 of the net's largest with the rounding of
+# their inputs: the CPU's own run on clouds one ulp up reads 7.0e-4 /
+# 1.6e-7 (the largest in `group.extraction.transfer_dense.weight`), the
+# card 1.06e-3 / 2.4e-7; both must pass. The other parts keep
+# TRAIN_STEP_TOL.
+HYBRID_GRAD_TOL = (3e-3, 1e-6)
+HYBRID_BATCH = 32  # the shipped hybrid configs' batch
+HYBRID_CUTS = {"common.epochs": 2, "log.save_epoch_freq": 2,
+               "log.eval_epoch_freq": 2, "log.log_epoch_freq": 1,
+               "sde.sample_N": CHECK_STEPS}
+
+
+def iw_card_vs_cpu() -> None:
+    """Phase 24a's `iw_quantities` of every family and mode on the card
+    and on the CPU from the same rho (0, 0.5 and 1 - 2^-24 among 256),
+    and on the card from rho reversed (the wrong variant): a mode refused
+    on one device must be refused on the other."""
+    import torch
+
+    from ldt_torch.configs import sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.diffusion.sde import IW_MODES
+
+    rho = torch.cat([torch.tensor([0.0, 0.5, 1.0 - 2.0 ** -24]), torch.rand(
+        253, generator=torch.Generator().manual_seed(SEED))])
+    names = ("t", "var", "m", "obj", "obj_ll", "g2")
+    right, wrong, refused = [], [], 0
+    for family, over in IW_FAMILIES.items():
+        sdes = {dev: make_diffusion(sde_cfg(sde_type=family, **over),
+                                    device=dev) for dev in ("cpu", "cuda")}
+        for like in ((False, True) if family == "sub_vpsde" else (False,)):
+            for mode in IW_MODES:
+                outs = {}
+                for key, dev, r in (("cpu", "cpu", rho),
+                                    ("card", "cuda", rho),
+                                    ("wrong", "cuda", rho.flip(0))):
+                    sde = sdes[dev]
+                    try:
+                        outs[key] = [q.cpu() for q in sde.iw_quantities(
+                            rho.numel(), sde.time_eps, mode, like, rho=r)]
+                    except (ValueError, NotImplementedError) as e:
+                        outs[key] = type(e).__name__
+                what = f"{family}{' like_vp' * like} {mode}"
+                if any(isinstance(o, str) for o in outs.values()):
+                    if not outs["cpu"] == outs["card"] == outs["wrong"]:
+                        fail(f"phase 24a: {what}: CPU {outs['cpu']}, card "
+                             f"{outs['card']}")
+                    refused += 1
+                    continue
+                for name, c, d in zip(names, outs["cpu"], outs["card"]):
+                    if not torch.isfinite(d).all():
+                        fail(f"phase 24a: {what} {name} not finite on the "
+                             "card")
+                    right.append((errs(d, c, rel=True)[0], f"{what} {name}"))
+                wrong.append(max((errs(d, c, rel=True)[0], f"{what} {name}")
+                                 for name, c, d in zip(names, outs["cpu"],
+                                                       outs["wrong"])))
+    right.sort(reverse=True)
+    print(f"[24a] iw_quantities, card vs CPU, same rho (256, with 0, 0.5, "
+          f"1 - 2^-24): {len(wrong)} family-modes, {refused} refused on "
+          f"both; each column's max |card - cpu| / max |cpu|, the largest: "
+          + ", ".join(f"{w} {e:.3e}" for e, w in right[:4])
+          + f" (limit {IW_REL:g}); rho reversed, the smallest "
+          f"family-mode: {min(wrong)[1]} {min(wrong)[0]:.3e}")
+    if right[0][0] > IW_REL:
+        fail(f"phase 24a: {right[0][1]} differs by {right[0][0]:.3e}")
+    if min(wrong)[0] <= IW_REL:
+        fail(f"phase 24a: rho reversed passes in {min(wrong)[1]}: the "
+             "limit cannot tell")
+
+
+def phase_hybrid_reference() -> None:
+    """Phase 24a: the flagship Score cut to 2 blocks and the full 6-layer
+    Compressor, f32, B=4, the same weights (`ldt_torch.weights`' state
+    dicts), clouds and pinned draws (the KL term's rho and eta, the
+    reparameterization noise, the score step's t and eta, the chamfer
+    neighbours and EMD assignment from the CPU) on the card and on the CPU:
+    one `hybrid_comp_loss` (loss, kl, rec, eps, every Compressor gradient;
+    the Score's parameters unchanged, each `.grad` None), then one whole
+    `update` (both nets' params, the EMA, both Adam mus, the BatchNorm
+    statistics). The wrong variant leaves the Score live in the KL term
+    and lets its gradient reach the score step's Adam update; the CPU's
+    run on the clouds one ulp up shows how far rounding alone moves each
+    part. Then `iw_quantities` of every family and mode, card against
+    CPU."""
+    import torch
+
+    from ldt_torch.configs import hybrid_trainer_cfg
+    from ldt_torch.models import Compressor, Score
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.training import hybrid_trainer as ht
+
+    batch = 4
+    cfg = hybrid_trainer_cfg(score=dict(num_blocks=2))
+    mc, ms = cfg.compressor, cfg.score
+    g = torch.Generator().manual_seed(SEED)
+    score_w = Score(ms, device="cpu", generator=g).state_dict()
+    comp = Compressor(mc, device="cpu", generator=g)
+    pts = torch.randn(batch, 2048, 3, generator=g)
+    comp.init_actnorm(pts[:2])
+    comp_w = comp.state_dict()
+    noise = [torch.randn(batch, mc.z_scales, mc.z_dim, generator=g)
+             for _ in range(mc.n_layers)]
+    pins = dict(noise=noise, kl_rho=torch.rand(batch, generator=g),
+                kl_eta=torch.randn(batch, ms.z_scale, ms.z_dim, generator=g),
+                t_idx=torch.randint(0, cfg.sde.train_N, (batch,),
+                                    generator=g),
+                eta=torch.randn(batch, ms.z_scale, ms.z_dim, generator=g))
+    with torch.no_grad():
+        rec = comp(pts, noise=noise, train=True)["set"]
+    cd, emd = pinned_rec(rec, pts)
+    wrong = "Score live in the KL"
+    ulp = "CPU, clouds 1 ulp up"
+    ulp_pts = pts * (1 + 2 ** -23)
+
+    def flat(tree):
+        return torch.cat([t.detach().reshape(-1).cpu()
+                          for t in tree.values()])
+
+    def trainer(dev, clouds):
+        tr = ht.Trainer(cfg, device=dev)
+        tr.maybe_init({"tr_points": clouds}, score_weights=score_w,
+                      compressor_weights=comp_w)
+        return tr
+
+    def patched(stack, tr, live):
+        stack.enter_context(mock.patch.object(ht, "CD_loss", cd))
+        stack.enter_context(mock.patch.object(ht, "EMD_loss", emd))
+        if live:  # no freezing, and no zero_grad before the score step
+            stack.enter_context(mock.patch.object(
+                ht, "frozen", contextlib.nullcontext))
+            stack.enter_context(mock.patch.object(
+                tr.score, "zero_grad", lambda set_to_none=True: None))
+
+    def loss_run(dev, live=False, clouds=pts):
+        tr = trainer(dev, clouds)
+        draws = tr.kl_draws(batch, rho=pins["kl_rho"], eta=pins["kl_eta"])
+        with contextlib.ExitStack() as stack:
+            patched(stack, tr, live)
+            loss, (kl, rec_l, eps, _) = ht.hybrid_comp_loss(
+                tr.compressor, tr.score, clouds.to(dev), None, *draws[:4],
+                tr.ce_const, draws[4], tr.alpha, noise=noise)
+            loss.backward()
+        grads = sum(p.grad is not None for p in tr.score.parameters())
+        moved = [k for k, p in tr.score.named_parameters()
+                 if not torch.equal(p.detach().cpu(), score_w[k])]
+        return {"loss, kl, rec": torch.stack([loss, kl, rec_l]).detach()
+                .cpu(), "eps": eps.detach().cpu(),
+                "Compressor gradients": flat(
+                    {k: p.grad for k, p in tr.compressor.named_parameters()})
+                }, grads, moved
+
+    def update_run(dev, live=False, clouds=pts):
+        tr = trainer(dev, clouds)
+        with contextlib.ExitStack() as stack:
+            patched(stack, tr, live)
+            out = tr.update({"tr_points": clouds}, **pins)
+        st, cs = tr.state, tr.comp_state
+        return {"loss_score, kl, rec": torch.stack(out).cpu(),
+                "Score params": flat(st.params),
+                "Score EMA": flat(st.ema_params),
+                "Score Adam mu": flat(st.opt_state.mu),
+                "Compressor params": flat(cs.params),
+                "Compressor Adam mu": flat(cs.opt_state.mu),
+                "BatchNorm statistics": flat(cs.batch_stats)}
+
+    k1, k3 = attn_ops.packed_self_attention, attn_ops.packed_self_attention_bwd
+    out, grads, moved = {}, {}, {}
+    out["cpu"], grads["cpu"], moved["cpu"] = loss_run("cpu")
+    out[ulp] = loss_run("cpu", clouds=ulp_pts)[0]
+    before = (k1.launches, k1.tiled_launches, k3.launches, k3.tiled_launches)
+    out["card"], grads["card"], moved["card"] = loss_run("cuda")
+    ran = (k1.launches - before[0], k1.tiled_launches - before[1],
+           k3.launches - before[2], k3.tiled_launches - before[3])
+    out[wrong], grads[wrong], _ = loss_run("cuda", live=True)
+    print(f"[24a] one hybrid_comp_loss at flagship width, {ms.num_blocks} "
+          f"Score blocks and {mc.n_layers} Compressor layers, f32, "
+          f"B={batch}, card vs CPU: (loss, kl, rec) "
+          f"{[round(x, 6) for x in out['cpu']['loss, kl, rec'].tolist()]}; "
+          f"K1 {ran[0]} ({ran[1]} tiled) and K3 {ran[2]} ({ran[3]} tiled) "
+          f"on the card; Score gradients after the KL's backward: CPU "
+          f"{grads['cpu']}, card {grads['card']}, {wrong} {grads[wrong]} "
+          f"of {len(score_w)}; Score tensors moved: "
+          f"{len(moved['cpu']) + len(moved['card'])}")
+    if ran != (ms.num_blocks,) * 4:
+        fail(f"phase 24a: the KL term's Score ran K1/K3 {ran}, not "
+             f"{ms.num_blocks} each on their register-tiled kernels")
+    if grads["cpu"] or grads["card"] or moved["cpu"] or moved["card"]:
+        fail("phase 24a: the KL term reached the Score's parameters")
+    if not grads[wrong]:
+        fail("phase 24a: the live Score took no gradient: the check "
+             "cannot tell")
+    for part in out["cpu"]:
+        if not torch.isfinite(out["card"][part]).all():
+            fail(f"phase 24a: {part} on the card is not finite")
+        grad = part == "Compressor gradients"
+        held(f"{part} (relative), CPU vs",
+             {k: errs(out[k][part], out["cpu"][part], rel=True)
+              for k in ("card", ulp, wrong)},
+             HYBRID_GRAD_TOL if grad else TRAIN_STEP_TOL,
+             right=("card", ulp) if grad else ("card",), wrong=())
+
+    out = {"cpu": update_run("cpu"), ulp: update_run("cpu", clouds=ulp_pts)}
+    before = (k1.launches, k3.launches)
+    out["card"] = update_run("cuda")
+    ran = (k1.launches - before[0], k3.launches - before[1])
+    out[wrong] = update_run("cuda", live=True)
+    print(f"[24a] one hybrid update, card vs CPU: K1 {ran[0]} and K3 "
+          f"{ran[1]} on the card (the KL term's and the score step's)")
+    if ran != (2 * ms.num_blocks,) * 2:
+        fail(f"phase 24a: the update ran K1/K3 {ran} times")
+    for part in out["cpu"]:
+        if not torch.isfinite(out["card"][part]).all():
+            fail(f"phase 24a: {part} on the card is not finite")
+        grad = part == "Compressor Adam mu"
+        held(f"{part} (relative), CPU vs",
+             {k: errs(out[k][part], out["cpu"][part], rel=True)
+              for k in ("card", ulp, wrong)},
+             HYBRID_GRAD_TOL if grad else TRAIN_STEP_TOL,
+             right=("card", ulp) if grad else ("card",),
+             wrong=(wrong,) if part == "Score Adam mu" else ())
+    iw_card_vs_cpu()
+
+
+def phase_hybrid_entry() -> None:
+    """Phase 24b: `python -m ldt_torch.entries.train_hybrid` from a copy of
+    experiments/Hybrid_Trainer/airplane/config.yaml (full width and depth,
+    B=32; the epochs, the cadences, the valsample's sample_N and the data
+    cut, each cut printed) on phase 21's synthetic PC15k tree, bootstrapped
+    through `load_pretrain` from a stage-2 dual checkpoint written here as
+    the JAX package's `.msgpack` (the smoke and probe configs' format): 2
+    epochs with a save and a `valsample`, one `valrecon`, then a
+    `--resume` leg that trains epoch 3. Every restored tensor of both train
+    states must equal it at the save (the moments their bf16 rounding), the
+    counters continue, the logs and scores are finite, and every step
+    launches K1 f32 48 and K3 48 (the KL term's and the score step's), K2
+    and K4 as a stage-1 step; prints ms per step, seconds per epoch, the
+    checkpoint's size and its save and load seconds."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.cli import get_config, get_parser
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.data import get_data_loaders
+    from ldt_torch.entries import train_hybrid
+    from ldt_torch.training import checkpoint as ckpt
+    from ldt_torch.training.hybrid_trainer import Trainer
+    from ldt_torch.training.jax_checkpoint import save_jax_checkpoint
+    from ldt_torch.training.latent_sde_trainer import Trainer as Stage2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ldt_phase24_")
+    try:
+        data_dir = os.path.join(tmp, "PC15k")
+        synthetic_tree(data_dir, ("02691156",), ENTRY_TRAIN, ENTRY_VAL,
+                       SEED + 21)
+        print(f"[24b] data: phase 21's tree, {ENTRY_TRAIN} train and "
+              f"{ENTRY_VAL} val clouds of 15000 points ({tmp})")
+
+        # the stage-2 dual checkpoint, as the JAX package writes it
+        s2cfg = latent_trainer_cfg()
+        s2 = Stage2(s2cfg, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(SEED))
+        first = {"tr_points": torch.from_numpy(synthetic_shapes(
+            2, 2048, np.random.default_rng(SEED)))}
+        s2.maybe_init(first)
+        s2.update(first)
+        pretrain = os.path.join(tmp, "stage2", "checkpt_400.msgpack")
+        os.makedirs(os.path.dirname(pretrain))
+        t0 = time.perf_counter()
+        tree = host_state(s2.state_tree())
+        save_jax_checkpoint(pretrain, tree, s2.tx, s2cfg, epoch=400,
+                            itr=400)
+        dt = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(os.path.dirname(pretrain),
+                                                f)) for f in os.listdir(
+            os.path.dirname(pretrain)))
+        print(f"[24b] stage-2 dual checkpoint written through the JAX "
+              f"bridge: {size / 1e9:.3f} GB (f32, sharded msgpack) in "
+              f"{dt:.3f} s")
+        del s2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ws = os.path.join(tmp, "experiments")
+        save_path = os.path.join(ws, "Hybrid_Trainer", "airplane")
+        cfg_path = os.path.join(save_path, "config.yaml")
+        copied_config(
+            os.path.join(root, "experiments", "Hybrid_Trainer", "airplane",
+                         "config.yaml"), cfg_path,
+            dict(HYBRID_CUTS, **{"data.data_dir": data_dir,
+                                 "log.save_path": save_path,
+                                 "opt.pretrain_path": pretrain}),
+            "Hybrid_Trainer", phase="24b")
+
+        saved, timing, steps, seen = {}, {"epochs": {}}, [], {}
+
+        real_update, real_end = Trainer.update, Trainer.epoch_end
+        real_save, real_resume = Trainer.save, Trainer.resume
+        real_pretrain = Trainer.load_pretrain
+
+        def update(self, *a, **kw):
+            if self.itr == self._itr_epoch_start:
+                torch.cuda.synchronize()
+                timing["epochs"][self.epoch] = [time.perf_counter()]
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_update(self, *a, **kw)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            steps.append((time.perf_counter() - t0,
+                          {k: after[k] - before[k] for k in after}))
+            return out
+
+        def epoch_end(self):
+            torch.cuda.synchronize()
+            timing["epochs"][self.epoch].append(time.perf_counter())
+            return real_end(self)
+
+        def counters(self):
+            return (self.epoch, self.itr, self._itr_epoch_start,
+                    self.state.step, self.comp_state.step)
+
+        def save(self):
+            t0 = time.perf_counter()
+            real_save(self)
+            torch.cuda.synchronize()
+            timing["save"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt.wait_pending_saves()
+            timing["write"] = time.perf_counter() - t0
+            saved["tree"] = host_state(self.state_tree(), True)
+            saved["counters"] = counters(self)
+
+        def resume(self, *a, **kw):
+            t0 = time.perf_counter()
+            real_resume(self, *a, **kw)
+            torch.cuda.synchronize()
+            timing["load"] = time.perf_counter() - t0
+            bad = differing(self.state_tree(), saved["tree"])
+            epoch, itr, _, step, cstep = saved["counters"]
+            want = (epoch + 1, itr, itr, step, cstep)
+            print(f"[24b] resume: {timing['load']:.3f} s; counters (epoch, "
+                  f"itr, itr at the epoch's start, Score step, Compressor "
+                  f"step) {counters(self)} (saved at {saved['counters']}); "
+                  f"restored tensors that differ from the state at the "
+                  f"save: {len(bad)}")
+            if bad or counters(self) != want:
+                fail(f"phase 24b: the resumed state differs from the saved "
+                     f"one: {bad[:5]}, counters {counters(self)} != {want}")
+            seen["resumed"] = True
+
+        def load_pretrain(self):
+            t0 = time.perf_counter()
+            real_pretrain(self)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            bad = differing(self.state.to_tree(), tree["score"]) + differing(
+                dict(self.compressor.state_dict()), tree["compressor"])
+            fresh = (self.comp_state.step == 0 and not any(
+                m.any() for m in self.comp_state.opt_state.mu.values()))
+            print(f"[24b] load_pretrain from the stage-2 .msgpack: "
+                  f"{dt:.3f} s; tensors that differ from the stage-2 "
+                  f"trainer's: {len(bad)}; the Compressor's train state "
+                  f"fresh: {fresh}")
+            if bad or not fresh:
+                fail(f"phase 24b: load_pretrain gave other weights "
+                     f"{bad[:5]} or a used Compressor state")
+            seen["pretrained"] = True
+
+        def args(*extra):
+            a = get_parser("Hybrid_Trainer").parse_args(
+                ["--save", ws, *extra])
+            return a, get_config(a)
+
+        def run_all():
+            a, cfg = args()
+            trainer = train_hybrid.main(a, cfg)
+            epochs = trainer.epoch
+            t0 = time.perf_counter()
+            res = trainer.valrecon(get_data_loaders(cfg.data, a)[
+                "test_loader"])
+            torch.cuda.synchronize()
+            timing["valrecon"] = time.perf_counter() - t0
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows = {"trained": csv_rows(os.path.join(save_path,
+                                                     "training.csv"))}
+            copied_config(cfg_path, cfg_path, {"common.epochs": 3},
+                          "resume leg", phase="24b")
+            a, cfg = args("--resume", "True")
+            trainer = train_hybrid.main(a, cfg)
+            if (epochs, trainer.epoch) != (3, 4):
+                fail(f"phase 24b: the legs ended at epochs {epochs} and "
+                     f"{trainer.epoch}, not 3 and 4")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows["resumed"] = csv_rows(os.path.join(save_path,
+                                                    "training.csv"))
+            return rows, res
+
+        with contextlib.ExitStack() as stack:
+            for name, fn in (("update", update), ("epoch_end", epoch_end),
+                             ("save", save), ("resume", resume),
+                             ("load_pretrain", load_pretrain)):
+                stack.enter_context(mock.patch.object(Trainer, name, fn))
+            (rows, res), dt, launches = counted(run_all)
+        if not (seen.get("resumed") and seen.get("pretrained")):
+            fail(f"phase 24b: a restore was not checked: {seen}")
+        per_step = per_step_launches(
+            packed_self_attention=48, packed_self_attention_tiled=48,
+            packed_self_attention_bwd=48, packed_self_attention_bwd_tiled=48,
+            cross_attention=24, cross_attention_tiled=5,
+            cross_attention_bwd=24, cross_attention_bwd_long_key=5,
+            cross_attention_bwd_long_query=6, cross_attention_bwd_tiled=24)
+        expect = per_step
+        bad = [c for _, c in steps if c != expect]
+        ms = [t * 1e3 for t, _ in steps]
+        print(f"[24b] {len(steps)} hybrid steps at B={HYBRID_BATCH}, f32 "
+              f"(457M-param Score, 24 blocks; 6-layer Compressor): ms per "
+              f"step {[round(t, 2) for t in ms]} (median "
+              f"{sorted(ms)[len(ms) // 2]:.2f}; the first of each leg "
+              f"builds its buffers); launches per step {steps[-1][1]} "
+              f"(expected {expect}) ({smi_name_and_power()})")
+        if bad:
+            fail(f"phase 24b: a step's launches {bad[0]} differ from "
+                 f"{expect}")
+        secs = [round(t[1] - t[0], 3) for _, t in sorted(
+            timing["epochs"].items())]
+        size = os.path.getsize(os.path.join(save_path, "checkpt_2.pt"))
+        print(f"[24b] seconds per epoch {secs} ({ENTRY_TRAIN // HYBRID_BATCH}"
+              f" steps each); checkpoint {size / 1e9:.3f} GB (f32 params and "
+              f"EMA, bf16 moments, both nets); save {timing['save']:.3f} s "
+              f"on the step path + {timing['write']:.3f} s of write on its "
+              f"thread, load (resume) {timing['load']:.3f} s; valrecon "
+              f"{timing['valrecon']:.3f} s ({smi_name_and_power()})")
+        if len(rows["resumed"]) != len(rows["trained"]) + 1:
+            fail(f"phase 24b: training.csv went from {len(rows['trained'])}"
+                 f" to {len(rows['resumed'])} rows over the resume leg")
+        cols = list(rows["trained"][0])
+        if cols != ["epoch", "itr", "loss_score", "kl", "rec", "time"]:
+            fail(f"phase 24b: training.csv has columns {cols}")
+        for name in ("training.csv", "eval.csv"):
+            finite_rows(os.path.join(save_path, name), name, phase="24b")
+        if not all(np.isfinite(v) for v in res.values()):
+            fail(f"phase 24b: valrecon gave {res}")
+        k6 = launches["approx_match_cost"] - launches["approx_match_cost_otf"]
+        ran = {"K1": launches["packed_self_attention"],
+               "K2": launches["cross_attention"],
+               "K3": launches["packed_self_attention_bwd"],
+               "K4": launches["cross_attention_bwd"],
+               "K5": launches["pairwise_cd_means"], "K6": k6}
+        print(f"[24b] training.csv rows {len(rows['trained'])} then "
+              f"{len(rows['resumed'])}: {rows['resumed']}; valrecon {res}; "
+              f"the entry's run {dt:.2f} s, launches {ran}")
+        if not all(ran.values()):
+            fail(f"phase 24b: a kernel of the path did not run: {ran}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4148,6 +4674,8 @@ def main() -> int:
     completion, batch, k4_dit = phase_completion_entries()
     k2_dit = phase_completion_generate(completion, batch)
     del completion, batch
+    phase_hybrid_reference()
+    phase_hybrid_entry()
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the

@@ -6,8 +6,10 @@ set-VAE whose decoder turns those latents into 2048-point clouds; `opt_cfg()`
 the stage-2 optimizer and `latent_trainer_cfg()` the whole stage-2 config,
 the values of `experiments/Latent_Diffusion_Trainer/airplane/config.yaml`;
 `compressor_trainer_cfg()` the stage-1 config, the values of
-`experiments/Compressor_Trainer/airplane/config.yaml` (the entries read
-those files with `ldt_torch.tools.io.load_yaml`).
+`experiments/Compressor_Trainer/airplane/config.yaml`; `hybrid_trainer_cfg()`
+the stage-3 (Hybrid) config, the values of
+`experiments/Hybrid_Trainer/airplane/config.yaml` (the entries read those
+files with `ldt_torch.tools.io.load_yaml`).
 """
 
 from __future__ import annotations
@@ -91,6 +93,29 @@ def compressor_trainer_cfg(**sections):
                  grad_norm_clip_value=1.0, kl_weight=1e-6),
         common=dict(epochs=8000, num_points=2048, seed=2023),
         data=dict(batch_size=16, test_batch_size=16,
+                  tr_max_sample_points=2048, te_max_sample_points=2048,
+                  num_categorys=1),
+    )
+    for name, over in sections.items():
+        cfg[name] = {**cfg.get(name, {}), **over}
+    return dict2namespace(cfg)
+
+
+def hybrid_trainer_cfg(**sections):
+    """The stage-3 (Hybrid) config: the stage-2 sections, with B=32, 2000
+    epochs and the joint finetune's `opt:` (continuous t for the KL term,
+    alpha 0.1, 1000 warm-up iterations, the Compressor's own Adam betas and
+    KL warm-up epochs); each keyword replaces or updates a section."""
+    cfg = dict(
+        score=vars(score_cfg()), compressor=vars(compressor_cfg()),
+        sde=vars(sde_cfg()),
+        opt=dict(pretrain_path=None, adj_lr="warm_up", warmup_iters=1000,
+                 lr=0.0001, grad_norm_clip_value=1.0, ema_decay=0.9999,
+                 beta1=0.9, beta2=0.999, compressor_beta1=0.9,
+                 compressor_beta2=0.999, loss_type="l2", weight_decay=0.0,
+                 compressor_warmup=0, discrete=False, alpha=0.1),
+        common=dict(epochs=2000, num_points=2048, seed=0),
+        data=dict(batch_size=32, test_batch_size=32,
                   tr_max_sample_points=2048, te_max_sample_points=2048,
                   num_categorys=1),
     )

@@ -7,8 +7,12 @@ once per corrector step. Predictors: `ancestral` (the generation path),
 `reversediffusion`, `ddim`, `eulermaruyama`; correctors: `langevin`,
 `ancestral`. JAX's random draws cannot be reproduced in PyTorch, so every
 draw may be passed in (`x0`, `noise`, `corrector_noise`); otherwise it is
-drawn from `generator`. PNDM, the adaptive ODE sampler and `print_steps`
-are later work.
+drawn from `generator`. Every family of `sde.make_diffusion` samples: the
+VESDE starts from N(0, sigma2_max), the correctors' discrete alpha is
+1 - linspace(beta_start / N, beta_end / N, N) at the step's beta index for
+the VP and sub-VP SDEs and 1 otherwise; `ancestral` and `ddim` read the
+VPSDE's discrete tables and raise for another family. PNDM, the adaptive
+ODE sampler and `print_steps` are later work.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ def sample_discrete(sde, score_fn: ScoreFn, num_samples: int,
     """Reverse-SDE predictor-corrector sampling: [num_samples, *shape] f32,
     the noise-free mean of the last step with `denoise`, else the sample.
 
-    Pinned draws: `x0` the initial sample, `noise[i]` the predictor's draw
+    Pinned draws: `x0` the initial draw (N(0, 1); the VESDE scales it by
+    sqrt(sigma2_max)), `noise[i]` the predictor's draw
     at step i (`ddim` draws none), `corrector_noise[i][j]` corrector step
     j's draw at step i; every draw not pinned is N(0, 1) from `generator`.
     """
@@ -58,9 +63,14 @@ def sample_discrete(sde, score_fn: ScoreFn, num_samples: int,
         raise NotImplementedError(f"predictor not implemented: {predictor}")
     if corrector is not None and corrector not in CORRECTORS:
         raise NotImplementedError(f"corrector not implemented: {corrector}")
-    if getattr(sde, "N", None) != N:
-        raise ValueError(f"the SDE's discrete tables have "
-                         f"{getattr(sde, 'N', None)} steps, the sampler {N}")
+    if predictor in ("ancestral", "ddim"):
+        if not hasattr(sde, "alphas_cump"):
+            raise NotImplementedError(
+                f"the {predictor} predictor reads the VPSDE's discrete "
+                f"tables, which {sde.sde_type} has not")
+        if sde.N != N:
+            raise ValueError(f"the SDE's discrete tables have {sde.N} steps, "
+                             f"the sampler {N}")
     dev = resolve_device(device)
     full_shape = (num_samples,) + tuple(shape)
 
@@ -73,14 +83,23 @@ def sample_discrete(sde, score_fn: ScoreFn, num_samples: int,
         return v.reshape((num_samples,) + (1,) * len(shape))
 
     x = draw(x0)
+    if sde.sde_type == "vesde":
+        x = x * torch.sqrt(torch.tensor(sde.sigma2_max, dtype=torch.float32,
+                                        device=dev))
     ts = timesteps(N, time_eps)
     idx = ancestral_indices(ts, N).to(dev)
-    betas = sde.betas.to(dev)[idx]
-    alphas_cump = sde.alphas_cump.to(dev)
-    # at_next: alphas_cump[idx - 1], or 1 at idx 0
-    at_next = torch.cat([torch.ones(1, device=dev), alphas_cump])[idx]
-    # the correctors' discrete alpha: 1 - the beta table (`discrete_alpha`)
-    alphas = 1.0 - betas
+    if sde.sde_type in ("vpsde", "sub_vpsde"):
+        # the correctors' discrete alpha (`discrete_alpha`); for the VPSDE
+        # also the ancestral predictor's betas
+        betas = torch.linspace(sde.beta_start / N, sde.beta_end / N, N,
+                               dtype=torch.float32).to(dev)[idx]
+        alphas = 1.0 - betas
+    else:
+        alphas = torch.ones(N, device=dev)
+    if predictor == "ddim":
+        alphas_cump = sde.alphas_cump.to(dev)
+        # at_next: alphas_cump[idx - 1], or 1 at idx 0
+        at_next = torch.cat([torch.ones(1, device=dev), alphas_cump])[idx]
     ts = ts.to(dev)
     pf_scale = 0.5 if probability_flow else 1.0
 
@@ -95,8 +114,9 @@ def sample_discrete(sde, score_fn: ScoreFn, num_samples: int,
         x_mean = x - dx
         return x_mean + g * z() * dt ** 0.5, x_mean
 
-    sqrt_1mb = torch.sqrt(1.0 - betas)
-    sqrt_b = torch.sqrt(betas)
+    if predictor == "ancestral":
+        sqrt_1mb = torch.sqrt(1.0 - betas)
+        sqrt_b = torch.sqrt(betas)
 
     def ancestral(x, i, z):
         score, _ = score_fn(ts[i].expand(num_samples), x, i)

@@ -46,10 +46,12 @@ def train_dtype(cfg) -> torch.dtype:
 
 
 def sync_epoch_values(values) -> np.ndarray:
-    """An epoch's per-step 0-d tensors (on the device) as one numpy array,
-    in one device-to-host transfer."""
+    """An epoch's per-step 0-d tensors (on the device), or tuples of them
+    (a row each), as one numpy array, in one device-to-host transfer."""
     if not values:
         return np.zeros((0,), np.float32)
+    if isinstance(values[0], tuple):
+        values = [torch.stack(v) for v in values]
     return torch.stack(values).cpu().numpy()
 
 

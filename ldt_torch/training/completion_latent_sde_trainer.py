@@ -41,10 +41,7 @@ from ldt_torch.training.completion_compressor_trainer import (
     fps_to,
 )
 from ldt_torch.training.latent_sde_trainer import Trainer as LatentTrainer
-from ldt_torch.training.latent_sde_trainer import (
-    draw_train_randoms,
-    score_objective,
-)
+from ldt_torch.training.latent_sde_trainer import score_objective
 from ldt_torch.training.state import TrainState, apply_update
 
 # `valsample` stops once it holds more samples than this, unless `full`
@@ -102,10 +99,8 @@ class Trainer(LatentTrainer):
         """Loss, gradients and the optimizer step on latents `eps` with the
         condition `condition`, the Score in train mode; its BatchNorms'
         updated running statistics join the step. Returns the loss."""
-        t, var, e2int, weight, eta = draw_train_randoms(
-            eps.shape, discrete=self.discrete, timesteps=self.timesteps,
-            train_N=self.N, sde=self.sde, generator=self.generator,
-            t_idx=t_idx, eta=eta)
+        t, var, e2int, weight, eta = self.draws(eps.shape, self.discrete,
+                                                t_idx, eta=eta)
         self.score.zero_grad(set_to_none=True)
         loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
                                self.cfg.opt.loss_type, label, condition,

@@ -490,14 +490,16 @@ def _stats_state_from_jax(ts: dict, to_sd) -> dict:
 
 def state_from_jax(state: dict) -> dict:
     """A JAX checkpoint's state -> the port's names: {"state": ...} (a
-    stage-1 trainer) or {"score": ..., "compressor": ...} (stage 2); any
-    other top-level entry is left as it is (a strict restore refuses
-    it)."""
+    stage-1 trainer), {"score": ..., "compressor": ...} (stage 2) or
+    {"score": ..., "compressor_state": ...} (stage 3, the Compressor's
+    train state); any other top-level entry is left as it is (a strict
+    restore refuses it)."""
     out = dict(state)
-    if "state" in state:
-        out["state"] = _stats_state_from_jax(
-            state["state"], lambda p, st: compressor_state_dict(
-                {"params": p, "batch_stats": st}))
+    for key in ("state", "compressor_state"):
+        if key in state:
+            out[key] = _stats_state_from_jax(
+                state[key], lambda p, st: compressor_state_dict(
+                    {"params": p, "batch_stats": st}))
     if "score" in state:  # a conditional Score's c_net has BatchNorms
         out["score"] = _stats_state_from_jax(state["score"],
                                              score_state_dict)
@@ -528,23 +530,31 @@ def _norm(cfg, section: str) -> str:
 
 
 def state_to_jax(state: dict, tx, cfg=None) -> dict:
-    """The port's state tree ({"state"} or {"score", "compressor"}) -> the
-    JAX package's, for the optimizer `tx` of the trainer that saved it and
-    its config `cfg` (the nets' `norm`)."""
+    """The port's state tree ({"state"}, {"score", "compressor"} or
+    {"score", "compressor_state"}) -> the JAX package's, for the optimizer
+    of the trainer that saved it (`tx`, or {entry: optimizer} where the
+    train states have their own, as stage 3's) and its config `cfg` (the
+    nets' `norm`)."""
+
+    def tx_of(key):
+        return tx[key] if isinstance(tx, dict) else tx
+
     out = {}
     for key, value in state.items():
-        if key == "state":
-            norm = _norm(cfg, "model")
+        if key in ("state", "compressor_state"):
+            norm = _norm(cfg, "model" if key == "state" else "compressor")
             stats = value["batch_stats"] or {}
             out[key] = _jax_train_state(
-                value, lambda t: compressor_variables(t, norm)["params"], tx,
+                value, lambda t: compressor_variables(t, norm)["params"],
+                tx_of(key),
                 compressor_variables({**value["params"], **stats},
                                      norm)["batch_stats"] or None)
         elif key == "score":
             norm = _norm(cfg, "score")
             stats = value.get("batch_stats") or {}
             out[key] = _jax_train_state(
-                value, lambda t: score_variables(t, norm)["params"], tx,
+                value, lambda t: score_variables(t, norm)["params"],
+                tx_of(key),
                 score_variables({**value["params"], **stats},
                                 norm)["batch_stats"] or None)
         elif key == "compressor":
@@ -567,8 +577,9 @@ def save_jax_checkpoint(path: str, state: dict, tx, cfg=None,
                         epoch: int = 0, itr: int = 0, time: float = 0.0,
                         shard_threshold: int = DEFAULT_SHARD_THRESHOLD
                         ) -> None:
-    """Write the port's state tree as the JAX package's checkpoint: one
-    msgpack file below `shard_threshold` bytes, else the sharded format."""
+    """Write the port's state tree as the JAX package's checkpoint (`tx`
+    as `state_to_jax` takes it): one msgpack file below `shard_threshold`
+    bytes, else the sharded format."""
     jax_state = state_to_jax(state, tx, cfg)
     meta = {"cfg": namespace2dict(cfg) if cfg is not None else {},
             "epoch": int(epoch), "itr": int(itr), "time": float(time)}

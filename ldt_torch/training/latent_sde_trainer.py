@@ -5,10 +5,12 @@ One `update(batch)`:
   1. encode the [B, N, 3] clouds through the frozen Compressor, under
      `torch.no_grad()`, to the latents eps [B, z_scale, z_dim] (K2 in every
      attention);
-  2. draw a discrete t (a uniform index into linspace(1, sample_time_eps,
-     train_N)) and eta ~ N(0, 1) per cloud;
-  3. loss = mean(|eta - Score(eps e2int(t) + sqrt(var(t)) eta, t)|^p), p 2
-     (`loss_type` l2) or 1, in f32;
+  2. draw t per cloud: discrete (`opt.discrete`: a uniform index into
+     linspace(1, sample_time_eps, train_N), weight 1) or continuous (the
+     SDE's `iw_quantities` in `sde.iw_sample_p_mode` from `sde.time_eps`,
+     weight its objective weight), and eta ~ N(0, 1);
+  3. loss = mean(|eta - Score(eps e2int(t) + sqrt(var(t)) eta, t)|^p
+     * weight), p 2 (`loss_type` l2) or 1, in f32;
   4. backward: K1 forward, K3 backward in every block;
   5. clip by global norm, Adam, EMA (`training.state`).
 Sampling and the validation loss use the EMA params.
@@ -18,9 +20,10 @@ labels the clouds: through the frozen (class-conditional) encode, the
 Score's conditioning c = t_emb + l_emb and the validation loss.
 
 Every draw can be pinned: `update(..., t_idx=, eta=, enc_noise=)` (the
-reparameterization noise of the encode, in decode order); otherwise it comes
-from the trainer's `torch.Generator`. Continuous-t training (the JAX
-package's `iw_quantities`) is later work and raises. `sample(n, label=)`
+reparameterization noise of the encode, in decode order) and
+`train_step(..., rho=)` (continuous t's uniform draw); otherwise it comes
+from the trainer's `torch.Generator`. The validation loss always draws discrete t, as the JAX
+trainer's. `sample(n, label=)`
 runs the whole Score at each step with the label (the modulations are not
 hoisted: c depends on the label). `valsample` samples one batch per test
 batch with the EMA params, or with several categories
@@ -66,25 +69,35 @@ from ldt_torch.training.state import TrainState, apply_update, make_optimizer
 
 
 def draw_train_randoms(eps_shape, *, discrete: bool, timesteps: torch.Tensor,
-                       train_N: int, sde,
+                       train_N: int, sde, time_eps: Optional[float] = None,
+                       iw_mode: Optional[str] = None,
+                       subvp_like: bool = False,
                        generator: Optional[torch.Generator] = None,
                        t_idx: Optional[torch.Tensor] = None,
+                       rho: Optional[torch.Tensor] = None,
                        eta: Optional[torch.Tensor] = None):
     """The per-step draws of the stage-2 objective: (t [B], var, e2int,
-    weight [B, 1, 1], eta [eps_shape]). `t_idx` [B] (indices into
-    `timesteps`) and `eta` pin the draws; else they come from `generator`."""
-    if not discrete:
-        raise NotImplementedError(
-            "continuous-t training (iw_quantities) is not ported yet")
+    weight [B, 1, 1], eta [eps_shape]). Discrete t: a uniform index into
+    `timesteps`, weight 1; continuous t: `sde.iw_quantities(B, time_eps,
+    iw_mode, subvp_like)`, weight its objective weight. `t_idx` [B] (the
+    indices), `rho` [B] (continuous t's uniform draw) and `eta` pin the
+    draws; else they come from `generator`."""
     dev = timesteps.device
     size = eps_shape[0]
-    if t_idx is None:
-        t_idx = torch.randint(0, train_N, (size,), device=dev,
-                              generator=generator)
-    t = timesteps[t_idx.to(dev)]
-    e2int = sde.e2int_f(t)[:, None, None]
-    var = sde.var(t)[:, None, None]
-    weight = torch.ones((size, 1, 1), device=dev)
+    if discrete:
+        if t_idx is None:
+            t_idx = torch.randint(0, train_N, (size,), device=dev,
+                                  generator=generator)
+        t = timesteps[t_idx.to(dev)]
+        e2int = sde.e2int_f(t)[:, None, None]
+        var = sde.var(t)[:, None, None]
+        weight = torch.ones((size, 1, 1), device=dev)
+    else:
+        t, var, e2int, weight, _, _ = sde.iw_quantities(
+            size, time_eps, iw_mode, subvp_like, generator=generator,
+            rho=rho)
+        var, e2int, weight = var[..., None], e2int[..., None], \
+            weight[..., None]
     if eta is None:
         eta = torch.randn(eps_shape, device=dev, generator=generator)
     return t, var, e2int, weight, eta.to(dev)
@@ -118,6 +131,10 @@ class Trainer(BaseTrainer):
         self.sde = make_diffusion(cfg.sde, device=self.device)
         self.N = cfg.sde.train_N
         self.discrete = cfg.opt.discrete
+        self.time_eps = cfg.sde.time_eps
+        # an explicit `sde.iw_subvp_like_vp_sde` overrides the default
+        self.subvp_like = getattr(cfg.sde, "iw_subvp_like_vp_sde",
+                                  cfg.sde.sde_type == "sub_vpsde")
         self.timesteps = schedule(self.N, cfg.sde.sample_time_eps).to(
             self.device)
         self.tx = make_optimizer(cfg.opt.beta1, cfg.opt.beta2,
@@ -172,16 +189,29 @@ class Trainer(BaseTrainer):
         return self.compressor(pts, noise=noise, generator=self.generator,
                                label=label)["all_eps"]
 
+    def draws(self, eps_shape, discrete: bool,
+              t_idx: Optional[torch.Tensor] = None,
+              rho: Optional[torch.Tensor] = None,
+              eta: Optional[torch.Tensor] = None):
+        """`draw_train_randoms` with the trainer's schedule, SDE, config
+        (`sde.iw_sample_p_mode`) and generator."""
+        return draw_train_randoms(
+            eps_shape, discrete=discrete, timesteps=self.timesteps,
+            train_N=self.N, sde=self.sde, time_eps=self.time_eps,
+            iw_mode=self.cfg.sde.iw_sample_p_mode,
+            subvp_like=self.subvp_like, generator=self.generator,
+            t_idx=t_idx, rho=rho, eta=eta)
+
     def train_step(self, eps: torch.Tensor, lr: float,
                    t_idx: Optional[torch.Tensor] = None,
                    eta: Optional[torch.Tensor] = None,
-                   label: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   label: Optional[torch.Tensor] = None,
+                   rho: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Loss, gradients and the optimizer step on latents `eps` (labels
-        `label`); returns the loss (a 0-d tensor on the device)."""
-        t, var, e2int, weight, eta = draw_train_randoms(
-            eps.shape, discrete=self.discrete, timesteps=self.timesteps,
-            train_N=self.N, sde=self.sde, generator=self.generator,
-            t_idx=t_idx, eta=eta)
+        `label`), t drawn as `self.discrete` says; returns the loss (a 0-d
+        tensor on the device)."""
+        t, var, e2int, weight, eta = self.draws(eps.shape, self.discrete,
+                                                t_idx, rho, eta)
         self.score.zero_grad(set_to_none=True)
         loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
                                self.cfg.opt.loss_type, label)
@@ -226,10 +256,8 @@ class Trainer(BaseTrainer):
         self.maybe_init({"tr_points": data["te_points"]})
         label = self._label_of(data)
         eps = self.encode(self._points(data["te_points"]), enc_noise, label)
-        t, var, e2int, weight, eta = draw_train_randoms(
-            eps.shape, discrete=True, timesteps=self.timesteps,
-            train_N=self.N, sde=self.sde, generator=self.generator,
-            t_idx=t_idx, eta=eta)
+        t, var, e2int, weight, eta = self.draws(eps.shape, True, t_idx,
+                                                eta=eta)
         with self.ema_weights() as score:
             return score_objective(score, eps, t, var, e2int, weight, eta,
                                    self.cfg.opt.loss_type, label)
@@ -328,16 +356,28 @@ class Trainer(BaseTrainer):
         the counters restart at epoch 1, itr 0 when `finetune`, else
         continue from the checkpoint's (epoch + 1, the cosine's gate at its
         itr); the wall time is the checkpoint's."""
+        ckpt, restored = self._restored(epoch, strict, pretrain)
+        self.state.load_tree(restored["score"],
+                             load_optim=load_optim and not finetune)
+        self.compressor.load_state_dict(restored["compressor"])
+        self._set_counters(ckpt, finetune)
+
+    def _restored(self, epoch: Optional[int], strict: bool,
+                  pretrain: Optional[str]):
+        """(the checkpoint, its state restored into `state_tree()`'s
+        structure) of the file `pretrain`, else of `epoch` (default: the
+        last) under `cfg.log.save_path`."""
         tree = self.state_tree()
         if pretrain is None:
             save_path = self.cfg.log.save_path
             pretrain = checkpoint_file(
                 save_path, resolve_checkpoint_epoch(save_path, epoch))
         ckpt = load_checkpoint(pretrain)
-        restored = restore_into(tree, ckpt["state"], strict=strict)
-        self.state.load_tree(restored["score"],
-                             load_optim=load_optim and not finetune)
-        self.compressor.load_state_dict(restored["compressor"])
+        return ckpt, restore_into(tree, ckpt["state"], strict=strict)
+
+    def _set_counters(self, ckpt: dict, finetune: bool) -> None:
+        """epoch 1, itr 0 when `finetune`, else the checkpoint's epoch + 1
+        and itr (an epoch boundary); the checkpoint's wall time."""
         if finetune:
             self.epoch, self.itr = 1, 0
         else:

@@ -145,7 +145,8 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.training.completion_latent_sde_trainer",
             "ldt_torch.entries.train_completion_compressor",
             "ldt_torch.entries.train_completion_latent_diffusion",
-            "chip_smoke"]
+            "ldt_torch.diffusion.sde", "ldt_torch.training.hybrid_trainer",
+            "ldt_torch.entries.train_hybrid", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -207,6 +208,18 @@ def _entry_points():
                                           compressor=SMALL_COMPRESSOR,
                                           sde=SDE), **kw)
 
+    def hybrid_trainer(**kw):
+        from ldt_torch.configs import hybrid_trainer_cfg
+        from ldt_torch.training.hybrid_trainer import Trainer
+
+        return Trainer(hybrid_trainer_cfg(score=SMALL_SCORE,
+                                          compressor=SMALL_COMPRESSOR,
+                                          sde=SDE), **kw)
+
+    def family(sde_type, **over):
+        return lambda **kw: make_diffusion(
+            sde_cfg(sde_type=sde_type, **over), **kw)
+
     def stage1_trainer(**kw):
         from ldt_torch.configs import compressor_trainer_cfg
         from ldt_torch.training.compressor_trainer import Trainer
@@ -249,6 +262,13 @@ def _entry_points():
         "Score": lambda **kw: Score(score_cfg(num_blocks=1), **kw),
         "Compressor": lambda **kw: Compressor(compressor_cfg(), **kw),
         "make_diffusion": lambda **kw: make_diffusion(sde_cfg(), **kw),
+        "make_diffusion_sub_vpsde": family("sub_vpsde"),
+        "make_diffusion_vesde": family("vesde", sigma2_0=0.01,
+                                       sigma2_min=0.01, sigma2_max=50.0),
+        "make_diffusion_geometric_sde": family("geometric_sde",
+                                               sigma2_min=3e-5,
+                                               sigma2_max=0.999),
+        "hybrid_Trainer": hybrid_trainer,
         "sample_discrete": sampler,
         "generate": gen,
         "generate_int8": lambda **kw: gen(int8=True, attn_int8=True, **kw),
@@ -263,6 +283,10 @@ def _entry_points():
                                   "generate", "generate_int8",
                                   "sample_latents", "calibrate_act_scales",
                                   "Trainer", "stage1_Trainer",
+                                  "hybrid_Trainer",
+                                  "make_diffusion_sub_vpsde",
+                                  "make_diffusion_vesde",
+                                  "make_diffusion_geometric_sde",
                                   "compute_all_metrics", "compute_CD_metrics",
                                   "EMD_CD", "pairwise_CD", "pairwise_EMD_CD",
                                   "jsd_between_point_cloud_sets",

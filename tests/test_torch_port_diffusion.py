@@ -104,6 +104,13 @@ def test_sampler_rejects_tables_of_another_length():
 
 @pytest.mark.parametrize("kind", ["sub_vpsde", "vesde", "geometric_sde"])
 def test_other_sdes_are_not_ported_yet(kind):
-    _, tcfg = cfgs(dict(SDE, sde_type=kind))
-    with pytest.raises(NotImplementedError):
-        make_diffusion(tcfg, device="cpu")
+    """The other families build (their functions and importance sampling:
+    test_torch_port_sde_families.py), but have no discrete tables, so the
+    ancestral sampler refuses them by name."""
+    over = dict(sigma2_0=0.01, sigma2_min=0.01, sigma2_max=50.0)
+    _, tcfg = cfgs({**SDE, "sde_type": kind, **over})
+    sde = make_diffusion(tcfg, device="cpu")
+    assert not hasattr(sde, "betas")
+    with pytest.raises(NotImplementedError, match=kind):
+        sample_discrete(sde, lambda t, x, step: (-x, x), 1, (2,), 64,
+                        device="cpu")

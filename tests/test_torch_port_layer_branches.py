@@ -11,6 +11,8 @@ batch norms converts both ways too. The tolerances are the
 neighbouring layer tests' (`test_torch_port_layers.py`): f32 1e-5, bf16 a few
 ulps of the largest value."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,11 +237,19 @@ VARIANTS = {
 }
 
 
-def _variant(name):
+@functools.lru_cache(maxsize=None)
+def _variant_variables(name):
+    """The variant's config, clouds and perturbed JAX variables, built once
+    a process (the JAX init compiles the whole Compressor); the tests only
+    read them."""
     over, n = VARIANTS[name]
     d = dict(SMALL_COMPRESSOR, **over)
     pts = _rand((B, n, 3), 10)
-    v = perturbed(compressor_variables(d, pts))
+    return d, pts, perturbed(compressor_variables(d, pts))
+
+
+def _variant(name):
+    d, pts, v = _variant_variables(name)
     model = weights.load_compressor(
         Compressor(cfgs(d)[1], device="cpu").eval(), v)
     return d, pts, v, model

@@ -130,9 +130,14 @@ def test_draws_pin_and_match_the_jax_table():
                                     timesteps=trainer_t, train_N=TRAIN_N,
                                     sde=sde, generator=gen)
     assert eta.shape == (64,) + Z and (t >= 1e-6).all() and (t <= 1).all()
-    with pytest.raises(NotImplementedError, match="iw_quantities"):
-        draw_train_randoms((2,) + Z, discrete=False, timesteps=trainer_t,
-                           train_N=TRAIN_N, sde=sde)
+    # continuous t (held against JAX in test_torch_port_sde_families.py):
+    # importance-sampled, the weight its objective weight
+    t, var, e2int, weight, eta = draw_train_randoms(
+        (64,) + Z, discrete=False, timesteps=trainer_t, train_N=TRAIN_N,
+        sde=sde, time_eps=0.01, iw_mode="drop_all_iw", generator=gen)
+    assert ((t >= 0.01 - 1e-4) & (t <= 1 + 1e-4)).all()
+    assert weight.shape == var.shape == e2int.shape == (64, 1, 1)
+    assert not torch.equal(weight, torch.ones_like(weight))
 
 
 @pytest.mark.parametrize("loss_type", ["l2", "l1"])
