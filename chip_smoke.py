@@ -208,6 +208,32 @@ entry `train_hybrid`) and the SDE families' importance sampling:
      K3 48 a step, K2 and K4 as a stage-1 step; ms per step, seconds per
      epoch, the checkpoint's size, save and load seconds.
 
+The training options (`opt.moment_dtype`, `common.train_dtype`, the
+Score's dropout):
+ 25. (last) a) The shipped `airplane_synth_mbf16` config (bf16 Adam
+     moments) and its f32 control `airplane_synth_m32ctl` through
+     `train_latent_diffusion` at full width and depth (457M Score, B=64)
+     on phase 21's tree, from a stage-1 checkpoint written here: 3 epochs
+     with a save, a resume leg; live moments bf16 (f32 in the control),
+     the optimizer state's bytes (half the control's), both legs' peak
+     memory, the losses within MOMENT_LOSS_REL; each config's checkpoint
+     restored into the other's trainer. b) `common.train_dtype: bfloat16`
+     added to copies of the airplane configs: 10 stage-2 steps (B=64), 10
+     stage-1 steps (B=16), 2 hybrid steps (B=32), each launch's dtype
+     counted (K1 24 on its bf16 tensor-core schedule, K3 24, K2 24 a
+     stage-2 step; K2, K4 24 a stage-1 step; K1, K3 48 and K2, K4 24 a
+     hybrid step), every parameter, EMA, moment and gradient f32; the wrong
+     variant (a Dense casting to its f32 weight) fails the count; median ms
+     a step beside the f32 steps of the same configs; 4 stage-2 steps of
+     each dtype profiled by class with `ldt_torch.tools.profiling`; a
+     2-block step card vs CPU within MP_STEP_TOL (wrong: K3 with dq and dk
+     swapped). c) A flagship stage-2 step with `score.dropout` 0.1: the
+     same seed gives the same step bit for bit, another draw seed another;
+     the kept share within 5 binomial sigmas of 0.9; `val_loss` and a
+     32-step `sample(8)` equal the rate-0 ones on the same weights; a
+     Compressor's training forward and a conditional Score's training step
+     with dropout raise.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -1819,6 +1845,19 @@ def phase_train(batch: int, steps: int, gen) -> dict:
     return launches
 
 
+def kernel_classes(kernels: dict) -> dict:
+    """{class: device us} of {kernel: device us}, by TRAIN_CLASSES."""
+    groups = {name: 0.0 for name, _ in TRAIN_CLASSES}
+    groups["elementwise and other"] = 0.0
+    for key, us in kernels.items():
+        low = key.lower()
+        name = next((n for n, words in TRAIN_CLASSES
+                     if any(w in low for w in words)),
+                    "elementwise and other")
+        groups[name] += us
+    return groups
+
+
 def profile_step(tag: str, step, batch: int) -> None:
     """One `step()` under torch.profiler: device time by kernel class
     (TRAIN_CLASSES), the top kernels, and the idle share."""
@@ -1838,14 +1877,7 @@ def profile_step(tag: str, step, batch: int) -> None:
         print(f"[{tag}] profile: the profiler recorded no device time (not "
               "measured)")
         return
-    groups = {name: 0.0 for name, _ in TRAIN_CLASSES}
-    groups["elementwise and other"] = 0.0
-    for key, us in kernels.items():
-        low = key.lower()
-        name = next((n for n, words in TRAIN_CLASSES
-                     if any(w in low for w in words)),
-                    "elementwise and other")
-        groups[name] += us
+    groups = kernel_classes(kernels)
     print(f"[{tag}] profile of one train step (B={batch}): device busy "
           f"{busy / 1e3:.2f} ms; wall {wall_us / 1e3:.2f} ms profiled (idle "
           f"share {1 - busy / wall_us:.3f})")
@@ -2106,13 +2138,16 @@ def phase_stage1_reference(ref_merge: bool = False) -> None:
              f"{int((cpu != card).sum())} rows")
 
 
-def phase_train_reference(ref_merge: bool = False) -> None:
+def phase_train_reference(ref_merge: bool = False,
+                          mixed: bool = False) -> None:
     """One stage-2 train step at flagship width cut to two Score blocks,
     f32, B=4: the same weights, clouds and pinned draws on the card and on
     the CPU (the path the CPU tests hold against ldt_tpu), and against a K3
     with dq and dk swapped. With `ref_merge` (phase 22a) both nets merge
     heads as the reference does, and the wrong variant is the standard
-    merge on the card."""
+    merge on the card. `mixed` (phase 25b): bf16 compute over f32
+    parameters (`common.train_dtype: bfloat16`, K1 on its tensor-core
+    schedule), held to MP_STEP_TOL."""
     import torch
 
     from ldt_torch.configs import latent_trainer_cfg
@@ -2120,9 +2155,10 @@ def phase_train_reference(ref_merge: bool = False) -> None:
     from ldt_torch.ops import attention as attn_ops
     from ldt_torch.training import latent_sde_trainer as lt
 
-    tag = "22a" if ref_merge else "14"
+    tag = "22a" if ref_merge else "25b" if mixed else "14"
     batch = 4
-    cfg = latent_trainer_cfg(score=dict(num_blocks=2))
+    cfg = latent_trainer_cfg(score=dict(num_blocks=2), common=dict(
+        train_dtype="bfloat16" if mixed else "float32"))
     g = torch.Generator().manual_seed(SEED)
     score_w = Score(cfg.score, device="cpu", generator=g).state_dict()
     comp = Compressor(cfg.compressor, device="cpu", generator=g,
@@ -2158,18 +2194,20 @@ def phase_train_reference(ref_merge: bool = False) -> None:
                 "Adam mu": flat(st.opt_state.mu)}
 
     out = {"cpu": run("cpu")}
-    fns = (attn_ops.packed_self_attention_bwd, attn_ops.packed_self_attention,
-           attn_ops.cross_attention)
-    before = [(f.launches, f.tiled_launches) for f in fns]
+    k1_schedule = "mma" if mixed else "tiled"
+    fns = ((attn_ops.packed_self_attention_bwd, "tiled_launches"),
+           (attn_ops.packed_self_attention, f"{k1_schedule}_launches"),
+           (attn_ops.cross_attention, "tiled_launches"))
+    before = [(f.launches, getattr(f, a)) for f, a in fns]
     out["card"] = run("cuda")
-    (k3, k3_tiled), (k1, k1_tiled), (k2, _) = [
-        (f.launches - b[0], f.tiled_launches - b[1])
-        for f, b in zip(fns, before)]
-    # the 2 blocks' K1 (register-tiled in f32) and K3; the frozen
-    # Compressor's encode through K2
-    if (k3, k3_tiled, k1, k1_tiled) != (2, 2, 2, 2) or not k2:
+    (k3, k3_tiled), (k1, k1_sched), (k2, _) = [
+        (f.launches - b[0], getattr(f, a) - b[1])
+        for (f, a), b in zip(fns, before)]
+    # the 2 blocks' K1 (register-tiled in f32, the tensor cores in bf16)
+    # and K3 (register-tiled); the frozen Compressor's encode through K2
+    if (k3, k3_tiled, k1, k1_sched) != (2, 2, 2, 2) or not k2:
         fail(f"phase {tag}: the card's step did not go through K1, K2 and "
-             f"K3's register-tiled kernels: K1 {k1} ({k1_tiled} tiled), K2 "
+             f"K3's schedules: K1 {k1} ({k1_sched} {k1_schedule}), K2 "
              f"{k2}, K3 {k3} ({k3_tiled} tiled)")
     if ref_merge:
         wrong = "standard merge"
@@ -2180,15 +2218,17 @@ def phase_train_reference(ref_merge: bool = False) -> None:
                 attn_ops, "packed_self_attention_bwd",
                 lambda qkv, gg, h: k3_variant(qkv, gg, h, swap_dq_dk=True)):
             out[wrong] = run("cuda")
-    print(f"[{tag}] one train step at flagship width, 2 Score blocks, f32, "
-          f"B={batch}, {'reference head merge, ' * ref_merge}card vs CPU: "
-          f"loss {out['cpu']['loss'].item():.6f}")
+    what = "bf16 compute over f32 parameters" if mixed else "f32"
+    print(f"[{tag}] one train step at flagship width, 2 Score blocks, "
+          f"{what}, B={batch}, {'reference head merge, ' * ref_merge}card vs "
+          f"CPU: loss {out['cpu']['loss'].item():.6f}")
     for part in out["cpu"]:
         if not torch.isfinite(out["card"][part]).all():
             fail(f"phase {tag}: {part} on the card is not finite")
         held(f"{part} (relative), CPU vs",
              {k: errs(out[k][part], out["cpu"][part], rel=True)
-              for k in ("card", wrong)}, TRAIN_STEP_TOL,
+              for k in ("card", wrong)},
+             MP_STEP_TOL[part] if mixed else TRAIN_STEP_TOL,
              right=("card",),
              wrong=(wrong,) if part in ("gradients", "Adam mu") else ())
 
@@ -2880,9 +2920,10 @@ def synthetic_tree(data_dir: str, synsets, train: int, val: int,
 
 
 def copied_config(src: str, dst: str, edits: dict, tag: str,
-                  phase: str = "21") -> None:
+                  phase: str = "21", added: dict = None) -> None:
     """Copy the YAML file `src` to `dst` with `edits` {"section.key":
-    value} replaced on their lines; print each change."""
+    value} replaced on their lines and `added` {"section.key": value} keys
+    it lacks written at the head of their section; print each change."""
     import os
     import re
 
@@ -2891,6 +2932,10 @@ def copied_config(src: str, dst: str, edits: dict, tag: str,
     old = load_yaml(src)
     lines = open(src).read().splitlines()
     section, done = None, set()
+
+    def text(value):
+        return f"'{value}'" if isinstance(value, str) else str(value)
+
     for i, line in enumerate(lines):
         top = re.match(r"(\w+):\s*$", line)
         if top:
@@ -2899,13 +2944,20 @@ def copied_config(src: str, dst: str, edits: dict, tag: str,
         name = f"{section}.{key.group(1)}" if key else None
         if name in edits:
             value = edits[name]
-            text = f"'{value}'" if isinstance(value, str) else str(value)
-            lines[i] = f"  {key.group(1)}: {text}"
+            lines[i] = f"  {key.group(1)}: {text(value)}"
             done.add(name)
             print(f"[{phase}] {tag}: {name} {old[section][key.group(1)]!r} "
                   f"-> {value!r}")
     if done != set(edits):
         fail(f"phase {phase}: {src} has no {sorted(set(edits) - done)}")
+    for name, value in (added or {}).items():
+        section, key = name.split(".")
+        if section not in old or key in old[section]:
+            fail(f"phase {phase}: {src} has no section {section} or has "
+                 f"{name} already")
+        at = lines.index(f"{section}:") + 1
+        lines.insert(at, f"  {key}: {text(value)}")
+        print(f"[{phase}] {tag}: {name} (not set) -> {value!r}")
     os.makedirs(os.path.dirname(dst), exist_ok=True)
     with open(dst, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -4620,6 +4672,629 @@ def phase_hybrid_entry() -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 25: the training options: the shipped bf16-moment config, mixed
+# precision (`common.train_dtype: bfloat16`) through the trainers, and the
+# Score's dropout.
+MOMENT_CONFIGS = ("airplane_synth_mbf16", "airplane_synth_m32ctl")
+MOMENT_EPOCHS = 3  # the first leg (one step an epoch at B=64 on the tree)
+# The two configs' losses over both legs, epoch by epoch: within 2% of each
+# other (the same seed, data and first update; then the bf16 moments'
+# rounding).
+MOMENT_LOSS_REL = 0.02
+MP_STEPS = 10      # timed mixed-precision steps of stages 1 and 2
+MP_PROFILED = 4    # profiled stage-2 steps of each dtype
+# A 2-block mixed-precision step, card vs CPU, (max, mean) relative to the
+# largest |CPU value|, by part: both round every product and sum to bf16
+# but cuBLAS and the CPU's GEMMs sum in other orders, so a bf16 value can
+# land on its neighbour (2^-8 relative) and the gradients carry it (read
+# on the H100: the loss 3.4e-5, gradients 5.9e-3 / 3.9e-6). Wrong: K3 with
+# dq and dk swapped (gradients 5.9e-3 / 1.6e-5: the largest gradient is a
+# bf16 neighbour in either, the mean tells them apart).
+MP_STEP_TOL = {"loss": (1e-3, 1e-3), "gradients": (2e-2, 8e-6),
+               "params": (2e-2, 8e-6), "EMA": (2e-2, 8e-6),
+               "Adam mu": (2e-2, 8e-6)}
+DROPOUT = 0.1
+
+
+def _opt_bytes(state) -> int:
+    """The bytes of a TrainState's Adam moments."""
+    from ldt_torch.training import checkpoint as ckpt
+
+    return (ckpt.tree_nbytes(state.opt_state.mu)
+            + ckpt.tree_nbytes(state.opt_state.nu))
+
+
+def phase_moment_dtype() -> None:
+    """Phase 25a: the shipped `airplane_synth_mbf16` config (bf16 Adam
+    moments) and its f32 control `airplane_synth_m32ctl` through
+    `train_latent_diffusion` at full width and depth (457M Score, B=64) on
+    phase 21's synthetic tree, from one stage-1 checkpoint written here
+    (the configs' own is not in the repository): a leg of MOMENT_EPOCHS
+    epochs with a save, then a `--resume` leg of one epoch. The live
+    moments must be bf16 (f32 in the control), the optimizer state half the
+    control's bytes, the losses within MOMENT_LOSS_REL; an f32-moment
+    checkpoint restores into the bf16 config and a bf16 one into the f32
+    config. Prints the optimizer state's bytes and each leg's peak
+    memory."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.cli import get_config, get_parser
+    from ldt_torch.configs import compressor_trainer_cfg, dict2namespace
+    from ldt_torch.entries import train_latent_diffusion as entry
+    from ldt_torch.tools.io import load_yaml, namespace2dict
+    from ldt_torch.training import checkpoint as ckpt
+    from ldt_torch.training.compressor_trainer import Trainer as Stage1
+    from ldt_torch.training.latent_sde_trainer import Trainer as Stage2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ldt_phase25a_")
+    kind = "Latent_Diffusion_Trainer"
+    try:
+        data_dir = os.path.join(tmp, "PC15k")
+        synthetic_tree(data_dir, ("02691156",), ENTRY_TRAIN, ENTRY_VAL,
+                       SEED + 21)
+        src = {name: os.path.join(root, "experiments", kind, name,
+                                  "config.yaml") for name in MOMENT_CONFIGS}
+        shipped = dict2namespace(load_yaml(src[MOMENT_CONFIGS[0]]))
+        if shipped.opt.moment_dtype != "bfloat16":
+            fail(f"phase 25a: {src[MOMENT_CONFIGS[0]]} no longer sets "
+                 "bf16 moments")
+        s1 = Stage1(compressor_trainer_cfg(model=namespace2dict(
+            shipped.compressor)), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(SEED))
+        s1.maybe_init({"tr_points": torch.from_numpy(synthetic_shapes(
+            2, 2048, np.random.default_rng(SEED)))})
+        stage1 = os.path.join(tmp, "stage1", "checkpt_600.pt")
+        os.makedirs(os.path.dirname(stage1))
+        ckpt.save_checkpoint(stage1, s1.state_tree(), cfg=s1.cfg, epoch=600)
+        del s1
+        print(f"[25a] data: phase 21's tree ({ENTRY_TRAIN} train clouds, one "
+              f"step an epoch at B=64); the configs' stage-1 checkpoint "
+              f"written here from a random Compressor ({stage1})")
+
+        out = {}
+        for name in MOMENT_CONFIGS:
+            ws = os.path.join(tmp, name)
+            save_path = os.path.join(ws, kind, "airplane")
+            cfg_path = os.path.join(save_path, "config.yaml")
+            copied_config(src[name], cfg_path, {
+                "data.data_dir": data_dir, "log.save_path": save_path,
+                "compressor.pretrain_path": stage1,
+                "common.epochs": MOMENT_EPOCHS,
+                "log.save_epoch_freq": MOMENT_EPOCHS,
+                "log.eval_epoch_freq": 1000, "log.log_epoch_freq": 1},
+                name, phase="25a")
+            args = get_parser(kind).parse_args(["--save", ws])
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = entry.main(args, get_config(args))
+            ckpt.wait_pending_saves()
+            torch.cuda.synchronize()
+            leg = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            moments = {t.dtype for m in (tr.state.opt_state.mu,
+                                         tr.state.opt_state.nu)
+                       for t in m.values()}
+            n_params = sum(p.numel() for p in tr.score.parameters())
+            opt = _opt_bytes(tr.state)
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            copied_config(cfg_path, cfg_path,
+                          {"common.epochs": MOMENT_EPOCHS + 1}, "resume leg",
+                          phase="25a")
+            args = get_parser(kind).parse_args(["--save", ws, "--resume",
+                                                "True"])
+            torch.cuda.reset_peak_memory_stats()
+            tr = entry.main(args, get_config(args))
+            resumed_peak = torch.cuda.max_memory_allocated()
+            resumed = ({t.dtype for m in (tr.state.opt_state.mu,
+                                          tr.state.opt_state.nu)
+                        for t in m.values()}, tr.epoch, tr.itr)
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            rows = finite_rows(os.path.join(save_path, "training.csv"),
+                               name, phase="25a")
+            out[name] = dict(moments=moments, resumed=resumed, opt=opt,
+                             peak=peak, resumed_peak=resumed_peak,
+                             losses=[float(r["loss"]) for r in rows],
+                             ckpt=os.path.join(save_path,
+                                               f"checkpt_{MOMENT_EPOCHS}.pt"),
+                             cfg=cfg_path, leg=leg)
+            print(f"[25a] {name}: Score {n_params / 1e6:.2f}M params, live "
+                  f"moments {sorted(str(d) for d in moments)}, optimizer "
+                  f"state {opt / 1e9:.3f} GB; leg of {MOMENT_EPOCHS} epochs "
+                  f"{leg:.2f} s (with a "
+                  f"{os.path.getsize(out[name]['ckpt']) / 1e9:.3f} GB save), "
+                  f"peak memory {peak / 2 ** 30:.2f} GiB, resume leg's "
+                  f"{resumed_peak / 2 ** 30:.2f} GiB; losses "
+                  f"{out[name]['losses']} ({smi_name_and_power()})")
+        bf, f32 = (out[n] for n in MOMENT_CONFIGS)
+        want = {MOMENT_CONFIGS[0]: torch.bfloat16,
+                MOMENT_CONFIGS[1]: torch.float32}
+        for name, o in out.items():
+            if o["moments"] != {want[name]} or o["resumed"] != (
+                    {want[name]}, MOMENT_EPOCHS + 2, MOMENT_EPOCHS + 1):
+                fail(f"phase 25a: {name} moments {o['moments']}, resumed "
+                     f"{o['resumed']}")
+        if 2 * bf["opt"] != f32["opt"]:
+            fail(f"phase 25a: bf16 moments take {bf['opt']} B, f32 "
+                 f"{f32['opt']} B")
+        rel = [abs(a - b) / abs(b) for a, b in zip(bf["losses"],
+                                                   f32["losses"])]
+        print(f"[25a] losses bf16 vs f32 moments, relative: {rel} (limit "
+              f"{MOMENT_LOSS_REL}); peak memory "
+              f"{bf['peak'] / 2 ** 30:.2f} vs {f32['peak'] / 2 ** 30:.2f} "
+              f"GiB; optimizer state {bf['opt'] / 1e9:.3f} vs "
+              f"{f32['opt'] / 1e9:.3f} GB")
+        if max(rel) > MOMENT_LOSS_REL or len(rel) != MOMENT_EPOCHS + 1:
+            fail(f"phase 25a: the two configs' losses {bf['losses']} and "
+                 f"{f32['losses']} left the envelope")
+        # each config's checkpoint into the other config's trainer
+        first = {"tr_points": torch.from_numpy(synthetic_shapes(
+            2, 2048, np.random.default_rng(SEED)))}
+        for dst, src_name in ((MOMENT_CONFIGS[0], MOMENT_CONFIGS[1]),
+                              (MOMENT_CONFIGS[1], MOMENT_CONFIGS[0])):
+            cfg = dict2namespace(load_yaml(out[dst]["cfg"]))
+            tr = Stage2(cfg, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(SEED))
+            tr.maybe_init(first)
+            t0 = time.perf_counter()
+            tr.resume(pretrain=out[src_name]["ckpt"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            saved = ckpt.load_checkpoint(out[src_name]["ckpt"])["state"]
+            bad = [k for n in ("mu", "nu")
+                   for k, v in getattr(tr.state.opt_state, n).items()
+                   if v.dtype != want[dst] or not torch.equal(
+                       v.cpu(), saved["score"]["opt_state"][n][k].to(
+                           want[dst]))]
+            print(f"[25a] {src_name}'s checkpoint into {dst}'s trainer: "
+                  f"{dt:.2f} s; moments {want[dst]}, tensors that differ "
+                  f"from the file's: {len(bad)}")
+            if bad:
+                fail(f"phase 25a: the restore into {dst} gave {bad[:4]}")
+            del tr, saved
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dtype_spies(stack) -> dict:
+    """Spies on K1-K4's wrappers: {(kernel, dtype name): calls} of their
+    inputs' dtype. A spy stands in for its wrapper in `ops.attention`, so
+    it carries the wrapper's launch counters, which the wrapper (looking
+    itself up there) counts on and `counted` reads."""
+    from ldt_torch.ops import attention as attn_ops
+
+    seen = {}
+    for name in ("packed_self_attention", "packed_self_attention_bwd",
+                 "cross_attention", "cross_attention_bwd"):
+        real = getattr(attn_ops, name)
+
+        def spy(*args, _real=real, _name=name):
+            key = (_name, str(args[0].dtype).split(".")[1])
+            seen[key] = seen.get(key, 0) + 1
+            return _real(*args)
+
+        spy.__dict__.update(real.__dict__)
+        stack.enter_context(mock.patch.object(attn_ops, name, spy))
+    return seen
+
+
+def _mp_config(name: str, tmp: str, train_dtype: str = "bfloat16"):
+    """experiments/<name>/config.yaml copied with `common.train_dtype`
+    added and its log under `tmp`, as a namespace."""
+    import os
+
+    from ldt_torch.configs import dict2namespace
+    from ldt_torch.tools.io import load_yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    dst = os.path.join(tmp, name, "config.yaml")
+    copied_config(os.path.join(root, "experiments", name, "config.yaml"),
+                  dst, {"log.save_path": os.path.dirname(dst)}, name,
+                  phase="25b", added={"common.train_dtype": train_dtype})
+    return dict2namespace(load_yaml(dst))
+
+
+def _steps(trainer, data, steps: int, seen=None):
+    """`steps` updates, each timed apart: (outputs, [ms]); the spies'
+    counts `seen` cleared first."""
+    import torch
+
+    if seen is not None:
+        seen.clear()
+    out, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(trainer.update(data))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms
+
+
+def _f32_everywhere(trainer, what: str, nets) -> None:
+    """Every parameter, EMA, moment and gradient of `trainer`'s states and
+    `nets` is f32."""
+    import torch
+
+    states = [trainer.state] + ([trainer.comp_state]
+                                if getattr(trainer, "comp_state", None)
+                                else [])
+    bad = [k for st in states for tree in (
+        st.params, st.ema_params or {}, st.opt_state.mu, st.opt_state.nu)
+        for k, v in tree.items() if v.dtype != torch.float32]
+    bad += [k for net in nets for k, p in net.named_parameters()
+            if p.grad is not None and p.grad.dtype != torch.float32]
+    if bad:
+        fail(f"phase 25b: {what}: not f32: {bad[:5]}")
+
+
+def _profile_by_class(tag: str, step, steps: int, log_dir: str) -> None:
+    """`steps` calls of `step()` traced with `ldt_torch.tools.profiling`:
+    device busy by class (TRAIN_CLASSES) per step, and the idle share."""
+    import os
+
+    import torch
+
+    from ldt_torch.tools import profiling
+
+    spans = [f"ldt_step{i}" for i in range(steps)]
+    with profiling.trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        for span in spans:
+            with profiling.annotate(span):
+                step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the spans' own device rows (each covers its step's kernels) aside
+    kernels = {k: us for k, us in device_time_by_kernel(prof).items()
+               if k not in spans}
+    busy = sum(kernels.values())
+    if busy == 0:
+        print(f"[{tag}] profile: no device time recorded (not measured)")
+        return
+    groups = kernel_classes(kernels)
+    trace = os.path.join(log_dir, "trace.json")
+    print(f"[{tag}] profile of {steps} steps (ldt_torch.tools.profiling, "
+          f"trace {os.path.getsize(trace) / 1e6:.1f} MB): device busy "
+          f"{busy / 1e3 / steps:.2f} ms a step, wall "
+          f"{wall * 1e3 / steps:.2f} ms a step profiled (idle share "
+          f"{1 - busy / (wall * 1e6):.3f})")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {name}: {us / 1e3 / steps:.2f} ms a step "
+              f"({us / busy:.3f} of busy)")
+    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {us / 1e3 / steps:9.2f} ms a step  {key[:110]}")
+
+
+def phase_mixed_precision(gen) -> None:
+    """Phase 25b: `common.train_dtype: bfloat16` (copies of the shipped
+    airplane configs with the key added): MP_STEPS stage-2 steps at B=64,
+    MP_STEPS stage-1 steps at B=16 and 2 hybrid steps at B=32, full width
+    and depth, on random weights; each kernel launch's dtype counted by
+    spies (a stage-2 step: K1 24 on its bf16 tensor-core schedule, K3 24,
+    K2 24; a stage-1 step: K2 24, K4 24; a hybrid step: K1 48, K3 48, K2
+    and K4 24), every parameter, EMA, moment and gradient f32; the wrong
+    variant (a Dense that casts its input to its f32 weight) must fail the
+    bf16 count. Median ms a step beside the f32 steps' in this run;
+    MP_PROFILED stage-2 steps of each dtype profiled by class; a 2-block
+    step card vs CPU within MP_STEP_TOL."""
+    import gc
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from ldt_torch.nn.layers import Dense
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.training import compressor_trainer as ct
+    from ldt_torch.training import hybrid_trainer as ht
+    from ldt_torch.training import latent_sde_trainer as lt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ldt_phase25b_")
+    bf = torch.bfloat16
+    try:
+        cfg2 = _mp_config("Latent_Diffusion_Trainer/airplane", tmp)
+        batch = cfg2.data.batch_size
+        data = {"tr_points": torch.randn(batch, 2048, 3, device="cuda",
+                                         generator=gen)}
+        dh = cfg2.score.hidden_size // cfg2.score.num_heads
+        k1_mma = attn_ops.packed_schedule(cfg2.score.z_scale, dh, bf)
+        k3_tiled = attn_ops.self_bwd_tiled(cfg2.score.z_scale, dh)
+        med = {}
+        with contextlib.ExitStack() as stack:
+            seen = _dtype_spies(stack)
+            tr = lt.Trainer(cfg2, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(SEED))
+            if tr.dtype != bf:
+                fail(f"phase 25b: the stage-2 trainer computes in {tr.dtype}")
+            tr.maybe_init(data)
+            _steps(tr, data, 2)
+            torch.cuda.reset_peak_memory_stats()
+            (losses, ms), _, launches = counted(
+                lambda: _steps(tr, data, MP_STEPS, seen))
+            peak = torch.cuda.max_memory_allocated()
+            per_step = {k: v / MP_STEPS for k, v in seen.items()}
+            want = {("packed_self_attention", "bfloat16"): 24,
+                    ("packed_self_attention_bwd", "bfloat16"): 24,
+                    ("cross_attention", "bfloat16"): 24}
+            print(f"[25b] stage 2, bf16 compute over f32 parameters, "
+                  f"B={batch}: {MP_STEPS} steps, median "
+                  f"{statistics.median(ms):.2f} ms a step (all "
+                  f"{[round(x, 2) for x in ms]}), "
+                  f"peak memory {peak / 2 ** 30:.2f} GiB; launches by "
+                  f"dtype a step {per_step} (expected {want}); schedules "
+                  f"K1 mma {launches['packed_self_attention_mma']}, K3 "
+                  f"tiled {launches['packed_self_attention_bwd_tiled']} "
+                  f"({smi_name_and_power()})")
+            if (per_step != want or k1_mma != "mma"
+                    or launches["packed_self_attention_mma"]
+                    != 24 * MP_STEPS
+                    or launches["packed_self_attention_bwd_tiled"]
+                    != 24 * MP_STEPS * k3_tiled):
+                fail("phase 25b: the mixed-precision stage-2 step's "
+                     f"launches {per_step}, {launches} differ")
+            if not torch.isfinite(torch.stack(losses)).all():
+                fail("phase 25b: a stage-2 loss is not finite")
+            _f32_everywhere(tr, "stage 2", [tr.score])
+            med["stage 2 bf16"] = statistics.median(ms)
+
+            # the wrong variant: a Dense that computes in its weight's f32
+            def f32_dense(self, x):
+                return F.linear(x.to(self.weight.dtype), self.weight,
+                                self.bias)
+
+            with mock.patch.object(Dense, "forward", f32_dense):
+                _steps(tr, data, 1, seen)
+            wrong = seen.get(("packed_self_attention", "bfloat16"), 0)
+            print(f"[25b] wrong variant (Dense casts to its f32 weight): "
+                  f"launches by dtype {dict(seen)}")
+            if wrong == 24:
+                fail("phase 25b: the f32-computing variant passes the bf16 "
+                     "launch count")
+            _profile_by_class("25b stage 2 bf16", lambda: tr.update(data),
+                              MP_PROFILED, os.path.join(tmp, "trace_bf16"))
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # the f32 step of the same config in this run
+            cfg32 = _mp_config("Latent_Diffusion_Trainer/airplane", tmp,
+                               "float32")
+            tr = lt.Trainer(cfg32, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(SEED))
+            tr.maybe_init(data)
+            _steps(tr, data, 2)
+            torch.cuda.reset_peak_memory_stats()
+            _, ms = _steps(tr, data, MP_STEPS, seen)
+            med["stage 2 f32"] = statistics.median(ms)
+            print(f"[25b] stage 2, f32, B={batch}: median "
+                  f"{med['stage 2 f32']:.2f} ms a step, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            _profile_by_class("25b stage 2 f32", lambda: tr.update(data),
+                              MP_PROFILED, os.path.join(tmp, "trace_f32"))
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # stage 1
+            for dt in ("bfloat16", "float32"):
+                cfg1 = _mp_config("Compressor_Trainer/airplane", tmp, dt)
+                b1 = cfg1.data.batch_size
+                d1 = {"tr_points": torch.randn(b1, 2048, 3, device="cuda",
+                                               generator=gen)}
+                tr = ct.Trainer(cfg1, device="cuda",
+                                generator=torch.Generator(
+                                    "cuda").manual_seed(SEED))
+                tr.maybe_init(d1)
+                _steps(tr, d1, 2)
+                (losses, ms), _, launches = counted(
+                    lambda: _steps(tr, d1, MP_STEPS, seen))
+                med[f"stage 1 {dt}"] = statistics.median(ms)
+                per_step = {k: v / MP_STEPS for k, v in seen.items()}
+                print(f"[25b] stage 1, {dt}, B={b1}: median "
+                      f"{med[f'stage 1 {dt}']:.2f} ms a step; launches by "
+                      f"dtype a step {per_step}; K4 long-key "
+                      f"{launches['cross_attention_bwd_long_key']}, "
+                      f"long-query "
+                      f"{launches['cross_attention_bwd_long_query']}, "
+                      f"tiled {launches['cross_attention_bwd_tiled']}")
+                if dt == "bfloat16":
+                    want = {("cross_attention", "bfloat16"): 24,
+                            ("cross_attention_bwd", "bfloat16"): 24}
+                    if per_step != want or launches[
+                            "cross_attention_bwd_tiled"] != 24 * MP_STEPS:
+                        fail(f"phase 25b: the mixed-precision stage-1 "
+                             f"step's launches {per_step} differ from "
+                             f"{want}")
+                    _f32_everywhere(tr, "stage 1", [tr.model])
+                if not torch.isfinite(torch.stack(
+                        [torch.stack(x) for x in losses])).all():
+                    fail(f"phase 25b: a stage-1 {dt} loss is not finite")
+                del tr
+                gc.collect()
+                torch.cuda.empty_cache()
+
+            # the hybrid step
+            cfgh = _mp_config("Hybrid_Trainer/airplane", tmp)
+            bh = cfgh.data.batch_size
+            dh_ = {"tr_points": torch.randn(bh, 2048, 3, device="cuda",
+                                            generator=gen)}
+            tr = ht.Trainer(cfgh, device="cuda", generator=torch.Generator(
+                "cuda").manual_seed(SEED))
+            tr.maybe_init(dh_)
+            (out, ms), _, _ = counted(lambda: _steps(tr, dh_, 2, seen))
+            per_step = {k: v / 2 for k, v in seen.items()}
+            want = {("packed_self_attention", "bfloat16"): 48,
+                    ("packed_self_attention_bwd", "bfloat16"): 48,
+                    ("cross_attention", "bfloat16"): 24,
+                    ("cross_attention_bwd", "bfloat16"): 24}
+            print(f"[25b] hybrid, bf16, B={bh}: steps "
+                  f"{[round(x, 2) for x in ms]} ms; launches by dtype a step "
+                  f"{per_step} (expected {want})")
+            if per_step != want:
+                fail(f"phase 25b: the mixed-precision hybrid step's launches "
+                     f"{per_step} differ from {want}")
+            if not all(torch.isfinite(torch.stack(o)).all() for o in out):
+                fail("phase 25b: a hybrid loss is not finite")
+            _f32_everywhere(tr, "hybrid", [tr.score, tr.compressor])
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        print("[25b] median ms a step, this run: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in med.items())
+            + f" ({smi_name_and_power()})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_train_reference(mixed=True)
+
+
+def phase_dropout(gen) -> None:
+    """Phase 25c: the flagship stage-2 step with `score.dropout` 0.1
+    (B=64): two trainers of one seed take the same step bit for bit (loss,
+    parameters, masks), the same weights with another draw seed another;
+    the kept share within 5 binomial sigmas of 0.9; `val_loss` and a short
+    `sample` with dropout 0.1 equal those with 0.0 on the same weights; a
+    Compressor's training forward with a nonzero rate, and a conditional
+    Score's training step with dropout, raise on the card."""
+    import gc
+    import math
+
+    import torch
+
+    from ldt_torch.configs import compressor_cfg, latent_trainer_cfg
+    from ldt_torch.models import Compressor
+    from ldt_torch.nn.layers import DropoutMasks
+    from ldt_torch.training import completion_latent_sde_trainer as clt
+    from ldt_torch.training import latent_sde_trainer as lt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = latent_trainer_cfg(score=dict(dropout=DROPOUT),
+                             sde=dict(sample_N=CHECK_STEPS))
+    batch = cfg.data.batch_size
+    data = {"tr_points": torch.randn(batch, 2048, 3, device="cuda",
+                                     generator=gen)}
+    pins = dict(t_idx=torch.arange(batch, device="cuda") * 7,
+                eta=torch.randn(batch, cfg.score.z_scale, cfg.score.z_dim,
+                                device="cuda", generator=gen))
+
+    def step(draw_seed=None):
+        tr = lt.Trainer(cfg, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(SEED))
+        tr.maybe_init(data)
+        if draw_seed is not None:
+            tr.generator.manual_seed(draw_seed)
+        masks = DropoutMasks(tr.generator, record=True)
+        tr.dropout_masks = lambda m=None: masks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.update(data, **pins)
+        torch.cuda.synchronize()
+        return tr, loss, masks.drawn, (time.perf_counter() - t0) * 1e3
+
+    a, la, ma, ms = step()
+    pa = {k: v.detach().clone() for k, v in a.state.params.items()}
+    kept = sum(int(m.sum()) for m in ma)
+    n = sum(m.numel() for m in ma)
+    weights = ({k: v.cpu() for k, v in a.score.state_dict().items()},
+               {k: v.cpu() for k, v in a.compressor.state_dict().items()})
+    del a
+    gc.collect()
+    b, lb, mb, _ = step()
+    same = (torch.equal(la, lb) and len(ma) == len(mb)
+            and all(torch.equal(x, y) for x, y in zip(ma, mb))
+            and all(torch.equal(pa[k], v) for k, v in b.state.params.items()))
+    del b, mb
+    gc.collect()
+    c, lc, mc, _ = step(draw_seed=SEED + 1)
+    other = not torch.equal(la, lc) and not torch.equal(ma[0], mc[0])
+    del c, mc, ma
+    gc.collect()
+    torch.cuda.empty_cache()
+    share = kept / n
+    sigma = math.sqrt((1 - DROPOUT) * DROPOUT / n)
+    print(f"[25c] stage-2 step with score.dropout {DROPOUT}, B={batch}: "
+          f"{ms:.2f} ms; {n} dropout elements over "
+          f"{2 * cfg.score.num_blocks} sites, kept share {share:.6f} "
+          f"(0.9 +- {5 * sigma:.2e}); same seed, same step bit for bit: "
+          f"{same}; another draw seed, another step: {other}")
+    if not (same and other) or abs(share - (1 - DROPOUT)) > 5 * sigma:
+        fail("phase 25c: the dropout step is not reproducible, or its "
+             "kept share is off")
+
+    # eval paths: dropout 0.1 and 0.0 on the same weights and draws
+    res = []
+    for rate in (DROPOUT, 0.0):
+        c2 = latent_trainer_cfg(score=dict(dropout=rate),
+                                sde=dict(sample_N=CHECK_STEPS))
+        tr = lt.Trainer(c2, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(SEED))
+        tr.maybe_init(data, score_weights=weights[0],
+                      compressor_weights=weights[1])
+        tr.generator.manual_seed(SEED + 2)
+        v = tr.val_loss({"te_points": data["tr_points"][:8]},
+                        t_idx=pins["t_idx"][:8], eta=pins["eta"][:8])
+        clouds, _ = tr.sample(8)
+        res.append((v, clouds))
+        del tr
+        gc.collect()
+    eq = torch.equal(res[0][0], res[1][0]) and torch.equal(res[0][1],
+                                                           res[1][1])
+    print(f"[25c] val_loss {res[0][0].item():.6f} and a {CHECK_STEPS}-step "
+          f"sample(8) with dropout {DROPOUT} equal those with 0.0: {eq}")
+    if not eq:
+        fail("phase 25c: dropout reached val_loss or sample")
+    del res
+    torch.cuda.empty_cache()
+
+    # where the JAX package's dropout raises
+    raised = []
+    comp = Compressor(compressor_cfg(encoder_dropout_p=DROPOUT),
+                      device="cuda", generator=torch.Generator(
+                          "cuda").manual_seed(SEED))
+    try:
+        comp(data["tr_points"][:2], train=True)
+    except ValueError:
+        raised.append("Compressor")
+    del comp
+    cc = completion_cfg(score=dict(num_blocks=2, dropout=DROPOUT))
+    ctr = clt.Trainer(cc, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(SEED))
+    pts = data["tr_points"][:2]
+    ctr.maybe_init({"tr_points": pts})
+    cond = {"img": torch.rand(2, 64, 64, 3, device="cuda", generator=gen),
+            "pts": pts}
+    try:
+        ctr.update(pts, cond)
+    except ValueError:
+        raised.append("conditional Score step")
+    del ctr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[25c] training with dropout raised on the card for: {raised}")
+    if raised != ["Compressor", "conditional Score step"]:
+        fail(f"phase 25c: only {raised} raised")
+
+
 def main() -> int:
     import torch
 
@@ -4676,6 +5351,9 @@ def main() -> int:
     del completion, batch
     phase_hybrid_reference()
     phase_hybrid_entry()
+    phase_moment_dtype()
+    phase_mixed_precision(gen)
+    phase_dropout(gen)
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the

@@ -34,12 +34,12 @@ def main(args, cfg) -> Trainer:
     """Run completion stage 1 as `args` and `cfg` say; returns the
     trainer."""
     device = resolve_device(args.device)
-    train_dtype(cfg)  # the port trains in float32 and refuses the rest
+    dtype = train_dtype(cfg)  # the nets' compute dtype
     generator = common_init(cfg.common.seed, device)
     loaders = get_data_loaders(cfg.data)
     train_loader = loaders["train_loader"]
     test_loader = loaders["test_loader"]
-    trainer = Trainer(cfg, device=device, generator=generator)
+    trainer = Trainer(cfg, device=device, generator=generator, dtype=dtype)
     trainer.info(vars(args))
     num_points = cfg.common.num_points
     first = next(iter(train_loader))

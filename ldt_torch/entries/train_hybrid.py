@@ -36,12 +36,12 @@ METERS = ("loss_score", "kl", "rec")
 def main(args, cfg) -> Trainer:
     """Run stage 3 as `args` and `cfg` say; returns the trainer."""
     device = resolve_device(args.device)
-    train_dtype(cfg)  # the port trains in float32 and refuses the rest
+    dtype = train_dtype(cfg)  # the nets' compute dtype
     generator = common_init(cfg.common.seed, device)
     loaders = get_data_loaders(cfg.data, args)
     train_loader = loaders["train_loader"]
     test_loader = loaders["test_loader"]
-    trainer = Trainer(cfg, device=device, generator=generator)
+    trainer = Trainer(cfg, device=device, generator=generator, dtype=dtype)
     trainer.info(vars(args))
     val_cate = args.val_cate if getattr(args, "val_cate", None) is not None \
         else getattr(cfg.common, "val_cate", 0)

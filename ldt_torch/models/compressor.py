@@ -23,8 +23,15 @@ reference's does), `pre_group` (a first grouping to 256 groups of 32
 neighbours), `pos_embedding: mlp`, the Encoder's `AdaLN` flag, the seed
 set's random subset (`num_points < max_outputs`) and its mixture of
 Gaussians (`max_outputs: None`), whose draws come from a generator or are
-pinned (`seed_draw`), and `ref_merge` (the reference's head merge). Dropout
-is later work and raises (every shipped config sets the rates to 0).
+pinned (`seed_draw`), and `ref_merge` (the reference's head merge).
+
+`dtype` is the compute dtype and `param_dtype` (default: `dtype`) the
+weights' (f32 weights and bf16 compute: the JAX package's mixed-precision
+training); ActNorm, the grouper's affine, the seed set and the norms keep
+f32 parameters, as in the JAX module. Nonzero `encoder_dropout_p` and
+`decoder_dropout_p` build, and eval and sampling are deterministic; a
+train-mode forward with either raises, as the JAX package's does (its
+trainers pass the Compressor no 'dropout' rng).
 """
 
 from __future__ import annotations
@@ -76,9 +83,9 @@ class MiniPointnet(nn.Module):
     Dense."""
 
     def __init__(self, in_dim: int, output_dim: int, *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.conv1 = Dense(in_dim, 128, **kw)
         self.bn1 = BatchNorm(128, **kw)
         self.conv2 = Dense(128, 256, **kw)
@@ -96,9 +103,9 @@ class ConvBNReLURes1D(nn.Module):
 
     def __init__(self, channel: int, res_expansion: float = 1.0,
                  activation: str = "relu", *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         mid = int(channel * res_expansion)
         self.act = get_activation(activation)
         self.net1_dense = Dense(channel, mid, **kw)
@@ -116,9 +123,9 @@ class PreExtraction(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, blocks: int = 1,
                  res_expansion: float = 1.0, activation: str = "relu", *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.act = get_activation(activation)
         self.transfer_dense = Dense(in_channels, out_channels, **kw)
         self.transfer_bn = BatchNorm(out_channels, **kw)
@@ -149,7 +156,7 @@ class LocalGrouper(nn.Module):
 
     def __init__(self, in_channels: int,
                  normalize: Optional[str] = "anchor", *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
         mode = normalize.lower() if normalize else None
         self.normalize = mode if mode in ("center", "anchor") else None
@@ -160,7 +167,8 @@ class LocalGrouper(nn.Module):
             self.affine_beta = nn.Parameter(
                 torch.zeros(1, 1, 1, in_channels + 3, **kw))
         self.extraction = PreExtraction(2 * in_channels + 3, in_channels,
-                                        dtype=dtype, device=device)
+                                        dtype=dtype, param_dtype=param_dtype,
+                                        device=device)
 
     def forward(self, xyz: torch.Tensor, feature: torch.Tensor, groups: int,
                 k: int, train: bool = False):
@@ -253,13 +261,15 @@ class Encoder(nn.Module):
     def __init__(self, dim_in: int, p_dim: int, num_heads: int,
                  norm: Optional[str], mlp_ratio: float = 4.0,
                  num_layers: int = 1, *, AdaLN: bool = True,
-                 ref_merge: bool = False, dtype=torch.float32, device=None):
+                 ref_merge: bool = False, dropout_p: float = 0.0,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         for i in range(num_layers):
             self.add_module(f"att{i}", ResidualBlock(
                 dim_in, dim_c=p_dim, num_heads=num_heads, norm=norm,
-                mlp_ratio=mlp_ratio, AdaLN=AdaLN, ref_merge=ref_merge, **kw))
+                mlp_ratio=mlp_ratio, AdaLN=AdaLN, ref_merge=ref_merge,
+                dropout_att=dropout_p, dropout_mlp=dropout_p, **kw))
         self.num_layers = num_layers
         self.conv_out = FinalLayer(dim_in, dim_in, dim_c=p_dim, norm=norm,
                                    **kw)
@@ -283,11 +293,13 @@ class DecoderBlock(nn.Module):
                  norm: Optional[str], mlp_ratio: float = 4.0,
                  min_sigma: float = -30.0, act: Optional[str] = None, *,
                  c_dim: Optional[int] = None, ref_merge: bool = False,
-                 dtype=torch.float32, device=None):
+                 dropout_p: float = 0.0, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         block = dict(num_heads=num_heads, norm=norm, mlp_ratio=mlp_ratio,
-                     act=act, ref_merge=ref_merge, **kw)
+                     act=act, ref_merge=ref_merge, dropout_att=dropout_p,
+                     dropout_mlp=dropout_p, **kw)
         self.dim_z = dim_z
         self.min_sigma = min_sigma
         self.att = ResidualBlock(dim_in, c_dim, **block)
@@ -319,16 +331,12 @@ class Compressor(nn.Module):
     block with the reference's head merge, for weights converted from the
     reference (`ldt_torch.tools.port`)."""
 
-    def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
-                 generator: Optional[torch.Generator] = None,
+    def __init__(self, cfg, *, dtype=torch.float32, param_dtype=None,
+                 device="cuda", generator: Optional[torch.Generator] = None,
                  ref_merge: bool = False):
         super().__init__()
-        if cfg.encoder_dropout_p or cfg.decoder_dropout_p:
-            raise NotImplementedError(
-                "dropout (encoder_dropout_p or decoder_dropout_p > 0) is not "
-                "ported yet")
         dev = resolve_device(device)
-        kw = dict(dtype=dtype, device=dev)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev)
         self.cfg = cfg
         self.input_dense = Dense(cfg.input_dim, cfg.hidden_dim, **kw)
         if cfg.ActNorm is not None and cfg.ActNorm is not False:
@@ -353,13 +361,15 @@ class Compressor(nn.Module):
         self.encoder = nn.ModuleList(
             Encoder(cfg.hidden_dim, cfg.p_dim, cfg.num_heads, norm=cfg.norm,
                     mlp_ratio=cfg.mlp_ratio, num_layers=cfg.encoder_layers,
-                    AdaLN=cfg.AdaLN, ref_merge=ref_merge, **kw)
+                    AdaLN=cfg.AdaLN, ref_merge=ref_merge,
+                    dropout_p=cfg.encoder_dropout_p, **kw)
             for _ in range(cfg.n_layers))
         self.decoder = nn.ModuleList(
             DecoderBlock(cfg.hidden_dim, cfg.z_dim, cfg.num_heads,
                          norm=cfg.norm, mlp_ratio=cfg.mlp_ratio,
                          min_sigma=cfg.min_sigma, act=cfg.decoder_act,
-                         c_dim=label_dim, ref_merge=ref_merge, **kw)
+                         c_dim=label_dim, ref_merge=ref_merge,
+                         dropout_p=cfg.decoder_dropout_p, **kw)
             for _ in range(cfg.n_layers))
         self.output_dense = Dense(cfg.hidden_dim, 3, **kw)
         self.init_set = InitialSet(cfg.hidden_dim, cfg.max_outputs, device=dev)
@@ -390,6 +400,19 @@ class Compressor(nn.Module):
         last forward left ({state_dict key: tensor}); clears them."""
         return take_batch_norm_updates(self)
 
+    def _refuse_train_dropout(self) -> None:
+        """A train-mode forward with a nonzero dropout rate raises: the JAX
+        package's blocks then ask for a 'dropout' rng that its trainers
+        never pass (its train-mode init and steps raise)."""
+        cfg = self.cfg
+        if cfg.encoder_dropout_p or cfg.decoder_dropout_p:
+            raise ValueError(
+                f"encoder_dropout_p={cfg.encoder_dropout_p}, "
+                f"decoder_dropout_p={cfg.decoder_dropout_p}: the JAX package "
+                "cannot train a Compressor with dropout (its train-mode "
+                "forward needs a 'dropout' rng that no trainer passes); "
+                "only eval and sampling run")
+
     @torch.no_grad()
     def init_actnorm(self, pts: torch.Tensor, train: bool = False) -> None:
         """Data-dependent ActNorm init from the clouds `pts` [B, N, 3], as
@@ -399,6 +422,8 @@ class Compressor(nn.Module):
         stage-2's). Like flax's init it updates no running statistic. The
         label of a class-conditional Compressor enters after ActNorm (in the
         position embedding), so its statistics need none."""
+        if train:
+            self._refuse_train_dropout()
         if hasattr(self, "conv_in"):
             self.conv_in.data_init(self._grouped(pts, train)[1])
         self.take_batch_stats()
@@ -465,7 +490,10 @@ class Compressor(nn.Module):
         class-conditional; 'all_eps' is [B, z_scales, n_layers * z_dim] in
         the JAX package's layout. With `train`, 'batch_stats' holds the
         BatchNorms' updated running statistics ({state_dict key: tensor});
-        the buffers do not change."""
+        the buffers do not change. With a nonzero dropout rate `train`
+        raises (`_refuse_train_dropout`)."""
+        if train:
+            self._refuse_train_dropout()
         l_emb = (self.label_embedding(label) if label is not None
                  and self.cfg.class_condition else None)
         bup = self.bottom_up(x, train, l_emb)

@@ -17,6 +17,13 @@ global embedding added to c. `unet: True` runs `num_blocks // 2` up blocks,
 a mid block and as many down blocks, each down block on the concatenation
 of its input and the matching up block's output (width 2 hidden -> hidden);
 with a condition every block cross-attends to its tokens.
+
+`dtype` is the compute dtype and `param_dtype` (default: `dtype`) the
+weights' (f32 weights and bf16 compute: the JAX package's mixed-precision
+training); the norms' parameters and BatchNorm statistics stay f32. Every
+block drops out at `score.dropout` after its attention and in its MLP, in a
+train-mode forward given `DropoutMasks` (flax's `nn.Dropout`); a forward
+without them is deterministic.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ldt_torch.nn.layers import (
     BatchNorm,
     Conv2d,
     Dense,
+    DropoutMasks,
     FinalLayer,
     LabelEmbedding,
     ResidualBlock,
@@ -50,9 +58,9 @@ class BasicBlock(nn.Module):
     the biased batch variance), `train` their batch statistics."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.conv1 = Conv2d(in_channels, features, 3, stride, 1, **kw)
         self.bn1 = BatchNorm(features, **kw)
         self.conv2 = Conv2d(features, features, 3, 1, 1, **kw)
@@ -77,9 +85,10 @@ class ResNet18Trunk(nn.Module):
     [B, H/8, W/8, 128]; the max pool pads with -inf. `runs` counts its
     forwards (a sampler encodes its condition once per run)."""
 
-    def __init__(self, *, dtype=torch.float32, device=None):
+    def __init__(self, *, dtype=torch.float32, param_dtype=None,
+                 device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.runs = 0
         self.conv1 = Conv2d(3, 64, 7, 2, 3, **kw)
         self.bn1 = BatchNorm(64, **kw)
@@ -112,9 +121,9 @@ class ConditionNet(nn.Module):
     shipped patch 32), whatever the point count (PARITY #11)."""
 
     def __init__(self, hidden_size: int, p_dim: int, patch_size: int = 16,
-                 *, dtype=torch.float32, device=None):
+                 *, dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.patch_size = patch_size
         self.resnet = ResNet18Trunk(**kw)
         self.ln = Dense(128, p_dim, **kw)
@@ -146,18 +155,16 @@ class Score(nn.Module):
     the batch's and leaves the updated statistics for `take_batch_stats`.
     """
 
-    def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
-                 generator: Optional[torch.Generator] = None,
+    def __init__(self, cfg, *, dtype=torch.float32, param_dtype=None,
+                 device="cuda", generator: Optional[torch.Generator] = None,
                  ref_merge: bool = False):
         super().__init__()
-        if cfg.dropout:
-            raise NotImplementedError(
-                "dropout (score.dropout > 0) is not ported yet")
         dev = resolve_device(device)
-        kw = dict(dtype=dtype, device=dev)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=dev)
         self.cfg = cfg
         block = dict(dim_c=cfg.t_dim, num_heads=cfg.num_heads, norm=cfg.norm,
-                     act=cfg.act, AdaLN=cfg.AdaLN, ref_merge=ref_merge, **kw)
+                     act=cfg.act, AdaLN=cfg.AdaLN, ref_merge=ref_merge,
+                     dropout_att=cfg.dropout, dropout_mlp=cfg.dropout, **kw)
         h = cfg.hidden_size
         self.ln_in = Dense(cfg.z_dim, h, **kw)
         if cfg.unet:
@@ -234,12 +241,23 @@ class Score(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 label: Optional[torch.Tensor] = None, condition=None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                dropout: Optional[DropoutMasks] = None) -> torch.Tensor:
         """x [B, z_scale, z_dim], t [B], label [B] category indices (or
         None), `condition` a {'img', 'pts'} dict or the pair
         `encode_condition` gives (or None) -> the predicted noise, x's
         shape. `train` runs the ConditionNet's BatchNorms on the batch's
-        statistics."""
+        statistics and the blocks' dropout on the masks `dropout`; a
+        train-mode forward with a nonzero `score.dropout` and no masks
+        raises, as the JAX package's apply without a 'dropout' rng."""
+        masks = None
+        if train and self.cfg.dropout:
+            if dropout is None:
+                raise ValueError(
+                    f"score.dropout={self.cfg.dropout}: a train-mode "
+                    "forward needs its dropout masks (the JAX package "
+                    "raises without a 'dropout' rng)")
+            masks = dropout
         c = self.time_embedding(t)
         if label is not None:
             if not hasattr(self, "label_embedding"):
@@ -256,12 +274,14 @@ class Score(nn.Module):
         if self.cfg.unet:
             skips = [h]
             for layer in self.transformer_up:
-                h = layer(h, tokens, c)
+                h = layer(h, tokens, c, masks=masks)
                 skips.append(h)
-            h = self.transformer_mid(h, tokens, c)
+            h = self.transformer_mid(h, tokens, c, masks=masks)
             for layer in self.transformer_down:
-                h = layer(torch.cat([h, skips.pop()], dim=-1), tokens, c)
+                h = layer(torch.cat([h, skips.pop()], dim=-1), tokens, c,
+                          masks=masks)
         else:
             for idx, layer in enumerate(self.transformer):
-                h = layer(h, tokens if idx % 2 == 0 else None, c)
+                h = layer(h, tokens if idx % 2 == 0 else None, c,
+                          masks=masks)
         return self.ln_out(h, c)

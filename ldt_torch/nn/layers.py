@@ -1,14 +1,25 @@
 """Set-transformer blocks, channels-last [B, N, C], counterpart of
 `ldt_tpu/nn/layers.py`.
 
-Numerics follow the flax modules: a `Dense` casts its input to the dtype of
-its weight (flax `Dense(dtype=...)`), `LayerNorm` computes in f32 with
-epsilon 1e-6 and returns the module dtype, GELU is the tanh approximation
-(`jax.nn.gelu`'s default), and residual sums follow PyTorch's type promotion,
-which is JAX's for these dtypes (bf16 + f32 -> f32).
+Numerics follow the flax modules. Each module takes a compute `dtype` and
+a `param_dtype` for its weights (default: `dtype`), as flax's `dtype` and
+`param_dtype`: f32 weights with bf16 compute are the JAX package's mixed
+precision (`common.train_dtype: bfloat16`), bf16 weights with bf16 compute
+its bf16 serving. A `Dense` casts its input, weight and bias to the compute
+dtype (flax's `promote_dtype`); `LayerNorm`, `GroupNorm` and `BatchNorm`
+keep f32 parameters and statistics and return the compute dtype; GELU is
+the tanh approximation (`jax.nn.gelu`'s default), and residual sums follow
+PyTorch's type promotion, which is JAX's for these dtypes (bf16 + f32 ->
+f32). A bf16 `Dense` with bf16 weights (serving) rounds once after its
+bias, flax twice (the dot, then the sum): a bf16 ulp apart at most; with
+f32 weights (mixed precision) it rounds as flax.
 
-Dropout is not ported: `Score` and `Compressor` refuse a nonzero rate, which
-the JAX package applies in training (every shipped config sets it to 0).
+Dropout sits where flax's `nn.Dropout` does: after the MLP's hidden
+activation and after the attention's `fc_o`, at the rates `dropout_mlp` and
+`dropout_att`. It computes flax's formula, where(keep, x / keep_prob, 0),
+with the keep masks from a `DropoutMasks` (drawn from a `torch.Generator`,
+or pinned in call order); without one a forward is deterministic and
+dropout the identity.
 With grad mode on, self-attention
 differentiates through `ops.attention.PackedSelfAttention` (K1 forward, K3
 backward) and cross-attention through `ops.attention.CrossAttention` (K2
@@ -36,15 +47,86 @@ from torch import nn
 from ldt_torch.ops import attention as attn_ops
 
 
+def _as(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """`t` in `dtype` (itself where it is already: no copy)."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
 class Dense(nn.Linear):
-    """`nn.Linear` whose input is cast to the weight's dtype.
+    """`nn.Linear` that computes in `dtype`: its input, weight and bias are
+    cast to it; the weight and bias are stored in `param_dtype` (default:
+    `dtype`). Stored in another dtype than it computes in (mixed
+    precision), it rounds as flax's `Dense`: the product, then the sum with
+    the bias; stored in its compute dtype (bf16 serving) it adds the bias
+    inside the GEMM, one rounding, which keeps the generation's launches.
 
     Its default initialization, U(+-1/sqrt(fan_in)) for weight and bias, is
     the one `ldt_tpu`'s `Dense` copies from torch.
     """
 
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, *, dtype=torch.float32, param_dtype=None,
+                 device=None):
+        super().__init__(in_features, out_features, bias, device=device,
+                         dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def cast_params(self):
+        """(weight, bias) in the compute dtype."""
+        return (_as(self.weight, self.compute_dtype),
+                _as(self.bias, self.compute_dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        x = _as(x, self.compute_dtype)
+        w, b = self.cast_params()
+        if b is None or self.weight.dtype == self.compute_dtype:
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
+
+
+class DropoutMasks:
+    """The keep masks of one training forward's dropouts: drawn from
+    `generator` (keep = U[0, 1) < keep_prob, on the input's device), or
+    pinned, taken from `masks` in call order (another framework's draws).
+    With `record` every mask is kept in `drawn`, in call order."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 masks=None, record: bool = False):
+        self.generator = generator
+        self.pinned = None if masks is None else iter(masks)
+        self.record = record
+        self.drawn = []
+
+    def keep(self, shape, keep_prob: float, device) -> torch.Tensor:
+        if self.pinned is not None:
+            mask = next(self.pinned, None)
+            if mask is None:
+                raise ValueError("the pinned dropout masks ran out")
+            mask = torch.as_tensor(mask).to(device=device, dtype=torch.bool)
+            if tuple(mask.shape) != tuple(shape):
+                raise ValueError(f"pinned dropout mask {tuple(mask.shape)} "
+                                 f"for an input {tuple(shape)}")
+        else:
+            mask = torch.rand(shape, generator=self.generator,
+                              device=device) < keep_prob
+        if self.record:
+            self.drawn.append(mask)
+        return mask
+
+
+def dropout(x: torch.Tensor, rate: float,
+            masks: Optional[DropoutMasks]) -> torch.Tensor:
+    """flax `nn.Dropout(rate)`: the identity at rate 0 or without `masks`
+    (deterministic), zeros at rate 1, else where(keep, x / keep_prob, 0),
+    the division correctly rounded in x's dtype (`true_divide`)."""
+    if not rate or masks is None:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = masks.keep(x.shape, keep_prob, x.device)
+    return torch.where(keep, attn_ops.true_divide(x, keep_prob),
+                       x.new_zeros(()))
 
 
 class LayerNorm(nn.Module):
@@ -52,7 +134,7 @@ class LayerNorm(nn.Module):
     result in `dtype`; scale and bias only when `affine`."""
 
     def __init__(self, features: int, affine: bool, *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
         self.features = features
         self.dtype = dtype
@@ -155,7 +237,7 @@ class BatchNorm(nn.Module):
     momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         kw = dict(dtype=torch.float32, device=device)
         self.eps = eps
@@ -234,22 +316,27 @@ class Conv2d(nn.Module):
     """flax `nn.Conv(features, (k, k), strides=stride, padding=padding,
     use_bias=False)` on channels-last [B, H, W, C_in] -> [B, H', W',
     C_out]. The weight is OIHW [C_out, C_in, k, k] (flax's HWIO kernel
-    transposed); the input is cast to its dtype. cuDNN runs it at IEEE f32
-    (`ieee_cudnn`), forward and backward. A 1 x 1 kernel at stride 2 with
-    flax's 'SAME' padding pads nothing, so `padding` is always symmetric."""
+    transposed), stored in `param_dtype` (default: `dtype`); the input and
+    the weight are cast to `dtype`. cuDNN runs an f32 convolution at IEEE
+    f32 (`ieee_cudnn`), forward and backward. A 1 x 1 kernel at stride 2
+    with flax's 'SAME' padding pads nothing, so `padding` is always
+    symmetric."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1, padding: int = 0, *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
         self.stride, self.padding = stride, padding
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel, kernel, dtype=dtype,
-            device=device))
+            out_channels, in_channels, kernel, kernel,
+            dtype=param_dtype or dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)  # a channels-last view
-        y = _Conv2dIEEE.apply(x, self.weight, self.stride, self.padding)
+        cd = self.compute_dtype
+        x = _as(x, cd).permute(0, 3, 1, 2)  # a channels-last view
+        y = _Conv2dIEEE.apply(x, _as(self.weight, cd), self.stride,
+                              self.padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -261,7 +348,7 @@ class GroupNorm(nn.Module):
     layout is channels-first."""
 
     def __init__(self, features: int, num_groups: int, eps: float = 1e-6, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         if features % num_groups:
             raise ValueError(f"{num_groups} groups do not divide {features} "
@@ -311,8 +398,11 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor],
 
 
 def make_norm(norm: Optional[str], features: int, affine: bool = False, *,
-              dtype=torch.float32, device=None) -> nn.Module:
+              dtype=torch.float32, param_dtype=None,
+              device=None) -> nn.Module:
     """Norm registry over the channel (last) axis; None is the identity.
+    The norms return `dtype`; their parameters are f32 whatever
+    `param_dtype` (flax's norms under mixed precision hold theirs in f32).
 
     `affine` reaches the layer norm alone: as in the JAX package, the group
     norm (min(features // 4, 16) groups) and the batch norm always carry a
@@ -354,12 +444,13 @@ class TimeEmbedding(nn.Module):
     """Sinusoidal time embedding + 2-layer SiLU MLP."""
 
     def __init__(self, dim_embed: int, dim_out: int, *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dim_embed = dim_embed
         self.dtype = dtype
-        self.dense_0 = Dense(dim_embed, dim_out, dtype=dtype, device=device)
-        self.dense_1 = Dense(dim_out, dim_out, dtype=dtype, device=device)
+        self.dense_0 = Dense(dim_embed, dim_out, **kw)
+        self.dense_1 = Dense(dim_out, dim_out, **kw)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         h = sinusoidal_embedding(t, self.dim_embed).to(self.dtype)
@@ -367,33 +458,43 @@ class TimeEmbedding(nn.Module):
 
 
 class LabelEmbedding(nn.Module):
-    """Category embedding (a N(0, 1) table) + 2-layer SiLU MLP."""
+    """Category embedding (a N(0, 1) table in `param_dtype`, its rows taken
+    in `dtype`, as flax's `Embed`) + 2-layer SiLU MLP."""
 
     def __init__(self, num_categories: int, dim_embed: int, dim_out: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
-        self.embed = nn.Embedding(num_categories, dim_embed, dtype=dtype,
-                                  device=device)
-        self.dense_0 = Dense(dim_embed, dim_out, dtype=dtype, device=device)
-        self.dense_1 = Dense(dim_out, dim_out, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+        self.dtype = dtype
+        self.embed = nn.Embedding(num_categories, dim_embed,
+                                  dtype=param_dtype or dtype, device=device)
+        self.dense_0 = Dense(dim_embed, dim_out, **kw)
+        self.dense_1 = Dense(dim_out, dim_out, **kw)
 
     def forward(self, label: torch.Tensor) -> torch.Tensor:
-        h = self.embed(label.to(self.embed.weight.device, torch.long))
+        h = _as(self.embed(label.to(self.embed.weight.device, torch.long)),
+                self.dtype)
         return self.dense_1(F.silu(self.dense_0(h)))
 
 
 class MLP(nn.Module):
-    """One hidden layer: dense_1(gelu(dense_0(x))), GELU the tanh form."""
+    """One hidden layer: dense_1(dropout(gelu(dense_0(x)))), GELU the tanh
+    form, dropout at `dropout_p` (`dropout`)."""
 
     def __init__(self, dim_in: int, dim_hidden: int, dim_out: int, *,
-                 dtype=torch.float32, device=None):
+                 dropout_p: float = 0.0, dtype=torch.float32,
+                 param_dtype=None, device=None):
         super().__init__()
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.act = get_activation("gelu")
-        self.dense_0 = Dense(dim_in, dim_hidden, dtype=dtype, device=device)
-        self.dense_1 = Dense(dim_hidden, dim_out, dtype=dtype, device=device)
+        self.dropout_p = dropout_p
+        self.dense_0 = Dense(dim_in, dim_hidden, **kw)
+        self.dense_1 = Dense(dim_hidden, dim_out, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dense_1(self.act(self.dense_0(x)))
+    def forward(self, x: torch.Tensor,
+                masks: Optional[DropoutMasks] = None) -> torch.Tensor:
+        h = dropout(self.act(self.dense_0(x)), self.dropout_p, masks)
+        return self.dense_1(h)
 
 
 def ref_merge(att: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -415,6 +516,7 @@ class Attention(nn.Module):
     slices of the same weight and runs kernel K2. With grad mode on they go
     through the autograd.Functions whose backwards are K3 and K4.
     `ref_merge` merges the heads as the reference does (`ref_merge`).
+    Dropout at `dropout_p` follows `fc_o` (`dropout`).
 
     Keys and values of another width than the queries' (`dim_kv` !=
     `dim`: a UNet down block, D_in = 2 hidden, cross-attending to condition
@@ -425,7 +527,8 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *,
                  dim_out: Optional[int] = None, dim_kv: Optional[int] = None,
-                 ref_merge: bool = False, dtype=torch.float32, device=None):
+                 ref_merge: bool = False, dropout_p: float = 0.0,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         dim_out = dim if dim_out is None else dim_out
         if dim_out % num_heads:
@@ -434,7 +537,9 @@ class Attention(nn.Module):
         self.dim = dim_out
         self.num_heads = num_heads
         self.ref_merge = ref_merge
-        kw = dict(dtype=dtype, device=device)
+        self.dropout_p = dropout_p
+        self.dtype = dtype
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         if dim_kv is None or dim_kv == dim:
             self.qkv = Dense(dim, 3 * dim_out, **kw)
         else:
@@ -445,19 +550,18 @@ class Attention(nn.Module):
     def _cross(self, x: torch.Tensor, y: torch.Tensor):
         """(q, k, v) of a cross-attention."""
         d = self.dim
+        y = _as(y, self.dtype)
         if hasattr(self, "q"):
             q = self.q(x)
-            w, b = self.kv.weight, self.kv.bias
-            y = y.to(w.dtype)
+            w, b = self.kv.cast_params()
             return q, F.linear(y, w[:d], b[:d]), F.linear(y, w[d:], b[d:])
-        w, b = self.qkv.weight, self.qkv.bias
-        y = y.to(w.dtype)
-        return (F.linear(x.to(w.dtype), w[:d], b[:d]),
+        w, b = self.qkv.cast_params()
+        return (F.linear(_as(x, self.dtype), w[:d], b[:d]),
                 F.linear(y, w[d:2 * d], b[d:2 * d]),
                 F.linear(y, w[2 * d:], b[2 * d:]))
 
-    def forward(self, x: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
+                masks: Optional[DropoutMasks] = None) -> torch.Tensor:
         if y is None:
             if not hasattr(self, "qkv"):
                 raise ValueError("an attention whose keys and values have "
@@ -476,7 +580,7 @@ class Attention(nn.Module):
                 att = attn_ops.cross_attention(q, k, v, self.num_heads)
         if self.ref_merge:
             att = ref_merge(att, self.num_heads)
-        return self.fc_o(att)
+        return dropout(self.fc_o(att), self.dropout_p, masks)
 
 
 class ResidualBlock(nn.Module):
@@ -500,7 +604,9 @@ class ResidualBlock(nn.Module):
     C_out. With y None the block self-attends through the packed path
     (kernel K1); with y given it cross-attends (kernel K2); `dim_kv` is y's
     width where it is not C_in (`Attention`). Layer norms carry scale and
-    bias only when unconditioned (`dim_c` None).
+    bias only when unconditioned (`dim_c` None). Dropout at `dropout_att`
+    after the attention's `fc_o` and at `dropout_mlp` in the MLP, with the
+    masks of `forward(..., masks=)`.
     """
 
     def __init__(self, dim: int, dim_c: Optional[int] = None,
@@ -509,11 +615,12 @@ class ResidualBlock(nn.Module):
                  dim_out: Optional[int] = None,
                  dim_kv: Optional[int] = None, AdaLN: bool = True,
                  rescale: bool = False, ref_merge: bool = False,
-                 dtype=torch.float32, device=None):
+                 dropout_att: float = 0.0, dropout_mlp: float = 0.0,
+                 dtype=torch.float32, param_dtype=None, device=None):
         super().__init__()
         dim_out = dim if dim_out is None else dim_out
         affine = dim_c is None
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dim_in, self.dim_out = dim, dim_out
         self.AdaLN = AdaLN
         self.rescale = rescale
@@ -521,8 +628,10 @@ class ResidualBlock(nn.Module):
         self.norm2 = make_norm(norm, dim_out, affine, **kw)
         self.act = get_activation(act)
         self.attn = Attention(dim, num_heads, dim_out=dim_out,
-                              dim_kv=dim_kv, ref_merge=ref_merge, **kw)
-        self.mlp = MLP(dim_out, int(mlp_ratio * dim_out), dim_out, **kw)
+                              dim_kv=dim_kv, ref_merge=ref_merge,
+                              dropout_p=dropout_att, **kw)
+        self.mlp = MLP(dim_out, int(mlp_ratio * dim_out), dim_out,
+                       dropout_p=dropout_mlp, **kw)
         if dim_out != dim:
             self.shortcut = Dense(dim, dim_out, **kw)
         if dim_c is None:
@@ -549,7 +658,8 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 c: Optional[torch.Tensor] = None, *,
-                mods: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mods: Optional[torch.Tensor] = None,
+                masks: Optional[DropoutMasks] = None) -> torch.Tensor:
         if c is not None and c.dim() == 2:
             c = c[:, None, :]
         if (c is not None or mods is not None) and self.AdaLN:
@@ -562,17 +672,17 @@ class ResidualBlock(nn.Module):
             gate_msa, shift_mlp, scale_mlp, gate_mlp = mods[..., head:].chunk(
                 4, dim=-1)
             q = modulate(self.norm1(x), shift_msa, scale_msa)
-            x = self._shortcut(x) + gate_msa * self.attn(q, y)
+            x = self._shortcut(x) + gate_msa * self.attn(q, y, masks)
             x = x + gate_mlp * self.mlp(
-                modulate(self.norm2(x), shift_mlp, scale_mlp))
+                modulate(self.norm2(x), shift_mlp, scale_mlp), masks)
         elif c is not None:
             x = self.act(self.norm1(x)) + self.pos_embedding(F.silu(c))
-            x = self._shortcut(x) + self.attn(x, y)
-            x = x + self.mlp(self.act(self.norm2(x)))
+            x = self._shortcut(x) + self.attn(x, y, masks)
+            x = x + self.mlp(self.act(self.norm2(x)), masks)
         else:
             q = self.act(self.norm1(x))
-            x = self._shortcut(x) + self.attn(q, y)
-            x = x + self.mlp(self.act(self.norm2(x)))
+            x = self._shortcut(x) + self.attn(q, y, masks)
+            x = x + self.mlp(self.act(self.norm2(x)), masks)
         if self.rescale:
             x = x / math.sqrt(2.0)
         return x
@@ -585,9 +695,9 @@ class FinalLayer(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, dim_c: Optional[int] = None,
                  norm: Optional[str] = "layer_norm", *, dtype=torch.float32,
-                 device=None):
+                 param_dtype=None, device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.norm = make_norm(norm, dim_in, dim_c is None, **kw)
         if dim_c is not None:
             self.adaLN = Dense(dim_c, 2 * dim_in, **kw)

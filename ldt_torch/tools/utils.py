@@ -30,19 +30,19 @@ def common_init(seed: int, device="cuda") -> torch.Generator:
     return torch.Generator(resolve_device(device)).manual_seed(seed)
 
 
+TRAIN_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+                "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
 def train_dtype(cfg) -> torch.dtype:
-    """`cfg.common.train_dtype` as the models' dtype. The port trains in
-    float32 only: the JAX package's mixed precision ('bfloat16') is not
-    ported and raises, as does an unknown name."""
+    """`cfg.common.train_dtype` as the models' compute dtype: 'float32'
+    (the default) or 'bfloat16', the JAX package's mixed precision (f32
+    parameters, bf16 activations and products); an unknown name raises."""
     name = str(getattr(cfg.common, "train_dtype", None) or "float32")
-    if name in ("float32", "f32"):
-        return torch.float32
-    if name in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            f"common.train_dtype={name!r}: mixed-precision training is not "
-            "ported yet; the port trains in float32")
-    raise ValueError(f"common.train_dtype={name!r}: expected one of "
-                     "['bf16', 'bfloat16', 'f32', 'float32']")
+    if name not in TRAIN_DTYPES:
+        raise ValueError(f"common.train_dtype={name!r}: expected one of "
+                         f"{sorted(TRAIN_DTYPES)}")
+    return TRAIN_DTYPES[name]
 
 
 def sync_epoch_values(values) -> np.ndarray:

@@ -61,11 +61,14 @@ def completion_scores(smp: np.ndarray, ref: np.ndarray,
 
 class Trainer(CompressorTrainer):
     """The completion stage-1 trainer; `cfg` as the stage-1 trainer's (its
-    `model.pretrain_path` the stage-1 checkpoint to start from)."""
+    `model.pretrain_path` the stage-1 checkpoint to start from); `device`,
+    `generator` and `dtype` as its."""
 
     def __init__(self, cfg, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, device=device, generator=generator)
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(cfg, device=device, generator=generator,
+                         dtype=dtype)
         self.num_points = cfg.data.tr_max_sample_points
 
     @staticmethod

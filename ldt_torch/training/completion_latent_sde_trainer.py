@@ -22,7 +22,9 @@ the objective, optimizer, EMA, checkpoints), with:
   * `reconstruction`: the frozen Compressor's encode-decode of the GT
     clouds, scored the same way.
 The int8 conditional path, the continuous (ODE) sampler and `vis=True`
-raise NotImplementedError.
+raise NotImplementedError. A training step with a nonzero `score.dropout`
+raises, as the JAX package's does (its conditional step passes the Score
+no 'dropout' rng).
 """
 
 from __future__ import annotations
@@ -50,11 +52,14 @@ VAL_CAP = 1000
 
 class Trainer(LatentTrainer):
     """The completion stage-2 trainer; `cfg` as the stage-2 trainer's, with
-    `score.condition: True`."""
+    `score.condition: True`; `device`, `generator` and `dtype` as the
+    stage-2 trainer's."""
 
     def __init__(self, cfg, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, device=device, generator=generator)
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(cfg, device=device, generator=generator,
+                         dtype=dtype)
         self.num_points = cfg.data.tr_max_sample_points
 
     def _condition(self, condition: dict) -> dict:
@@ -67,18 +72,19 @@ class Trainer(LatentTrainer):
 
     def maybe_init(self, batch, score_weights=None,
                    compressor_weights=None) -> None:
-        """Build the f32 conditional Score and the frozen Compressor once,
-        random from the generator (the Compressor's ActNorm from the
+        """Build the conditional Score and the frozen Compressor once (f32
+        parameters computing in the trainer's dtype), random from the
+        generator (the Compressor's ActNorm from the
         batch's clouds: a ViPC batch's `pc` `fps_to` the trainer's point
         count, else its `tr_points`) or from state_dicts; the TrainState
         holds the Score's running statistics as `batch_stats`."""
         if self.state is not None:
             return
-        cfg, dev, gen = self.cfg, self.device, self.generator
-        score = Score(cfg.score, device=dev, generator=gen)
+        cfg, dev = self.cfg, self.device
+        score = Score(cfg.score, **self._kw())
         if score_weights is not None:
             score.load_state_dict(score_weights)
-        comp = Compressor(cfg.compressor, device=dev, generator=gen).eval()
+        comp = Compressor(cfg.compressor, **self._kw()).eval()
         comp.requires_grad_(False)
         if compressor_weights is not None:
             comp.load_state_dict(compressor_weights)
@@ -97,8 +103,9 @@ class Trainer(LatentTrainer):
                    eta: Optional[torch.Tensor] = None,
                    label: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Loss, gradients and the optimizer step on latents `eps` with the
-        condition `condition`, the Score in train mode; its BatchNorms'
-        updated running statistics join the step. Returns the loss."""
+        condition `condition`, the Score in train mode without dropout
+        masks (a nonzero `score.dropout` raises); its BatchNorms' updated
+        running statistics join the step. Returns the loss."""
         t, var, e2int, weight, eta = self.draws(eps.shape, self.discrete,
                                                 t_idx, eta=eta)
         self.score.zero_grad(set_to_none=True)

@@ -36,6 +36,7 @@ import torch
 from ldt_torch import resolve_device
 from ldt_torch.eval.loss import CD_loss, EMD_loss
 from ldt_torch.models import Compressor
+from ldt_torch.tools.utils import train_dtype
 from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.checkpoint import (
     checkpoint_file,
@@ -79,12 +80,17 @@ class Trainer(BaseTrainer):
     `configs.compressor_trainer_cfg()`: model, opt, common, data. Runs on
     `device` ("cuda" unless the CPU is asked for); `generator` (default:
     seeded with `cfg.common.seed` on the device) draws the random weights
-    and every unpinned draw."""
+    and every unpinned draw; `dtype` (default:
+    `tools.utils.train_dtype(cfg)`) is the Compressor's compute dtype, its
+    parameters, moments and gradients f32 whatever it is (the Adam moments
+    stored in `opt.moment_dtype`)."""
 
     def __init__(self, cfg, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(cfg)
         self.device = resolve_device(device)
+        self.dtype = train_dtype(cfg) if dtype is None else dtype
         self.generator = generator if generator is not None else \
             torch.Generator(self.device).manual_seed(cfg.common.seed)
         self.kl_weight = cfg.opt.kl_weight
@@ -107,13 +113,15 @@ class Trainer(BaseTrainer):
         return None
 
     def maybe_init(self, batch, weights=None) -> None:
-        """Build the f32 Compressor once: random weights from the generator,
-        then ActNorm from the whole first batch after train-mode BatchNorms
-        (the JAX trainer's `model.init(..., train=True)` on that batch); or
-        from a state_dict (`ldt_torch.weights.compressor_state_dict`)."""
+        """Build the Compressor once (f32 parameters computing in the
+        trainer's dtype): random weights from the generator, then ActNorm
+        from the whole first batch after train-mode BatchNorms (the JAX
+        trainer's `model.init(..., train=True)` on that batch); or from a
+        state_dict (`ldt_torch.weights.compressor_state_dict`)."""
         if self.state is not None:
             return
-        model = Compressor(self.cfg.model, device=self.device,
+        model = Compressor(self.cfg.model, dtype=self.dtype,
+                           param_dtype=torch.float32, device=self.device,
                            generator=self.generator)
         if weights is not None:
             model.load_state_dict(weights)

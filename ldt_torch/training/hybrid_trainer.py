@@ -18,7 +18,12 @@ One `update(batch)`:
      (`opt.compressor_beta1/2`, the Score's clip, weight decay and moment
      dtype, no EMA) and the forward's BatchNorm statistics;
   4. the stage-2 score step on that eps, detached (K1, K3), with discrete
-     t whatever `opt.discrete` says, and the Score's Adam and EMA.
+     t whatever `opt.discrete` says, the Score's dropout (`score.dropout`),
+     and the Score's Adam and EMA.
+Both nets compute in the trainer's dtype (`common.train_dtype`), their
+parameters, moments and gradients f32, and both optimizers store their
+moments in `opt.moment_dtype`. The KL term's Score forward is
+deterministic (no dropout).
 The KL term reads the Score's parameters before this step's score update,
 and the score step trains on the KL step's eps, not on a fresh encode.
 
@@ -30,10 +35,10 @@ can join the score step's Adam update (the reference computes it and
 discards it with `zero_grad`).
 
 Every draw can be pinned: `update(..., noise=, kl_t_idx=, kl_rho=, kl_eta=,
-t_idx=, eta=)` (the reparameterization noise in decode order; the KL
-term's discrete index or continuous uniform draw and its eta; the score
-step's index and eta). `valrecon` encode-decodes the test split with the
-Compressor (the reference calls the Score there, which the JAX package
+t_idx=, eta=, dropout=)` (the reparameterization noise in decode order; the
+KL term's discrete index or continuous uniform draw and its eta; the score
+step's index, eta and dropout masks). `valrecon` encode-decodes the test
+split with the Compressor (the reference calls the Score there, which the JAX package
 documents as a fault of the reference). `save` writes {"score",
 "compressor_state"} (the moments in bf16, on a thread), `resume` restores
 both train states from a `.pt` or a JAX `.msgpack`, and `load_pretrain`
@@ -105,11 +110,13 @@ def hybrid_comp_loss(compressor, score, pts: torch.Tensor,
 class Trainer(LatentTrainer):
     """Stage-3 trainer. `cfg` has the sections of
     `configs.hybrid_trainer_cfg()`; `device` and `generator` as the
-    stage-2 trainer's."""
+    stage-2 trainer's, and so is `dtype`."""
 
     def __init__(self, cfg, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
-        super().__init__(cfg, device=device, generator=generator)
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(cfg, device=device, generator=generator,
+                         dtype=dtype)
         self.alpha = cfg.opt.alpha
         self.compressor_warmup = cfg.opt.compressor_warmup
         self.comp_tx = make_optimizer(
@@ -161,7 +168,7 @@ class Trainer(LatentTrainer):
                kl_rho: Optional[torch.Tensor] = None,
                kl_eta: Optional[torch.Tensor] = None,
                t_idx: Optional[torch.Tensor] = None,
-               eta: Optional[torch.Tensor] = None):
+               eta: Optional[torch.Tensor] = None, dropout=None):
         """One joint step on `data['tr_points']` [B, N, 3] (and, with
         several categories, the labels `data['cate_idx']`); returns
         (loss_score, kl, rec), 0-d tensors on the device."""
@@ -182,7 +189,8 @@ class Trainer(LatentTrainer):
         grads = {k: p.grad for k, p in self.comp_state.params.items()}
         apply_update(self.comp_state, grads, self.comp_tx, lr, ema_decay=0.0,
                      new_batch_stats=new_bs)
-        loss_score = self.train_step(eps.detach(), lr, t_idx, eta, label)
+        loss_score = self.train_step(eps.detach(), lr, t_idx, eta, label,
+                                     dropout=dropout)
         self.itr += 1
         return loss_score, kl.detach(), rec.detach()
 

@@ -19,11 +19,19 @@ With several categories (`data.num_categorys` > 1) each batch's `cate_idx`
 labels the clouds: through the frozen (class-conditional) encode, the
 Score's conditioning c = t_emb + l_emb and the validation loss.
 
-Every draw can be pinned: `update(..., t_idx=, eta=, enc_noise=)` (the
-reparameterization noise of the encode, in decode order) and
+Both nets compute in the trainer's `dtype` (`common.train_dtype`: f32, or
+bf16 with f32 parameters, EMA, moments and gradients, the JAX package's
+mixed precision); the loss promotes to f32 where it meets the f32 noise.
+The Adam moments are stored in `opt.moment_dtype`. The Score drops out at
+`score.dropout` in the training step (`DropoutMasks` from the trainer's
+generator), never in `val_loss` or `sample`.
+
+Every draw can be pinned: `update(..., t_idx=, eta=, enc_noise=,
+dropout=)` (the reparameterization noise of the encode, in decode order;
+the dropout keep masks, in the Score's call order) and
 `train_step(..., rho=)` (continuous t's uniform draw); otherwise it comes
-from the trainer's `torch.Generator`. The validation loss always draws discrete t, as the JAX
-trainer's. `sample(n, label=)`
+from the trainer's `torch.Generator`. The validation loss always draws
+discrete t, as the JAX trainer's. `sample(n, label=)`
 runs the whole Score at each step with the label (the modulations are not
 hoisted: c depends on the label). `valsample` samples one batch per test
 batch with the EMA params, or with several categories
@@ -56,6 +64,8 @@ from ldt_torch.diffusion import make_diffusion
 from ldt_torch.diffusion.sampling import timesteps as schedule
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
+from ldt_torch.nn.layers import DropoutMasks
+from ldt_torch.tools.utils import train_dtype
 from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.checkpoint import (
     checkpoint_file,
@@ -106,11 +116,13 @@ def draw_train_randoms(eps_shape, *, discrete: bool, timesteps: torch.Tensor,
 def score_objective(score, eps, t, var, e2int, weight, eta,
                     loss_type: str = "l2",
                     label: Optional[torch.Tensor] = None, condition=None,
-                    train: bool = False) -> torch.Tensor:
-    """mean(|eta - score(xt, t, label, condition, train)|^p * weight), xt =
-    eps e2int + sqrt(var) eta; p = 1 for `loss_type` l1, else 2."""
+                    train: bool = False,
+                    dropout: Optional[DropoutMasks] = None) -> torch.Tensor:
+    """mean(|eta - score(xt, t, label, condition, train, dropout)|^p *
+    weight), xt = eps e2int + sqrt(var) eta; p = 1 for `loss_type` l1,
+    else 2."""
     xt = eps * e2int + torch.sqrt(var) * eta
-    diff = eta - score(xt, t, label, condition, train=train)
+    diff = eta - score(xt, t, label, condition, train=train, dropout=dropout)
     distance = torch.abs(diff) if loss_type == "l1" else torch.square(diff)
     return torch.mean(distance * weight)
 
@@ -120,12 +132,15 @@ class Trainer(BaseTrainer):
     `configs.latent_trainer_cfg()`: score, compressor, sde, opt, common.
     Runs on `device` ("cuda" unless the CPU is asked for); `generator`
     (default: seeded with `cfg.common.seed` on the device) draws the random
-    weights and every unpinned draw."""
+    weights and every unpinned draw; `dtype` (default:
+    `tools.utils.train_dtype(cfg)`) is the nets' compute dtype."""
 
     def __init__(self, cfg, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(cfg)
         self.device = resolve_device(device)
+        self.dtype = train_dtype(cfg) if dtype is None else dtype
         self.generator = generator if generator is not None else \
             torch.Generator(self.device).manual_seed(cfg.common.seed)
         self.sde = make_diffusion(cfg.sde, device=self.device)
@@ -159,17 +174,18 @@ class Trainer(BaseTrainer):
 
     def maybe_init(self, batch, score_weights=None,
                    compressor_weights=None) -> None:
-        """Build the f32 Score and the frozen Compressor once: random from
-        the generator (the Compressor's ActNorm then takes its statistics
-        from the first two clouds of `batch`, as the JAX trainer's init), or
-        from state_dicts (`ldt_torch.weights`)."""
+        """Build the Score and the frozen Compressor once (f32 parameters,
+        computing in the trainer's dtype): random from the generator (the
+        Compressor's ActNorm then takes its statistics from the first two
+        clouds of `batch`, as the JAX trainer's init), or from state_dicts
+        (`ldt_torch.weights`)."""
         if self.state is not None:
             return
-        cfg, dev, gen = self.cfg, self.device, self.generator
-        self.score = Score(cfg.score, device=dev, generator=gen)
+        cfg = self.cfg
+        self.score = Score(cfg.score, **self._kw())
         if score_weights is not None:
             self.score.load_state_dict(score_weights)
-        comp = Compressor(cfg.compressor, device=dev, generator=gen).eval()
+        comp = Compressor(cfg.compressor, **self._kw()).eval()
         comp.requires_grad_(False)
         if compressor_weights is not None:
             comp.load_state_dict(compressor_weights)
@@ -179,6 +195,17 @@ class Trainer(BaseTrainer):
         self.compressor = comp
         self.state = TrainState.create(dict(self.score.named_parameters()),
                                        self.tx, ema=True)
+
+    def _kw(self) -> dict:
+        """The nets' construction arguments: f32 parameters computing in
+        the trainer's dtype, on its device, drawn from its generator."""
+        return dict(dtype=self.dtype, param_dtype=torch.float32,
+                    device=self.device, generator=self.generator)
+
+    def dropout_masks(self, masks=None) -> DropoutMasks:
+        """A training step's dropout masks: pinned (`masks`, in call
+        order), else drawn from the trainer's generator."""
+        return DropoutMasks(self.generator, masks)
 
     @torch.no_grad()
     def encode(self, pts: torch.Tensor,
@@ -206,15 +233,18 @@ class Trainer(BaseTrainer):
                    t_idx: Optional[torch.Tensor] = None,
                    eta: Optional[torch.Tensor] = None,
                    label: Optional[torch.Tensor] = None,
-                   rho: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   rho: Optional[torch.Tensor] = None,
+                   dropout=None) -> torch.Tensor:
         """Loss, gradients and the optimizer step on latents `eps` (labels
-        `label`), t drawn as `self.discrete` says; returns the loss (a 0-d
-        tensor on the device)."""
+        `label`), t drawn as `self.discrete` says, the Score in train mode
+        (its dropout masks pinned by `dropout`, else drawn); returns the
+        loss (a 0-d tensor on the device)."""
         t, var, e2int, weight, eta = self.draws(eps.shape, self.discrete,
                                                 t_idx, rho, eta)
         self.score.zero_grad(set_to_none=True)
         loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
-                               self.cfg.opt.loss_type, label)
+                               self.cfg.opt.loss_type, label, train=True,
+                               dropout=self.dropout_masks(dropout))
         loss.backward()
         grads = {k: p.grad for k, p in self.state.params.items()}
         apply_update(self.state, grads, self.tx, lr, self.ema_decay)
@@ -222,14 +252,15 @@ class Trainer(BaseTrainer):
 
     def update(self, data, *, t_idx: Optional[torch.Tensor] = None,
                eta: Optional[torch.Tensor] = None,
-               enc_noise: Optional[Sequence[torch.Tensor]] = None
-               ) -> torch.Tensor:
+               enc_noise: Optional[Sequence[torch.Tensor]] = None,
+               dropout=None) -> torch.Tensor:
         """One stage-2 step on `data['tr_points']` [B, N, 3] (and, with
         several categories, the labels `data['cate_idx']`)."""
         self.maybe_init(data)
         label = self._label_of(data)
         eps = self.encode(self._points(data["tr_points"]), enc_noise, label)
-        loss = self.train_step(eps, self.current_lr(), t_idx, eta, label)
+        loss = self.train_step(eps, self.current_lr(), t_idx, eta, label,
+                               dropout=dropout)
         self.itr += 1
         return loss
 

@@ -18,7 +18,13 @@ Parameters, moments, EMA and BatchNorm statistics are dicts of tensors
 its running-statistic buffers), updated in place with `torch._foreach_*`
 ops, where the JAX package builds new trees: one copy of each lives on the
 device. `TrainState.to_tree` / `load_tree` give and take the checkpoint's
-layout. The bf16-moment option (`scale_by_adam_q`) is later work.
+layout.
+
+`make_optimizer(moment_dtype="bfloat16")` stores both moments in bf16, as
+the JAX package's `scale_by_adam_q`: each moment is upcast, updated in f32,
+and the update is computed from that f32 value before rounding; only the
+stored copy is rounded (to nearest even). float32 keeps optax's
+`scale_by_adam`.
 """
 
 from __future__ import annotations
@@ -95,34 +101,41 @@ def _values(tree: Params, keys: List[str]) -> List[torch.Tensor]:
     return [tree[k] for k in keys]
 
 
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
 class Optimizer:
     """clip_by_global_norm(grad_clip) -> add_decayed_weights(weight_decay)
     -> scale_by_adam(b1, b2, eps=1e-8), as `make_optimizer` chains them in
-    the JAX package. `update` returns the Adam direction u; the caller
+    the JAX package, the moments stored in `moment_dtype` (bf16:
+    `scale_by_adam_q`). `update` returns the Adam direction u; the caller
     applies p - lr * u (`apply_update`)."""
 
     eps = 1e-8
 
     def __init__(self, beta1: float = 0.9, beta2: float = 0.999,
                  weight_decay: float = 0.0,
-                 grad_clip: Optional[float] = 1.0):
+                 grad_clip: Optional[float] = 1.0,
+                 moment_dtype: torch.dtype = torch.float32):
         self.b1, self.b2 = beta1, beta2
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
+        self.moment_dtype = moment_dtype
 
     def init(self, params: Params) -> AdamState:
+        md = self.moment_dtype
         return AdamState(
             count=0,
-            mu={k: torch.zeros_like(p, dtype=torch.float32)
-                for k, p in params.items()},
-            nu={k: torch.zeros_like(p, dtype=torch.float32)
-                for k, p in params.items()})
+            mu={k: torch.zeros_like(p, dtype=md) for k, p in params.items()},
+            nu={k: torch.zeros_like(p, dtype=md) for k, p in params.items()})
 
     @torch.no_grad()
     def update(self, grads: Params, state: AdamState,
                params: Params) -> List[torch.Tensor]:
         """Advance `state` in place; returns the directions u in the order
-        of `params`' keys. `grads` is consumed (clipped in place)."""
+        of `params`' keys. `grads` is consumed (clipped in place, and with
+        bf16 moments scaled by 1 - b1)."""
         keys = list(params)
         g = _values(grads, keys)
         dev = g[0].device
@@ -136,19 +149,52 @@ class Optimizer:
             if self.grad_clip != 1.0:
                 torch._foreach_mul_(g, torch.where(
                     keep, one, torch.full((), self.grad_clip, device=dev)))
-        if self.weight_decay:
+        quantized = self.moment_dtype != torch.float32
+        # the bf16 path rounds each product as optax does (wd p, then the
+        # sum; b m + ((1 - b) g); b v + ((1 - b) g^2)), the f32 path keeps
+        # its fused forms
+        if self.weight_decay and quantized:
+            torch._foreach_add_(g, torch._foreach_mul(
+                _values(params, keys), self.weight_decay))
+        elif self.weight_decay:
             torch._foreach_add_(g, _values(params, keys),
                                 alpha=self.weight_decay)
-        mu, nu = _values(state.mu, keys), _values(state.nu, keys)
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+        stored = _values(state.mu, keys), _values(state.nu, keys)
         state.count += 1
-        bc1, bc2 = (1.0 - torch.tensor(b, dtype=torch.float32) ** state.count
+        # f32 b ** count; the bf16 path raises to the f32 count (powf, as
+        # optax), the f32 path keeps its integer power (an f32 ulp off
+        # optax's at some counts)
+        count = (torch.tensor(float(state.count)) if quantized
+                 else state.count)
+        bc1, bc2 = (1.0 - torch.tensor(b, dtype=torch.float32) ** count
                     for b in (self.b1, self.b2))
-        m_hat = torch._foreach_div(mu, bc1.to(dev))
-        v_hat = torch._foreach_div(nu, bc2.to(dev))
+        if quantized:
+            # scale_by_adam_q: each moment upcast and updated in f32, the
+            # update computed from the f32 values and only the stored copy
+            # rounded; two f32 copies alive at a time (nu's and g^2, then
+            # nu's and mu's; g is consumed)
+            v_hat = [t.float() for t in stored[1]]
+            torch._foreach_mul_(v_hat, self.b2)
+            g2 = torch._foreach_mul(g, g)
+            torch._foreach_mul_(g2, 1.0 - self.b2)
+            torch._foreach_add_(v_hat, g2)
+            del g2
+            torch._foreach_copy_(stored[1], v_hat)
+            torch._foreach_div_(v_hat, bc2.to(dev))
+            m_hat = [t.float() for t in stored[0]]
+            torch._foreach_mul_(m_hat, self.b1)
+            torch._foreach_mul_(g, 1.0 - self.b1)
+            torch._foreach_add_(m_hat, g)
+            torch._foreach_copy_(stored[0], m_hat)
+            torch._foreach_div_(m_hat, bc1.to(dev))
+        else:
+            mu, nu = stored
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
+            m_hat = torch._foreach_div(mu, bc1.to(dev))
+            v_hat = torch._foreach_div(nu, bc2.to(dev))
         torch._foreach_sqrt_(v_hat)
         torch._foreach_add_(v_hat, self.eps)
         torch._foreach_div_(m_hat, v_hat)
@@ -159,14 +205,15 @@ def make_optimizer(beta1: float = 0.9, beta2: float = 0.999,
                    weight_decay: float = 0.0,
                    grad_clip: Optional[float] = 1.0,
                    moment_dtype: str = "float32") -> Optimizer:
-    """The JAX package's `make_optimizer` with f32 moments; its bf16
-    moments (`moment_dtype="bfloat16"`, `scale_by_adam_q`) are not ported
-    and raise."""
-    if str(moment_dtype) != "float32":
-        raise NotImplementedError(
-            f"Adam moments in {moment_dtype} (opt.moment_dtype) are not "
-            "ported yet: only float32")
-    return Optimizer(beta1, beta2, weight_decay, grad_clip)
+    """The JAX package's `make_optimizer`: `moment_dtype` (`opt.moment_dtype`:
+    "float32", "bfloat16" or "float16") is the Adam moments' storage;
+    another name raises."""
+    name = str(moment_dtype)
+    if name not in MOMENT_DTYPES:
+        raise ValueError(f"opt.moment_dtype={name!r}: expected one of "
+                         f"{sorted(MOMENT_DTYPES)}")
+    return Optimizer(beta1, beta2, weight_decay, grad_clip,
+                     MOMENT_DTYPES[name])
 
 
 @torch.no_grad()

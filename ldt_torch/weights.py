@@ -414,13 +414,16 @@ def compressor_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
 def load_compressor(compressor: torch.nn.Module,
                     variables: dict) -> torch.nn.Module:
     """Load flax Compressor variables {'params', 'batch_stats'} into
-    `compressor` (cast to its dtype and device)."""
+    `compressor` (cast to its parameters' dtype and device: f32 into a net
+    that computes in bf16 over f32 parameters stays f32)."""
     compressor.load_state_dict(compressor_state_dict(variables))
     return compressor
 
 
 def load_score(score: torch.nn.Module, params: dict) -> torch.nn.Module:
-    """Load flax Score params into `score` (cast to its dtype and device)."""
+    """Load flax Score params into `score` (cast to its parameters' dtype
+    and device: f32 into a net that computes in bf16 over f32 parameters
+    stays f32)."""
     score.load_state_dict(score_state_dict(params))
     return score
 

@@ -146,7 +146,8 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.entries.train_completion_compressor",
             "ldt_torch.entries.train_completion_latent_diffusion",
             "ldt_torch.diffusion.sde", "ldt_torch.training.hybrid_trainer",
-            "ldt_torch.entries.train_hybrid", "chip_smoke"]
+            "ldt_torch.entries.train_hybrid", "ldt_torch.tools.profiling",
+            "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -158,6 +159,28 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_profiling_twin_traces_spans_and_times(tmp_path, monkeypatch):
+    """`ldt_torch.tools.profiling` as `ldt_tpu.tools.profiling`: `trace`
+    writes a trace file holding the `annotate` spans, `StepTimer` is the
+    same meter (a rolling mean of the last `window` intervals)."""
+    import ldt_tpu.tools.profiling as jprof
+    from ldt_torch.tools import profiling
+
+    with profiling.trace(str(tmp_path)) as prof:
+        with profiling.annotate("ldt_span"):
+            torch.ones(8).sum()
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert "ldt_span" in {e.key for e in prof.key_averages()}
+    assert "ldt_span" in (tmp_path / "trace.json").read_text()
+    ticks = []
+    for timer in (jprof.StepTimer(window=2), profiling.StepTimer(window=2)):
+        clock = iter([0.0, 1.0, 3.0, 6.0, 10.0])
+        monkeypatch.setattr(profiling.time, "perf_counter",
+                            lambda: next(clock))
+        ticks.append(([timer.tick() for _ in range(5)], timer.rate(8)))
+    assert ticks[0] == ticks[1] == ([None, 1.0, 1.5, 2.5, 3.5], 8 / 3.5)
 
 
 def _entry_points():

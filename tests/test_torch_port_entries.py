@@ -2,8 +2,9 @@
 PC15k tree with tiny configs (tests/test_entries.py's pattern): stage 1 from
 a config file, stage 2 bootstrapped from its checkpoint (the port's `.pt`,
 and a JAX stage-1 `.msgpack`), a resume leg, `--evaluate`, the divergence
-watchdog's rollback and its refusal without a checkpoint, the refusal of
-mixed precision, and `val_sample` against the JAX package's."""
+watchdog's rollback and its refusal without a checkpoint, mixed
+precision through both entries, and `val_sample` against the JAX
+package's."""
 
 import copy
 import csv
@@ -203,12 +204,35 @@ def test_the_divergence_watchdog(tmp_path, tree, monkeypatch, nan_epoch,
 
 @pytest.mark.parametrize("entry", [train_compressor, train_latent_diffusion])
 def test_mixed_precision_is_refused(tmp_path, tree, entry):
+    """`common.train_dtype: bfloat16` trains through the entry (the nets
+    compute in bf16 over f32 parameters and moments; stage 2 from a
+    random frozen Compressor); a name that is no train dtype is still
+    refused."""
     ws = tmp_path / "experiments"
     trainer = STAGE1 if entry is train_compressor else STAGE2
     d = _cfg(ws, tree, trainer)
-    d["common"]["train_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="train_dtype"):
-        entry.main(_args(ws, trainer), dict2namespace(d))
+    d["common"].update(train_dtype="bfloat16", epochs=2)
+    if entry is train_latent_diffusion:
+        d["log"]["save_epoch_freq"] = 1000
+
+        class Bootstrap(train_latent_diffusion.Trainer):
+            def load_pretrain(self):  # a random frozen Compressor
+                pass
+
+        real = entry.Trainer
+        entry.Trainer = Bootstrap
+    try:
+        tr = entry.main(_args(ws, trainer), dict2namespace(d))
+    finally:
+        if entry is train_latent_diffusion:
+            entry.Trainer = real
+    assert tr.dtype == torch.bfloat16 and tr.itr == 2
+    net = tr.model if entry is train_compressor else tr.score
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+    assert all(m.dtype == torch.float32
+               for m in tr.state.opt_state.mu.values())
+    assert all(np.isfinite(float(r["loss"]))
+               for r in _rows(d["log"]["save_path"]))
     d["common"]["train_dtype"] = "f16"
     with pytest.raises(ValueError, match="train_dtype"):
         entry.main(_args(ws, trainer), dict2namespace(d))

@@ -1,7 +1,10 @@
-"""Options the port has not ported are refused, not silently dropped: a
-nonzero dropout rate (`Score`, `Compressor`), Adam moments in another dtype
-than float32 (both trainers, as the shipped `airplane_synth_mbf16` config
-asks), and `compute_MMD_metrics` hands `emd_otf` on to the EMD matrix."""
+"""Options the port once refused and where it still refuses, and that
+`compute_MMD_metrics` hands `emd_otf` on to the EMD matrix. The tests keep
+their names from the refusals they replaced: a nonzero dropout rate now
+builds (`Score`, `Compressor`) and raises only where the JAX package's
+raises (a train-mode forward without masks, any Compressor training), and
+bf16 Adam moments (the shipped `airplane_synth_mbf16` config) train, an
+unknown moment dtype raising."""
 
 from pathlib import Path
 
@@ -23,37 +26,64 @@ MBF16 = ROOT / ("experiments/Latent_Diffusion_Trainer/airplane_synth_mbf16/"
 
 
 def test_score_refuses_dropout():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Score(score_cfg(num_blocks=1, hidden_size=32, num_heads=2, t_dim=16,
-                        dropout=0.1), device="cpu")
-    Score(score_cfg(num_blocks=1, hidden_size=32, num_heads=2, t_dim=16),
-          device="cpu")  # rate 0: built
+    """A Score with dropout 0.1 builds and evaluates as the rate-0 Score on
+    the same weights; only a train-mode forward without masks is refused
+    (flax raises there for want of a 'dropout' rng)."""
+    small = dict(num_blocks=1, hidden_size=32, num_heads=2, t_dim=16)
+    score = Score(score_cfg(**small, dropout=0.1), device="cpu")
+    zero = Score(score_cfg(**small), device="cpu")  # rate 0: built
+    zero.load_state_dict(score.state_dict())
+    x, t = torch.randn(2, 32, 120), torch.tensor([0.1, 0.9])
+    with torch.no_grad():
+        assert torch.equal(score(x, t), zero(x, t))
+    with pytest.raises(ValueError, match="dropout"):
+        score(x, t, train=True)
+    zero(x, t, train=True)
 
 
 @pytest.mark.parametrize("key", ["encoder_dropout_p", "decoder_dropout_p"])
 def test_compressor_refuses_dropout(key):
+    """A nonzero rate builds and encodes; its training is refused, as the
+    JAX package's Compressor cannot train with dropout; rate 0 trains."""
     small = dict(n_layers=1, hidden_dim=16, p_dim=16, num_heads=2,
                  encoder_layers=1, outsize=64, max_outputs=64)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Compressor(compressor_cfg(**small, **{key: 0.1}), device="cpu")
-    Compressor(compressor_cfg(**small, **{key: 0.0}), device="cpu")
+    comp = Compressor(compressor_cfg(**small, **{key: 0.1}), device="cpu")
+    pts = torch.randn(2, 64, 3)
+    with torch.no_grad():
+        assert torch.isfinite(comp(pts)["set"]).all()
+    with pytest.raises(ValueError, match="dropout"):
+        comp(pts, train=True)
+    Compressor(compressor_cfg(**small, **{key: 0.0}), device="cpu")(
+        pts, train=True)
 
 
 def test_stage2_trainer_refuses_the_shipped_bf16_moments():
+    """The shipped mbf16 config's trainer keeps its Adam moments in bf16;
+    a moment dtype that is no dtype's name is refused."""
     cfg = dict2namespace(yaml.safe_load(MBF16.read_text()))
     assert cfg.opt.moment_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="moment"):
+    trainer = latent_sde_trainer.Trainer(cfg, device="cpu")
+    assert trainer.tx.moment_dtype == torch.bfloat16
+    cfg.opt.moment_dtype = "bf16"  # jnp.dtype refuses it too
+    with pytest.raises(ValueError, match="moment_dtype"):
         latent_sde_trainer.Trainer(cfg, device="cpu")
-    cfg.opt.moment_dtype = "float32"
-    latent_sde_trainer.Trainer(cfg, device="cpu")
 
 
 def test_stage1_trainer_refuses_bf16_moments():
-    cfg = compressor_trainer_cfg(opt=dict(moment_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="moment"):
-        compressor_trainer.Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        make_optimizer(moment_dtype="bfloat16")
+    """A stage-1 trainer with bf16 moments takes a step and stores them in
+    bf16; an unknown name is refused."""
+    small = dict(n_layers=1, hidden_dim=16, p_dim=16, num_heads=2,
+                 encoder_layers=1, outsize=64, max_outputs=64, z_scales=8,
+                 z_dim=4)
+    cfg = compressor_trainer_cfg(model=small,
+                                 opt=dict(moment_dtype="bfloat16"))
+    trainer = compressor_trainer.Trainer(cfg, device="cpu")
+    trainer.update({"tr_points": np.random.default_rng(0).standard_normal(
+        (2, 64, 3)).astype(np.float32)})
+    assert all(m.dtype == torch.bfloat16
+               for m in trainer.state.opt_state.mu.values())
+    with pytest.raises(ValueError, match="float8"):
+        make_optimizer(moment_dtype="float8")
     compressor_trainer.Trainer(compressor_trainer_cfg(), device="cpu")
 
 

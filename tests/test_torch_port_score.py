@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax.errors import InvalidRngError
 
 from ldt_tpu.models import Score as JaxScore
 from ldt_torch.models import Score
@@ -96,23 +97,30 @@ def test_state_dict_keys_and_unmapped_leaf():
 @pytest.mark.parametrize("over", [dict(unet=True), dict(condition=True)])
 def test_unported_variants_raise(over):
     """The UNet and the conditional Score are ported (their forwards are
-    held in test_torch_port_condition.py) and build with JAX's names;
-    with them what is still not ported, a nonzero dropout rate, raises."""
-    _, tcfg = cfgs(dict(SMALL_SCORE, **over, dropout=0.1))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Score(tcfg, device="cpu")
-    jcfg, tcfg = cfgs(dict(SMALL_SCORE, **over))
+    held in test_torch_port_condition.py) and build with JAX's names, now
+    with a nonzero dropout rate too (held in test_torch_port_dropout.py);
+    what raises is what raises in the JAX package: a train-mode forward
+    without dropout masks (flax: no 'dropout' rng)."""
+    jcfg, tcfg = cfgs(dict(SMALL_SCORE, **over, dropout=0.1))
     cond = None
     if jcfg.condition:
         cond = {"img": jnp.zeros((B, 16, 16, 3)),
                 "pts": jnp.asarray(np.random.default_rng(0).standard_normal(
                     (B, 64, 3)), jnp.float32)}
-    v = jax.jit(JaxScore(jcfg).init)(
-        jax.random.key(1), jnp.zeros((B, jcfg.z_scale, jcfg.z_dim)),
-        jnp.ones((B,)), None, cond)
+    x = jnp.zeros((B, jcfg.z_scale, jcfg.z_dim))
+    v = jax.jit(JaxScore(jcfg).init)(jax.random.key(1), x, jnp.ones((B,)),
+                                     None, cond)
+    with pytest.raises(InvalidRngError):
+        JaxScore(jcfg).apply(v, x, jnp.ones((B,)), None, cond, train=True,
+                             mutable=["batch_stats"])
     v = jax.tree_util.tree_map(np.asarray, dict(v))
     sd = score_state_dict(v["params"], v.get("batch_stats"))
-    assert set(sd) == set(Score(tcfg, device="cpu").state_dict())
+    score = Score(tcfg, device="cpu")
+    assert set(sd) == set(score.state_dict())
+    tcond = None if cond is None else {
+        k: torch.from_numpy(np.asarray(a)) for k, a in cond.items()}
+    with pytest.raises(ValueError, match="dropout"):
+        score(torch.zeros(x.shape), torch.ones(B), None, tcond, train=True)
 
 
 @pytest.mark.parametrize("over", [dict(num_categorys=3), dict(AdaLN=False)],
