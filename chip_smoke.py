@@ -234,6 +234,28 @@ Score's dropout):
      Compressor's training forward and a conditional Score's training step
      with dropout raise.
 
+int8 serving through the trainers (the conditional W8A8 twin, the stage-2
+trainer's serving branch, the calibrate and golden-gate entries):
+ 26. a) (after 23a) K2 in bf16 at the DiT's cross shape (q, k, v [32, 32,
+     1024], 16 heads, whole-set dh 64) against its twins on the card and
+     on the CPU, f64 products and wrong variants, timed beside its bound
+     and SDPA (row `cross_attention_dit_cross_bf16`); K1 and K8 on the
+     int8 block's bf16 qkv [32, 32, 3072] against theirs; one conditional
+     int8 step at flagship width cut to 2 blocks, B=4, card vs CPU, through
+     K1 and through K8 (wrong: K2's k and v swapped). b) (after 23d)
+     `Trainer.sample(32, condition=..., int8=True)` of phase 23's
+     completion trainer, 1000 steps, with K1 and then K8: exact launch
+     counts (K2 12 x 1000 at the cross shape + 6 decode, K1 or K8 12 x
+     1000 on their tensor cores), the trunk once a sample, clouds/min.
+     c) (inside 21, on its tree) the stage-2 trainer restored by `resume()`
+     from phase 21's checkpoint, sample_N cut to 100 (printed), serves 16
+     clouds int8: without a stamp it warns and with `strict` it raises;
+     `int8_calibrate` writes the static scales and `int8_golden_gate`
+     gates the dynamic sampler (its verdict read back after a fresh
+     resume), a second gate of the static scheme with the verdict opened
+     (random weights certify nothing) lets the static scales serve
+     quietly; launch counts, clouds/min.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -3016,7 +3038,7 @@ def differing(live, saved, path="") -> list:
     return [] if live == saved else [path]
 
 
-def phase_entries() -> None:
+def phase_entries(then=None) -> None:
     """Phase 21: the entries a user runs, on the card, from config files
     copied from `experiments/` (full width and depth, cuts printed) and a
     synthetic PC15k tree: stage 1 (`train_compressor`, 2 epochs, a save
@@ -3026,7 +3048,9 @@ def phase_entries() -> None:
     `val_sample` on the saved samples. Every restored tensor must equal the
     state at its save, the counters must continue, every loss and metric
     must be finite, and K1-K6 must have run; prints each stage's seconds per
-    epoch and the stage-2 checkpoint's save and load seconds and size."""
+    epoch and the stage-2 checkpoint's save and load seconds and size.
+    `then(stage-2 experiment dir, workspace)` runs last, on the tree and
+    the checkpoints, before they are deleted (phase 26c)."""
     import gc
     import os
     import shutil
@@ -3268,6 +3292,8 @@ def phase_entries() -> None:
         print(f"[21] the entries' run: {dt:.2f} s, launches {ran}")
         if not all(ran.values()):
             fail(f"phase 21: a kernel of the path did not run: {ran}")
+        if then is not None:
+            then(paths["Latent_Diffusion_Trainer"], ws)
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4179,6 +4205,343 @@ def phase_completion_generate(trainer, batch) -> int:
     if trunk != 1:
         fail(f"phase 23d: the trunk ran {trunk} times, not once")
     return cross
+
+
+# Phase 26: int8 serving through the trainers. 26a holds one conditional
+# int8 step (2 blocks at flagship width: a cross block through K2, a self
+# block through K1 or K8), card vs CPU, to COND_INT8_STEP_TOL, (max, mean)
+# relative to the largest |value|. Unlike phase 11's step, whose
+# modulations both devices are given, this step computes its own with the
+# stacked AdaLN GEMM ([4, 1024] x [1024, 12288] in bf16): cuBLAS and the
+# CPU sum it in other orders, a share of the modulations lands one bf16
+# ulp apart, and every later op follows (read on the H100 through K1:
+# 5.8e-3 / 6.1e-4, through K8 5.8e-3 / 7.6e-4). Wrong: "kv swapped"
+# (K2's keys and values exchanged: 4.0e-2 / 9.8e-3); "E=1" (K8's scales
+# per batch element, 5.8e-3 / 7.9e-4) is printed only: with one self block
+# of two it moves the output less than the GEMM's rounding does.
+COND_INT8_STEP_TOL = (2e-2, 2e-3)
+COND_INT8_BATCH = 4     # 26a's step (a multiple of K8's groups of 4)
+SERVE_STEPS = 100       # 26c's sample_N: the calibration, gate and serving
+
+
+def phase_cond_int8_kernels(gen) -> dict:
+    """Phase 26a: the kernels of the conditional int8 step at its shapes,
+    bf16: K2 (whole-set schedule, dh 64) at the DiT's cross shape (q, k, v
+    [32, 32, 1024], 16 heads; new in bf16 here) against its twins on the
+    card and on the CPU, f64 products and wrong variants, repeating its
+    bits, timed by the event loop and by device time beside the bound, the
+    twin and SDPA (row `cross_attention_dit_cross_bf16`); K1 and K8 on the
+    packed qkv [32, 32, 3072] against theirs; then one conditional int8
+    step at flagship width cut to 2 blocks, B=4, the same f32 weights,
+    condition tokens, image embedding and input on the card and on the
+    CPU, through K1 and through K8, and against K2 with k and v swapped."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldt_torch.diffusion.sampling import timesteps
+    from ldt_torch.generate import TIME_EPS
+    from ldt_torch.models import Score
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.serving import int8 as int8_serving
+
+    b, n, d, h = DIT_CROSS
+    dh = d // h
+    q, k, v = (torch.randn(b, n, d, device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+
+    def heads(t):
+        return t.unflatten(-1, (h, -1)).transpose(1, 2)
+
+    fn = attn_ops.cross_attention
+    before = (fn.launches, fn.tiled_launches)
+
+    def k2():
+        return fn(q, k, v, h)
+
+    got = k2()
+    if (fn.launches, fn.tiled_launches) != (before[0] + 1, before[1]):
+        fail("phase 26a: K2 (bf16) at the DiT's cross shape did not launch "
+             "its whole-set schedule once")
+    if not torch.equal(got, k2()):
+        fail("phase 26a: K2 (bf16) at the DiT's cross shape did not repeat "
+             "its bits")
+    twin = attn_ops.attention_plain(q, k, v, h)
+    readings = {"twin": errs(got, twin),
+                "cpu twin": errs(got, attn_ops.attention_plain(
+                    q.cpu(), k.cpu(), v.cpu(), h)),
+                "kv swapped": errs(got, attention_variant(
+                    q, v, k, h, torch.float32, torch.bfloat16))}
+    for vname, (acc, w) in variants(torch.bfloat16).items():
+        readings[vname] = errs(got, attention_variant(q, k, v, h, acc, w))
+    ms = cuda_ms(k2)
+    parts = launch_us(k2)
+    if not parts or not all("whole" in key for key in parts):
+        fail(f"phase 26a: K2 (bf16) ran {list(parts)}, not its whole-set "
+             "kernel")
+    device_ms = sum(parts.values()) / 1e3
+    plain_ms = cuda_ms(lambda: attn_ops.attention_plain(q, k, v, h),
+                       iters=20)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v)))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = b * h * (4 * n * n * dh + 5 * n * n)
+    bound_ms, bound_by = _bound(nbytes, {"bfloat16": flops})
+    print(f"[26a] cross_attention (K2, whole-set, DiT cross) bfloat16 q/k/v "
+          f"{list(q.shape)}, H={h} (dh {dh}): max|twin| "
+          f"{twin.float().abs().max().item():.4f}, kernel {ms:.4f} ms, "
+          f"device {device_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) "
+          f"({smi_name_and_power()})")
+    print("    device time per call: " + ", ".join(
+        f"{key} {us:.2f} us" for key, us in parts.items()))
+    held("K2 DiT cross bfloat16 vs", readings, KERNEL_TOL["bfloat16"],
+         right=("twin", "cpu twin", "f64"), wrong=("wrong", "kv swapped"))
+    row = {"cross_attention_dit_cross_bf16": {
+        "name": "cross_attention_dit_cross_bf16", "route": "cuda",
+        "source": "ldt_torch/csrc/attention.cu",
+        "replaces": "ldt_tpu/ops/pallas_attention.py:49", "launches": 0,
+        "max_abs_err": readings["twin"][0], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "device_ms": device_ms}}
+
+    qkv = torch.randn(b, n, 3 * d, device="cuda", generator=gen).bfloat16()
+    swapped = torch.cat([qkv[..., :d], qkv[..., 2 * d:], qkv[..., d:2 * d]],
+                        dim=-1).contiguous()
+    mma = attn_ops.packed_self_attention.mma_launches
+    got = attn_ops.packed_self_attention(qkv, h)
+    if attn_ops.packed_self_attention.mma_launches - mma != 1:
+        fail("phase 26a: K1 on the int8 block's bf16 qkv did not take its "
+             "tensor cores")
+    twin = attn_ops.packed_self_attention_plain(qkv, h)
+    readings = {"twin": errs(got, twin),
+                "cpu twin": errs(got, attn_ops.packed_self_attention_plain(
+                    qkv.cpu(), h)),
+                "kv swapped": errs(got, attn_ops.packed_self_attention_plain(
+                    swapped, h))}
+    for vname, (acc, w) in variants(torch.bfloat16).items():
+        readings[vname] = errs(got, attention_variant(
+            qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], h, acc, w))
+    print(f"[26a] packed_self_attention (K1) bfloat16 qkv {list(qkv.shape)}, "
+          f"H={h}, the conditional int8 step's self blocks")
+    held("K1 bfloat16 vs", readings, KERNEL_TOL["bfloat16"],
+         right=("twin", "cpu twin", "f64"), wrong=("wrong", "kv swapped"))
+    mma = attn_ops.packed_self_attention_int8.mma_launches
+    got = attn_ops.packed_self_attention_int8(qkv, h)
+    if attn_ops.packed_self_attention_int8.mma_launches - mma != 1:
+        fail("phase 26a: K8 did not take the int8 tensor cores")
+    readings = {
+        "twin": errs(got, attn_ops.packed_self_attention_int8_plain(qkv, h)),
+        "cpu twin": errs(got, attn_ops.packed_self_attention_int8_plain(
+            qkv.cpu(), h)),
+        "E=1": errs(got, attn_ops.packed_self_attention_int8_plain(qkv, h,
+                                                                   1)),
+        "kv swapped": errs(got, attn_ops.packed_self_attention_int8_plain(
+            swapped, h))}
+    print(f"[26a] packed_self_attention_int8 (K8) bfloat16 qkv "
+          f"{list(qkv.shape)}, H={h}, E=4")
+    held("K8 bfloat16 vs", readings, K8_TOL, right=("twin", "cpu twin"),
+         wrong=("E=1", "kv swapped"))
+
+    batch, step = COND_INT8_BATCH, STEPS // 2
+    cfg = completion_cfg(score=dict(num_blocks=2)).score
+    g = torch.Generator().manual_seed(SEED + 26)
+    score = Score(cfg, device="cpu", generator=g)
+    weights = score.state_dict()
+    x = torch.randn(batch, cfg.z_scale, cfg.z_dim, generator=g)
+    tokens = torch.randn(batch, cfg.z_scale, cfg.hidden_size, generator=g)
+    img = torch.randn(batch, cfg.t_dim, generator=g)
+    with torch.inference_mode():
+        t_emb = score.embed_times(timesteps(STEPS, TIME_EPS))[step]
+    def swapped_k2(q, k, v, heads):
+        return attn_ops.attention_plain(q, v, k, heads)
+
+    def e1(qkv, heads, elems=4):
+        return attn_ops.packed_self_attention_int8_plain(qkv, heads, 1)
+
+    def run(dev, attn_int8):
+        qp = int8_serving.quantize_cond_score_params(weights, cfg.num_blocks,
+                                                     device=dev)
+        with torch.inference_mode():
+            kv = int8_serving.precompute_cond_kv(qp, tokens.to(dev))
+            return int8_serving.denoise_cond_int8(
+                x.to(dev), t_emb.to(dev), img.to(dev), kv, qp,
+                cfg.num_heads, attn_int8=attn_int8).float().cpu()
+
+    for attn_int8 in (False, True):
+        out = {"cpu": run("cpu", attn_int8)}
+        out["card"], _, launches = counted(lambda: run("cuda", attn_int8))
+        want = (1, 0, 1) if attn_int8 else (1, 1, 0)
+        got = (launches["cross_attention"],
+               launches["packed_self_attention"],
+               launches["packed_self_attention_int8"])
+        if got != want:
+            fail(f"phase 26a: the card's conditional int8 step launched K2, "
+                 f"K1, K8 {got}, not {want}")
+        with mock.patch.object(attn_ops, "cross_attention", swapped_k2):
+            out["kv swapped"] = run("cuda", attn_int8)
+        if attn_int8:
+            with mock.patch.object(attn_ops, "packed_self_attention_int8",
+                                   e1):
+                out["E=1"] = run("cuda", attn_int8)
+        if not torch.isfinite(out["card"]).all():
+            fail("phase 26a: the conditional int8 step is not finite")
+        print(f"[26a] one conditional int8 step ({'K8' if attn_int8 else 'K1'}"
+              f" + K2) at flagship width, 2 blocks, B={batch}, step {step} "
+              f"of {STEPS}, card vs CPU; max|out| "
+              f"{out['cpu'].abs().max().item():.4f}")
+        held("conditional int8 step (relative), CPU vs",
+             {k: errs(v, out["cpu"], rel=True) for k, v in out.items()
+              if k != "cpu"}, COND_INT8_STEP_TOL, right=("card",),
+             wrong=("kv swapped",))
+    return row
+
+
+def phase_cond_int8_generate(trainer, batch) -> int:
+    """Phase 26b: `Trainer.sample(32, condition=..., int8=True)` of phase
+    23's completion stage-2 trainer on a train batch's views and partial
+    clouds, 1000 steps, with K1 and then with K8 as the self blocks'
+    attention: the condition encoded once (the trunk runs once a sample),
+    each step the conditional W8A8 twin (12 cross blocks through bf16 K2 on
+    the cached k and v, 12 self blocks through K1 on its tensor cores or K8
+    on the int8 ones), then the decode (K2 6). Exact launch counts;
+    clouds/min with the card's name and power limit. Returns K2's launches
+    at the DiT's cross shape in one sample."""
+    import torch
+
+    from ldt_torch.ops import attention as attn_ops
+    from ldt_torch.training.completion_compressor_trainer import fps_to
+
+    from ldt_torch.diffusion import make_diffusion
+
+    cfg = trainer.cfg
+    cfg.sde.sample_N = STEPS  # phase 23c's legs cut it
+    trainer.sde = make_diffusion(cfg.sde, device="cuda")
+    blocks, n = cfg.score.num_blocks, COMPLETION_BATCH
+    cond = {"img": batch["views"][:n],
+            "pts": fps_to(batch["pc_part"][:n], 2048, "cuda")}
+    dh = cfg.score.hidden_size // cfg.score.num_heads
+    if attn_ops.packed_schedule(cfg.score.z_scale, dh,
+                                torch.bfloat16) != "mma":
+        fail("phase 26b: K1's bf16 schedule at the DiT's shape is not "
+             "the tensor cores")
+    cross = blocks // 2 * STEPS
+    selfs = (blocks - blocks // 2) * STEPS
+    runs = trainer.score.c_net.resnet.runs
+    for attn_int8 in (False, True):
+        k1, k8 = (0, selfs) if attn_int8 else (selfs, 0)
+        expect = per_step_launches(
+            cross_attention=cross + cfg.compressor.n_layers,
+            packed_self_attention=k1, packed_self_attention_mma=k1,
+            packed_self_attention_int8=k8,
+            packed_self_attention_int8_mma=k8)
+        checked_generation(
+            "26b", f"completion int8 (W8A8, self blocks through "
+            f"{'K8' if attn_int8 else 'K1'}, cross blocks bf16 K2 on the "
+            f"cached k and v; {STEPS} steps; {smi_name_and_power()})",
+            lambda: trainer.sample(n, condition=cond, int8=True,
+                                   attn_int8=attn_int8)[0], n, expect)
+    trunk = trainer.score.c_net.resnet.runs - runs
+    print(f"[26b] the ResNet trunk ran {trunk} time(s) over the two "
+          f"{STEPS}-step samples")
+    if trunk != 2:
+        fail(f"phase 26b: the trunk ran {trunk} times, not once a sample")
+    return cross
+
+
+def phase_int8_serving(exp: str, ws: str) -> None:
+    """Phase 26c (inside phase 21, on its tree): the stage-2 trainer of
+    phase 21's config (full width and depth, sample_N cut to SERVE_STEPS,
+    printed) restored by `resume()` from phase 21's checkpoint (the newest
+    on disk: training.csv ends at an epoch that was not saved) serves
+    ENTRY_VAL clouds int8 (`sample(..., serve_int8=True)`, K1 24 a step):
+    without a stamp it warns, and with `strict` it raises; then
+    `int8_calibrate` writes the checkpoint's static scales and
+    `int8_golden_gate` (`--steps` SERVE_STEPS) gates the dynamic sampler at
+    its 1% threshold; after a fresh `resume` the stamp it wrote is read (a
+    PASS is quiet, a FAIL is named); a second gate of the static scheme
+    with the verdict opened (`--threshold inf`: random, barely trained
+    weights certify nothing, the wiring is what runs) lets the static
+    scales serve quietly. Launch counts of each serving run checked;
+    clouds/min with the card's name and power limit."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.cli import get_config, get_parser
+    from ldt_torch.entries import int8_calibrate, int8_golden_gate
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    path = os.path.join(exp, "config.yaml")
+    copied_config(path, path, {"sde.sample_N": SERVE_STEPS},
+                  "int8 serving (26c)", "26c")
+    cfg = get_config(get_parser("Latent_Diffusion_Trainer").parse_args(
+        ["--save", ws]))
+    tr = Trainer(cfg, device="cuda")
+    tr.maybe_init({"tr_points": torch.from_numpy(synthetic_shapes(
+        2, 2048, np.random.default_rng(SEED + 26)))})
+    tr.resume()
+    print(f"[26c] the stage-2 trainer restored from {tr.restored_ckpt}")
+    if not tr.restored_ckpt.endswith("checkpt_2.pt"):
+        fail(f"phase 26c: resume() restored {tr.restored_ckpt}, not the "
+             "newest checkpoint on disk")
+    n, blocks = ENTRY_VAL, cfg.score.num_blocks
+    per_run = blocks * SERVE_STEPS
+    expect = per_step_launches(packed_self_attention=per_run,
+                               packed_self_attention_mma=per_run,
+                               cross_attention=cfg.compressor.n_layers)
+
+    def serve(what, **kw):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            (clouds, _), dt, launches = counted(
+                lambda: tr.sample(n, serve_int8=True, **kw))
+        said = buf.getvalue()
+        finite = bool(torch.isfinite(clouds).all())
+        print(f"[26c] serving int8 ({what}): {list(clouds.shape)}, finite "
+              f"{finite}, {dt:.3f} s, {n / dt * 60:.2f} clouds/min "
+              f"({SERVE_STEPS} steps; {smi_name_and_power()}); it said: "
+              f"{said.strip() or '(nothing)'}")
+        if not finite or tuple(clouds.shape) != (n, 2048, 3):
+            fail(f"phase 26c: serving ({what}) gave {list(clouds.shape)}, "
+                 f"finite {finite}")
+        if launches != expect:
+            fail(f"phase 26c: serving ({what}) launched {launches}, not "
+                 f"{expect}")
+        return said
+
+    if "no int8 golden-gate stamp" not in serve("no stamp"):
+        fail("phase 26c: serving a checkpoint without a stamp did not warn")
+    try:
+        tr.sample(n, serve_int8=True, strict=True)
+    except RuntimeError as e:
+        print(f"[26c] strict: refused ({e})")
+    else:
+        fail("phase 26c: strict serving without a stamp did not raise")
+    int8_calibrate.main(int8_calibrate.get_parser().parse_args(
+        ["--exp", exp, "--device", "cuda"]))
+    print(f"[26c] the gate's cut: --steps {SERVE_STEPS} (the shipped "
+          "config's sample_N 1000), --num "
+          f"{n} (the tree's val clouds)")
+    gate = ["--exp", exp, "--num", str(n), "--steps", str(SERVE_STEPS)]
+    rc = int8_golden_gate.main(int8_golden_gate.get_parser().parse_args(
+        gate))
+    tr.resume()
+    said = serve(f"after the gate's {'PASS' if rc == 0 else 'FAIL'}")
+    if (rc == 0 and said) or (rc != 0 and "FAILED" not in said):
+        fail(f"phase 26c: the stamp of a gate that exited {rc} read "
+             f"{said!r}")
+    rc = int8_golden_gate.main(int8_golden_gate.get_parser().parse_args(
+        gate + ["--static-act", "--threshold", "inf"]))
+    if rc != 0:
+        fail(f"phase 26c: the static scheme's gate exited {rc}")
+    tr.resume()
+    said = serve("static scales", static_act=True)
+    if said:
+        fail(f"phase 26c: a matching PASSED stamp was not quiet: {said!r}")
+    if tuple(tr._act_scales.shape) != (SERVE_STEPS, blocks, 4):
+        fail(f"phase 26c: static scales {tuple(tr._act_scales.shape)}")
 
 
 # Phase 24: stage 3, the Hybrid finetune. The importance-sampling
@@ -5337,7 +5700,7 @@ def main() -> int:
     phase_stage1_reference()
     phase_eval_reference()
     phase_reference(CHECK_STEPS)
-    phase_entries()
+    phase_entries(then=phase_int8_serving)
     phase_ref_merge_path()
     phase_train_reference(ref_merge=True)
     phase_stage1_reference(ref_merge=True)
@@ -5345,9 +5708,11 @@ def main() -> int:
     phase_label_generate(stage2)
     del stage2
     rows.update(phase_dit_cross_kernels(gen))
+    rows.update(phase_cond_int8_kernels(gen))
     phase_condition_reference()
     completion, batch, k4_dit = phase_completion_entries()
     k2_dit = phase_completion_generate(completion, batch)
+    k2_dit_bf16 = phase_cond_int8_generate(completion, batch)
     del completion, batch
     phase_hybrid_reference()
     phase_hybrid_entry()
@@ -5370,6 +5735,8 @@ def main() -> int:
     # (not its decode), K4 from the completion stage-2 training legs
     launches["cross_attention_dit_cross"] = k2_dit
     launches["cross_attention_bwd_dit_cross"] = k4_dit
+    # K2 in bf16 at the DiT's cross shape: one conditional int8 sample's
+    launches["cross_attention_dit_cross_bf16"] = k2_dit_bf16
     # K6's row counts the launches with d streamed (the wrapper's count
     # holds both modes)
     launches["approx_match_cost"] -= launches["approx_match_cost_otf"]

@@ -12,8 +12,12 @@ weights quantized once per generation, before the loop. With a `label` (or
 an `AdaLN: False` Score, or a UNet) the conditioning is not t's alone: each
 step runs the whole Score, c = t_emb + l_emb, as the JAX trainer's sampler
 does; so does a completion `condition` (c = t_emb + the image embedding,
-the point tokens cross-attended), encoded once before the loop. The int8
-path serves the unconditional AdaLN Score only.
+the point tokens cross-attended), encoded once before the loop. With
+`int8=True` a condition is served by the conditional W8A8 twin
+`serving.int8.denoise_cond_int8`: the schedule's time embeddings, the
+quantized weights and the cross blocks' keys and values of the condition
+tokens are made once, before the loop. A label, an `AdaLN: False` Score or
+a UNet has no int8 path.
 """
 
 from __future__ import annotations
@@ -63,7 +67,8 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
     step then runs `score(x, t, label)`. `condition`: a completion
     condition ({'img', 'pts'} or the pair `Score.encode_condition` gives);
     a dict is encoded here, once, and each step runs
-    `score(x, t, label, encoded)`.
+    `score(x, t, label, encoded)`, or with `int8` one `denoise_cond_int8`
+    (its tokens must be there; no `bf16_tail` or `act_scales`).
     """
     dev = resolve_device(device)
     if not int8 and (attn_int8 or bf16_tail or act_scales is not None
@@ -71,11 +76,16 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
         raise ValueError("attn_int8, bf16_tail, act_scales and int8_weights "
                          "are options of the int8 path (int8=True)")
     cfg = score.cfg
+    if int8 and condition is not None and label is None and cfg.AdaLN \
+            and not cfg.unet:
+        return _sample_cond_int8(score, sde, batch, steps, dev, condition,
+                                 int8_weights, attn_int8, bf16_tail,
+                                 act_scales, sampler)
     if label is not None or condition is not None or not cfg.AdaLN \
             or cfg.unet:
         if int8:
-            raise ValueError("the int8 path serves the unconditional AdaLN "
-                             "Score only")
+            raise ValueError("the int8 path serves the AdaLN, non-UNet "
+                             "Score without a label only")
         if label is not None:
             label = label.to(dev)
         if isinstance(condition, dict):
@@ -115,6 +125,36 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
 
     def score_fn(t, x, step):
         p = denoise(x, step)
+        return -p.float() / sde.std(t)[:, None, None], p
+
+    return sample_discrete(sde, score_fn, batch, (cfg.z_scale, cfg.z_dim),
+                           steps, TIME_EPS, device=dev, **sampler)
+
+
+def _sample_cond_int8(score, sde, batch: int, steps: int, dev, condition,
+                      int8_weights, attn_int8: bool, bf16_tail: int,
+                      act_scales, sampler) -> torch.Tensor:
+    """`sample_latents` of a condition through `denoise_cond_int8`."""
+    if bf16_tail or act_scales is not None:
+        raise ValueError("the conditional int8 path has no bf16_tail and "
+                         "no static act_scales")
+    cfg = score.cfg
+    if isinstance(condition, dict):
+        condition = score.encode_condition(condition)
+    tokens, img_emb = condition
+    if tokens is None:
+        raise ValueError("the conditional int8 path cross-attends to the "
+                         "condition's point tokens: give it 'pts'")
+    t_embs = score.embed_times(timesteps(steps, TIME_EPS).to(dev))
+    q = int8_serving.quantize_cond_score_params(
+        score if int8_weights is None else int8_weights, cfg.num_blocks,
+        device=dev)
+    kv = int8_serving.precompute_cond_kv(q, tokens)
+
+    def score_fn(t, x, step):
+        p = int8_serving.denoise_cond_int8(x, t_embs[step], img_emb, kv, q,
+                                           cfg.num_heads,
+                                           attn_int8=attn_int8)
         return -p.float() / sde.std(t)[:, None, None], p
 
     return sample_discrete(sde, score_fn, batch, (cfg.z_scale, cfg.z_dim),

@@ -18,6 +18,15 @@ step the reverse-diffusion loop calls:
     config's activation) and the small in/out projections stay bf16; the
     attention core is kernel K1, or K8 (int8 operands) with `attn_int8`.
 
+The conditional (completion) twin of the whole conditional Score,
+`denoise_cond_int8`, serves the same way (`quantize_cond_score_params`):
+its even blocks keep `fc_q` in int8 and cross-attend through kernel K2 in
+bf16 to the condition's k and v, projected once per sampling run in bf16
+(`precompute_cond_kv`); its odd blocks take the packed int8 qkv and K1 (or
+K8); c = t_emb + the image embedding is per sample, so each step computes
+the blocks' AdaLN modulations with one stacked bf16 GEMM. It has no
+`bf16_tail` and no static scales, as the JAX package's has not.
+
 The JAX package reads its knobs from environment variables; here each is
 an argument whose default is the JAX package's environment default:
 `bf16_tail` (LDT_INT8_BF16_TAIL, 0), `attn_int8` (LDT_ATTN_INT8, off),
@@ -27,7 +36,7 @@ an argument whose default is the JAX package's environment default:
 
 The act-scale tables (npz) and the golden-gate stamps (JSON) are written in
 the JAX package's formats, so a file written by either package loads in the
-other. The conditional (completion) int8 path is not ported yet.
+other.
 """
 
 from __future__ import annotations
@@ -180,6 +189,13 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as it computes: x * (1 / (1 + exp(-x))), op by op in
+    x's dtype. In bf16 `F.silu`, which rounds once, differs from it in
+    about a third of the values."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def self_attention(qkv: torch.Tensor, num_heads: int,
                    attn_int8: bool = False) -> torch.Tensor:
     """The attention core of an int8 block, dispatched as
@@ -191,13 +207,26 @@ def self_attention(qkv: torch.Tensor, num_heads: int,
     return attn_ops.packed_self_attention(qkv, num_heads)
 
 
+def _self_attention_fn(blk: Dict[str, Any], num_heads: int,
+                       attn_int8: bool, x_scale=None, record=None):
+    """The attention of a self-attending int8 block: the packed int8 qkv
+    GEMM, then K1 (or K8)."""
+
+    def attend(q_in):
+        qkv = int8_matmul(q_in, blk["qkv_w"], blk["qkv_s"], x_scale=x_scale,
+                          record=record) + blk["qkv_b"]
+        return self_attention(qkv, num_heads, attn_int8)
+    return attend
+
+
 def _block_int8(h: torch.Tensor, m: torch.Tensor, blk: Dict[str, Any],
-                num_heads: int, attn_int8: bool = False, scales=None,
-                record=None) -> torch.Tensor:
-    """One DiT block of the int8 twin: modulate -> int8 qkv -> attention
-    core -> int8 fc_o -> gated residual -> modulate -> int8 MLP (tanh GELU)
-    -> gated residual. `scales`: this block's [4] static scales (sites qkv,
-    o, up, dn); `record` collects the amaxes in the same order."""
+                attention, scales=None, record=None) -> torch.Tensor:
+    """One DiT block of the int8 twins (shared by the unconditional and the
+    conditional one): modulate -> `attention(q_in)` (the only part that
+    differs between a self- and a cross-attending block) -> int8 fc_o ->
+    gated residual -> modulate -> int8 MLP (tanh GELU) -> gated residual.
+    `scales`: this block's [4] static scales (sites qkv, o, up, dn; qkv's
+    is `attention`'s own); `record` collects the amaxes in that order."""
 
     def sc(i):
         return None if scales is None else scales[i]
@@ -205,9 +234,7 @@ def _block_int8(h: torch.Tensor, m: torch.Tensor, blk: Dict[str, Any],
     (shift_msa, scale_msa, gate_msa,
      shift_mlp, scale_mlp, gate_mlp) = m.chunk(6, dim=-1)
     q_in = modulate(_ln(h), shift_msa, scale_msa)
-    qkv = int8_matmul(q_in, blk["qkv_w"], blk["qkv_s"], x_scale=sc(0),
-                      record=record) + blk["qkv_b"]
-    att = self_attention(qkv, num_heads, attn_int8)
+    att = attention(q_in)
     att = int8_matmul(att, blk["o_w"], blk["o_s"], x_scale=sc(1),
                       record=record) + blk["o_b"]
     h = h + gate_msa * att
@@ -247,10 +274,125 @@ def denoise_with_mods_int8(x: torch.Tensor, mods: Dict[str, torch.Tensor],
     """
     h = _mm(x.to(torch.bfloat16), q["ln_in_w"]) + q["ln_in_b"]
     for i, blk in enumerate(q["blocks"]):
-        h = _block_int8(h, _lead(mods["blocks"][i]), blk, num_heads,
-                        attn_int8, None if act_scales is None
-                        else act_scales[i], record)
+        scales = None if act_scales is None else act_scales[i]
+        attend = _self_attention_fn(blk, num_heads, attn_int8,
+                                    None if scales is None else scales[0],
+                                    record)
+        h = _block_int8(h, _lead(mods["blocks"][i]), blk, attend, scales,
+                        record)
     return _final_int8(h, _lead(mods["final"]), q)
+
+
+def quantize_cond_score_params(params, num_blocks: int, *,
+                               device=None) -> Dict[str, Any]:
+    """Quantize a conditional (non-UNet, AdaLN) Score for int8 serving.
+
+    `params`: an f32 conditional `ldt_torch.models.Score` or its f32
+    state_dict. As `quantize_score_params` (no `bf16_tail`), except:
+      * even blocks cross-attend to the condition tokens: `q_w` / `q_s`
+        (fc_q, the rows [0, D) of the packed qkv weight) in int8, `kv_w`
+        [2D, D] (fc_kv) and its bias in bf16, applied once per sampling run
+        by `precompute_cond_kv`; odd blocks self-attend through the packed
+        int8 qkv;
+      * the blocks' AdaLN weights stacked into one bf16 GEMM, 'ada_w'
+        [num_blocks * 6 hidden, t_dim] and 'ada_b'; the head's AdaLN
+        'fin_w', 'fin_b' in bf16.
+    """
+    sd = params.state_dict() if isinstance(params, torch.nn.Module) else \
+        params
+    if sd["ln_in.weight"].dtype != torch.float32:
+        raise ValueError("quantize_cond_score_params: quantize from the f32 "
+                         f"weights, not {sd['ln_in.weight'].dtype}")
+
+    def get(key):
+        return sd[key] if device is None else sd[key].to(device)
+
+    def bf16(key):
+        return get(key).to(torch.bfloat16)
+
+    blocks, ada_w, ada_b = [], [], []
+    for i in range(num_blocks):
+        key = f"transformer.{i}"
+        w, b = get(f"{key}.attn.qkv.weight"), get(f"{key}.attn.qkv.bias")
+        d = w.shape[0] // 3
+        if i % 2 == 0:
+            blk = dict(zip(("q_w", "q_s"), quantize_weight(w[:d])))
+            blk.update(q_b=b[:d].to(torch.bfloat16),
+                       kv_w=w[d:].to(torch.bfloat16).contiguous(),
+                       kv_b=b[d:].to(torch.bfloat16))
+        else:
+            blk = dict(zip(("qkv_w", "qkv_s"), quantize_weight(w)))
+            blk["qkv_b"] = b.to(torch.bfloat16)
+        for short, name in _BLOCK_WEIGHTS[1:]:
+            blk[f"{short}_w"], blk[f"{short}_s"] = quantize_weight(
+                get(f"{key}.{name}.weight"))
+            blk[f"{short}_b"] = bf16(f"{key}.{name}.bias")
+        blocks.append(blk)
+        ada_w.append(bf16(f"{key}.adaLN.weight"))
+        ada_b.append(bf16(f"{key}.adaLN.bias"))
+    return {"blocks": blocks, "ada_w": torch.cat(ada_w),
+            "ada_b": torch.cat(ada_b),
+            "fin_w": bf16("ln_out.adaLN.weight"),
+            "fin_b": bf16("ln_out.adaLN.bias"),
+            "ln_in_w": bf16("ln_in.weight"), "ln_in_b": bf16("ln_in.bias"),
+            "ln_out_w": bf16("ln_out.ln.weight"),
+            "ln_out_b": bf16("ln_out.ln.bias")}
+
+
+def precompute_cond_kv(q: Dict[str, Any], y: torch.Tensor) -> list:
+    """The cross blocks' keys and values of the condition tokens y [B, M,
+    hidden] (fixed for a sampling run), once per run: a list over the
+    blocks of (k, v), each [B, M, hidden] bf16 and contiguous (K2 takes
+    contiguous tensors: the one bf16 GEMM's [B, M, 2 hidden] output split
+    into two copies, the same values the JAX package slices each step), or
+    None for a self-attending block."""
+    y = y.to(torch.bfloat16)
+    out = []
+    for blk in q["blocks"]:
+        if "kv_w" not in blk:
+            out.append(None)
+            continue
+        kv = _mm(y, blk["kv_w"]) + blk["kv_b"]
+        k, v = kv.chunk(2, dim=-1)
+        out.append((k.contiguous(), v.contiguous()))
+    return out
+
+
+def _cross_attention_fn(blk: Dict[str, Any], kv, num_heads: int):
+    """The attention of a cross-attending int8 block: the int8 fc_q GEMM,
+    then K2 over the cached (k, v)."""
+
+    def attend(q_in):
+        qq = int8_matmul(q_in, blk["q_w"], blk["q_s"]) + blk["q_b"]
+        return attn_ops.cross_attention(qq, kv[0], kv[1], num_heads)
+    return attend
+
+
+def denoise_cond_int8(x: torch.Tensor, t_emb: torch.Tensor, img_emb,
+                      kv_cache: list, q: Dict[str, Any], num_heads: int, *,
+                      attn_int8: bool = False) -> torch.Tensor:
+    """int8 twin of the conditional (non-UNet) `Score.forward` for ONE
+    denoise step.
+
+    x [B, z_scale, z_dim]; t_emb [t_dim] (this step's row of
+    `Score.embed_times` over the schedule); img_emb [B, t_dim] (or 0.0);
+    kv_cache from `precompute_cond_kv`; q from `quantize_cond_score_params`.
+    c = t_emb + img_emb in bf16, its SiLU through the stacked AdaLN GEMM;
+    even blocks cross-attend to the cached k and v (K2), odd blocks
+    self-attend through the packed int8 qkv (K1, or K8 with `attn_int8`).
+    """
+    c = (t_emb[None] + img_emb).to(torch.bfloat16)
+    sc = _silu(c)
+    nb = len(q["blocks"])
+    mods = (_mm(sc, q["ada_w"]) + q["ada_b"]).reshape(sc.shape[0], nb, -1)
+    h = _mm(x.to(torch.bfloat16), q["ln_in_w"]) + q["ln_in_b"]
+    for i, blk in enumerate(q["blocks"]):
+        attend = (_self_attention_fn(blk, num_heads, attn_int8)
+                  if kv_cache[i] is None
+                  else _cross_attention_fn(blk, kv_cache[i], num_heads))
+        h = _block_int8(h, mods[:, i, None], blk, attend)
+    fm = (_mm(sc, q["fin_w"]) + q["fin_b"])[:, None]
+    return _final_int8(h, fm, q)
 
 
 @torch.inference_mode()
@@ -420,6 +562,20 @@ def int8_serving_active(cfg, sample_mode: str, label=None, condition=None,
             and not cfg.score.unet and cfg.score.AdaLN
             and sample_mode != "continuous"
             and cfg.sde.predictor != "pndm")
+
+
+def int8_cond_serving_active(cfg, sample_mode: str, cond_present, *,
+                             serve_int8: bool = False) -> bool:
+    """True iff the CONDITIONAL (completion) sampler takes the W8A8 path:
+    asked for, layer_norm, non-UNet AdaLN, a discrete schedule, not PNDM,
+    and a condition present (`cond_present`: the encoded condition's tokens
+    are not None, or at the gate check the condition is given)."""
+    return (serve_int8
+            and cfg.score.norm == "layer_norm"
+            and not cfg.score.unet and cfg.score.AdaLN
+            and sample_mode != "continuous"
+            and cfg.sde.predictor != "pndm"
+            and bool(cond_present))
 
 
 def gate_stamp_path(ckpt_path: str) -> str:

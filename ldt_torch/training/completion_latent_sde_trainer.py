@@ -15,16 +15,19 @@ the objective, optimizer, EMA, checkpoints), with:
     or are pinned (`t_idx`, `eta`, `enc_noise`);
   * `sample(n, condition=)`: the condition encoded once per run (the
     trunk runs once, not once a step), the f32 EMA Score whole at each of
-    `sde.sample_N` discrete steps, then the decode;
+    `sde.sample_N` discrete steps, then the decode; with `int8=True`
+    (where `int8_cond_serving_active` holds) each step is the conditional
+    W8A8 twin `serving.int8.denoise_cond_int8` (K2 on the condition's k and
+    v, made once; K1, or K8 with `attn_int8`), after the gate stamp check
+    of the restored checkpoint with `completion=True` (no static scales);
   * `valsample`: one sample per test item (at most ~1000 unless `full`),
     scored by CD x 1000 and F1 against the GT clouds; `part`, `smp` and
     `ref` `.npy` files saved;
   * `reconstruction`: the frozen Compressor's encode-decode of the GT
     clouds, scored the same way.
-The int8 conditional path, the continuous (ODE) sampler and `vis=True`
-raise NotImplementedError. A training step with a nonzero `score.dropout`
-raises, as the JAX package's does (its conditional step passes the Score
-no 'dropout' rng).
+The continuous (ODE) sampler and `vis=True` raise NotImplementedError. A
+training step with a nonzero `score.dropout` raises, as the JAX package's
+does (its conditional step passes the Score no 'dropout' rng).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
+from ldt_torch.serving import int8 as int8_serving
 from ldt_torch.training.base import to_numpy
 from ldt_torch.training.completion_compressor_trainer import (
     completion_scores,
@@ -145,35 +149,35 @@ class Trainer(LatentTrainer):
         return loss
 
     def sample(self, num_samples: int, num_points: Optional[int] = None,
-               label=None, condition=None, *, int8: bool = False):
+               label=None, condition=None, *, int8: bool = False,
+               attn_int8: bool = False, strict: bool = False):
         """(clouds [num_samples, num_points, 3], latents) for the condition
         {'img', 'pts'} (num_samples of each): the condition encoded once
         with the EMA Score's ConditionNet (running statistics), the ported
         discrete sampler (`cfg.sde`'s predictor and corrector, sample_N
         steps, draws from the generator) with the whole EMA Score each
-        step, then the decode. `int8` (the conditional serving path) is
-        not ported and raises."""
-        if int8:
-            raise NotImplementedError(
-                "the int8 conditional serving path (serving/int8.py's "
-                "precompute_cond_kv, denoise_cond_int8) is not ported yet")
+        step, then the decode. `int8`: where `int8_cond_serving_active`
+        holds and the encoded condition has point tokens, each step is
+        `denoise_cond_int8` (its attention core K8 with `attn_int8`), after
+        the gate stamp check (`strict` raises on a problem)."""
         if label is not None:
             raise ValueError("the completion sampler takes no label")
-        sde_cfg = self.cfg.sde
-        if sde_cfg.sample_mode == "continuous":
-            raise NotImplementedError("the ODE sampler is not ported yet")
-        opts = dict(predictor=sde_cfg.predictor, corrector=sde_cfg.corrector,
-                    corrector_steps=sde_cfg.corrector_steps, snr=sde_cfg.snr,
-                    probability_flow=sde_cfg.probability_flow,
-                    denoise=sde_cfg.denoise, generator=self.generator)
+        active = int8_serving.int8_cond_serving_active(
+            self.cfg, self.cfg.sde.sample_mode, condition is not None,
+            serve_int8=int8)
+        self._maybe_verify_int8_gate(active, completion=True, strict=strict,
+                                     attn_int8=attn_int8)
+        opts = self._sampler_opts()
         n = self.num_points if num_points is None else num_points
         if condition is not None:
             condition = self._condition(condition)
         with self.ema_weights() as score, torch.inference_mode():
             if condition is not None:
                 condition = score.encode_condition(condition)
+            if active and condition[0] is not None:
+                opts.update(int8=True, attn_int8=attn_int8)
             eps = sample_latents(score, self.sde, num_samples,
-                                 sde_cfg.sample_N, device=self.device,
+                                 self.cfg.sde.sample_N, device=self.device,
                                  condition=condition, **opts)
             return self.compressor.sample((num_samples, n), eps), eps
 

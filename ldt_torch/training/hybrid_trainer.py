@@ -42,7 +42,9 @@ split with the Compressor (the reference calls the Score there, which the JAX pa
 documents as a fault of the reference). `save` writes {"score",
 "compressor_state"} (the moments in bf16, on a thread), `resume` restores
 both train states from a `.pt` or a JAX `.msgpack`, and `load_pretrain`
-bootstraps from a stage-2 dual checkpoint of either package.
+bootstraps from a stage-2 dual checkpoint of either package; both record the
+file as `restored_ckpt`, whose int8 gate stamp and static scales `sample`
+reads when it serves int8 (the stage-2 trainer's serving branch).
 """
 
 from __future__ import annotations
@@ -284,6 +286,7 @@ class Trainer(LatentTrainer):
                 "not a stage-1 compressor one")
         self.state.load_tree(restore_into(self.state.to_tree(),
                                           state["score"]))
+        self._restore_recorded(path)
         comp = state.get("compressor")
         if comp is not None:
             self.compressor.load_state_dict(restore_into(

@@ -40,6 +40,18 @@ ceil(n_ref / test_batch_size) batches of `test_batch_size` at the label
 with `eval.metrics.compute_all_metrics` (K5 and K6 on the card);
 `vis=True` raises (the renderer is not ported).
 
+`sample(..., serve_int8=True)` serves through the W8A8 twin
+(`serving.int8`, `sample_latents(int8=True)`) where `int8_serving_active`
+holds; the JAX package's environment knobs are its arguments (`serve_int8`,
+`attn_int8`, `bf16_tail`, `static_act`, `static_file`, `strict`). Once per
+restored checkpoint it checks the golden-gate stamp next to it (a warning,
+or with `strict` an error, when no PASSED stamp matches the sampler), and
+with `static_act` it loads that checkpoint's static activation scales
+(`load_act_scales`, provenance checked) and passes them into each call, so a
+`resume` to another checkpoint serves that checkpoint's scales.
+`restored_ckpt` records the file the Score was restored from (`resume`);
+`load_pretrain` restores only the frozen Compressor and leaves it as it is.
+
 `save` writes `checkpt_<epoch>.pt` under `cfg.log.save_path` with both
 nets' states, {"score": the TrainState's tree, "compressor": the frozen
 Compressor's state_dict}, the Adam moments rounded to bf16 (as the JAX
@@ -65,6 +77,7 @@ from ldt_torch.diffusion.sampling import timesteps as schedule
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
 from ldt_torch.nn.layers import DropoutMasks
+from ldt_torch.serving import int8 as int8_serving
 from ldt_torch.tools.utils import train_dtype
 from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.checkpoint import (
@@ -160,6 +173,12 @@ class Trainer(BaseTrainer):
         self.score: Optional[Score] = None
         self.compressor: Optional[Compressor] = None
         self.state: Optional[TrainState] = None
+        # True while the golden gate itself samples: its legs are the
+        # certification run, so they check no stamp
+        self.gate_exempt = False
+        # `restored_ckpt`: the checkpoint file the Score was restored from
+        # (the int8 gate stamp and static scales sit next to it)
+        self._restore_recorded(None)
 
     def _points(self, pts) -> torch.Tensor:
         return torch.as_tensor(pts, dtype=torch.float32).to(self.device)
@@ -293,20 +312,85 @@ class Trainer(BaseTrainer):
             return score_objective(score, eps, t, var, e2int, weight, eta,
                                    self.cfg.opt.loss_type, label)
 
+    def _restore_recorded(self, path: Optional[str]) -> None:
+        """Record the checkpoint the Score was restored from; int8 serving
+        then checks its stamp and reads its scales anew."""
+        self.restored_ckpt = path
+        self._int8_gate_checked = set()
+        self._act_scales = self._act_scales_key = None
+
+    def _maybe_verify_int8_gate(self, active: bool, completion: bool = False,
+                                *, strict: bool = False,
+                                attn_int8: bool = False, bf16_tail: int = 0,
+                                static_act: bool = False) -> None:
+        """Check the golden-gate stamp of the restored checkpoint before it
+        is served int8: once per restored checkpoint and sampler config;
+        warns, or with `strict` raises (`serving.int8.verify_gate_stamp`)."""
+        key = (completion, strict, attn_int8, bf16_tail, static_act)
+        if not active or self.gate_exempt or key in self._int8_gate_checked:
+            return
+        int8_serving.verify_gate_stamp(
+            self.restored_ckpt, self.cfg, completion, strict=strict,
+            attn_int8=attn_int8, bf16_tail=bf16_tail, static_act=static_act)
+        self._int8_gate_checked.add(key)
+
+    def _ensure_act_scales(self, bf16_tail: int = 0,
+                           static_file: Optional[str] = None
+                           ) -> torch.Tensor:
+        """The static activation scales of the restored checkpoint (or of
+        `static_file`), loaded and provenance-checked once per restored
+        checkpoint; any problem raises (`serving.int8.load_act_scales`)."""
+        key = (bf16_tail, static_file)
+        if self._act_scales is None or self._act_scales_key != key:
+            self._act_scales = int8_serving.load_act_scales(
+                self.restored_ckpt, self.cfg.sde.sample_N,
+                self.cfg.score.num_blocks, self.cfg, bf16_tail=bf16_tail,
+                static_file=static_file)
+            self._act_scales_key = key
+        return self._act_scales
+
+    def _sampler_opts(self) -> dict:
+        """`sample_discrete`'s options from `cfg.sde`, the draws from the
+        trainer's generator; the ODE sampler raises."""
+        sde_cfg = self.cfg.sde
+        if sde_cfg.sample_mode == "continuous":
+            raise NotImplementedError("the ODE sampler is not ported yet")
+        return dict(predictor=sde_cfg.predictor, corrector=sde_cfg.corrector,
+                    corrector_steps=sde_cfg.corrector_steps, snr=sde_cfg.snr,
+                    probability_flow=sde_cfg.probability_flow,
+                    denoise=sde_cfg.denoise, generator=self.generator)
+
     def sample(self, num_samples: int, num_points: Optional[int] = None,
-               label=None):
+               label=None, *, serve_int8: bool = False,
+               attn_int8: bool = False, bf16_tail: int = 0,
+               static_act: bool = False, static_file: Optional[str] = None,
+               strict: bool = False):
         """(clouds [num_samples, num_points, 3], latents): the ported
         discrete sampler (`cfg.sde`'s predictor and corrector, sample_N
         steps, draws from the generator) on the EMA Score, conditioned on
         `label` (a category index or [num_samples] of them) if given, then
-        the decode (no label: the Compressor's `sample`)."""
-        sde_cfg = self.cfg.sde
-        if sde_cfg.sample_mode == "continuous":
-            raise NotImplementedError("the ODE sampler is not ported yet")
-        opts = dict(predictor=sde_cfg.predictor, corrector=sde_cfg.corrector,
-                    corrector_steps=sde_cfg.corrector_steps, snr=sde_cfg.snr,
-                    probability_flow=sde_cfg.probability_flow,
-                    denoise=sde_cfg.denoise, generator=self.generator)
+        the decode (no label: the Compressor's `sample`).
+
+        `serve_int8`: where `int8_serving_active` holds, each step goes
+        through the W8A8 twin (its attention core K8 with `attn_int8`, the
+        last `bf16_tail` blocks in bf16, with `static_act` the restored
+        checkpoint's static scales, or those of `static_file`), after the
+        gate stamp check (`strict` raises on a problem)."""
+        active = int8_serving.int8_serving_active(
+            self.cfg, self.cfg.sde.sample_mode, label, None,
+            serve_int8=serve_int8)
+        self._maybe_verify_int8_gate(active, strict=strict,
+                                     attn_int8=attn_int8,
+                                     bf16_tail=bf16_tail,
+                                     static_act=static_act)
+        serving = {}
+        if active:
+            serving = dict(int8=True, attn_int8=attn_int8,
+                           bf16_tail=bf16_tail)
+            if static_act:
+                serving["act_scales"] = self._ensure_act_scales(
+                    bf16_tail, static_file)
+        opts = self._sampler_opts()
         n = num_points if num_points is not None else \
             self.cfg.data.tr_max_sample_points
         if label is not None:
@@ -314,8 +398,8 @@ class Trainer(BaseTrainer):
                 num_samples)
         with self.ema_weights() as score, torch.inference_mode():
             eps = sample_latents(score, self.sde, num_samples,
-                                 sde_cfg.sample_N, device=self.device,
-                                 label=label, **opts)
+                                 self.cfg.sde.sample_N, device=self.device,
+                                 label=label, **serving, **opts)
             return self.compressor.sample((num_samples, n), eps), eps
 
     def valsample(self, test_loader, val_cate: int = 0, vis: bool = False):
@@ -397,14 +481,17 @@ class Trainer(BaseTrainer):
                   pretrain: Optional[str]):
         """(the checkpoint, its state restored into `state_tree()`'s
         structure) of the file `pretrain`, else of `epoch` (default: the
-        last) under `cfg.log.save_path`."""
+        last) under `cfg.log.save_path`; the file is recorded as
+        `restored_ckpt`."""
         tree = self.state_tree()
         if pretrain is None:
             save_path = self.cfg.log.save_path
             pretrain = checkpoint_file(
                 save_path, resolve_checkpoint_epoch(save_path, epoch))
         ckpt = load_checkpoint(pretrain)
-        return ckpt, restore_into(tree, ckpt["state"], strict=strict)
+        restored = restore_into(tree, ckpt["state"], strict=strict)
+        self._restore_recorded(pretrain)
+        return ckpt, restored
 
     def _set_counters(self, ckpt: dict, finetune: bool) -> None:
         """epoch 1, itr 0 when `finetune`, else the checkpoint's epoch + 1

@@ -448,13 +448,13 @@ def test_what_the_completion_sampler_does_not_port_raises(tmp_path, jtr2):
     ttr = _stage2_pair(tmp_path, jtr2)
     data = _batch(50)
     cond = {"img": data["views"], "pts": data["pc_part"]}
-    with pytest.raises(NotImplementedError, match="int8"):
-        ttr.sample(B, condition=cond, int8=True)
     with pytest.raises(NotImplementedError, match="vis_utils"):
         ttr.valsample([], vis=True)
     ttr.cfg.sde.sample_mode = "continuous"
     with pytest.raises(NotImplementedError, match="ODE"):
         ttr.sample(B, condition=cond)
+    with pytest.raises(NotImplementedError, match="ODE"):
+        ttr.sample(B, condition=cond, int8=True)
 
 
 # ------------------------------------------------------------ checkpoints

@@ -99,7 +99,8 @@ def test_int8_matmul_static_scale_must_be_a_tensor():
 
 @functools.lru_cache(maxsize=None)
 def _score():
-    """JAX Score params and bf16 modulations of a 4-step schedule."""
+    """JAX Score params and bf16 modulations of a 4-step schedule, built
+    once per module."""
     jcfg, _ = cfgs(INT8_SCORE)
     v = jax.jit(JaxScore(jcfg).init)(
         jax.random.key(1), jnp.zeros((2, jcfg.z_scale, jcfg.z_dim)),
@@ -109,7 +110,10 @@ def _score():
     return params_np(v), jax.tree_util.tree_map(np.asarray, mods)
 
 
+@functools.lru_cache(maxsize=None)
 def _both_quantized(tail=0):
+    """Both packages' quantized weights, once per module and tail (the
+    tests only read them)."""
     p, _ = _score()
     n = INT8_SCORE["num_blocks"]
     return (jint8.quantize_score_params(p, n, bf16_tail=tail),
