@@ -244,9 +244,10 @@ trainer's serving branch, the calibrate and golden-gate entries):
      int8 step at flagship width cut to 2 blocks, B=4, card vs CPU, through
      K1 and through K8 (wrong: K2's k and v swapped). b) (after 23d)
      `Trainer.sample(32, condition=..., int8=True)` of phase 23's
-     completion trainer, 1000 steps, with K1 and then K8: exact launch
-     counts (K2 12 x 1000 at the cross shape + 6 decode, K1 or K8 12 x
-     1000 on their tensor cores), the trunk once a sample, clouds/min.
+     completion trainer with K1 (sample_N cut to 100, printed) and then
+     K8 (1000 steps): exact launch counts (K2 12 x steps at the cross
+     shape + 6 decode, K1 or K8 12 x steps on their tensor cores), the
+     trunk once a sample, clouds/min.
      c) (inside 21, on its tree) the stage-2 trainer restored by `resume()`
      from phase 21's checkpoint, sample_N cut to 100 (printed), serves 16
      clouds int8: without a stamp it warns and with `strict` it raises;
@@ -255,6 +256,23 @@ trainer's serving branch, the calibrate and golden-gate entries):
      resume), a second gate of the static scheme with the verdict opened
      (random weights certify nothing) lets the static scales serve
      quietly; launch counts, clouds/min.
+
+The samplers beside the ancestral one, the renderer and the native loader:
+ 27. a) (last) PNDM (20 steps) and the probability-flow ODE (RK45 at
+     ode_tol 1e-5) through the Score cut to 2 blocks at flagship width,
+     f32, B=4, card vs CPU on the same weights and x0 (wrong: keys and
+     values swapped in every attention), the ODE's steps and nfe equal on
+     both devices. b) The flagship stage-2 trainer (f32, random weights
+     from the seed) `sample(32)` with `predictor: pndm`, 1000 steps: launch
+     counts K1 24 x 1009 (register-tiled), K2 6; clouds/min. c) The same
+     trainer with `sample_mode: continuous`, B=16: steps accepted and
+     rejected, nfe, seconds, where t ended; K1 24 x 7 a step, K2 6.
+     d) (after 26b) phase 23's completion trainer, one PNDM sample of 32
+     conditions, 100 steps: K1 12 x 109, K2 12 x 109 + 6, the trunk
+     once. e) A flagship stage-1
+     trainer's `valsample(vis=True)` writes its scenes under
+     `<save_path>/vis`; the native bulk loader is built and equals np.load
+     bit for bit on 64 synthetic 15000-point clouds.
 
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
@@ -4222,6 +4240,7 @@ def phase_completion_generate(trainer, batch) -> int:
 COND_INT8_STEP_TOL = (2e-2, 2e-3)
 COND_INT8_BATCH = 4     # 26a's step (a multiple of K8's groups of 4)
 SERVE_STEPS = 100       # 26c's sample_N: the calibration, gate and serving
+COND_INT8_K1_STEPS = 100  # 26b's K1 leg (cut from 1000: the run's budget)
 
 
 def phase_cond_int8_kernels(gen) -> dict:
@@ -4400,13 +4419,14 @@ def phase_cond_int8_kernels(gen) -> dict:
 def phase_cond_int8_generate(trainer, batch) -> int:
     """Phase 26b: `Trainer.sample(32, condition=..., int8=True)` of phase
     23's completion stage-2 trainer on a train batch's views and partial
-    clouds, 1000 steps, with K1 and then with K8 as the self blocks'
-    attention: the condition encoded once (the trunk runs once a sample),
-    each step the conditional W8A8 twin (12 cross blocks through bf16 K2 on
-    the cached k and v, 12 self blocks through K1 on its tensor cores or K8
-    on the int8 ones), then the decode (K2 6). Exact launch counts;
-    clouds/min with the card's name and power limit. Returns K2's launches
-    at the DiT's cross shape in one sample."""
+    clouds, with K1 (sample_N cut to COND_INT8_K1_STEPS, printed) and then
+    with K8 (the config's 1000 steps) as the self blocks' attention: the
+    condition encoded once (the trunk runs once a sample), each step the
+    conditional W8A8 twin (12 cross blocks through bf16 K2 on the cached k
+    and v, 12 self blocks through K1 on its tensor cores or K8 on the int8
+    ones), then the decode (K2 6). Exact launch counts; clouds/min with the
+    card's name and power limit. Returns K2's launches at the DiT's cross
+    shape in the 1000-step sample."""
     import torch
 
     from ldt_torch.ops import attention as attn_ops
@@ -4415,8 +4435,6 @@ def phase_cond_int8_generate(trainer, batch) -> int:
     from ldt_torch.diffusion import make_diffusion
 
     cfg = trainer.cfg
-    cfg.sde.sample_N = STEPS  # phase 23c's legs cut it
-    trainer.sde = make_diffusion(cfg.sde, device="cuda")
     blocks, n = cfg.score.num_blocks, COMPLETION_BATCH
     cond = {"img": batch["views"][:n],
             "pts": fps_to(batch["pc_part"][:n], 2048, "cuda")}
@@ -4425,10 +4443,14 @@ def phase_cond_int8_generate(trainer, batch) -> int:
                                 torch.bfloat16) != "mma":
         fail("phase 26b: K1's bf16 schedule at the DiT's shape is not "
              "the tensor cores")
-    cross = blocks // 2 * STEPS
-    selfs = (blocks - blocks // 2) * STEPS
+    print(f"[26b] cut: the K1 leg's sample_N {STEPS} -> "
+          f"{COND_INT8_K1_STEPS} (depth)")
     runs = trainer.score.c_net.resnet.runs
-    for attn_int8 in (False, True):
+    for attn_int8, steps in ((False, COND_INT8_K1_STEPS), (True, STEPS)):
+        cfg.sde.sample_N = steps  # phase 23c's legs cut it
+        trainer.sde = make_diffusion(cfg.sde, device="cuda")
+        cross = blocks // 2 * steps
+        selfs = (blocks - blocks // 2) * steps
         k1, k8 = (0, selfs) if attn_int8 else (selfs, 0)
         expect = per_step_launches(
             cross_attention=cross + cfg.compressor.n_layers,
@@ -4438,12 +4460,12 @@ def phase_cond_int8_generate(trainer, batch) -> int:
         checked_generation(
             "26b", f"completion int8 (W8A8, self blocks through "
             f"{'K8' if attn_int8 else 'K1'}, cross blocks bf16 K2 on the "
-            f"cached k and v; {STEPS} steps; {smi_name_and_power()})",
+            f"cached k and v; {steps} steps; {smi_name_and_power()})",
             lambda: trainer.sample(n, condition=cond, int8=True,
                                    attn_int8=attn_int8)[0], n, expect)
     trunk = trainer.score.c_net.resnet.runs - runs
     print(f"[26b] the ResNet trunk ran {trunk} time(s) over the two "
-          f"{STEPS}-step samples")
+          "samples")
     if trunk != 2:
         fail(f"phase 26b: the trunk ran {trunk} times, not once a sample")
     return cross
@@ -5658,6 +5680,243 @@ def phase_dropout(gen) -> None:
         fail(f"phase 25c: only {raised} raised")
 
 
+# Phase 27: the samplers the JAX package offers beside the ancestral one
+# (PNDM, the probability-flow ODE), the renderer and the native loader.
+# 27a holds both samplers on the card against the CPU run of the port (2
+# blocks at flagship width, f32, B=4, the same weights and x0), (max, mean)
+# relative to the largest |value|: the sums run in other orders, and PNDM's
+# last step back to t = 1 and the ODE's adaptive steps carry the rounding
+# on (read on the H100: PNDM 1.5e-5 / 2.1e-7, the ODE 6.5e-7 / 1.2e-7 in
+# the same 37 steps on both devices). Wrong: "kv swapped" (keys and values
+# exchanged in every attention: 2.5e-3 / 5.4e-4, 2.3e-3 / 4.7e-4).
+SAMPLER_TOL = (1e-4, 1e-5)
+PNDM_STEPS = 20        # 27a's PNDM steps (its tables come from train_N)
+SAMPLER_BATCH = 4      # 27a
+ODE_BATCH = 16         # 27c
+COND_PNDM_STEPS = 100  # 27d's PNDM steps on phase 23's completion trainer
+
+
+def phase_samplers_reference() -> None:
+    """Phase 27a: PNDM (20 steps, 29 evaluations) and the probability-flow
+    ODE (RK45 at the configs' ode_tol 1e-5) through the 2-block f32 Score at
+    flagship width, card against CPU on the same weights and x0, and
+    against K2 and K1 with keys and values swapped; the ODE's steps
+    (accepted and rejected) and nfe must be the same on both devices."""
+    import torch
+
+    from ldt_torch.configs import score_cfg, sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import sample_latents
+    from ldt_torch.models import Score
+
+    g = torch.Generator().manual_seed(SEED)
+    score = Score(score_cfg(num_blocks=2), device="cpu", generator=g).eval()
+    shape = (SAMPLER_BATCH, score.cfg.z_scale, score.cfg.z_dim)
+    x0 = torch.randn(shape, generator=g)
+    runs = {"cpu": ("cpu", ()), "card": ("cuda", ()),
+            "kv swapped": ("cuda", attention_patches(
+                torch.float32, torch.float32, swap_kv=True))}
+    for mode in ("pndm", "ode"):
+        out, stats = {}, {}
+        for run, (dev, patches) in runs.items():
+            with contextlib.ExitStack() as stack:
+                for patch in patches:
+                    stack.enter_context(patch)
+                sde = make_diffusion(sde_cfg(sample_N=PNDM_STEPS),
+                                     device=dev)
+                stats[run] = {}
+                t0 = time.perf_counter()
+                opts = (dict(predictor="pndm") if mode == "pndm" else dict(
+                    sample_mode="continuous", ode_tol=1e-5,
+                    ode_stats=stats[run]))
+                out[run] = sample_latents(score.to(dev), sde, SAMPLER_BATCH,
+                                          PNDM_STEPS, device=dev, x0=x0,
+                                          **opts).cpu()
+                dt = time.perf_counter() - t0
+            print(f"[27a] {mode} on the {run} ({dev}): {dt:.3f} s"
+                  + (f", {stats[run]}" if mode == "ode" else ""))
+        if not torch.isfinite(out["card"]).all():
+            fail(f"phase 27a: the card's {mode} sample is not finite")
+        held(f"{mode} (relative), CPU vs",
+             {k: errs(out[k], out["cpu"], rel=True)
+              for k in ("card", "kv swapped")}, SAMPLER_TOL,
+             right=("card",), wrong=("kv swapped",))
+        if mode == "ode":
+            keys = ("steps", "accepted", "rejected", "nfe")
+            card, cpu = ([stats[r][k] for k in keys] for r in ("card", "cpu"))
+            if card != cpu or stats["card"]["capped"]:
+                fail(f"phase 27a: the ODE's {keys} differ, card {card} vs "
+                     f"CPU {cpu} (or it was capped)")
+    score.cpu()
+
+
+def flagship_stage2():
+    """The flagship stage-2 trainer (f32, 24 blocks, hidden 1024), random
+    from the seed, its Compressor's ActNorm on two synthetic clouds."""
+    import numpy as np
+    import torch
+
+    from ldt_torch.configs import latent_trainer_cfg
+    from ldt_torch.training.latent_sde_trainer import Trainer
+
+    cfg = latent_trainer_cfg()
+    trainer = Trainer(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(SEED))
+    pts = synthetic_shapes(2, cfg.data.tr_max_sample_points,
+                           np.random.default_rng(SEED))
+    trainer.maybe_init({"tr_points": torch.from_numpy(pts).cuda()})
+    return trainer
+
+
+def phase_pndm_generate(trainer) -> None:
+    """Phase 27b: `Trainer.sample(32)` with `sde.predictor: pndm` and the
+    config's 1000 steps: 3 Runge-Kutta steps of 4 evaluations and 997
+    Adams-Bashforth steps of one, the whole f32 EMA Score each (no hoisted
+    modulations), then the decode; launch counts K1 24 x 1009 (register-
+    tiled), K2 6; clouds/min with the card's name and power limit."""
+    cfg = trainer.cfg
+    cfg.sde.predictor = "pndm"
+    evals = cfg.sde.sample_N + 9
+    blocks = cfg.score.num_blocks
+    expect = per_step_launches(
+        packed_self_attention=blocks * evals,
+        packed_self_attention_tiled=blocks * evals,
+        cross_attention=cfg.compressor.n_layers)
+    checked_generation(
+        "27b", f"PNDM generation ({cfg.sde.sample_N} steps, {evals} "
+        f"evaluations of the whole f32 Score, {smi_name_and_power()})",
+        lambda: trainer.sample(LABEL_BATCH)[0], LABEL_BATCH, expect)
+    cfg.sde.predictor = "ancestral"
+
+
+def phase_ode_generate(trainer) -> None:
+    """Phase 27c: `Trainer.sample(16)` with `sde.sample_mode: continuous`:
+    the probability-flow ODE by Dormand-Prince RK45 from t=1 to
+    sample_time_eps at ode_tol, the whole f32 EMA Score at each of the 7
+    stages of every step tried (K1 24 x 7 a step), one synchronisation a
+    step (at most the JAX default of 10000 steps, reported if hit). Prints
+    the steps (accepted, rejected), nfe, the wall time and where t ended;
+    launch counts K1 24 x 7 x steps, K2 6."""
+    import torch
+
+    cfg = trainer.cfg
+    cfg.sde.sample_mode = "continuous"
+    (smp, _), dt, launches = counted(
+        lambda: trainer.sample(ODE_BATCH))
+    cfg.sde.sample_mode = "discrete"
+    stats = dict(trainer.ode_stats)
+    blocks = cfg.score.num_blocks
+    expect = per_step_launches(
+        packed_self_attention=blocks * 7 * stats["steps"],
+        packed_self_attention_tiled=blocks * 7 * stats["steps"],
+        cross_attention=cfg.compressor.n_layers)
+    finite = bool(torch.isfinite(smp).all())
+    print(f"[27c] ODE generation, B={ODE_BATCH} (ode_tol {cfg.sde.ode_tol},"
+          f" {smi_name_and_power()}): {dt:.3f} s, "
+          f"{ODE_BATCH / dt * 60.0:.2f} clouds/min; {stats['steps']} steps "
+          f"({stats['accepted']} accepted, {stats['rejected']} rejected), "
+          f"nfe {stats['nfe']} ({7 * stats['steps']} Score evaluations), "
+          f"{dt / max(stats['steps'], 1) * 1e3:.2f} ms a step; t ended at "
+          f"{stats['t']:.6g} (ode_eps {cfg.sde.sample_time_eps:g}: "
+          f"{'NOT reached, capped' if stats['capped'] else 'reached'}); "
+          f"out {list(smp.shape)}, finite {finite}; launches {launches} "
+          f"(expected {expect})")
+    if tuple(smp.shape) != (ODE_BATCH, 2048, 3) or not finite:
+        fail("phase 27c: the ODE's clouds have the wrong shape or are not "
+             "finite")
+    if launches != expect:
+        fail(f"phase 27c: launch counts {launches} differ from the path's "
+             f"{expect}")
+
+
+def phase_completion_pndm(trainer, batch) -> None:
+    """Phase 27d: one conditional PNDM sample of phase 23's completion
+    trainer (32 conditions, COND_PNDM_STEPS steps): the condition encoded
+    once, the whole f32 Score at each of the N + 9 evaluations (12 self
+    blocks through K1, 12 cross blocks through K2 at the DiT's cross shape),
+    then the decode; exact launch counts, the trunk once."""
+    from ldt_torch.training.completion_compressor_trainer import fps_to
+
+    cfg = trainer.cfg
+    cfg.sde.predictor, sample_n = "pndm", cfg.sde.sample_N
+    cfg.sde.sample_N = COND_PNDM_STEPS
+    evals = COND_PNDM_STEPS + 9
+    blocks, n = cfg.score.num_blocks, COMPLETION_BATCH
+    cond = {"img": batch["views"][:n],
+            "pts": fps_to(batch["pc_part"][:n], 2048, "cuda")}
+    runs = trainer.score.c_net.resnet.runs
+    expect = per_step_launches(
+        packed_self_attention=(blocks - blocks // 2) * evals,
+        packed_self_attention_tiled=(blocks - blocks // 2) * evals,
+        cross_attention=blocks // 2 * evals + cfg.compressor.n_layers)
+    checked_generation(
+        "27d", f"completion by PNDM ({COND_PNDM_STEPS} steps, {evals} "
+        f"evaluations of the whole f32 Score, {smi_name_and_power()})",
+        lambda: trainer.sample(n, condition=cond)[0], n, expect)
+    cfg.sde.predictor, cfg.sde.sample_N = "ancestral", sample_n
+    if trainer.score.c_net.resnet.runs - runs != 1:
+        fail("phase 27d: the trunk did not run once")
+
+
+def phase_vis_fastload() -> None:
+    """Phase 27e: a flagship stage-1 trainer's `valsample(vis=True)` on one
+    test batch of 8 synthetic shapes writes the scenes of its samples under
+    `<save_path>/vis` (XML; a PNG only where matplotlib imports); the native
+    loader is built (no failed build since phase 21's datasets read through
+    it) and equals np.load bit for bit on a synthetic tree, 15000-point
+    clouds of ShapeNet's size."""
+    import os
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.configs import compressor_trainer_cfg
+    from ldt_torch.data import fastload
+    from ldt_torch.training import compressor_trainer as ct
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(SEED)
+        ref = synthetic_shapes(8, EVAL_POINTS, rng)
+        trainer = ct.Trainer(compressor_trainer_cfg(), device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(
+                                 SEED))
+        trainer.maybe_init({"tr_points": torch.from_numpy(ref).cuda()})
+        trainer.cfg.log = SimpleNamespace(save_path=tmp)
+        t0 = time.perf_counter()
+        res = trainer.valsample([{"te_points": ref}], EVAL_POINTS, vis=True)
+        dt = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(tmp, "vis")))
+        xml = [f for f in files if f.endswith(".xml")]
+        print(f"[27e] stage-1 valsample(vis=True) of 8 clouds: {dt:.3f} s, "
+              f"wrote {files}; metrics finite "
+              f"{all(np.isfinite(v) for v in res.values())}")
+        if xml != [f"smp_{i}.xml" for i in range(8)]:
+            fail(f"phase 27e: valsample(vis=True) wrote {files}")
+        paths = []
+        for i in range(64):
+            path = os.path.join(tmp, f"m{i}.npy")
+            np.save(path, rng.standard_normal((15000, 3)).astype(np.float32))
+            paths.append(path)
+        t0 = time.perf_counter()
+        block, ok = fastload.load_npy_batch(paths, (15000, 3),
+                                            strict_shape=True)
+        native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = np.stack([np.load(p) for p in paths])
+        plain = time.perf_counter() - t0
+    print(f"[27e] fastload: native {fastload.native_available()}, failed "
+          f"build {fastload.build_failed}, library "
+          f"{fastload.library_path().name}; 64 clouds of 15000 points "
+          f"{native * 1e3:.1f} ms (np.load {plain * 1e3:.1f} ms, the files "
+          f"just written: warm)")
+    if fastload.build_failed or not fastload.native_available():
+        fail("phase 27e: the native loader did not build")
+    if not ok.all() or not np.array_equal(block, want):
+        fail("phase 27e: load_npy_batch differs from np.load")
+
+
 def main() -> int:
     import torch
 
@@ -5713,12 +5972,19 @@ def main() -> int:
     completion, batch, k4_dit = phase_completion_entries()
     k2_dit = phase_completion_generate(completion, batch)
     k2_dit_bf16 = phase_cond_int8_generate(completion, batch)
+    phase_completion_pndm(completion, batch)
     del completion, batch
     phase_hybrid_reference()
     phase_hybrid_entry()
     phase_moment_dtype()
     phase_mixed_precision(gen)
     phase_dropout(gen)
+    phase_samplers_reference()
+    stage2 = flagship_stage2()
+    phase_pndm_generate(stage2)
+    phase_ode_generate(stage2)
+    del stage2
+    phase_vis_fastload()
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the

@@ -3,8 +3,8 @@
 for the same seed:
 
   * the synset-id <-> category maps;
-  * every `<root>/<synset>/<split>/*.npy` (15000 x 3) loaded with `np.load`
-    (the JAX module's own path where its native bulk loader is absent):
+  * every `<root>/<synset>/<split>/*.npy` (15000 x 3) loaded at once by the
+    native bulk loader (`data.fastload`, np.load for a file it rejects):
     unreadable files are skipped, a readable file of another shape raises;
   * the deterministic shuffle `random.Random(38383)`;
   * per-cloud unit-sphere normalization, keeping each cloud's shift and
@@ -24,6 +24,7 @@ import random
 
 import numpy as np
 
+from ldt_torch.data.fastload import load_npy_batch
 from ldt_torch.data.loader import DataLoader
 
 synsetid_to_cate = {
@@ -63,20 +64,10 @@ def normalize_point_cloud(inputs: np.ndarray):
 
 
 def _load_clouds(paths):
-    """[n, 15000, 3] float32 of the readable files, and which were."""
-    block = np.empty((len(paths),) + CLOUD_SHAPE, np.float32)
-    ok = np.ones((len(paths),), bool)
-    for i, path in enumerate(paths):
-        try:
-            arr = np.load(path)
-        except (OSError, ValueError, EOFError):
-            ok[i] = False
-            continue
-        if arr.shape != CLOUD_SHAPE:
-            raise ValueError(f"{path}: shape {arr.shape} != expected "
-                             f"{CLOUD_SHAPE}")
-        block[i] = arr.astype(np.float32)
-    return block, ok
+    """[n, 15000, 3] float32 of the readable files, and which were, through
+    the native bulk loader (`data.fastload`); a readable file of another
+    shape raises."""
+    return load_npy_batch(paths, CLOUD_SHAPE, strict_shape=True)
 
 
 class Uniform15KPC:

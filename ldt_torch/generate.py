@@ -18,6 +18,11 @@ the point tokens cross-attended), encoded once before the loop. With
 quantized weights and the cross blocks' keys and values of the condition
 tokens are made once, before the loop. A label, an `AdaLN: False` Score or
 a UNet has no int8 path.
+
+The PNDM predictor and the probability-flow ODE (`sample_mode=
+"continuous"`) evaluate the Score between the schedule's times, so they
+run the whole Score at each evaluation too (no hoisted modulations, no
+int8), as the JAX trainers' samplers do.
 """
 
 from __future__ import annotations
@@ -27,7 +32,11 @@ from typing import Optional
 import torch
 
 from ldt_torch import resolve_device
-from ldt_torch.diffusion.sampling import sample_discrete, timesteps
+from ldt_torch.diffusion.sampling import (
+    sample_discrete,
+    sample_model_ode,
+    timesteps,
+)
 from ldt_torch.serving import int8 as int8_serving
 
 # The schedule's last time, linspace(1, TIME_EPS, steps) (bench.py).
@@ -49,12 +58,20 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
                    attn_int8: bool = False, bf16_tail: int = 0,
                    act_scales: Optional[torch.Tensor] = None,
                    label: Optional[torch.Tensor] = None,
-                   condition=None, **sampler) -> torch.Tensor:
+                   condition=None, time_eps: float = TIME_EPS,
+                   sample_mode: str = "discrete", ode_tol: float = 1e-5,
+                   ode_stats: Optional[dict] = None,
+                   **sampler) -> torch.Tensor:
     """The reverse diffusion alone: [batch, z_scale, z_dim] f32 latents.
 
     `sampler`: the options of `sample_discrete` (predictor, corrector,
     corrector_steps, snr, probability_flow, denoise, and the draws:
-    generator, x0, noise, corrector_noise).
+    generator, x0, noise, corrector_noise), over `steps` steps of
+    linspace(1, time_eps, steps). `sample_mode="continuous"` integrates the
+    probability-flow ODE instead (`sample_model_ode` to `time_eps` at
+    tolerance `ode_tol`, its counts into `ode_stats` if given); of
+    `sampler` it takes the draws `generator` and `x0` (the initial one)
+    and ignores the discrete sampler's options.
 
     `int8`: serve each step through the W8A8 twin. Its weights are
     quantized from `int8_weights` (an f32 Score or state_dict; default
@@ -75,14 +92,26 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
                      or int8_weights is not None):
         raise ValueError("attn_int8, bf16_tail, act_scales and int8_weights "
                          "are options of the int8 path (int8=True)")
+    if sample_mode not in ("discrete", "continuous"):
+        raise ValueError(f"sample_mode {sample_mode!r}: 'discrete' or "
+                         "'continuous'")
     cfg = score.cfg
+    run = dict(batch=batch, shape=(cfg.z_scale, cfg.z_dim), steps=steps,
+               dev=dev, time_eps=time_eps, sample_mode=sample_mode,
+               ode_tol=ode_tol, ode_stats=ode_stats)
+    # PNDM and the ODE evaluate between the schedule's times
+    scheduled = sample_mode == "discrete" and \
+        sampler.get("predictor") != "pndm"
+    if int8 and not scheduled:
+        raise ValueError("the int8 path serves the discrete schedule's "
+                         "steps only: not pndm, not the ODE")
     if int8 and condition is not None and label is None and cfg.AdaLN \
             and not cfg.unet:
-        return _sample_cond_int8(score, sde, batch, steps, dev, condition,
-                                 int8_weights, attn_int8, bf16_tail,
-                                 act_scales, sampler)
+        return _sample_cond_int8(score, sde, condition, int8_weights,
+                                 attn_int8, bf16_tail, act_scales, run,
+                                 sampler)
     if label is not None or condition is not None or not cfg.AdaLN \
-            or cfg.unet:
+            or cfg.unet or not scheduled:
         if int8:
             raise ValueError("the int8 path serves the AdaLN, non-UNet "
                              "Score without a label only")
@@ -96,10 +125,8 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
                  else score(x, t, label, condition))
             return -p.float() / sde.std(t)[:, None, None], p
 
-        return sample_discrete(sde, score_fn, batch,
-                               (cfg.z_scale, cfg.z_dim), steps, TIME_EPS,
-                               device=dev, **sampler)
-    mods = score.precompute_mods(timesteps(steps, TIME_EPS).to(dev))
+        return _run(sde, score_fn, run, sampler)
+    mods = score.precompute_mods(timesteps(steps, time_eps).to(dev))
 
     def step_mods(step):
         return {"blocks": mods["blocks"][step], "final": mods["final"][step]}
@@ -127,13 +154,31 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
         p = denoise(x, step)
         return -p.float() / sde.std(t)[:, None, None], p
 
-    return sample_discrete(sde, score_fn, batch, (cfg.z_scale, cfg.z_dim),
-                           steps, TIME_EPS, device=dev, **sampler)
+    return _run(sde, score_fn, run, sampler)
 
 
-def _sample_cond_int8(score, sde, batch: int, steps: int, dev, condition,
-                      int8_weights, attn_int8: bool, bf16_tail: int,
-                      act_scales, sampler) -> torch.Tensor:
+def _run(sde, score_fn, run: dict, sampler: dict) -> torch.Tensor:
+    """`sample_discrete`, or `sample_model_ode` in continuous mode, of
+    `score_fn` with `sample_latents`' options `run` and `sampler`."""
+    if run["sample_mode"] == "continuous":
+        pinned = [k for k in ("noise", "corrector_noise")
+                  if sampler.get(k) is not None]
+        if pinned:
+            raise ValueError(f"the ODE draws nothing but x0: {pinned}")
+        x, _ = sample_model_ode(
+            sde, score_fn, run["batch"], run["shape"], run["time_eps"],
+            run["ode_tol"], device=run["dev"],
+            generator=sampler.get("generator"), noise=sampler.get("x0"),
+            stats=run["ode_stats"])
+        return x
+    return sample_discrete(sde, score_fn, run["batch"], run["shape"],
+                           run["steps"], run["time_eps"], device=run["dev"],
+                           **sampler)
+
+
+def _sample_cond_int8(score, sde, condition, int8_weights, attn_int8: bool,
+                      bf16_tail: int, act_scales, run: dict,
+                      sampler: dict) -> torch.Tensor:
     """`sample_latents` of a condition through `denoise_cond_int8`."""
     if bf16_tail or act_scales is not None:
         raise ValueError("the conditional int8 path has no bf16_tail and "
@@ -145,7 +190,9 @@ def _sample_cond_int8(score, sde, batch: int, steps: int, dev, condition,
     if tokens is None:
         raise ValueError("the conditional int8 path cross-attends to the "
                          "condition's point tokens: give it 'pts'")
-    t_embs = score.embed_times(timesteps(steps, TIME_EPS).to(dev))
+    dev = run["dev"]
+    t_embs = score.embed_times(timesteps(run["steps"],
+                                         run["time_eps"]).to(dev))
     q = int8_serving.quantize_cond_score_params(
         score if int8_weights is None else int8_weights, cfg.num_blocks,
         device=dev)
@@ -157,5 +204,4 @@ def _sample_cond_int8(score, sde, batch: int, steps: int, dev, condition,
                                            attn_int8=attn_int8)
         return -p.float() / sde.std(t)[:, None, None], p
 
-    return sample_discrete(sde, score_fn, batch, (cfg.z_scale, cfg.z_dim),
-                           steps, TIME_EPS, device=dev, **sampler)
+    return _run(sde, score_fn, run, sampler)

@@ -112,6 +112,15 @@ class BaseTrainer:
         if path:
             np.save(os.path.join(path, name), arr)
 
+    def vis_dir(self) -> str:
+        """`<cfg.log.save_path>/vis`, where `valsample(vis=True)` renders;
+        raises without a save path."""
+        path = getattr(getattr(self.cfg, "log", None), "save_path", None)
+        if not path:
+            raise ValueError("valsample(vis=True) renders under "
+                             "log.save_path/vis: the config has no save_path")
+        return os.path.join(path, "vis")
+
     def eval_metrics(self, smp: np.ndarray, ref: np.ndarray,
                      batch_size: int) -> dict:
         """{'val/gen/<metric>': value} of `compute_all_metrics(smp, ref,

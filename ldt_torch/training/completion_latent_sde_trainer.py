@@ -25,9 +25,12 @@ the objective, optimizer, EMA, checkpoints), with:
     `ref` `.npy` files saved;
   * `reconstruction`: the frozen Compressor's encode-decode of the GT
     clouds, scored the same way.
-The continuous (ODE) sampler and `vis=True` raise NotImplementedError. A
-training step with a nonzero `score.dropout` raises, as the JAX package's
-does (its conditional step passes the Score no 'dropout' rng).
+`cfg.sde.predictor: pndm` and `sample_mode: continuous` (the probability-
+flow ODE) feed the encoded condition into the whole Score at each
+evaluation, never the int8 twin; `valsample(vis=True)` renders the
+completions under `<save_path>/vis` (`tools.vis_utils`). A training step
+with a nonzero `score.dropout` raises, as the JAX package's does (its
+conditional step passes the Score no 'dropout' rng).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
 from ldt_torch.serving import int8 as int8_serving
+from ldt_torch.tools.vis_utils import render_3D
 from ldt_torch.training.base import to_numpy
 from ldt_torch.training.completion_compressor_trainer import (
     completion_scores,
@@ -153,11 +157,12 @@ class Trainer(LatentTrainer):
                attn_int8: bool = False, strict: bool = False):
         """(clouds [num_samples, num_points, 3], latents) for the condition
         {'img', 'pts'} (num_samples of each): the condition encoded once
-        with the EMA Score's ConditionNet (running statistics), the ported
-        discrete sampler (`cfg.sde`'s predictor and corrector, sample_N
-        steps, draws from the generator) with the whole EMA Score each
-        step, then the decode. `int8`: where `int8_cond_serving_active`
-        holds and the encoded condition has point tokens, each step is
+        with the EMA Score's ConditionNet (running statistics), the sampler
+        of `cfg.sde` (as the stage-2 trainer's: discrete, PNDM or the ODE;
+        draws from the generator) with the whole EMA Score at each
+        evaluation, then the decode. `int8`: where
+        `int8_cond_serving_active` holds and the encoded condition has
+        point tokens, each step is
         `denoise_cond_int8` (its attention core K8 with `attn_int8`), after
         the gate stamp check (`strict` raises on a problem)."""
         if label is not None:
@@ -186,11 +191,9 @@ class Trainer(LatentTrainer):
         partial cloud (`fps_to` 2048, as the GT clouds), until more than
         `VAL_CAP` are held unless `full`: {'cd', 'f1score'} against the GT
         clouds; `part_ep<epoch>.npy`, `smp_ep<epoch>.npy` and
-        `ref_ep<epoch>.npy` under `cfg.log.save_path`."""
-        if vis:
-            raise NotImplementedError(
-                "Trainer.valsample(vis=True) is not ported yet: its renderer "
-                "(tools/vis_utils) is a later slice")
+        `ref_ep<epoch>.npy` under `cfg.log.save_path`, and with `vis` the
+        completions rendered under its `vis/` (`tools.vis_utils`)."""
+        vis_dir = self.vis_dir() if vis else None
         all_ref, all_part, all_smp = [], [], []
         use_time = 0.0
         for data in test_loader:
@@ -209,6 +212,8 @@ class Trainer(LatentTrainer):
         smp = np.concatenate(all_smp)
         ref = np.concatenate(all_ref)
         part = np.concatenate(all_part)
+        if vis:
+            render_3D(vis_dir, smp)
         print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
         for name, arr in (("part", part), ("smp", smp), ("ref", ref)):
             self.save_npy(f"{name}_ep{self.epoch}.npy", arr)

@@ -22,7 +22,7 @@ categories the clouds of `val_cate` with their labels) score with
 `checkpt_<epoch>.pt` under `cfg.log.save_path` ({"state": the TrainState's
 tree}, `training.checkpoint`) and `resume` restores one, or the JAX
 package's `.msgpack`, into the live parameters. `valsample(vis=True)`
-(the renderer is not ported) raises.
+renders the samples under `<save_path>/vis` (`tools.vis_utils`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from ldt_torch import resolve_device
 from ldt_torch.eval.loss import CD_loss, EMD_loss
 from ldt_torch.models import Compressor
 from ldt_torch.tools.utils import train_dtype
+from ldt_torch.tools.vis_utils import render_3D
 from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.checkpoint import (
     checkpoint_file,
@@ -69,10 +70,6 @@ def compressor_objective(model: Compressor, pts: torch.Tensor,
         rec_loss = rec_fn(out["set"], pts)
     loss = kl_weight * kl_loss + rec_loss
     return loss, (kl_loss, rec_loss, out["max"], out["batch_stats"])
-
-
-def _not_ported(what: str, why: str):
-    raise NotImplementedError(f"Trainer.{what} is not ported yet: {why}")
 
 
 class Trainer(BaseTrainer):
@@ -190,10 +187,9 @@ class Trainer(BaseTrainer):
         against the test clouds `data['te_points']`: {'val/gen/<metric>'}
         of `compute_all_metrics(smp, ref, batch_size=128)`; the samples go
         to `smp_ep<epoch>.npy` under `cfg.log.save_path` when there is
-        one."""
-        if vis:
-            _not_ported("valsample(vis=True)", "its renderer "
-                        "(tools/vis_utils) is a later slice")
+        one, and with `vis` rendered under its `vis/`
+        (`tools.vis_utils.render_3D`)."""
+        vis_dir = self.vis_dir() if vis else None
         all_ref, all_smp = [], []
         use_time = 0.0
         for data in test_loader:
@@ -208,6 +204,8 @@ class Trainer(BaseTrainer):
         ref = np.concatenate(all_ref)
         print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
         self.save_npy(f"smp_ep{self.epoch}.npy", smp)
+        if vis:
+            render_3D(vis_dir, smp)
         return self.eval_metrics(smp, ref, 128)
 
     def reconstruction(self, test_loader, val_cate: int = 0):

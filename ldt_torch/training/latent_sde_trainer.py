@@ -37,8 +37,11 @@ hoisted: c depends on the label). `valsample` samples one batch per test
 batch with the EMA params, or with several categories
 ceil(n_ref / test_batch_size) batches of `test_batch_size` at the label
 `val_cate` cut to the n_ref test clouds of that category, and scores them
-with `eval.metrics.compute_all_metrics` (K5 and K6 on the card);
-`vis=True` raises (the renderer is not ported).
+with `eval.metrics.compute_all_metrics` (K5 and K6 on the card); with
+`vis=True` it renders them under `<save_path>/vis` (`tools.vis_utils`).
+`cfg.sde.predictor: pndm` and `sample_mode: continuous` (the
+probability-flow ODE, its counts in `ode_stats`) run the whole Score at
+each evaluation and never the int8 twin.
 
 `sample(..., serve_int8=True)` serves through the W8A8 twin
 (`serving.int8`, `sample_latents(int8=True)`) where `int8_serving_active`
@@ -79,6 +82,7 @@ from ldt_torch.models import Compressor, Score
 from ldt_torch.nn.layers import DropoutMasks
 from ldt_torch.serving import int8 as int8_serving
 from ldt_torch.tools.utils import train_dtype
+from ldt_torch.tools.vis_utils import render_3D
 from ldt_torch.training.base import BaseTrainer, to_numpy
 from ldt_torch.training.checkpoint import (
     checkpoint_file,
@@ -176,6 +180,8 @@ class Trainer(BaseTrainer):
         # True while the golden gate itself samples: its legs are the
         # certification run, so they check no stamp
         self.gate_exempt = False
+        # the ODE sampler's counts of the last continuous `sample`
+        self.ode_stats: dict = {}
         # `restored_ckpt`: the checkpoint file the Score was restored from
         # (the int8 gate stamp and static scales sit next to it)
         self._restore_recorded(None)
@@ -350,26 +356,35 @@ class Trainer(BaseTrainer):
         return self._act_scales
 
     def _sampler_opts(self) -> dict:
-        """`sample_discrete`'s options from `cfg.sde`, the draws from the
-        trainer's generator; the ODE sampler raises."""
+        """`sample_latents`' sampler options from `cfg.sde`, the draws from
+        the trainer's generator: the discrete sampler's (`predictor`, ...,
+        sample_time_eps), or with `sample_mode: continuous` the ODE's
+        (`ode_tol`; its counts land in `ode_stats`)."""
         sde_cfg = self.cfg.sde
-        if sde_cfg.sample_mode == "continuous":
-            raise NotImplementedError("the ODE sampler is not ported yet")
-        return dict(predictor=sde_cfg.predictor, corrector=sde_cfg.corrector,
+        opts = dict(predictor=sde_cfg.predictor, corrector=sde_cfg.corrector,
                     corrector_steps=sde_cfg.corrector_steps, snr=sde_cfg.snr,
                     probability_flow=sde_cfg.probability_flow,
-                    denoise=sde_cfg.denoise, generator=self.generator)
+                    denoise=sde_cfg.denoise, generator=self.generator,
+                    time_eps=sde_cfg.sample_time_eps)
+        if sde_cfg.sample_mode == "continuous":
+            self.ode_stats = {}
+            opts.update(sample_mode="continuous", ode_tol=sde_cfg.ode_tol,
+                        ode_stats=self.ode_stats)
+        return opts
 
     def sample(self, num_samples: int, num_points: Optional[int] = None,
                label=None, *, serve_int8: bool = False,
                attn_int8: bool = False, bf16_tail: int = 0,
                static_act: bool = False, static_file: Optional[str] = None,
                strict: bool = False):
-        """(clouds [num_samples, num_points, 3], latents): the ported
-        discrete sampler (`cfg.sde`'s predictor and corrector, sample_N
-        steps, draws from the generator) on the EMA Score, conditioned on
-        `label` (a category index or [num_samples] of them) if given, then
-        the decode (no label: the Compressor's `sample`).
+        """(clouds [num_samples, num_points, 3], latents): the sampler of
+        `cfg.sde` (the discrete one's predictor and corrector over sample_N
+        steps, or with `sample_mode: continuous` the probability-flow ODE
+        at `ode_tol`, its counts in `ode_stats`; draws from the generator)
+        on the EMA Score, conditioned on `label` (a category index or
+        [num_samples] of them) if given, then the decode (no label: the
+        Compressor's `sample`).
+        PNDM and the ODE run the whole Score at each evaluation.
 
         `serve_int8`: where `int8_serving_active` holds, each step goes
         through the W8A8 twin (its attention core K8 with `attn_int8`, the
@@ -409,11 +424,9 @@ class Trainer(BaseTrainer):
         score them against those test clouds `data['te_points']`:
         {'val/gen/<metric>'} of `compute_all_metrics(smp, ref,
         batch_size=64)`; the samples go to `smp_ep<epoch>.npy` under
-        `cfg.log.save_path` when there is one."""
-        if vis:
-            raise NotImplementedError(
-                "Trainer.valsample(vis=True) is not ported yet: its renderer "
-                "(tools/vis_utils) is a later slice")
+        `cfg.log.save_path` when there is one, and with `vis` rendered
+        under its `vis/` (`tools.vis_utils.render_3D`)."""
+        vis_dir = self.vis_dir() if vis else None
         all_ref, all_smp = [], []
         use_time = 0.0
         if self.cfg.data.num_categorys == 1:
@@ -442,6 +455,8 @@ class Trainer(BaseTrainer):
             smp = np.concatenate(all_smp)[:ref.shape[0]]
         print("Sample rate: %.8f " % (smp.shape[0] / max(use_time, 1e-9)))
         self.save_npy(f"smp_ep{self.epoch}.npy", smp)
+        if vis:
+            render_3D(vis_dir, smp)
         return self.eval_metrics(smp, ref, 64)
 
     def state_tree(self) -> dict:

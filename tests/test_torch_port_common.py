@@ -147,7 +147,8 @@ def test_import_leaves_jax_and_ldt_tpu_unloaded():
             "ldt_torch.entries.train_completion_latent_diffusion",
             "ldt_torch.diffusion.sde", "ldt_torch.training.hybrid_trainer",
             "ldt_torch.entries.train_hybrid", "ldt_torch.tools.profiling",
-            "ldt_torch.entries.int8_calibrate",
+            "ldt_torch.entries.int8_calibrate", "ldt_torch.tools.vis_utils",
+            "ldt_torch.data.fastload",
             "ldt_torch.entries.int8_golden_gate", "chip_smoke"]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -445,16 +445,25 @@ def test_stage2_valsample_and_reconstruction_match_jax(tmp_path,
 
 
 def test_what_the_completion_sampler_does_not_port_raises(tmp_path, jtr2):
+    """Once refused, now ported: `valsample(vis=True)` renders the
+    completions under `<save_path>/vis`; the ODE sampler (`sample_mode:
+    continuous`) completes the condition, and `int8=True` there serves the
+    exact sampler (test_torch_port_sampler_trainers holds both against
+    JAX)."""
     ttr = _stage2_pair(tmp_path, jtr2)
     data = _batch(50)
     cond = {"img": data["views"], "pts": data["pc_part"]}
-    with pytest.raises(NotImplementedError, match="vis_utils"):
-        ttr.valsample([], vis=True)
+    ttr.valsample([data], vis=True)
+    xml = sorted(f for f in os.listdir(tmp_path / "vis")
+                 if f.endswith(".xml"))
+    assert xml == [f"smp_{i}.xml" for i in range(B)]
     ttr.cfg.sde.sample_mode = "continuous"
-    with pytest.raises(NotImplementedError, match="ODE"):
-        ttr.sample(B, condition=cond)
-    with pytest.raises(NotImplementedError, match="ODE"):
-        ttr.sample(B, condition=cond, int8=True)
+    state = ttr.generator.get_state()
+    smp, eps = ttr.sample(B, condition=cond)
+    assert smp.shape == (B, N, 3) and torch.isfinite(smp).all()
+    assert ttr.ode_stats["nfe"] == 6 * ttr.ode_stats["steps"] > 0
+    ttr.generator.set_state(state)
+    assert torch.equal(ttr.sample(B, condition=cond, int8=True)[1], eps)
 
 
 # ------------------------------------------------------------ checkpoints

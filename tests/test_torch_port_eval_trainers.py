@@ -4,6 +4,9 @@ the stage-2 `valsample`, each on the same weights with every draw pinned
 (the reparameterization noise, the prior's latents, the sampler's draws),
 against the JAX trainers' own methods; and what still raises."""
 
+import os
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -264,9 +267,24 @@ def test_stage2_valsample_matches_jax(tmp_path, monkeypatch):
 
 
 def test_what_the_evaluation_does_not_port_yet_raises(tmp_path):
+    """Once refused, `valsample(vis=True)` now renders: without a save path
+    both trainers say that it needs one, before sampling; with one, the
+    scenes of the saved samples go to `<save_path>/vis` (2 x B clouds, an
+    XML each, beside a PNG where matplotlib imports)."""
     s1 = Stage1(compressor_trainer_cfg(model=C), device="cpu")
-    with pytest.raises(NotImplementedError, match="vis_utils"):
+    with pytest.raises(ValueError, match="save_path"):
         s1.valsample(_loader(6), N, vis=True)
     cfg = latent_trainer_cfg(score=SMALL_SCORE, compressor=C, sde=SDE)
-    with pytest.raises(NotImplementedError, match="vis_utils"):
-        Stage2(cfg, device="cpu").valsample(_loader(6), vis=True)
+    s2 = Stage2(cfg, device="cpu")
+    with pytest.raises(ValueError, match="save_path"):
+        s2.valsample(_loader(6), vis=True)
+    for name, trainer, run in (
+            ("s1", s1, lambda: s1.valsample(_loader(6), N, vis=True)),
+            ("s2", s2, lambda: s2.valsample(_loader(6), vis=True))):
+        trainer.cfg.log = SimpleNamespace(save_path=str(tmp_path / name))
+        os.makedirs(trainer.cfg.log.save_path)
+        trainer.maybe_init({"tr_points": _loader(7)[0]["te_points"]})
+        run()
+        xml = sorted(f for f in os.listdir(tmp_path / name / "vis")
+                     if f.endswith(".xml"))
+        assert xml == sorted(f"smp_{i}.xml" for i in range(2 * B))

@@ -385,10 +385,10 @@ def test_trainer_random_init_and_its_state():
 
 @pytest.mark.parametrize("method", ["valsample", "save", "resume"])
 def test_unported_trainer_methods_say_why(method, tmp_path):
-    """Of the evaluation, the renderer of `valsample(vis=True)` is a later
-    slice; `save` before `maybe_init` says that it needs the model, and
-    `resume` with neither a training.csv nor a checkpoint under the save
-    path raises."""
+    """`valsample(vis=True)` (once refused, now rendering under the save
+    path) says, without a save path, that it needs one; `save` before
+    `maybe_init` says that it needs the model, and `resume` with neither a
+    training.csv nor a checkpoint under the save path raises."""
     trainer = Trainer(_cfg(), device="cpu")
 
     def resume():
@@ -399,7 +399,7 @@ def test_unported_trainer_methods_say_why(method, tmp_path):
 
     calls = {
         "valsample": (lambda: trainer.valsample([], N, vis=True),
-                      NotImplementedError, "not ported yet"),
+                      ValueError, "save_path"),
         "save": (trainer.save, RuntimeError, "maybe_init"),
         "resume": (resume, FileNotFoundError, "no checkpoints")}
     call, error, match = calls[method]
