@@ -274,6 +274,40 @@ The samplers beside the ancestral one, the renderer and the native loader:
      `<save_path>/vis`; the native bulk loader is built and equals np.load
      bit for bit on 64 synthetic 15000-point clouds.
 
+The last modules: the ops leftovers and the parallelism over
+torch.distributed:
+ 28. (last) a) The ops leftovers (`ball_query`, `grouping`,
+     `nearest_neighbor_interpolate`, `avg_voxelize`, `trilinear_devoxelize`,
+     `normalize_point_clouds`, the masks, `MaskedBatchNorm` in both modes)
+     card vs CPU; the compact auction against the dense one on the card at
+     the stage-1 loss's shape (16 pairs of 2048 points near their targets):
+     the same assignment, both timed. b) One spawned job of 4 ranks as
+     {data: 2, model: 2} on the one card (`cuda:0`) with the gloo backend
+     (NCCL refuses two ranks on one device): each collective the library
+     uses is first tried on CUDA tensors (printed; a refusal fails the
+     phase). The job runs the tensor-parallel sampler at full width and
+     depth (24 blocks, bf16, B=64, P28_STEPS steps; K1 on 8 heads x 512 a
+     rank) and the sequence-parallel decode of N(0, 1) latents (K2 on 1024
+     queries a rank), each held against the single-process run
+     (PATH_TOL); a DP+TP stage-2 step (f32, the Score's depth cut to
+     P28_BLOCKS blocks, printed) and a DP stage-1 step (the Compressor's
+     layers cut to P28_LAYERS, printed) against the single-process steps:
+     the loss, the global gradient norm before the clip, and Adam's first
+     and second moments after the step, gathered whole, and the stage-1
+     BatchNorm statistics (P28_STATE_TOL: the stage-2 step elementwise at
+     the CPU tests' limits, the stage-1 moments by their relative norm, as
+     a chamfer loss's nearest neighbours flip at near-ties); and one
+     sharded `compute_all_metrics` tile,
+     equal to the single-process metrics. Each rank's K1, K3, K2, K4, K5
+     and K6/K7 launches by shape (the wrappers' own `.shapes` records,
+     zeroed at the job's start) are printed; K1 must have run at 8 heads x
+     512.
+     The kernels at these launch shapes are timed beside their bounds,
+     twins and SDPA (rows `packed_self_attention_tp`,
+     `packed_self_attention_bwd_tp`, `cross_attention_sp`, their launches
+     the job's rank 0's). c) One world-1 `nccl` group: a stage-2 step in it
+     equals the step with no group, bit for bit.
+
 The last two lines of standard output before the final one are the kernel
 table (JSON) and the card's `nvidia-smi` name and power limit; the final line
 is {"ok": true, "device": {...}}.
@@ -409,6 +443,12 @@ BATCH = 64         # clouds per generation, as bench.py
 STEPS = 1000       # ancestral steps of the main path
 CHECK_STEPS = 32   # phases 3, 5 and 6 (beta_end / N must stay below 1)
 SEED = 0
+P28_STEPS = 32     # phase 28's sampler steps (beta_end / N below 1)
+P28_BLOCKS = 2     # phase 28's stage-2 step: the Score's depth cut
+P28_LAYERS = 2     # phase 28's stage-1 step: the Compressor's layers cut
+P28_BATCH = 64     # phase 28's sampler, decode and stage-2 batch
+P28_ROWS = ("packed_self_attention_tp", "packed_self_attention_bwd_tp",
+            "cross_attention_sp")
 
 
 def synthetic_shapes(count: int, points: int, rng):
@@ -5917,6 +5957,559 @@ def phase_vis_fastload() -> None:
         fail("phase 27e: load_npy_batch differs from np.load")
 
 
+def phase_ops_leftovers() -> None:
+    """Phase 28a: the ops leftovers card vs CPU, and the compact auction
+    against the dense one on the card."""
+    import numpy as np
+    import torch
+
+    from ldt_torch.ops import emd, geometry, masks
+
+    rng = np.random.default_rng(SEED)
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32))
+
+    xyz, new, feats = t((4, 2048, 3)), t((4, 256, 3)), t((4, 2048, 32))
+    idx = torch.from_numpy(rng.integers(0, 2048, (4, 256, 16)))
+    coords = torch.from_numpy(rng.integers(0, 32, (4, 2048, 3)))
+    grid = t((4, 32, 32, 32, 8))
+    fcoords = torch.from_numpy(rng.uniform(0, 31, (4, 2048, 3))
+                               .astype(np.float32))
+    mask = masks.get_mask((4, 1500), 2048)
+    bn = masks.MaskedBatchNorm(32)
+    with torch.no_grad():
+        bn.scale.copy_(t((32,)) + 1.0)
+        bn.bias.copy_(t((32,)))
+    cases = {
+        "ball_query": lambda dev: geometry.ball_query(
+            0.3, 32, xyz.to(dev), new.to(dev)),
+        "grouping": lambda dev: geometry.grouping(feats.to(dev),
+                                                  idx.to(dev)),
+        "nearest_neighbor_interpolate": lambda dev:
+            geometry.nearest_neighbor_interpolate(
+                xyz.to(dev), new.to(dev), feats[:, :256].to(dev)),
+        "avg_voxelize": lambda dev: geometry.avg_voxelize(
+            feats.to(dev), coords.to(dev), 32),
+        "trilinear_devoxelize": lambda dev: geometry.trilinear_devoxelize(
+            grid.to(dev), fcoords.to(dev)),
+        "normalize_point_clouds": lambda dev:
+            geometry.normalize_point_clouds(xyz.to(dev) * 3 + 1),
+        "masked_batch_norm train": lambda dev: bn.to(dev)(
+            feats.to(dev), mask.to(dev), train=True),
+        "masked_batch_norm eval": lambda dev: bn.to(dev)(
+            feats.to(dev), mask.to(dev)),
+        "sample_mask": lambda dev: masks.sample_mask(
+            (4, 1500), 2048, permutations=torch.stack(
+                [torch.randperm(2048, generator=torch.Generator()
+                                .manual_seed(i)) for i in range(4)])
+            .to(dev), device=dev),
+    }
+    readings = {}
+    with torch.no_grad():
+        for name, fn in cases.items():
+            card, cpu = fn("cuda").cpu(), fn("cpu")
+            if card.dtype in (torch.int64, torch.bool):
+                if not torch.equal(card, cpu):
+                    fail(f"phase 28a: {name} card != CPU")
+                readings[name] = "equal"
+                continue
+            err = ((card - cpu).abs().max() / cpu.abs().max().clamp(
+                min=1e-30)).item()
+            readings[name] = f"{err:.2e}"
+            if not err <= 1e-5:
+                fail(f"phase 28a: {name} card vs CPU {err:.3e} > 1e-5")
+    print("[28a] ops leftovers, card vs CPU (max relative, or equal): "
+          + ", ".join(f"{k} {v}" for k, v in readings.items()))
+    # the compact auction at the stage-1 loss's shape, near-converged
+    y = torch.from_numpy(synthetic_shapes(16, 2048, rng)).cuda()
+    x = y + 0.02 * torch.randn(y.shape, device="cuda",
+                               generator=torch.Generator("cuda")
+                               .manual_seed(SEED))
+    dense = emd.auction_emd(x, y)
+    compact = emd.auction_emd(x, y, compact=True)
+    if not torch.equal(dense[1], compact[1]):
+        fail("phase 28a: the compact auction's assignment differs from "
+             "the dense one's")
+    dense_ms = cuda_ms(lambda: emd.auction_emd(x, y), iters=3, warmup=1)
+    compact_ms = cuda_ms(lambda: emd.auction_emd(x, y, compact=True),
+                         iters=3, warmup=1)
+    print(f"[28a] auction EMD 16 x 2048 points near their targets: compact "
+          f"== dense assignment; dense {dense_ms:.2f} ms, compact "
+          f"{compact_ms:.2f} ms a call")
+
+
+def p28_flagship(dtype):
+    """Phase 28's flagship Score (24 blocks) in `dtype` and the bf16
+    decoder, random from their own seed (the same in every process)."""
+    import torch
+
+    from ldt_torch.configs import compressor_cfg, score_cfg
+    from ldt_torch.models import Compressor, Score
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 28)
+    weights = Score(score_cfg(), device="cuda", generator=gen).state_dict()
+    score = Score(score_cfg(), dtype=dtype, device="cuda").eval()
+    score.load_state_dict(weights)
+    del weights
+    comp = Compressor(compressor_cfg(), dtype=torch.bfloat16, device="cuda",
+                      generator=gen).eval()
+    return score, comp
+
+
+def p28_pins():
+    """The sampler's x0 and noise and the decode's N(0, 1) latents."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 29)
+    shape = (P28_BATCH, 32, 120)
+    return {"x0": torch.randn(shape, device="cuda", generator=gen),
+            "noise": torch.randn((P28_STEPS,) + shape, device="cuda",
+                                 generator=gen),
+            "eps": torch.randn(shape, device="cuda", generator=gen)}
+
+
+def p28_generate(score, comp, pins):
+    """(latents, clouds): the sampler from the pinned draws, and the
+    decode of the pinned N(0, 1) latents."""
+    import torch
+
+    from ldt_torch.configs import sde_cfg
+    from ldt_torch.diffusion import make_diffusion
+    from ldt_torch.generate import sample_latents
+
+    sde = make_diffusion(sde_cfg(sample_N=P28_STEPS), device="cuda")
+    lat = sample_latents(score, sde, P28_BATCH, P28_STEPS, device="cuda",
+                         x0=pins["x0"], noise=pins["noise"])
+    with torch.inference_mode():
+        clouds = comp.sample((P28_BATCH, comp.cfg.outsize), pins["eps"])
+    return lat.float(), clouds.float()
+
+
+def p28_trainers(mesh=None):
+    """Phase 28's stage-2 trainer (f32, P28_BLOCKS blocks) and stage-1
+    trainer (P28_LAYERS layers) with their batches, random from the seed;
+    one update of each: (stage-2 loss, stage-2 trainer, stage-1 (loss, kl,
+    rec, max), stage-1 trainer)."""
+    import numpy as np
+    import torch
+
+    from ldt_torch.configs import compressor_trainer_cfg, latent_trainer_cfg
+    from ldt_torch.training.compressor_trainer import Trainer as Stage1
+    from ldt_torch.training.latent_sde_trainer import Trainer as Stage2
+
+    rng = np.random.default_rng(SEED + 30)
+    cfg = latent_trainer_cfg(score=dict(num_blocks=P28_BLOCKS),
+                             common=dict(model_parallel=2, seed=SEED))
+    s2 = Stage2(cfg, device="cuda", mesh=mesh)
+    batch = {"tr_points": torch.from_numpy(
+        synthetic_shapes(P28_BATCH, 2048, rng)).cuda()}
+    s2.maybe_init(batch)
+    loss2 = s2.update(batch)
+    cfg1 = compressor_trainer_cfg(model=dict(n_layers=P28_LAYERS),
+                                  common=dict(seed=SEED))
+    s1 = Stage1(cfg1, device="cuda", mesh=mesh)
+    batch1 = {"tr_points": torch.from_numpy(
+        synthetic_shapes(16, 2048, rng)).cuda()}
+    s1.maybe_init(batch1)
+    out1 = s1.update(batch1)
+    return float(loss2), s2, [float(v) for v in out1], s1
+
+
+def p28_moments(s2, s1) -> dict:
+    """The trainers' state after the step, whole, on the host: each step's
+    global gradient norm before the clip, the stage-2 Score's Adam moments
+    and the stage-1 Compressor's moments and BatchNorm statistics."""
+    def host(tree):
+        return {k: v.detach().cpu().clone() for k, v in tree.items()}
+
+    opt2 = s2.state_tree(full=True)["score"]["opt_state"]
+    return {"stage2 grad_norm": float(s2.tx.grad_norm),
+            "stage1 grad_norm": float(s1.tx.grad_norm),
+            "stage2 mu": host(opt2["mu"]), "stage2 nu": host(opt2["nu"]),
+            "stage1 mu": host(s1.state.opt_state.mu),
+            "stage1 nu": host(s1.state.opt_state.nu),
+            "stage1 batch_stats": host(s1.state.batch_stats or {})}
+
+
+# the limits of the state after phase 28b's steps. Elementwise (|got -
+# want| <= atol + rtol |want|) where the CPU tests of the parallel trainers
+# hold the same against JAX: the stage-2 grad norm and moments as
+# tests/test_torch_port_parallel_trainers.py (TOL2, nu at rtol 1e-5), the
+# stage-1 BatchNorm statistics at 1e-5. The stage-1 grad norm and moments
+# by their relative norm ||got - want|| / ||want|| (`rel_norm`): the stage-1
+# loss is a chamfer distance, and at 16 x 2048 points the ~1e-8 that the
+# global BatchNorm statistics' other sum order moves the decoded points can
+# flip a nearest neighbour between near-equal candidates, which moves that
+# point's gradient term by its own size. On the H100 the moments sit 1.1e-3
+# off in norm while the grad norm agrees to 1.7e-5 and a single process
+# repeats itself to 1e-7; the CPU test holds them elementwise at its small
+# size. A wrong divide by the world moves the grad norm by half or more.
+P28_STATE_TOL = {"stage2 grad_norm": dict(rtol=1e-5, atol=1e-5),
+                 "stage2 mu": dict(rtol=1e-5, atol=1e-5),
+                 "stage2 nu": dict(rtol=1e-5, atol=1e-9),
+                 "stage1 grad_norm": dict(rel_norm=1e-2),
+                 "stage1 mu": dict(rel_norm=1e-2),
+                 "stage1 nu": dict(rel_norm=1e-2),
+                 "stage1 batch_stats": dict(rtol=1e-5, atol=1e-5)}
+# coordinates with no gradient in exact arithmetic, left out of the moments'
+# comparison as the CPU tests leave them out (their moments are rounding
+# noise): a bias right before a train-mode BatchNorm, the grouping's
+# feature bias and affine beta (tests/test_torch_port_stage1.py NULL_GRAD),
+# and every attention's key bias, rows [D, 2D) of `attn.qkv.bias`
+P28_NULL_GRAD = {"input_dense.bias", "group.affine_beta",
+                 "group.extraction.transfer_dense.bias",
+                 "group.extraction.ops.0.net1_dense.bias",
+                 "pos_embedding.conv1.bias", "pos_embedding.conv2.bias"}
+
+
+def p28_split_null(tree: dict, part: str) -> dict:
+    """`tree` without its gradient-free coordinates (see P28_NULL_GRAD):
+    the key bias rows cut out of each qkv bias; the BatchNorm statistics as
+    they are."""
+    import torch
+
+    if part.endswith("batch_stats"):
+        return tree
+    out = {}
+    for k, t in tree.items():
+        if k in P28_NULL_GRAD:
+            continue
+        if k.endswith("attn.qkv.bias"):
+            d = t.numel() // 3
+            t = torch.cat([t[:d], t[2 * d:]])
+        out[k] = t
+    return out
+
+
+def p28_state_check(part: str, got, want) -> bool:
+    """Print how far `got` is from `want` (a float, or tensors by name whose
+    gradient-free coordinates are left out) and return whether it is
+    within P28_STATE_TOL[part]."""
+    import torch
+
+    tol = P28_STATE_TOL[part]
+    values = ""
+    if isinstance(want, float):
+        values = f" ({got!r} vs {want!r})"
+        got, want = {"": torch.tensor([got])}, {"": torch.tensor([want])}
+    if sorted(got) != sorted(want):
+        print(f"[28b] {part}: other tensors than the single-process "
+              "trainer's")
+        return False
+    got, want = p28_split_null(got, part), p28_split_null(want, part)
+    excess, where, n_out, n = -float("inf"), None, 0, 0
+    diff2 = want2 = 0.0
+    by_tensor = []
+    for k, w in want.items():
+        if not w.numel():
+            continue
+        d = (got[k] - w).abs()
+        if "rtol" in tol:
+            e = d - tol["atol"] - tol["rtol"] * w.abs()
+            if float(e.max()) > excess:
+                excess, where = float(e.max()), k
+            n_out += int((e > 0).sum())
+        n += w.numel()
+        d2, w2 = float((d.double() ** 2).sum()), float((w.double() ** 2)
+                                                       .sum())
+        diff2, want2 = diff2 + d2, want2 + w2
+        by_tensor.append(((d2 / max(w2, 1e-300)) ** 0.5, k))
+    rel = (diff2 / max(want2, 1e-300)) ** 0.5
+    head = (f"[28b] {part}{values}, parallel vs single process: "
+            f"||diff|| / ||want|| {rel:.3e}")
+    if "rtol" in tol:
+        print(f"{head}, {n_out} of {n} elements beyond atol {tol['atol']} + "
+              f"rtol {tol['rtol']} |want| (the worst by {excess:.3e}, in "
+              f"{where})")
+        return n_out == 0
+    top = ", ".join(f"{k} {r:.2e}" for r, k in sorted(by_tensor)[-3:][::-1])
+    print(f"{head} (limit {tol['rel_norm']}; the largest by tensor: "
+          f"{top})")
+    return rel <= tol["rel_norm"]
+
+
+def p28_eval_sets():
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 31)
+    return synthetic_shapes(8, 2048, rng), synthetic_shapes(8, 2048, rng)
+
+
+def p28_collectives(ctx) -> list:
+    """Try each collective the library calls on CUDA tensors over gloo; a
+    refusal fails the phase (the library stages nothing through the
+    host)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(64, device="cuda")
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(ctx.world)], t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0)}
+    notes = []
+    for name, probe in probes.items():
+        try:
+            probe()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            fail(f"phase 28b: gloo refuses {name} on CUDA tensors ({e})")
+        notes.append(f"{name} takes CUDA tensors")
+    return notes
+
+
+def phase28_rank(ctx) -> None:
+    """Phase 28b on one rank of the spawned job (see the docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from ldt_torch.entries.dryrun_multichip import (
+        launch_record, mesh_for, reset_launches)
+    from ldt_torch.eval.metrics import compute_all_metrics
+    from ldt_torch.parallel.tp import shard_params
+
+    torch.cuda.set_device(0)
+    notes = p28_collectives(ctx)
+    mesh = mesh_for(ctx.mp)
+    res = {"notes": notes, "backend": ctx.backend}
+    t0 = time.perf_counter()
+    reset_launches()
+    score, comp = p28_flagship(torch.bfloat16)
+    shard_params(score, mesh)
+    lat, clouds = p28_generate(score, comp, p28_pins())
+    del score, comp
+    res["sampler"], res["decoder"] = lat.cpu(), clouds.cpu()
+    loss2, s2, out1, s1 = p28_trainers(mesh)
+    res["stage2"], res["stage1"] = loss2, out1
+    res["state"] = p28_moments(s2, s1)
+    del s2, s1
+    smp, ref = p28_eval_sets()
+    res["eval"] = compute_all_metrics(smp, ref, 8, verbose=False,
+                                      device="cuda")
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"] = launch_record("cuda")
+    launches = [None] * ctx.world
+    dist.all_gather_object(launches, res["launches"])
+    res["launches_by_rank"] = launches
+    if ctx.rank == 0:
+        torch.save(res, f"{ctx.workdir}/results.pt")
+
+
+def p28_kernel_rows(launches: dict) -> dict:
+    """Rows of the kernels at phase 28's launch shapes: K1 bf16 on a rank's
+    8 heads x 512 ([64, 32, 1536]), K3 f32 on a stage-2 rank's [32, 32,
+    1536], K2 bf16 on a decode rank's 1024 queries ([64, 1024, 128] x
+    [64, 32, 128], 4 heads)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ldt_torch.ops import attention as attn_ops
+
+    gen = torch.Generator("cuda").manual_seed(SEED + 32)
+
+    def heads(t, hh):
+        return t.unflatten(-1, (hh, -1)).transpose(1, 2)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, device="cuda", dtype=dtype, generator=gen)
+
+    b, n, d, h = P28_BATCH, 32, 512, 8
+    qkv = rnd((b, n, 3 * d), torch.bfloat16)
+    b2 = P28_BATCH // 2
+    qkv32, g32 = rnd((b2, n, 3 * d), torch.float32), rnd((b2, n, d),
+                                                         torch.float32)
+    nq, m, dc, hc = 1024, 32, 128, 4
+    q, k, v = (rnd((b, s, dc), torch.bfloat16) for s in (nq, m, m))
+    split = [heads(qkv[..., i * d:(i + 1) * d], h) for i in range(3)]
+    split32 = [heads(qkv32[..., i * d:(i + 1) * d], h) for i in range(3)]
+    cases = {
+        "packed_self_attention_tp": dict(
+            kernel=lambda: attn_ops.packed_self_attention(qkv, h),
+            plain=lambda: attn_ops.packed_self_attention_plain(qkv, h),
+            library=lambda: F.scaled_dot_product_attention(*split),
+            nbytes=(qkv.numel() + b * n * d) * 2,
+            ops={"bfloat16": b * h * (4 * n * n * (d // h) + 5 * n * n)},
+            key=f"{b}x{n}x{3 * d}/h{h}", kid="K1",
+            replaces="ldt_tpu/ops/pallas_attention.py:214"),
+        "packed_self_attention_bwd_tp": dict(
+            kernel=lambda: attn_ops.packed_self_attention_bwd(qkv32, g32, h),
+            plain=lambda: attn_ops.packed_self_attention_bwd_plain(
+                qkv32, g32, h),
+            library=lambda: sdpa_backward_ms(*split32, heads(g32, h)),
+            nbytes=(2 * qkv32.numel() + g32.numel()) * 4,
+            ops={"float32": b2 * h * (10 * n * n * (d // h) + 8 * n * n)},
+            key=f"{b2}x{n}x{3 * d}/h{h}", kid="K3",
+            replaces="ldt_tpu/ops/pallas_attention.py:312"),
+        "cross_attention_sp": dict(
+            kernel=lambda: attn_ops.cross_attention(q, k, v, hc),
+            plain=lambda: attn_ops.attention_plain(q, k, v, hc),
+            library=lambda: F.scaled_dot_product_attention(
+                heads(q, hc), heads(k, hc), heads(v, hc)),
+            nbytes=(2 * q.numel() + k.numel() + v.numel()) * 2,
+            ops={"bfloat16": b * hc * (4 * nq * m * (dc // hc)
+                                       + 5 * nq * m)},
+            key=f"{b}x{nq}x{dc}/h{hc}", kid="K2",
+            replaces="ldt_tpu/ops/pallas_attention.py:49"),
+    }
+    rows = {}
+    for name, c in cases.items():
+        got = c["kernel"]()
+        err = errs(got, c["plain"]())[0]
+        tol = KERNEL_TOL["float32" if got.dtype == torch.float32
+                         else "bfloat16"][0]
+        if name.startswith("packed_self_attention_bwd"):
+            err = errs(got, c["plain"](), rel=True)[0]
+            tol = K3_TOL["float32"][0]
+        if not err <= tol:
+            fail(f"phase 28: {name} vs its twin {err:.3e} > {tol}")
+        ms = cuda_ms(c["kernel"])
+        plain_ms = cuda_ms(c["plain"], iters=20)
+        library_ms = (c["library"]() if name.endswith("bwd_tp")
+                      else cuda_ms(c["library"]))
+        bound_ms, bound_by = _bound(c["nbytes"], c["ops"])
+        count = launches.get(c["kid"], {}).get(c["key"], 0)
+        if count == 0:
+            fail(f"phase 28: the job launched no {c['kid']} at {c['key']}")
+        print(f"[28b] {name} ({c['kid']} at {c['key']}): max_abs_err "
+              f"{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), launches on rank 0 {count}")
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": "ldt_torch/csrc/attention.cu",
+                      "replaces": c["replaces"], "launches": count,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+    return rows
+
+
+def phase_parallel() -> dict:
+    """Phase 28b and c (see the docstring); returns the kernel rows at the
+    job's launch shapes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ldt_torch.entries.dryrun_multichip import launch
+    from ldt_torch.eval.metrics import compute_all_metrics
+
+    work = tempfile.mkdtemp(prefix="ldt_p28_")
+    try:
+        t0 = time.perf_counter()
+        score, comp = p28_flagship(torch.bfloat16)
+        want_lat, want_clouds = p28_generate(score, comp, p28_pins())
+        del score, comp
+        want2, s2, want1, s1 = p28_trainers()
+        want_state = p28_moments(s2, s1)
+        del s2, s1
+        want_eval = compute_all_metrics(*p28_eval_sets(), 8, verbose=False,
+                                        device="cuda")
+        t_ref = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        launch(phase28_rank, 4, 2, "cuda", work, timeout_s=300.0)
+        t_job = time.perf_counter() - t0
+        res = torch.load(f"{work}/results.pt", weights_only=False)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if res["backend"] != "gloo":
+        fail(f"phase 28b: the one-card job took {res['backend']}, not gloo")
+    for note in res["notes"]:
+        print(f"[28b] gloo: {note}")
+    print(f"[28b] 4 ranks {{data: 2, model: 2}} on cuda:0 (gloo): job "
+          f"{t_job:.1f} s (rank 0's work {res['seconds']:.1f} s), the "
+          f"single-process references {t_ref:.1f} s; cuts: the stage-2 "
+          f"Score {P28_BLOCKS} of 24 blocks, the stage-1 Compressor "
+          f"{P28_LAYERS} of 6 layers; the sampler {P28_STEPS} steps")
+    for r, launches in enumerate(res["launches_by_rank"]):
+        print(f"[28b] rank {r} launches by shape: " + "; ".join(
+            f"{kid} " + ", ".join(f"{k} x{c}" for k, c in sorted(v.items()))
+            for kid, v in launches.items() if v))
+        if launches["K1"].get(f"{P28_BATCH}x32x1536/h8", 0) != \
+                24 * P28_STEPS:
+            fail(f"phase 28b: rank {r} did not run K1 at 8 heads x 512 "
+                 f"24 x {P28_STEPS} times: {launches['K1']}")
+        for kid in ("K1", "K3", "K2", "K4", "K5", "K6/K7"):
+            if not launches.get(kid):
+                fail(f"phase 28b: rank {r} launched no {kid}")
+    for part, got, want in (("sampler", res["sampler"], want_lat),
+                            ("decoder", res["decoder"], want_clouds)):
+        tol = PATH_TOL[part][0]
+        e = errs(got.cuda(), want, rel=True)
+        print(f"[28b] {part}, tensor/sequence-parallel vs single process "
+              f"(relative max, mean): {e[0]:.3e}, {e[1]:.3e} (limit "
+              f"{tol})")
+        if not (e[0] <= tol[0] and e[1] <= tol[1]):
+            fail(f"phase 28b: the parallel {part} differs from the "
+                 "single-process one")
+    rel2 = abs(res["stage2"] - want2) / abs(want2)
+    print(f"[28b] DP+TP stage-2 step vs single process: loss {want2:.6f}, "
+          f"relative {rel2:.2e} (limit 1e-5)")
+    if not rel2 <= 1e-5:
+        fail("phase 28b: the DP+TP stage-2 loss differs from the "
+             "single-process one")
+    rel1 = [abs(g - w) / max(abs(w), 1e-12)
+            for g, w in zip(res["stage1"], want1)]
+    print(f"[28b] DP stage-1 step vs single process: (loss, kl, rec, max) "
+          f"{want1}, relative {[f'{r:.2e}' for r in rel1]} (limit 1e-3)")
+    if not max(rel1[:3]) <= 1e-3:
+        fail("phase 28b: the DP stage-1 step differs from the "
+             "single-process step")
+    held = [p28_state_check(part, res["state"][part], want)
+            for part, want in want_state.items()]
+    if not all(held):
+        fail("phase 28b: the state after the parallel steps differs from "
+             "the single-process trainers'")
+    diff = {k: res["eval"][k] - want_eval[k] for k in want_eval}
+    print(f"[28b] sharded eval tile (8 x 8, 2048 points, a quarter of the "
+          f"pairs a rank) vs single process: {diff}")
+    if any(not np.isclose(res["eval"][k], want_eval[k], rtol=1e-5,
+                          atol=1e-7) for k in want_eval):
+        fail("phase 28b: the sharded eval tile differs")
+    rows = p28_kernel_rows(res["launches_by_rank"][0])
+    p28_world1_nccl()
+    return rows
+
+
+def p28_world1_nccl() -> None:
+    """Phase 28c: a world-1 nccl group builds no mesh, and its stage-2 step
+    equals the one with no group, bit for bit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from ldt_torch.parallel.tp import initialize_distributed
+
+    def step():
+        loss, s2, _, _ = p28_trainers()
+        return loss, {k: p.detach().clone()
+                      for k, p in s2.state.params.items()}, s2.mesh
+
+    want_loss, want, _ = step()
+    with tempfile.TemporaryDirectory() as tmp:
+        if not initialize_distributed(init_method=f"file://{tmp}/rdzv",
+                                      world_size=1, rank=0,
+                                      backend="nccl", device="cuda"):
+            fail("phase 28c: the world-1 nccl group did not start")
+        try:
+            backend = dist.get_backend()
+            loss, got, mesh = step()
+        finally:
+            dist.destroy_process_group()
+    same = loss == want_loss and all(torch.equal(got[k], want[k])
+                                     for k in want)
+    print(f"[28c] world-1 {backend} group: mesh {mesh}, the stage-2 step "
+          f"{'equals' if same else 'DIFFERS FROM'} the one with no group "
+          f"(loss {loss:.6f})")
+    if backend != "nccl" or mesh is not None or not same:
+        fail("phase 28c: a world-1 nccl group is not the same as no group")
+
+
 def main() -> int:
     import torch
 
@@ -5985,6 +6578,8 @@ def main() -> int:
     phase_ode_generate(stage2)
     del stage2
     phase_vis_fastload()
+    phase_ops_leftovers()
+    rows.update(phase_parallel())
     # each kernel's count from the run of its own path: K1 and K2 from the
     # bf16 generation, K8 from the int8 generation through K8, K3 and the
     # tiled K2 from the timed stage-2 train steps, K4 (all schedules, the
@@ -6007,7 +6602,8 @@ def main() -> int:
     # holds both modes)
     launches["approx_match_cost"] -= launches["approx_match_cost_otf"]
     for name, row in rows.items():
-        row["launches"] = launches[name]
+        if name not in P28_ROWS:  # phase 28's carry the job's counts
+            row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

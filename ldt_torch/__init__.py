@@ -7,7 +7,10 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
                                  config.yaml's values)
   * `ops.attention`           <- ldt_tpu/ops/pallas_attention.py (CUDA kernels
                                  in `csrc/attention.cu`, built by `ops._build`)
-  * `ops.geometry`            <- ldt_tpu/ops/geometry.py (FPS, kNN, grouping)
+  * `ops.geometry`            <- ldt_tpu/ops/geometry.py (FPS, kNN, grouping,
+                                 the PVCNN primitives)
+  * `ops.masks`               <- ldt_tpu/ops/masks.py (set masks,
+                                 MaskedBatchNorm)
   * `ops.chamfer`, `ops.emd`  <- ldt_tpu/ops/chamfer.py, emd.py (the stage-1
                                  losses: chamfer, auction EMD; the eval's K5
                                  and K6/K7 as CUDA kernels in
@@ -36,8 +39,12 @@ layout and names follow `ldt_tpu` so each part has an obvious counterpart:
   * `entries`                 <- train_Compressor.py,
                                  train_Latent_Diffusion.py, val_sample.py,
                                  train_Completion_Compressor.py,
-                                 train_Completion_Latent_Diffusion.py
+                                 train_Completion_Latent_Diffusion.py,
+                                 __graft_entry__.py::dryrun_multichip
                                  (`python -m ldt_torch.entries.<name>`)
+  * `parallel`                <- ldt_tpu/parallel/ (data, tensor and
+                                 sequence parallelism over
+                                 torch.distributed; `comm` the collectives)
   * `weights`                 flax variable trees -> torch state_dicts
   * `generate`                noise -> [B, 2048, 3] clouds (bench.py::generate,
                                  bf16 or int8 serving)

@@ -10,8 +10,16 @@ on the card, so a pair's value does not depend on the tile it lies in. The
 tiles keep the JAX package's `_PAIR_TILE_BYTES` budget: K6 streams a
 [P, N, M] f32 distance tensor, 16.8 MB a pair at 2048 points. The last tile
 of a row or column is ragged (the JAX package pads it to one shape to avoid
-TPU recompiles; nothing here recompiles). Eval mesh sharding
-(`set_eval_mesh`) is parallelism, a later slice.
+TPU recompiles; nothing here recompiles).
+
+Under a registered mesh (`set_eval_mesh`, the trainers' mesh) a tile's
+flattened pair axis is split over every rank, as the JAX package's: pairs
+are independent, so even a model axis serves as data parallelism here.
+Each rank runs K5 and K6 (or K7) on its pairs and one all_gather per matrix
+joins them (where the world does not divide the tile's pairs, every rank
+computes the whole tile, as the JAX package then replicates). The JAX
+package takes XLA's chamfer under a mesh; the port keeps K5: the same
+function, rounded otherwise (the CPU tests hold rtol 1e-4, atol 1e-5).
 
 Every entry point takes `device` ("cuda" unless the CPU is asked for; it
 raises without a card), and clouds as numpy arrays or tensors.
@@ -30,6 +38,17 @@ from ldt_torch.ops.attention import true_divide
 from ldt_torch.ops.chamfer import pairwise_cd_means
 from ldt_torch.ops.emd import approx_match_cost
 from ldt_torch.ops.geometry import square_distance
+from ldt_torch.parallel import comm
+
+# The mesh the pair tiles shard over; the trainers register theirs
+# (`training.base.BaseTrainer`). None: every pair on this process.
+_EVAL_MESH = None
+
+
+def set_eval_mesh(mesh) -> None:
+    """Register (or clear, with None) the mesh eval pair tiles shard over."""
+    global _EVAL_MESH
+    _EVAL_MESH = mesh
 
 # ---------------------------------------------------------------------------
 # Pairwise distance matrices
@@ -51,11 +70,19 @@ def _pair_block(sample_block: torch.Tensor, ref_block: torch.Tensor,
     s, r = sample_block.shape[0], ref_block.shape[0]
     xs = sample_block.repeat_interleave(r, dim=0)     # [S*R, N, 3]
     ys = ref_block.repeat(s, 1, 1)                    # [S*R, M, 3]
-    cd = pairwise_cd_means(xs, ys).reshape(s, r)
+    world = comm.world_size() if _EVAL_MESH is not None else 1
+    split = world > 1 and (s * r) % world == 0
+    if split:  # this rank's pairs; the matrices joined by all_gather
+        xs, ys = comm.local_slice(xs, None, 0), comm.local_slice(ys, None, 0)
+
+    def joined(v):
+        return (comm.all_gather(v, None, 0) if split else v).reshape(s, r)
+
+    cd = joined(pairwise_cd_means(xs, ys))
     if not with_emd:
         return cd
     cost = approx_match_cost(xs, ys, otf=emd_otf)
-    return cd, true_divide(cost, float(ref_block.shape[1])).reshape(s, r)
+    return cd, joined(true_divide(cost, float(ref_block.shape[1])))
 
 
 def _iter_blocks(total: int, block: int):

@@ -25,6 +25,12 @@ set's random subset (`num_points < max_outputs`) and its mixture of
 Gaussians (`max_outputs: None`), whose draws come from a generator or are
 pinned (`seed_draw`), and `ref_merge` (the reference's head merge).
 
+Under a registered sequence-parallel mesh (`parallel.sp.set_sp_mesh`) the
+decode splits its point axis over the `model` ranks: the seed set is drawn
+whole and sliced (`sp_shard`), each rank decodes its N/m points (K2 on its
+queries against the whole latent key set), and the set is all-gathered
+(`sp_gather`) for the posterior's keys and the output.
+
 `dtype` is the compute dtype and `param_dtype` (default: `dtype`) the
 weights' (f32 weights and bf16 compute: the JAX package's mixed-precision
 training); ActNorm, the grouper's affine, the seed set and the norms keep
@@ -56,6 +62,7 @@ from ldt_torch.nn.layers import (
     take_batch_norm_updates,
 )
 from ldt_torch.ops.geometry import cluster, index_points
+from ldt_torch.parallel.sp import sp_gather, sp_shard
 
 LOG_SQRT_2PI = 0.9189385332  # the reference's truncated constant
 
@@ -231,22 +238,33 @@ class InitialSet(nn.Module):
         self.sig.abs_().div_(self.sig.shape[0] ** 0.5)
         self.logits.fill_(1.0)
 
+    def draw(self, batch: int, num_points: int,
+             generator: Optional[torch.Generator] = None
+             ) -> Optional[torch.Tensor]:
+        """The randomness of one forward from `generator`: the rows
+        [batch, num_points] of each cloud's subset, the mixture's eps, or
+        None (the whole table: nothing to draw)."""
+        if self.max_outputs is not None:
+            if num_points >= self.max_outputs:
+                return None
+            return torch.stack([torch.randperm(
+                self.max_outputs, generator=generator,
+                device=self.prior.device)[:num_points]
+                for _ in range(batch)])
+        shape = (batch, num_points) + tuple(self.mu.shape)
+        return torch.randn(shape, device=self.mu.device, generator=generator)
+
     def forward(self, batch: int, num_points: int,
                 draw: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if draw is None:
+            draw = self.draw(batch, num_points, generator)
         if self.max_outputs is not None:
             prior = self.prior
             if num_points >= self.max_outputs:
                 return prior[None].expand(batch, *prior.shape)
-            if draw is None:
-                draw = torch.stack([torch.randperm(
-                    self.max_outputs, generator=generator,
-                    device=prior.device)[:num_points] for _ in range(batch)])
             return prior[draw.to(prior.device, torch.long)]
         mu, sig = self.mu, self.sig
-        shape = (batch, num_points) + tuple(mu.shape)
-        if draw is None:
-            draw = torch.randn(shape, device=mu.device, generator=generator)
         x = (draw.to(mu.device, mu.dtype) * sig + mu) * torch.softmax(
             self.logits, dim=0)[:, None]
         return self.dense_1(F.silu(self.dense_0(x.sum(2))))
@@ -460,12 +478,14 @@ class Compressor(nn.Module):
         come from `generator`."""
         cfg = self.cfg
         b = encoder_out[0].shape[0]
-        o = self.init_set(b, cfg.outsize, seed_draw, generator)
-        posteriors, all_eps, kls, all_logqz = [(o, None, None)], [], [], []
+        seed = self.init_set(b, cfg.outsize, seed_draw, generator)
+        o = sp_shard(seed)
+        posteriors, all_eps, kls, all_logqz = [(seed, None, None)], [], [], []
         for idx in range(cfg.n_layers):
             layer = self.decoder[cfg.n_layers - 1 - idx]
             mu, logvar = layer.compute_posterior(
-                encoder_out[-idx - 1], o if idx != 0 else None, label)
+                encoder_out[-idx - 1],
+                sp_gather(o, cfg.outsize) if idx != 0 else None, label)
             e = noise[idx] if noise is not None else torch.randn(
                 mu.shape, dtype=mu.dtype, device=mu.device,
                 generator=generator)
@@ -477,8 +497,9 @@ class Compressor(nn.Module):
             all_eps.append(eps)
             posteriors.append((eps, mu, logvar))
             all_logqz.append(logqz)
-        return {"set": self.output_dense(o), "posteriors": posteriors,
-                "kls": kls, "all_logqz": all_logqz, "all_eps": all_eps}
+        return {"set": sp_gather(self.output_dense(o), cfg.outsize),
+                "posteriors": posteriors, "kls": kls,
+                "all_logqz": all_logqz, "all_eps": all_eps}
 
     def forward(self, x: torch.Tensor,
                 noise: Optional[Sequence[torch.Tensor]] = None,
@@ -525,14 +546,14 @@ class Compressor(nn.Module):
         """
         cfg = self.cfg
         b, num_points = shape[0], shape[1]
-        o = self.init_set(b, num_points, seed_draw, generator)
+        o = sp_shard(self.init_set(b, num_points, seed_draw, generator))
         eps_list = torch.split(given_eps, cfg.z_dim, dim=-1)
         if len(eps_list) != cfg.n_layers or given_eps.shape[-1] % cfg.z_dim:
             raise ValueError(f"given_eps last dim {given_eps.shape[-1]} is not "
                              f"n_layers * z_dim = {cfg.n_layers * cfg.z_dim}")
         for idx in range(cfg.n_layers):
             o = self.decoder[cfg.n_layers - 1 - idx](o, eps_list[idx])
-        return self.postprocess(self.output_dense(o))
+        return self.postprocess(sp_gather(self.output_dense(o), num_points))
 
     @staticmethod
     def postprocess(x: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ldt_torch.ops import attention as attn_ops
+from ldt_torch.parallel import comm
 
 
 def _as(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
@@ -88,14 +89,25 @@ class DropoutMasks:
     """The keep masks of one training forward's dropouts: drawn from
     `generator` (keep = U[0, 1) < keep_prob, on the input's device), or
     pinned, taken from `masks` in call order (another framework's draws).
-    With `record` every mask is kept in `drawn`, in call order."""
+    With `record` every mask is kept in `drawn`, in call order.
+    `take_rows` makes it a data-parallel rank's share of the
+    single-process masks."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  masks=None, record: bool = False):
         self.generator = generator
         self.pinned = None if masks is None else iter(masks)
         self.record = record
+        self.rows = None
         self.drawn = []
+
+    def take_rows(self, start: int, stop: int, batch: int) -> None:
+        """Draw each mask at the global `batch` (or take the pinned ones,
+        given at it) and keep rows [start, stop)."""
+        self.rows = (start, stop, batch)
+        if self.pinned is not None:
+            self.pinned = (torch.as_tensor(m)[start:stop]
+                           for m in self.pinned)
 
     def keep(self, shape, keep_prob: float, device) -> torch.Tensor:
         if self.pinned is not None:
@@ -106,6 +118,11 @@ class DropoutMasks:
             if tuple(mask.shape) != tuple(shape):
                 raise ValueError(f"pinned dropout mask {tuple(mask.shape)} "
                                  f"for an input {tuple(shape)}")
+        elif self.rows is not None:
+            start, stop, batch = self.rows
+            mask = (torch.rand((batch,) + tuple(shape)[1:],
+                               generator=self.generator, device=device)
+                    < keep_prob)[start:stop]
         else:
             mask = torch.rand(shape, generator=self.generator,
                               device=device) < keep_prob
@@ -115,16 +132,24 @@ class DropoutMasks:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            masks: Optional[DropoutMasks]) -> torch.Tensor:
+            masks: Optional[DropoutMasks], cols=None) -> torch.Tensor:
     """flax `nn.Dropout(rate)`: the identity at rate 0 or without `masks`
     (deterministic), zeros at rate 1, else where(keep, x / keep_prob, 0),
-    the division correctly rounded in x's dtype (`true_divide`)."""
+    the division correctly rounded in x's dtype (`true_divide`). `cols`
+    (rank, size): x is a tensor-parallel rank's 1/size of the last axis;
+    the mask is drawn at the full width and the rank's columns kept."""
     if not rate or masks is None:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = masks.keep(x.shape, keep_prob, x.device)
+    if cols is None:
+        keep = masks.keep(x.shape, keep_prob, x.device)
+    else:
+        r, size = cols
+        w = x.shape[-1]
+        keep = masks.keep(tuple(x.shape[:-1]) + (w * size,), keep_prob,
+                          x.device)[..., r * w:(r + 1) * w]
     return torch.where(keep, attn_ops.true_divide(x, keep_prob),
                        x.new_zeros(()))
 
@@ -232,6 +257,11 @@ class BatchNorm(nn.Module):
     `mutable=["batch_stats"]`); the buffers themselves do not change. Not
     `F.batch_norm(training=True)`: its running variance is the unbiased one
     and its momentum weighs the batch, not the running value.
+
+    Inside `parallel.comm.batch_stats_over(group)` (a data-parallel
+    training step) the sums of x and x^2 are all-reduced over `group`
+    (differentiable) first: the statistics of the global batch, as the
+    JAX package's under a sharded batch.
     """
 
     momentum = 0.9
@@ -252,9 +282,16 @@ class BatchNorm(nn.Module):
         x = x.float()
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp(torch.square(x).mean(dim=dims)
-                              - torch.square(mean), min=0.0)
+            group = comm.stats_group()
+            if group is None:
+                mean = x.mean(dim=dims)
+                mean2 = torch.square(x).mean(dim=dims)
+            else:
+                sums = comm.reduce_sum(torch.cat(
+                    [x.sum(dim=dims), torch.square(x).sum(dim=dims)]), group)
+                count = x.numel() // x.shape[-1] * comm.world_size(group)
+                mean, mean2 = (sums / count).chunk(2)
+            var = torch.clamp(mean2 - torch.square(mean), min=0.0)
             m = self.momentum
             self.update = {
                 "running_mean": (m * self.running_mean
@@ -479,7 +516,13 @@ class LabelEmbedding(nn.Module):
 
 class MLP(nn.Module):
     """One hidden layer: dense_1(dropout(gelu(dense_0(x)))), GELU the tanh
-    form, dropout at `dropout_p` (`dropout`)."""
+    form, dropout at `dropout_p` (`dropout`).
+
+    Tensor-parallel (`tp`, set by `parallel.tp.shard_params`): dense_0
+    holds this rank's 1/m of the hidden features (column-parallel),
+    dense_1 the matching 1/m of its input features (row-parallel); the
+    partial products are summed over `model` (one all_reduce) and dense_1's
+    bias added after."""
 
     def __init__(self, dim_in: int, dim_hidden: int, dim_out: int, *,
                  dropout_p: float = 0.0, dtype=torch.float32,
@@ -490,11 +533,25 @@ class MLP(nn.Module):
         self.dropout_p = dropout_p
         self.dense_0 = Dense(dim_in, dim_hidden, **kw)
         self.dense_1 = Dense(dim_hidden, dim_out, **kw)
+        self.tp = None
 
     def forward(self, x: torch.Tensor,
                 masks: Optional[DropoutMasks] = None) -> torch.Tensor:
-        h = dropout(self.act(self.dense_0(x)), self.dropout_p, masks)
-        return self.dense_1(h)
+        tp = self.tp
+        cols = None if tp is None else (tp.rank, tp.size)
+        h = dropout(self.act(self.dense_0(x)), self.dropout_p, masks, cols)
+        if tp is None:
+            return self.dense_1(h)
+        return _row_parallel(self.dense_1, h, tp)
+
+
+def _row_parallel(dense: Dense, x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel Dense: this rank's partial product x W_r^T summed over
+    the model group (differentiable all_reduce), then the replicated
+    bias."""
+    w, b = dense.cast_params()
+    out = comm.reduce_sum(F.linear(_as(x, dense.compute_dtype), w), tp.group)
+    return out if b is None else out + b
 
 
 def ref_merge(att: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -523,6 +580,18 @@ class Attention(nn.Module):
     tokens of width hidden) take two weights instead, `q` [D_out, D_in] and
     `kv` [2 D_out, dim_kv] (`fc_q` and `fc_kv` as they are); such a block
     only cross-attends.
+
+    Tensor-parallel (`tp`, set by `parallel.tp.shard_params`): `qkv` holds
+    this rank's q, k and v features [q_r; k_r; v_r] (D_out/m each) and
+    `fc_o` the matching 1/m of its input features; its partial products
+    are summed over `model` (one all_reduce) and its bias added after.
+    Where `tp.per_shard` (`parallel.tp.tp_attention_supported`: whole
+    heads per rank, D_out/m a multiple of 128) the self-attention runs K1
+    (K3 in its backward) on the local [B, N, 3 D_out/m] packed GEMM with
+    num_heads/m heads. Otherwise (cross-attention, heads that do not
+    divide, `ref_merge`) q, k and v are gathered over `model`, the
+    whole-width kernel runs, and the rank keeps its columns of the output:
+    what the JAX package's XLA route computes.
     """
 
     def __init__(self, dim: int, num_heads: int, *,
@@ -546,41 +615,71 @@ class Attention(nn.Module):
             self.q = Dense(dim, dim_out, **kw)
             self.kv = Dense(dim_kv, 2 * dim_out, **kw)
         self.fc_o = Dense(dim_out, dim_out, **kw)
+        self.tp = None
 
     def _cross(self, x: torch.Tensor, y: torch.Tensor):
-        """(q, k, v) of a cross-attention."""
-        d = self.dim
+        """(q, k, v) of a cross-attention (this rank's features of each under
+        tensor parallelism)."""
         y = _as(y, self.dtype)
         if hasattr(self, "q"):
             q = self.q(x)
             w, b = self.kv.cast_params()
+            d = w.shape[0] // 2
             return q, F.linear(y, w[:d], b[:d]), F.linear(y, w[d:], b[d:])
         w, b = self.qkv.cast_params()
+        d = w.shape[0] // 3
         return (F.linear(_as(x, self.dtype), w[:d], b[:d]),
                 F.linear(y, w[d:2 * d], b[d:2 * d]),
                 F.linear(y, w[2 * d:], b[2 * d:]))
 
+    @staticmethod
+    def _self_core(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+        """K1 on a packed [B, N, 3 D] (K3 in the backward under grad)."""
+        if torch.is_grad_enabled():
+            return attn_ops.PackedSelfAttention.apply(qkv, heads)
+        return attn_ops.packed_self_attention(qkv, heads)
+
+    @staticmethod
+    def _cross_core(q, k, v, heads: int) -> torch.Tensor:
+        """K2 (K4 in the backward under grad)."""
+        if torch.is_grad_enabled():
+            return attn_ops.CrossAttention.apply(q, k, v, heads)
+        return attn_ops.cross_attention(q, k, v, heads)
+
     def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None,
                 masks: Optional[DropoutMasks] = None) -> torch.Tensor:
+        if y is None and not hasattr(self, "qkv"):
+            raise ValueError("an attention whose keys and values have "
+                             "their own width cross-attends only: give "
+                             "it y")
+        if self.tp is not None:
+            return dropout(self._tp_forward(x, y), self.dropout_p, masks)
         if y is None:
-            if not hasattr(self, "qkv"):
-                raise ValueError("an attention whose keys and values have "
-                                 "their own width cross-attends only: give "
-                                 "it y")
-            qkv = self.qkv(x)
-            if torch.is_grad_enabled():
-                att = attn_ops.PackedSelfAttention.apply(qkv, self.num_heads)
-            else:
-                att = attn_ops.packed_self_attention(qkv, self.num_heads)
+            att = self._self_core(self.qkv(x), self.num_heads)
         else:
-            q, k, v = self._cross(x, y)
-            if torch.is_grad_enabled():
-                att = attn_ops.CrossAttention.apply(q, k, v, self.num_heads)
-            else:
-                att = attn_ops.cross_attention(q, k, v, self.num_heads)
+            att = self._cross_core(*self._cross(x, y), self.num_heads)
         if self.ref_merge:
             att = ref_merge(att, self.num_heads)
         return dropout(self.fc_o(att), self.dropout_p, masks)
+
+    def _tp_forward(self, x: torch.Tensor,
+                    y: Optional[torch.Tensor]) -> torch.Tensor:
+        """The attention of a tensor-parallel rank, before the dropout."""
+        tp = self.tp
+        if tp.per_shard and y is None:
+            att = self._self_core(self.qkv(x), self.num_heads // tp.size)
+        else:
+            q, k, v = (comm.gather(t, tp.group, -1)
+                       for t in self._cross(x, x if y is None else y))
+            if y is None:
+                att = self._self_core(torch.cat([q, k, v], dim=-1),
+                                      self.num_heads)
+            else:
+                att = self._cross_core(q, k, v, self.num_heads)
+            if self.ref_merge:
+                att = ref_merge(att, self.num_heads)
+            att = comm.local_slice(att, tp.group, -1)
+        return _row_parallel(self.fc_o, att, tp)
 
 
 class ResidualBlock(nn.Module):

@@ -71,3 +71,20 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of `csrc/<name>.cu`, building it first if needed."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+
+# the kernel wrappers' launches by shape, by wrapper name (counted where a
+# wrapper counts its `.launches`), and the calls that took a wrapper's plain
+# twin (a CPU tensor) by shape; kept here, not on the wrappers, so that a
+# stand-in for a wrapper leaves them in place
+SHAPES: dict = {}
+PLAIN_SHAPES: dict = {}
+
+
+def count_shape(table: dict, name: str, t, heads: int | None = None) -> None:
+    """Add one to `table[name]` at the key of `t`'s shape (and the heads),
+    as "BxNxD/hH"."""
+    key = "x".join(map(str, t.shape)) + (f"/h{heads}" if heads else "")
+    row = table.setdefault(name, {})
+    row[key] = row.get(key, 0) + 1

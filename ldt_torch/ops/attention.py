@@ -159,10 +159,13 @@ attention is on (24 launches per denoise step).
 
 Dispatch: a wrapper computes with its plain version only when its input
 lies on the CPU; for a CUDA tensor it launches the kernel or raises. Each
-wrapper counts its kernel launches in `<wrapper>.launches`. K1 and K2
-differentiate only through `PackedSelfAttention` and `CrossAttention`, and K8
-has no backward: their wrappers raise when grad mode is on and an input
-requires grad, rather than return an output with no `grad_fn`.
+wrapper counts its kernel launches in `<wrapper>.launches`, and by shape in
+`_build.SHAPES[<wrapper name>]`; its plain twin's calls by shape go to
+`_build.PLAIN_SHAPES` (the same in `chamfer` and `emd`). K1 and K2
+differentiate only through
+`PackedSelfAttention` and `CrossAttention`, and K8 has no backward: their
+wrappers raise when grad mode is on and an input requires grad, rather than
+return an output with no `grad_fn`.
 """
 
 from __future__ import annotations
@@ -547,6 +550,8 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     dh = _check_packed(name, qkv, num_heads)
     _check_no_grad(name, (qkv,))
     if qkv.device.type == "cpu":
+        _build.count_shape(_build.PLAIN_SHAPES, name, qkv,
+                           num_heads)
         return packed_self_attention_plain(qkv, num_heads)
     b, n, d3 = qkv.shape
     d = d3 // 3
@@ -559,6 +564,7 @@ def packed_self_attention(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
             _DTYPE_CODES[qkv.dtype], stream, ctypes.byref(schedule))
     _raise_on(err, name)
     packed_self_attention.launches += 1
+    _build.count_shape(_build.SHAPES, name, qkv, num_heads)
     packed_self_attention.mma_launches += int(schedule.value == 1)
     packed_self_attention.tiled_launches += int(schedule.value == 2)
     return out
@@ -658,6 +664,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"more than the {SMEM_LIMIT} B a block may use")
     _check_no_grad(name, (q, k, v))
     if q.device.type == "cpu":
+        _build.count_shape(_build.PLAIN_SHAPES, name, q, num_heads)
         return attention_plain(q, k, v, num_heads)
     out = torch.empty_like(q)
     work = (torch.empty(cross_lk_workspace(b, n, m, d, num_heads),
@@ -671,6 +678,7 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             num_heads, dh ** -0.5, _DTYPE_CODES[q.dtype], stream)
     _raise_on(err, name)
     cross_attention.launches += 1
+    _build.count_shape(_build.SHAPES, name, q, num_heads)
     if schedule == "long_key":
         cross_attention.tiled_launches += 1
     return out
@@ -695,6 +703,8 @@ def packed_self_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"{name}: g {tuple(g.shape)} is not the output "
                          f"shape {(b, n, d)}")
     if qkv.device.type == "cpu":
+        _build.count_shape(_build.PLAIN_SHAPES, name, qkv,
+                           num_heads)
         return packed_self_attention_bwd_plain(qkv, g, num_heads)
     smem = _lib().ldt_self_bwd_smem_bytes(n, dh, 0)
     if smem > SMEM_LIMIT:
@@ -711,6 +721,7 @@ def packed_self_attention_bwd(qkv: torch.Tensor, g: torch.Tensor,
             ctypes.byref(schedule))
     _raise_on(err, name)
     packed_self_attention_bwd.launches += 1
+    _build.count_shape(_build.SHAPES, name, qkv, num_heads)
     packed_self_attention_bwd.tiled_launches += schedule.value
     return dqkv
 
@@ -762,6 +773,7 @@ def cross_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{cross_bwd_lk_smem_bytes(n, dh)} B of "
                          f"{SMEM_LIMIT})")
     if q.device.type == "cpu":
+        _build.count_shape(_build.PLAIN_SHAPES, name, q, num_heads)
         return cross_attention_bwd_plain(q, k, v, g, num_heads)
     dq = torch.empty_like(q)
     dk = torch.zeros_like(k) if n == 0 else torch.empty_like(k)
@@ -784,6 +796,7 @@ def cross_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ctypes.byref(schedule))
     _raise_on(err, name)
     cross_attention_bwd.launches += 1
+    _build.count_shape(_build.SHAPES, name, q, num_heads)
     cross_attention_bwd.tiled_launches += schedule.value
     if rows == 0:
         cross_attention_bwd.long_key_launches += 1

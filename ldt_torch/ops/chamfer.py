@@ -55,7 +55,7 @@ import ctypes
 
 import torch
 
-from ldt_torch.ops import _eval_kernels
+from ldt_torch.ops import _build, _eval_kernels
 from ldt_torch.ops.geometry import (
     index_points,
     square_distance,
@@ -107,6 +107,7 @@ def pairwise_cd_means(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     name = "pairwise_cd_means"
     x, y = _eval_kernels.pairs(name, x, y, _eval_kernels.cd_smem_bytes)
     if x.device.type == "cpu":
+        _build.count_shape(_build.PLAIN_SHAPES, name, x)
         return pairwise_cd_means_plain(x, y)
     p, n, _ = x.shape
     out = torch.empty(p, dtype=torch.float32, device=x.device)
@@ -117,6 +118,7 @@ def pairwise_cd_means(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             _eval_kernels.stream(x), ctypes.byref(cluster))
     _eval_kernels.raise_on(err, name)
     pairwise_cd_means.launches += 1
+    _build.count_shape(_build.SHAPES, name, x)
     pairwise_cd_means.split_launches += int(cluster.value > 0)
     return out
 

@@ -18,8 +18,17 @@ of JAX's [N, N] bid matrix: the same winners and prices.
 Distances are IEEE f32 one coordinate at a time (`ops.geometry`): on clouds
 whose distances are exact in f32 (a dyadic grid) the assignments equal the
 JAX package's bit for bit, ties included. The gradient goes to the
-prediction only, as the reference CUDA backward. The compact two-phase
-schedule (`LDT_EMD_COMPACT`, the same results) is not ported.
+prediction only, as the reference CUDA backward.
+
+The compact schedule (`auction_emd(..., compact=True)`; the JAX package
+reads it from `LDT_EMD_COMPACT` and `LDT_EMD_ENTER`, the port takes
+arguments): a pair runs dense rounds while more than `enter` of its rows
+are unassigned, then rounds over its first `tile` unassigned rows (a
+cumulative-sum compaction, no sort), and stops once its assignment is a
+bijection, never past `iters` rounds. Each phase gives the dense round's
+owners and prices exactly (assigned rows never bid; once at most `tile`
+rows are unassigned the count cannot grow), so the assignment is the dense
+one. Off by default, as in the JAX package.
 
 K6/K7 `approx_match_cost(x1, x2, otf=False)` — the annealed approx-match
 transport cost sum(match * |x1 - x2|) of each pair, 9 levels
@@ -68,7 +77,7 @@ from typing import Optional
 
 import torch
 
-from ldt_torch.ops import _eval_kernels
+from ldt_torch.ops import _build, _eval_kernels
 from ldt_torch.ops.attention import true_divide
 from ldt_torch.ops.geometry import (
     index_points,
@@ -77,34 +86,105 @@ from ldt_torch.ops.geometry import (
 )
 
 
-def _auction(d: torch.Tensor, eps: float, iters: int) -> torch.Tensor:
-    """[B, N] column of each row from the distances d [B, N, N]."""
+# The compact schedule's row block and the unassigned count below which it
+# starts (`ldt_tpu/ops/emd.py::_COMPACT_TILE`, `_COMPACT_ENTER`).
+COMPACT_TILE = 256
+COMPACT_ENTER = 256
+
+
+def _bid_round(neg_d_rows: torch.Tensor, row_ids: torch.Tensor,
+               bidding: torch.Tensor, owner: torch.Tensor,
+               price: torch.Tensor, eps: float):
+    """One Jacobi round of the rows `row_ids` [b, R] (ascending global row
+    ids), whose negated distances are `neg_d_rows` [b, R, N]: each row with
+    `bidding` bids for its best column; each column goes to its highest bid,
+    the lowest row winning a tie. Returns the new (owner, price)."""
+    n = owner.shape[1]
+    neg_inf = torch.finfo(neg_d_rows.dtype).min
+    value = neg_d_rows - price[:, None, :]
+    best_j = torch.argmax(value, dim=2)
+    best_v = torch.gather(value, 2, best_j[..., None])
+    second_v = value.scatter_(2, best_j[..., None], neg_inf).amax(dim=2)
+    incr = best_v[..., 0] - second_v + eps
+    bid = torch.where(bidding, incr, neg_inf)
+    col_max = torch.full_like(price, neg_inf)
+    col_max.scatter_reduce_(1, best_j, bid, "amax")
+    won = bid == torch.gather(col_max, 1, best_j)
+    col_winner = torch.full_like(owner, n)
+    col_winner.scatter_reduce_(1, best_j, torch.where(won, row_ids, n),
+                               "amin")
+    has_bid = col_max > neg_inf
+    return (torch.where(has_bid, col_winner, owner),
+            torch.where(has_bid, price + col_max, price))
+
+
+def _row_assigned(owner: torch.Tensor) -> torch.Tensor:
+    """[b, N] whether each row owns a column."""
+    b, n = owner.shape
+    assigned = torch.zeros((b, n + 1), dtype=torch.bool, device=owner.device)
+    assigned.scatter_(1, torch.where(owner >= 0, owner, n), True)
+    return assigned[:, :n]
+
+
+def _compact_rows(unassigned: torch.Tensor, tile: int):
+    """(row ids [b, tile] of the first `tile` unassigned rows, ascending,
+    padded with N - 1; which of them are real [b, tile]): a cumulative-sum
+    compaction, no sort."""
+    b, n = unassigned.shape
+    rank = torch.cumsum(unassigned.to(torch.int64), dim=1) - 1
+    dest = torch.where(unassigned & (rank < tile), rank, tile)
+    slots = torch.full((b, tile + 1), n, dtype=torch.long,
+                       device=unassigned.device)
+    slots.scatter_reduce_(1, dest, torch.arange(n, device=dest.device)
+                          .expand(b, n), "amin")
+    idx = slots[:, :tile]
+    return torch.clamp(idx, max=n - 1), idx < n
+
+
+def _auction(d: torch.Tensor, eps: float, iters: int, compact: bool = False,
+             tile: int = COMPACT_TILE,
+             enter: int = COMPACT_ENTER) -> torch.Tensor:
+    """[B, N] column of each row from the distances d [B, N, N]: `iters`
+    dense rounds, or with `compact` the same rounds scheduled as the JAX
+    package's `_auction_single(compact=True)` (see `auction_emd`)."""
     b, n, _ = d.shape
     dev = d.device
-    neg_inf = torch.finfo(d.dtype).min
     index = torch.arange(n, device=dev).expand(b, n)
     owner = torch.full((b, n), -1, dtype=torch.long, device=dev)
     price = torch.zeros((b, n), dtype=d.dtype, device=dev)
     neg_d = -d  # -(d + price) == -d - price in IEEE arithmetic: one pass
-    for _ in range(iters):
-        # rows that own a column (the unowned columns write to a dump slot)
-        assigned = torch.zeros((b, n + 1), dtype=torch.bool, device=dev)
-        assigned.scatter_(1, torch.where(owner >= 0, owner, n), True)
-        value = neg_d - price[:, None, :]
-        best_j = torch.argmax(value, dim=2)
-        best_v = torch.gather(value, 2, best_j[..., None])
-        second_v = value.scatter_(2, best_j[..., None], neg_inf).amax(dim=2)
-        incr = best_v[..., 0] - second_v + eps
-        bid = torch.where(assigned[:, :n], neg_inf, incr)
-        col_max = torch.full((b, n), neg_inf, dtype=d.dtype, device=dev)
-        col_max.scatter_reduce_(1, best_j, bid, "amax")
-        won = bid == torch.gather(col_max, 1, best_j)
-        col_winner = torch.full((b, n), n, dtype=torch.long, device=dev)
-        col_winner.scatter_reduce_(1, best_j, torch.where(won, index, n),
-                                   "amin")
-        has_bid = col_max > neg_inf
-        owner = torch.where(has_bid, col_winner, owner)
-        price = torch.where(has_bid, price + col_max, price)
+    if not compact:
+        for _ in range(iters):
+            owner, price = _bid_round(neg_d, index, ~_row_assigned(owner),
+                                      owner, price, eps)
+    else:
+        enter = min(enter, tile)
+        rounds = torch.zeros(b, dtype=torch.long, device=dev)
+        while True:
+            unassigned = ~_row_assigned(owner)
+            left = unassigned.sum(dim=1)
+            active = (rounds < iters) & (left > 0)
+            if not bool(active.any()):
+                break
+            # a pair stays dense while more than `enter` rows are
+            # unassigned (the count never grows), then bids over its first
+            # `tile` unassigned rows only
+            for sel, dense in ((active & (left > enter), True),
+                               (active & (left <= enter), False)):
+                pairs = torch.nonzero(sel)[:, 0]
+                if pairs.numel() == 0:
+                    continue
+                if dense:
+                    rows, bidding = index[pairs], unassigned[pairs]
+                    rows_d = neg_d[pairs]
+                else:
+                    rows, bidding = _compact_rows(unassigned[pairs], tile)
+                    rows_d = torch.gather(
+                        neg_d[pairs], 1, rows[..., None].expand(-1, -1, n))
+                o, p = _bid_round(rows_d, rows, bidding, owner[pairs],
+                                  price[pairs], eps)
+                owner[pairs], price[pairs] = o, p
+            rounds += active.long()
     assignment = torch.full((b, n), -1, dtype=torch.long, device=dev)
     assignment.scatter_reduce_(1, owner.clamp(min=0),
                                torch.where(owner >= 0, index, -1), "amax")
@@ -113,15 +193,19 @@ def _auction(d: torch.Tensor, eps: float, iters: int) -> torch.Tensor:
 
 
 def auction_emd(x: torch.Tensor, y: torch.Tensor, eps: float = 0.005,
-                iters: int = 50):
+                iters: int = 50, compact: bool = False,
+                enter: int = COMPACT_ENTER, tile: int = COMPACT_TILE):
     """(dist [B, N] squared distances to the assigned target points,
     assignment [B, N] int64) of predictions x [B, N, 3] against targets
-    y [B, N, 3]; the gradient flows to x only."""
+    y [B, N, 3]; the gradient flows to x only. `compact` takes the
+    two-phase schedule (the JAX package's `LDT_EMD_COMPACT=1`, with
+    `enter` its `LDT_EMD_ENTER`, clamped to `tile`): the same assignment as
+    the dense rounds."""
     x = x.float()
     y = y.float().detach()
     with torch.no_grad():
         d = torch.clamp(square_distance(x, y), min=0.0)
-        assignment = _auction(d, eps, iters)
+        assignment = _auction(d, eps, iters, compact, tile, enter)
     return sum_square_diff(x, index_points(y, assignment)), assignment
 
 
@@ -210,6 +294,7 @@ def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
         name, x1, x2,
         lambda n, m: _eval_kernels.emd_smem_bytes(n, m, otf))
     if x1.device.type == "cpu":
+        _build.count_shape(_build.PLAIN_SHAPES, name, x1)
         return approx_match_cost_plain(x1, x2)
     p, n, _ = x1.shape
     m = x2.shape[1]
@@ -225,6 +310,7 @@ def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
             ctypes.byref(cluster))
     _eval_kernels.raise_on(err, name)
     approx_match_cost.launches += 1
+    _build.count_shape(_build.SHAPES, name, x1)
     if otf:
         approx_match_cost.otf_launches += 1
     if cluster.value:

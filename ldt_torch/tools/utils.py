@@ -1,6 +1,7 @@
 """Host utilities of the entries, counterpart of `ldt_tpu/tools/utils.py`:
-normalization, seeding, the training dtype, the epoch's loss sync and the
-running meter."""
+normalization (numpy; `ops.geometry.normalize_point_clouds` on tensors),
+seeding and the process group, the training dtype, the epoch's loss sync
+and the running meter."""
 
 from __future__ import annotations
 
@@ -22,8 +23,13 @@ def normalize_point_clouds(pcs: np.ndarray) -> np.ndarray:
 
 
 def common_init(seed: int, device="cuda") -> torch.Generator:
-    """Seed `random`, numpy and torch; returns the trainers' generator on
-    `device`, seeded with `seed`."""
+    """Join a multi-process run's process group where the environment
+    describes one (`torchrun`'s: `parallel.tp.initialize_distributed`, a
+    no-op otherwise), seed `random`, numpy and torch; returns the trainers'
+    generator on `device`, seeded with `seed` (the same on every rank)."""
+    from ldt_torch.parallel.tp import initialize_distributed
+
+    initialize_distributed(device=torch.device(device).type)
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)

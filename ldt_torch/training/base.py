@@ -1,6 +1,18 @@
 """Base trainer: the epoch and iteration counters, the learning rate, the
-wall-time counter, the CSV logging, the checkpoint cadence and the
-validation scoring, counterpart of `ldt_tpu/training/base.py` (no mesh).
+wall-time counter, the CSV logging, the checkpoint cadence, the validation
+scoring and the mesh, counterpart of `ldt_tpu/training/base.py`.
+
+In a multi-process run (a process group, `parallel.tp.
+initialize_distributed`) the trainer builds the mesh as the JAX trainer
+does: `common.model_parallel` m > 1 gives the `data x model` mesh
+(`parallel.tp.make_mesh`), else the 1-D data mesh; it registers it for the
+eval's pair tiles, the sequence-parallel decode and the tensor-parallel
+attention, and only rank 0 logs and writes files. Every rank takes the
+global batch and draws every random number at the global shape from the
+same generator, then keeps its rows (`local`, `rows`), so a run's draws do
+not depend on the world size; `sync_grads` sums the gradients
+(`parallel.comm`), and `stats_scope` gives the train-mode BatchNorms the
+global batch's statistics.
 
 A trainer whose config's `log:` section names the CSV columns (the
 experiments' config.yaml files) writes the logs of `tools.log.logger` under
@@ -18,7 +30,16 @@ import time
 import numpy as np
 import torch
 
-from ldt_torch.eval.metrics import compute_all_metrics
+from ldt_torch.eval.metrics import compute_all_metrics, set_eval_mesh
+from ldt_torch.parallel import comm
+from ldt_torch.parallel.mesh import batch_rows, data_mesh, shard_batch
+from ldt_torch.parallel.sp import set_sp_mesh
+from ldt_torch.parallel.tp import (
+    axis_group,
+    axis_size,
+    make_mesh,
+    set_tp_mesh,
+)
 from ldt_torch.tools.log import logger
 from ldt_torch.training.state import make_lr_fn
 
@@ -30,11 +51,34 @@ def to_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
+def build_mesh(cfg):
+    """The mesh of a multi-process run (None in a single process):
+    `common.model_parallel` m > 1 (the JAX package's `getattr(..., 1)`)
+    gives the `data x model` mesh, else the 1-D data mesh."""
+    if comm.world_size() == 1:
+        return None
+    mp = int(getattr(cfg.common, "model_parallel", 1) or 1)
+    return make_mesh(mp) if mp > 1 else data_mesh()
+
+
+def register_mesh(mesh) -> None:
+    """Register `mesh` (or clear, with None) for the eval's pair tiles, the
+    sequence-parallel decode and the tensor-parallel attention."""
+    set_eval_mesh(mesh)
+    set_sp_mesh(mesh)
+    set_tp_mesh(mesh)
+
+
 class BaseTrainer:
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh=None):
         self.cfg = cfg
+        self.mesh = build_mesh(cfg) if mesh is None else mesh
+        if self.mesh is not None:
+            register_mesh(self.mesh)
+        self.is_main = comm.rank() == 0
         log = getattr(cfg, "log", None)
-        self.logger = logger(cfg) if hasattr(log, "traincolumns") else None
+        self.logger = (logger(cfg) if hasattr(log, "traincolumns")
+                       and self.is_main else None)
         self.itr = 0
         self.epoch = 1
         # global itr at the current epoch's first update: the gate of the
@@ -73,8 +117,59 @@ class BaseTrainer:
     def save(self):
         raise NotImplementedError
 
+    # --- the mesh -----------------------------------------------------
+
+    def data_size(self) -> int:
+        return axis_size(self.mesh, "data")
+
+    def rows(self, batch: int):
+        """(start, stop) of this rank's rows of a global batch."""
+        return batch_rows(self.mesh, batch)
+
+    def local(self, tree):
+        """This rank's rows of every array in `tree` (`mesh.shard_batch`)."""
+        return shard_batch(self.mesh, tree)
+
+    def sync_grads(self, params: dict, sharded=()) -> None:
+        """Sum the gradients of `params` over the ranks that hold them and
+        average over the world (`parallel.comm.sync_grads`); a no-op in a
+        single process."""
+        comm.sync_grads(params, sharded, self.mesh)
+
+    def stats_scope(self):
+        """The scope of a training forward: train-mode BatchNorms take the
+        global batch's statistics (over `data`)."""
+        return comm.batch_stats_over(axis_group(self.mesh, "data"))
+
+    def decode_draws(self, compressor, batch: int, dtype):
+        """(noise per decode step, seed-set draw) of one Compressor forward
+        on a global batch of `batch` clouds, drawn from the generator in the
+        order the forward draws them, then cut to this rank's rows."""
+        cfg = compressor.cfg
+        seed = compressor.init_set.draw(batch, cfg.outsize, self.generator)
+        noise = [torch.randn((batch, cfg.z_scales, cfg.z_dim), dtype=dtype,
+                             device=self.device, generator=self.generator)
+                 for _ in range(cfg.n_layers)]
+        return self.local(noise), self.local(seed)
+
+    def global_mean(self, value: torch.Tensor) -> torch.Tensor:
+        """The mean over `data` of a per-rank mean (the global batch's)."""
+        d = self.data_size()
+        if d == 1:
+            return value
+        return comm.all_reduce(value.detach().clone(),
+                               axis_group(self.mesh, "data")) / d
+
+    def global_max(self, value: torch.Tensor) -> torch.Tensor:
+        """The maximum over `data` of a per-rank maximum."""
+        if self.data_size() == 1:
+            return value
+        return comm.all_reduce(value.detach().clone(),
+                               axis_group(self.mesh, "data"), op="max")
+
     def write_log(self, message, mode="train"):
-        self.logger.write(message, mode)
+        if self.logger is not None:
+            self.logger.write(message, mode)
 
     def write_eval(self, epoch, all_res):
         """Append an eval.csv row: the configured `evalcolumns` matched by
@@ -82,6 +177,8 @@ class BaseTrainer:
         column 'mmd-CD'); where the names do not cover the columns, the
         values in the dict's order after the epoch, with a note in the
         log."""
+        if self.logger is None:
+            return
         by_name = {k.rsplit("/", 1)[-1]: v for k, v in all_res.items()}
         cols = self.logger.evalcolumns
         if all(c == "epoch" or c in by_name for c in cols):
@@ -97,7 +194,7 @@ class BaseTrainer:
     def info(self, message):
         if self.logger is not None:
             self.logger.info(message)
-        else:
+        elif self.is_main:
             logging.getLogger("ldt_torch").info(message)
 
     def synchronize(self) -> None:
@@ -109,7 +206,7 @@ class BaseTrainer:
         """Save `arr` as `name` under `cfg.log.save_path`, if the config
         has one."""
         path = getattr(getattr(self.cfg, "log", None), "save_path", None)
-        if path:
+        if path and self.is_main:
             np.save(os.path.join(path, name), arr)
 
     def vis_dir(self) -> str:
@@ -127,5 +224,6 @@ class BaseTrainer:
         batch_size)` on the trainer's device."""
         gen_res = compute_all_metrics(smp, ref, batch_size=batch_size,
                                       device=self.device)
-        print(f"Validation Sample (unit) Epoch:{self.epoch} ", gen_res)
+        if self.is_main:
+            print(f"Validation Sample (unit) Epoch:{self.epoch} ", gen_res)
         return {f"val/gen/{k}": float(v) for k, v in gen_res.items()}

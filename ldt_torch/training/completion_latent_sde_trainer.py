@@ -52,6 +52,7 @@ from ldt_torch.training.completion_compressor_trainer import (
 )
 from ldt_torch.training.latent_sde_trainer import Trainer as LatentTrainer
 from ldt_torch.training.latent_sde_trainer import score_objective
+from ldt_torch.parallel import tp as tp_rules
 from ldt_torch.training.state import TrainState, apply_update
 
 # `valsample` stops once it holds more samples than this, unless `full`
@@ -65,9 +66,9 @@ class Trainer(LatentTrainer):
 
     def __init__(self, cfg, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__(cfg, device=device, generator=generator,
-                         dtype=dtype)
+                         dtype=dtype, mesh=mesh)
         self.num_points = cfg.data.tr_max_sample_points
 
     def _condition(self, condition: dict) -> dict:
@@ -105,28 +106,35 @@ class Trainer(LatentTrainer):
         self.state = TrainState.create(dict(score.named_parameters()),
                                        self.tx, batch_stats=stats or None,
                                        ema=True)
+        self._shard_score()
 
     def train_step(self, eps: torch.Tensor, lr: float, condition=None,
                    t_idx: Optional[torch.Tensor] = None,
                    eta: Optional[torch.Tensor] = None,
-                   label: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   label: Optional[torch.Tensor] = None,
+                   batch: Optional[int] = None) -> torch.Tensor:
         """Loss, gradients and the optimizer step on latents `eps` with the
         condition `condition`, the Score in train mode without dropout
         masks (a nonzero `score.dropout` raises); its BatchNorms' updated
-        running statistics join the step. Returns the loss."""
-        t, var, e2int, weight, eta = self.draws(eps.shape, self.discrete,
-                                                t_idx, eta=eta)
+        running statistics join the step. Returns the loss. Under a mesh
+        `eps` and `condition` hold this rank's rows of a global batch of
+        `batch`, as the stage-2 trainer's `train_step`."""
+        batch = eps.shape[0] * self.data_size() if batch is None else batch
+        t, var, e2int, weight, eta = self.local(self.draws(
+            (batch,) + tuple(eps.shape[1:]), self.discrete, t_idx, eta=eta))
         self.score.zero_grad(set_to_none=True)
-        loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
-                               self.cfg.opt.loss_type, label, condition,
-                               train=True)
+        with self.stats_scope():
+            loss = score_objective(self.score, eps, t, var, e2int, weight,
+                                   eta, self.cfg.opt.loss_type, label,
+                                   condition, train=True)
         new_stats = self.score.take_batch_stats()
         loss.backward()
+        self.sync_grads(self.state.params, self.sharded_names())
         grads = {k: p.grad for k, p in self.state.params.items()}
         apply_update(self.state, grads, self.tx, lr, self.ema_decay,
                      new_batch_stats=new_stats if self.state.batch_stats
                      else None)
-        return loss.detach()
+        return self.global_mean(loss.detach())
 
     def update(self, data, condition=None, *,
                t_idx: Optional[torch.Tensor] = None,
@@ -146,9 +154,11 @@ class Trainer(LatentTrainer):
             pts = self._points(data)
             self.maybe_init({"pc": pts})
         if condition is not None:
-            condition = self._condition(condition)
-        eps = self.encode(pts, enc_noise)
-        loss = self.train_step(eps, self.current_lr(), condition, t_idx, eta)
+            condition = self.local(self._condition(condition))
+        batch = pts.shape[0]
+        eps, _ = self.encode_batch(pts, enc_noise)
+        loss = self.train_step(eps, self.current_lr(), condition, t_idx, eta,
+                               batch=batch)
         self.itr += 1
         return loss
 
@@ -181,6 +191,10 @@ class Trainer(LatentTrainer):
                 condition = score.encode_condition(condition)
             if active and condition[0] is not None:
                 opts.update(int8=True, attn_int8=attn_int8)
+                if self.score_specs is not None:
+                    # the W8A8 twin is single-shard: the full weights
+                    opts["int8_weights"] = tp_rules.gather_params(
+                        score, self.score_specs, self.mesh)
             eps = sample_latents(score, self.sde, num_samples,
                                  self.cfg.sde.sample_N, device=self.device,
                                  condition=condition, **opts)

@@ -23,6 +23,13 @@ categories the clouds of `val_cate` with their labels) score with
 tree}, `training.checkpoint`) and `resume` restores one, or the JAX
 package's `.msgpack`, into the live parameters. `valsample(vis=True)`
 renders the samples under `<save_path>/vis` (`tools.vis_utils`).
+
+Under a mesh (`training.base`) the Compressor is replicated: each rank
+trains on its rows of the global batch (the reparameterization and
+seed-set draws made at the global batch), the BatchNorms take the global
+batch's statistics, the decode is sequence-parallel over `model`, the
+gradients are summed (`sync_grads`), and the step returns the global
+batch's values; rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -55,14 +62,15 @@ def compressor_objective(model: Compressor, pts: torch.Tensor,
                          noise: Optional[Sequence[torch.Tensor]] = None,
                          rec_fn: Optional[Callable] = None,
                          generator: Optional[torch.Generator] = None,
-                         label: Optional[torch.Tensor] = None):
+                         label: Optional[torch.Tensor] = None,
+                         seed_draw: Optional[torch.Tensor] = None):
     """(loss, (kl, rec, max, batch_stats)): loss = kl_weight * kl + rec,
     kl = mean(cat(kls)), rec = CD + EMD of the decoded set against `pts`
     (or `rec_fn(set, pts)`), from the forward in train mode (conditioned on
     `label`, category indices [B], if given); batch_stats are its
     BatchNorms' updated running statistics."""
     out = model(pts, noise=noise, generator=generator, train=True,
-                label=label)
+                label=label, seed_draw=seed_draw)
     kl_loss = torch.mean(torch.cat(out["kls"], dim=1))
     if rec_fn is None:
         rec_loss = CD_loss(out["set"], pts) + EMD_loss(out["set"], pts)
@@ -84,8 +92,8 @@ class Trainer(BaseTrainer):
 
     def __init__(self, cfg, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(cfg)
+                 dtype: Optional[torch.dtype] = None, mesh=None):
+        super().__init__(cfg, mesh)
         self.device = resolve_device(device)
         self.dtype = train_dtype(cfg) if dtype is None else dtype
         self.generator = generator if generator is not None else \
@@ -135,16 +143,28 @@ class Trainer(BaseTrainer):
                    label: Optional[torch.Tensor] = None):
         """Loss, gradients and the optimizer step on clouds `pts` (labels
         `label`); returns (loss, kl, rec, max), 0-d tensors on the
-        device."""
+        device. Under a mesh `pts` is the global batch: the draws are made
+        (or `noise` pinned) at it, and each rank trains on its rows."""
+        seed = None
+        if self.data_size() > 1:
+            if noise is None:
+                noise, seed = self.decode_draws(self.model, pts.shape[0],
+                                                self.dtype)
+            else:
+                noise = self.local(list(noise))
+            pts, label = self.local(pts), self.local(label)
         self.model.zero_grad(set_to_none=True)
-        loss, (kl, rec, max_f, new_bs) = compressor_objective(
-            self.model, pts, self.kl_weight, noise=noise,
-            generator=self.generator, label=label)
+        with self.stats_scope():
+            loss, (kl, rec, max_f, new_bs) = compressor_objective(
+                self.model, pts, self.kl_weight, noise=noise,
+                generator=self.generator, label=label, seed_draw=seed)
         loss.backward()
+        self.sync_grads(self.state.params)
         grads = {k: p.grad for k, p in self.state.params.items()}
         apply_update(self.state, grads, self.tx, lr, ema_decay=0.0,
                      new_batch_stats=new_bs)
-        return tuple(t.detach() for t in (loss, kl, rec, max_f))
+        return (*(self.global_mean(t.detach()) for t in (loss, kl, rec)),
+                self.global_max(max_f.detach()))
 
     def update(self, data, *,
                noise: Optional[Sequence[torch.Tensor]] = None):
@@ -254,6 +274,8 @@ class Trainer(BaseTrainer):
     def save(self):
         """Save `checkpt_<epoch>.pt` under `cfg.log.save_path`."""
         tree = self.state_tree()
+        if not self.is_main:
+            return
         save_checkpoint(checkpoint_path(self.cfg.log.save_path, self.epoch),
                         tree, cfg=self.cfg, epoch=self.epoch, itr=self.itr,
                         time=self.time)

@@ -83,7 +83,8 @@ def hybrid_comp_loss(compressor, score, pts: torch.Tensor,
                      alpha: float, *,
                      noise: Optional[Sequence[torch.Tensor]] = None,
                      generator: Optional[torch.Generator] = None,
-                     rec_fn: Optional[Callable] = None):
+                     rec_fn: Optional[Callable] = None,
+                     seed_draw: Optional[torch.Tensor] = None):
     """(comp_loss, (kl, rec, eps, batch_stats)) of the joint Compressor
     loss: comp_loss = rec + alpha kl, rec = CD + EMD of the reconstruction
     against `pts` (or `rec_fn(set, pts)`), kl = mean(log q(z) - log p(z)),
@@ -92,7 +93,7 @@ def hybrid_comp_loss(compressor, score, pts: torch.Tensor,
     (`frozen`). `noise` pins the reparameterization draws (decode order);
     batch_stats are the train-mode forward's running statistics."""
     out = compressor(pts, noise=noise, generator=generator, train=True,
-                     label=label)
+                     label=label, seed_draw=seed_draw)
     logqz = torch.cat(out["all_logqz"], dim=-1)
     eps = out["all_eps"]
     xt = eps * e2int + torch.sqrt(var) * eta
@@ -116,9 +117,9 @@ class Trainer(LatentTrainer):
 
     def __init__(self, cfg, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh=None):
         super().__init__(cfg, device=device, generator=generator,
-                         dtype=dtype)
+                         dtype=dtype, mesh=mesh)
         self.alpha = cfg.opt.alpha
         self.compressor_warmup = cfg.opt.compressor_warmup
         self.comp_tx = make_optimizer(
@@ -180,21 +181,33 @@ class Trainer(LatentTrainer):
         lr = self.current_lr()
         alpha = (self.alpha / 10.0 if self.epoch < self.compressor_warmup
                  else self.alpha)
-        t, var, e2int, weight, kl_eta = self.kl_draws(
-            pts.shape[0], kl_t_idx, kl_rho, kl_eta)
+        batch = pts.shape[0]
+        t, var, e2int, weight, kl_eta = self.local(self.kl_draws(
+            batch, kl_t_idx, kl_rho, kl_eta))
+        seed = None
+        if self.data_size() > 1:  # the forward's draws at the global batch
+            if noise is None:
+                noise, seed = self.decode_draws(self.compressor, batch,
+                                                self.dtype)
+            else:
+                noise = self.local(list(noise))
+            pts, label = self.local(pts), self.local(label)
         self.compressor.zero_grad(set_to_none=True)
-        loss, (kl, rec, eps, new_bs) = hybrid_comp_loss(
-            self.compressor, self.score, pts, label, t, var, e2int, weight,
-            self.ce_const, kl_eta, alpha, noise=noise,
-            generator=self.generator)
+        with self.stats_scope():
+            loss, (kl, rec, eps, new_bs) = hybrid_comp_loss(
+                self.compressor, self.score, pts, label, t, var, e2int,
+                weight, self.ce_const, kl_eta, alpha, noise=noise,
+                generator=self.generator, seed_draw=seed)
         loss.backward()
+        self.sync_grads(self.comp_state.params)
         grads = {k: p.grad for k, p in self.comp_state.params.items()}
         apply_update(self.comp_state, grads, self.comp_tx, lr, ema_decay=0.0,
                      new_batch_stats=new_bs)
         loss_score = self.train_step(eps.detach(), lr, t_idx, eta, label,
-                                     dropout=dropout)
+                                     dropout=dropout, batch=batch)
         self.itr += 1
-        return loss_score, kl.detach(), rec.detach()
+        return (loss_score, self.global_mean(kl.detach()),
+                self.global_mean(rec.detach()))
 
     @torch.no_grad()
     def reconstruct(self, pts: torch.Tensor,
@@ -245,13 +258,15 @@ class Trainer(LatentTrainer):
         self.save_npy(f"rec_ep{self.epoch}.npy", rec)
         return self.eval_metrics(rec, ref, 256)
 
-    def state_tree(self) -> dict:
+    def state_tree(self, full: bool = False) -> dict:
         """The checkpoint's state: {"score": the Score's TrainState tree,
-        "compressor_state": the Compressor's}, live tensors."""
+        "compressor_state": the Compressor's}, live tensors; with `full`
+        under a model axis the Score's tree gathered to full tensors."""
         if self.comp_state is None:
             raise RuntimeError("the hybrid Trainer needs its nets: call "
                                "maybe_init(first_batch) first")
-        return {"score": self.state.to_tree(),
+        score = super().state_tree(full)["score"]
+        return {"score": score,
                 "compressor_state": self.comp_state.to_tree()}
 
     def resume(self, epoch: Optional[int] = None, strict: bool = False,
@@ -262,7 +277,7 @@ class Trainer(LatentTrainer):
         file `pretrain` or that of `epoch` under `cfg.log.save_path`
         (default: the last one); the counters as the stage-2 trainer's."""
         ckpt, restored = self._restored(epoch, strict, pretrain)
-        self.state.load_tree(restored["score"])
+        self.state.load_tree(self.local_score_tree(restored["score"]))
         self.comp_state.load_tree(restored["compressor_state"])
         self._set_counters(ckpt, finetune)
 
@@ -284,8 +299,8 @@ class Trainer(LatentTrainer):
                 f"{sorted(state)}); hybrid finetune needs the "
                 "score+compressor checkpoint written by stage-2 training, "
                 "not a stage-1 compressor one")
-        self.state.load_tree(restore_into(self.state.to_tree(),
-                                          state["score"]))
+        self.state.load_tree(self.local_score_tree(restore_into(
+            self.state_tree(full=True)["score"], state["score"])))
         self._restore_recorded(path)
         comp = state.get("compressor")
         if comp is not None:

@@ -62,6 +62,17 @@ trainer saves them) and the file written on a thread; `resume` restores
 one, or the JAX package's `.msgpack`, into the live tensors;
 `load_pretrain` takes the frozen Compressor from a stage-1 checkpoint of
 either package (`cfg.compressor.pretrain_path`).
+
+Under a mesh (`training.base`): the Score, its EMA and Adam moments are
+tensor-parallel over `model` (`parallel.tp.shard_train_state`; the clip's
+norm global), the Compressor replicated; each rank encodes and trains on
+its rows of the global batch, every draw made at the global shape; the
+gradients are summed (`sync_grads`) and the loss returned is the global
+batch's. `sample` runs the whole batch on every rank (the Score
+tensor-parallel, the decode sequence-parallel), so every rank holds the
+same clouds; int8 serving quantizes the gathered weights. `save` gathers
+the full state, which rank 0 writes in the single-process format, and
+`resume` cuts a full checkpoint to the rank's shards.
 """
 
 from __future__ import annotations
@@ -80,6 +91,7 @@ from ldt_torch.diffusion.sampling import timesteps as schedule
 from ldt_torch.generate import sample_latents
 from ldt_torch.models import Compressor, Score
 from ldt_torch.nn.layers import DropoutMasks
+from ldt_torch.parallel import tp as tp_rules
 from ldt_torch.serving import int8 as int8_serving
 from ldt_torch.tools.utils import train_dtype
 from ldt_torch.tools.vis_utils import render_3D
@@ -154,8 +166,8 @@ class Trainer(BaseTrainer):
 
     def __init__(self, cfg, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(cfg)
+                 dtype: Optional[torch.dtype] = None, mesh=None):
+        super().__init__(cfg, mesh)
         self.device = resolve_device(device)
         self.dtype = train_dtype(cfg) if dtype is None else dtype
         self.generator = generator if generator is not None else \
@@ -177,6 +189,9 @@ class Trainer(BaseTrainer):
         self.score: Optional[Score] = None
         self.compressor: Optional[Compressor] = None
         self.state: Optional[TrainState] = None
+        # the Score's tensor-parallel layout ({name: Shard or None}) once
+        # it is sharded over a model axis
+        self.score_specs: Optional[dict] = None
         # True while the golden gate itself samples: its legs are the
         # certification run, so they check no stamp
         self.gate_exempt = False
@@ -220,6 +235,23 @@ class Trainer(BaseTrainer):
         self.compressor = comp
         self.state = TrainState.create(dict(self.score.named_parameters()),
                                        self.tx, ema=True)
+        self._shard_score()
+
+    def _shard_score(self) -> None:
+        """Under a model axis: shard the Score and its state
+        (`parallel.tp.shard_train_state`) and give the optimizer's clip
+        the shards' names."""
+        if not tp_rules.has_model_axis(self.mesh):
+            return
+        self.state, self.score_specs = tp_rules.shard_train_state(
+            self.state, self.score, self.mesh)
+        self.tx.shard(self.sharded_names(),
+                      tp_rules.axis_group(self.mesh, "model"))
+
+    def sharded_names(self):
+        """The names of the Score's tensor-parallel shards."""
+        return [k for k, v in (self.score_specs or {}).items()
+                if v is not None]
 
     def _kw(self) -> dict:
         """The nets' construction arguments: f32 parameters computing in
@@ -232,14 +264,39 @@ class Trainer(BaseTrainer):
         order), else drawn from the trainer's generator."""
         return DropoutMasks(self.generator, masks)
 
+    def step_masks(self, masks, batch: int) -> DropoutMasks:
+        """`dropout_masks(masks)`, under a mesh cut to this rank's rows of
+        the global `batch` (drawn, or pinned, at it)."""
+        out = self.dropout_masks(masks)
+        if self.data_size() > 1:
+            out.take_rows(*self.rows(batch), batch)
+        return out
+
     @torch.no_grad()
     def encode(self, pts: torch.Tensor,
                noise: Optional[Sequence[torch.Tensor]] = None,
-               label: Optional[torch.Tensor] = None) -> torch.Tensor:
+               label: Optional[torch.Tensor] = None,
+               seed_draw: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The frozen Compressor's latents `all_eps` of clouds [B, N, 3]
         (labels `label` for a class-conditional one)."""
         return self.compressor(pts, noise=noise, generator=self.generator,
-                               label=label)["all_eps"]
+                               label=label, seed_draw=seed_draw)["all_eps"]
+
+    def encode_batch(self, pts: torch.Tensor,
+                     noise: Optional[Sequence[torch.Tensor]] = None,
+                     label: Optional[torch.Tensor] = None):
+        """(latents, labels) of this rank's rows of a global batch of
+        clouds: under a mesh the encode's draws are made at the global
+        batch (or `noise` pinned at it) and cut to the rows."""
+        seed = None
+        if self.data_size() > 1:
+            if noise is None:
+                noise, seed = self.decode_draws(self.compressor,
+                                                pts.shape[0], self.dtype)
+            else:
+                noise = self.local(list(noise))
+            pts, label = self.local(pts), self.local(label)
+        return self.encode(pts, noise, label, seed), label
 
     def draws(self, eps_shape, discrete: bool,
               t_idx: Optional[torch.Tensor] = None,
@@ -259,21 +316,27 @@ class Trainer(BaseTrainer):
                    eta: Optional[torch.Tensor] = None,
                    label: Optional[torch.Tensor] = None,
                    rho: Optional[torch.Tensor] = None,
-                   dropout=None) -> torch.Tensor:
+                   dropout=None, batch: Optional[int] = None
+                   ) -> torch.Tensor:
         """Loss, gradients and the optimizer step on latents `eps` (labels
         `label`), t drawn as `self.discrete` says, the Score in train mode
         (its dropout masks pinned by `dropout`, else drawn); returns the
-        loss (a 0-d tensor on the device)."""
-        t, var, e2int, weight, eta = self.draws(eps.shape, self.discrete,
-                                                t_idx, rho, eta)
+        loss (a 0-d tensor on the device). Under a mesh `eps` holds this
+        rank's rows of a global batch of `batch` (default: the rows times
+        the data size): the draws are made, or pinned, at the global batch
+        and cut to the rows; the loss is the global batch's."""
+        batch = eps.shape[0] * self.data_size() if batch is None else batch
+        t, var, e2int, weight, eta = self.local(self.draws(
+            (batch,) + tuple(eps.shape[1:]), self.discrete, t_idx, rho, eta))
         self.score.zero_grad(set_to_none=True)
         loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
                                self.cfg.opt.loss_type, label, train=True,
-                               dropout=self.dropout_masks(dropout))
+                               dropout=self.step_masks(dropout, batch))
         loss.backward()
+        self.sync_grads(self.state.params, self.sharded_names())
         grads = {k: p.grad for k, p in self.state.params.items()}
         apply_update(self.state, grads, self.tx, lr, self.ema_decay)
-        return loss.detach()
+        return self.global_mean(loss.detach())
 
     def update(self, data, *, t_idx: Optional[torch.Tensor] = None,
                eta: Optional[torch.Tensor] = None,
@@ -282,10 +345,10 @@ class Trainer(BaseTrainer):
         """One stage-2 step on `data['tr_points']` [B, N, 3] (and, with
         several categories, the labels `data['cate_idx']`)."""
         self.maybe_init(data)
-        label = self._label_of(data)
-        eps = self.encode(self._points(data["tr_points"]), enc_noise, label)
+        pts = self._points(data["tr_points"])
+        eps, label = self.encode_batch(pts, enc_noise, self._label_of(data))
         loss = self.train_step(eps, self.current_lr(), t_idx, eta, label,
-                               dropout=dropout)
+                               dropout=dropout, batch=pts.shape[0])
         self.itr += 1
         return loss
 
@@ -412,6 +475,10 @@ class Trainer(BaseTrainer):
             label = torch.as_tensor(label, device=self.device).long().expand(
                 num_samples)
         with self.ema_weights() as score, torch.inference_mode():
+            if active and self.score_specs is not None:
+                # the W8A8 twin is single-shard: quantize the full weights
+                serving["int8_weights"] = tp_rules.gather_params(
+                    score, self.score_specs, self.mesh)
             eps = sample_latents(score, self.sde, num_samples,
                                  self.cfg.sde.sample_N, device=self.device,
                                  label=label, **serving, **opts)
@@ -459,20 +526,28 @@ class Trainer(BaseTrainer):
             render_3D(vis_dir, smp)
         return self.eval_metrics(smp, ref, 64)
 
-    def state_tree(self) -> dict:
+    def state_tree(self, full: bool = False) -> dict:
         """The checkpoint's state: {"score": the TrainState's tree,
-        "compressor": the Compressor's state_dict}, live tensors."""
+        "compressor": the Compressor's state_dict}, live tensors; with
+        `full` under a model axis the Score's tree gathered to full tensors
+        (every rank must call it)."""
         if self.state is None:
             raise RuntimeError("the stage-2 Trainer needs its nets: call "
                                "maybe_init(first_batch) first")
-        return {"score": self.state.to_tree(),
+        score = self.state.to_tree()
+        if full and self.score_specs is not None:
+            score = tp_rules.gather_tree(score, self.score_specs, self.mesh)
+        return {"score": score,
                 "compressor": dict(self.compressor.state_dict())}
 
     def save(self):
         """Save `checkpt_<epoch>.pt` under `cfg.log.save_path`: the Adam
         moments in bf16 (params and EMA stay f32), written on a thread
-        (`checkpoint.wait_pending_saves` joins it)."""
-        tree = self.state_tree()
+        (`checkpoint.wait_pending_saves` joins it); under a mesh the full
+        state, written by rank 0."""
+        tree = self.state_tree(full=True)
+        if not self.is_main:
+            return
         save_checkpoint(checkpoint_path(self.cfg.log.save_path, self.epoch),
                         tree, cfg=self.cfg, epoch=self.epoch, itr=self.itr,
                         time=self.time, moments_bf16=True, async_write=True)
@@ -487,7 +562,7 @@ class Trainer(BaseTrainer):
         continue from the checkpoint's (epoch + 1, the cosine's gate at its
         itr); the wall time is the checkpoint's."""
         ckpt, restored = self._restored(epoch, strict, pretrain)
-        self.state.load_tree(restored["score"],
+        self.state.load_tree(self.local_score_tree(restored["score"]),
                              load_optim=load_optim and not finetune)
         self.compressor.load_state_dict(restored["compressor"])
         self._set_counters(ckpt, finetune)
@@ -498,7 +573,7 @@ class Trainer(BaseTrainer):
         structure) of the file `pretrain`, else of `epoch` (default: the
         last) under `cfg.log.save_path`; the file is recorded as
         `restored_ckpt`."""
-        tree = self.state_tree()
+        tree = self.state_tree(full=True)
         if pretrain is None:
             save_path = self.cfg.log.save_path
             pretrain = checkpoint_file(
@@ -507,6 +582,13 @@ class Trainer(BaseTrainer):
         restored = restore_into(tree, ckpt["state"], strict=strict)
         self._restore_recorded(pretrain)
         return ckpt, restored
+
+    def local_score_tree(self, tree: dict) -> dict:
+        """A full Score tree cut to this rank's shards (itself without a
+        model axis)."""
+        if self.score_specs is None:
+            return tree
+        return tp_rules.shard_tree(tree, self.score_specs, self.mesh)
 
     def _set_counters(self, ckpt: dict, finetune: bool) -> None:
         """epoch 1, itr 0 when `finetune`, else the checkpoint's epoch + 1

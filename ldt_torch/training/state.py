@@ -20,6 +20,10 @@ ops, where the JAX package builds new trees: one copy of each lives on the
 device. `TrainState.to_tree` / `load_tree` give and take the checkpoint's
 layout.
 
+Under tensor parallelism (`Optimizer.shard`) the clip takes the global
+norm: the squares of this rank's shards summed over `model`, each
+replicated leaf counted once (`parallel.comm.global_norm`).
+
 `make_optimizer(moment_dtype="bfloat16")` stores both moments in bf16, as
 the JAX package's `scale_by_adam_q`: each moment is upcast, updated in f32,
 and the update is computed from that f32 value before rounding; only the
@@ -34,6 +38,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import torch
+
+from ldt_torch.parallel import comm
 
 Params = Dict[str, torch.Tensor]
 
@@ -110,7 +116,9 @@ class Optimizer:
     -> scale_by_adam(b1, b2, eps=1e-8), as `make_optimizer` chains them in
     the JAX package, the moments stored in `moment_dtype` (bf16:
     `scale_by_adam_q`). `update` returns the Adam direction u; the caller
-    applies p - lr * u (`apply_update`)."""
+    applies p - lr * u (`apply_update`). `grad_norm` is the last update's
+    global gradient norm before the clip (a 0-d device tensor; None with
+    no clip)."""
 
     eps = 1e-8
 
@@ -122,6 +130,16 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.moment_dtype = moment_dtype
+        self.sharded = frozenset()
+        self.model_group = None
+        self.grad_norm = None
+
+    def shard(self, sharded, model_group) -> None:
+        """The names of the parameters that are tensor-parallel shards over
+        `model_group` (their squares are summed over it in the clip's
+        norm)."""
+        self.sharded = frozenset(sharded)
+        self.model_group = model_group
 
     def init(self, params: Params) -> AdamState:
         md = self.moment_dtype
@@ -139,9 +157,14 @@ class Optimizer:
         keys = list(params)
         g = _values(grads, keys)
         dev = g[0].device
-        if self.grad_clip is not None:
+        if self.grad_clip is not None and self.sharded:
+            norm = comm.global_norm(g, [k in self.sharded for k in keys],
+                                    self.model_group)
+        elif self.grad_clip is not None:
             norm = torch.linalg.vector_norm(torch.stack(
                 torch._foreach_norm(g)))
+        if self.grad_clip is not None:
+            self.grad_norm = norm
             keep = norm < self.grad_clip
             one = torch.ones((), device=dev)
             # optax: select(norm < max, g, (g / norm) * max)

@@ -731,3 +731,41 @@ def compressor_variables(sd: Dict[str, torch.Tensor],
     p["init_set"] = init_set
     e.done()
     return {"params": p, "batch_stats": stats}
+
+
+def masked_batch_norm_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
+    """A flax `MaskedBatchNorm`'s variables {"params": {scale, bias},
+    "batch_stats": {mean, var}} -> the state_dict of
+    `ldt_torch.ops.masks.MaskedBatchNorm` (the same names: a parameter
+    missing from the tree is one the module was built without)."""
+    p = dict(variables["params"])
+    st = dict(variables["batch_stats"])
+    sd = {k: _tensor(p.pop(k)) for k in ("scale", "bias") if k in p}
+    _done(p, "params")
+    sd.update({k: _tensor(_take_leaf(st, k, "batch_stats"))
+               for k in ("mean", "var")})
+    _done(st, "batch_stats")
+    return sd
+
+
+def _take_leaf(tree: dict, key: str, path: str):
+    if key not in tree:
+        raise ValueError(f"flax tree has no {path}/{key}")
+    return tree.pop(key)
+
+
+def masked_batch_norm_variables(sd: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of `masked_batch_norm_state_dict`: {"params",
+    "batch_stats"} as numpy arrays."""
+    sd = dict(sd)
+    out = {"params": {}, "batch_stats": {}}
+    for k in ("scale", "bias"):
+        if k in sd:
+            out["params"][k] = sd.pop(k).detach().cpu().numpy()
+    for k in ("mean", "var"):
+        if k not in sd:
+            raise ValueError(f"state_dict has no {k}")
+        out["batch_stats"][k] = sd.pop(k).detach().cpu().numpy()
+    if sd:
+        raise ValueError(f"unmapped state_dict entries: {sorted(sd)}")
+    return out
