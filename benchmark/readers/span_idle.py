@@ -1,0 +1,17 @@
+"""Milliseconds a `per` span (a step or call) the device idled while the
+host was inside the metric's `spans` (`program_spans`): innermost, or with
+`"children": true` anywhere inside a listed span, the spans within it
+included. Nothing to read without the program's spans or a device."""
+
+from benchmark.readers.program_spans import credited, idle_seconds, \
+    per_count
+
+
+def read(metric: dict, summary: dict, work: dict):
+    if "spans" not in summary or summary["busy_s"] <= 0:
+        return None
+    per = per_count(summary, metric["per"])
+    if not per:
+        return None
+    ids = credited(summary, metric["spans"], metric.get("children", False))
+    return idle_seconds(summary, ids) * 1e3 / per

@@ -5380,13 +5380,14 @@ def _profile_by_class(tag: str, step, steps: int, log_dir: str) -> None:
     with profiling.trace(log_dir) as prof:
         t0 = time.perf_counter()
         for span in spans:
-            with profiling.annotate(span):
+            with profiling.span(span):
                 step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the spans' own device rows (each covers its step's kernels) aside
+    # the spans' own device rows (each covers its kernels) aside: these
+    # steps' and the trainer's own (`train.step`, `train.encode`, ...)
     kernels = {k: us for k, us in device_time_by_kernel(prof).items()
-               if k not in spans}
+               if k not in spans and not k.startswith("train.")}
     busy = sum(kernels.values())
     if busy == 0:
         print(f"[{tag}] profile: no device time recorded (not measured)")

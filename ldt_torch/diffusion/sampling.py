@@ -25,6 +25,9 @@ synchronisation) and evaluates all seven stages every step (no FSAL).
 PNDM passes the enclosing step's index though it evaluates between the
 steps' times, the ODE passes `step=None`: a score_fn that gathers per-step
 quantities (the hoisted modulations) serves neither.
+
+Each step of `sample_discrete`'s loop is a `sample.step` span
+(`tools.profiling`) of its index.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ldt_torch import resolve_device
+from ldt_torch.tools import profiling
 
 ScoreFn = Callable[[torch.Tensor, torch.Tensor, int],
                    Tuple[torch.Tensor, torch.Tensor]]
@@ -205,13 +209,15 @@ def sample_discrete(sde, score_fn: ScoreFn, num_samples: int,
     snaps = [None] * n_snaps
     x_mean = x
     for i in range(N):
-        x_mean = x
-        if pred_fn is not None:
-            x, x_mean = pred_fn(
-                x, i, lambda: draw(None if noise is None else noise[i]))
-        if corr_fn is not None:
-            x, x_mean = corr_fn(x, i, lambda j: draw(
-                None if corrector_noise is None else corrector_noise[i][j]))
+        with profiling.span("sample.step", i):
+            x_mean = x
+            if pred_fn is not None:
+                x, x_mean = pred_fn(
+                    x, i, lambda: draw(None if noise is None else noise[i]))
+            if corr_fn is not None:
+                x, x_mean = corr_fn(x, i, lambda j: draw(
+                    None if corrector_noise is None
+                    else corrector_noise[i][j]))
         if interval and (i + 1) % interval == 0:
             snaps[min((i + 1) // interval - 1, n_snaps - 1)] = x_mean
     final = x_mean if denoise else x

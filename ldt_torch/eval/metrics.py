@@ -23,6 +23,10 @@ function, rounded otherwise (the CPU tests hold rtol 1e-4, atol 1e-5).
 
 Every entry point takes `device` ("cuda" unless the CPU is asked for; it
 raises without a card), and clouds as numpy arrays or tensors.
+
+Spans (`tools.profiling`): `compute_all_metrics` is one `eval.call`; each
+tile of `pairwise_EMD_CD` an `eval.tile`, holding the copy of its two
+matrices to the host, `eval.copy`.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ldt_torch.ops.chamfer import pairwise_cd_means
 from ldt_torch.ops.emd import approx_match_cost
 from ldt_torch.ops.geometry import square_distance
 from ldt_torch.parallel import comm
+from ldt_torch.tools import profiling
 
 # The mesh the pair tiles shard over; the trainers register theirs
 # (`training.base.BaseTrainer`). None: every pair on this process.
@@ -165,10 +170,12 @@ def pairwise_EMD_CD(sample_pcs, ref_pcs, batch_size: int = 32,
     emd = np.zeros((ns, nr), np.float32)
     for s0, s1 in _iter_blocks(ns, sb):
         for r0, r1 in _iter_blocks(nr, rb):
-            c, e = _pair_block(sample[s0:s1], ref[r0:r1], with_emd=True,
-                               emd_otf=emd_otf)
-            cd[s0:s1, r0:r1] = c.cpu().numpy()
-            emd[s0:s1, r0:r1] = e.cpu().numpy()
+            with profiling.span("eval.tile"):
+                c, e = _pair_block(sample[s0:s1], ref[r0:r1], with_emd=True,
+                                   emd_otf=emd_otf)
+                with profiling.span("eval.copy"):
+                    cd[s0:s1, r0:r1] = c.cpu().numpy()
+                    emd[s0:s1, r0:r1] = e.cpu().numpy()
     return cd, emd
 
 
@@ -256,25 +263,29 @@ def compute_all_metrics(sample_pcs, ref_pcs, batch_size: int,
     """MMD/COV/1-NNA over CD and EMD. The ref-vs-sample matrices are taken
     as `pairwise_EMD_CD(ref, sample)` and transposed, as the JAX package
     does: the approx-match is not symmetric in its arguments."""
-    kw = dict(emd_otf=emd_otf, device=device)
-    results: Dict[str, float] = {}
-    m_rs_cd, m_rs_emd = pairwise_EMD_CD(ref_pcs, sample_pcs, batch_size, **kw)
-    results.update({f"{k}-CD": v for k, v in lgan_mmd_cov(m_rs_cd.T).items()})
-    results.update({f"{k}-EMD": v
-                    for k, v in lgan_mmd_cov(m_rs_emd.T).items()})
-    if verbose:
-        for k, v in results.items():
-            print(f"[{k}] {v:.8f}")
-    m_rr_cd, m_rr_emd = pairwise_EMD_CD(ref_pcs, ref_pcs, batch_size, **kw)
-    m_ss_cd, m_ss_emd = pairwise_EMD_CD(sample_pcs, sample_pcs, batch_size,
-                                        **kw)
-    one_nn_cd = knn(m_rr_cd, m_rs_cd, m_ss_cd, 1, sqrt=False)
-    results.update({f"1-NN-CD-{k}": v for k, v in one_nn_cd.items()
-                    if "acc" in k})
-    one_nn_emd = knn(m_rr_emd, m_rs_emd, m_ss_emd, 1, sqrt=False)
-    results.update({f"1-NN-EMD-{k}": v for k, v in one_nn_emd.items()
-                    if "acc" in k})
-    return results
+    with profiling.span("eval.call"):
+        kw = dict(emd_otf=emd_otf, device=device)
+        results: Dict[str, float] = {}
+        m_rs_cd, m_rs_emd = pairwise_EMD_CD(ref_pcs, sample_pcs, batch_size,
+                                            **kw)
+        results.update({f"{k}-CD": v
+                        for k, v in lgan_mmd_cov(m_rs_cd.T).items()})
+        results.update({f"{k}-EMD": v
+                        for k, v in lgan_mmd_cov(m_rs_emd.T).items()})
+        if verbose:
+            for k, v in results.items():
+                print(f"[{k}] {v:.8f}")
+        m_rr_cd, m_rr_emd = pairwise_EMD_CD(ref_pcs, ref_pcs, batch_size,
+                                            **kw)
+        m_ss_cd, m_ss_emd = pairwise_EMD_CD(sample_pcs, sample_pcs,
+                                            batch_size, **kw)
+        one_nn_cd = knn(m_rr_cd, m_rs_cd, m_ss_cd, 1, sqrt=False)
+        results.update({f"1-NN-CD-{k}": v for k, v in one_nn_cd.items()
+                        if "acc" in k})
+        one_nn_emd = knn(m_rr_emd, m_rs_emd, m_ss_emd, 1, sqrt=False)
+        results.update({f"1-NN-EMD-{k}": v for k, v in one_nn_emd.items()
+                        if "acc" in k})
+        return results
 
 
 def compute_MMD_metrics(sample_pcs, ref_pcs, batch_size: int,

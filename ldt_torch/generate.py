@@ -23,6 +23,9 @@ The PNDM predictor and the probability-flow ODE (`sample_mode=
 "continuous"`) evaluate the Score between the schedule's times, so they
 run the whole Score at each evaluation too (no hoisted modulations, no
 int8), as the JAX trainers' samplers do.
+
+Each Score evaluation is a `sample.score` span (`tools.profiling`), inside
+the sampler's `sample.step`.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ldt_torch.diffusion.sampling import (
     timesteps,
 )
 from ldt_torch.serving import int8 as int8_serving
+from ldt_torch.tools import profiling
 
 # The schedule's last time, linspace(1, TIME_EPS, steps) (bench.py).
 TIME_EPS = 1e-6
@@ -121,8 +125,9 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
             condition = score.encode_condition(condition)
 
         def score_fn(t, x, step):
-            p = (score(x, t, label) if condition is None
-                 else score(x, t, label, condition))
+            with profiling.span("sample.score"):
+                p = (score(x, t, label) if condition is None
+                     else score(x, t, label, condition))
             return -p.float() / sde.std(t)[:, None, None], p
 
         return _run(sde, score_fn, run, sampler)
@@ -151,7 +156,8 @@ def sample_latents(score, sde, batch: int, steps: int, *, device="cuda",
             return score.denoise_with_mods(x, step_mods(step))
 
     def score_fn(t, x, step):
-        p = denoise(x, step)
+        with profiling.span("sample.score"):
+            p = denoise(x, step)
         return -p.float() / sde.std(t)[:, None, None], p
 
     return _run(sde, score_fn, run, sampler)
@@ -199,9 +205,10 @@ def _sample_cond_int8(score, sde, condition, int8_weights, attn_int8: bool,
     kv = int8_serving.precompute_cond_kv(q, tokens)
 
     def score_fn(t, x, step):
-        p = int8_serving.denoise_cond_int8(x, t_embs[step], img_emb, kv, q,
-                                           cfg.num_heads,
-                                           attn_int8=attn_int8)
+        with profiling.span("sample.score"):
+            p = int8_serving.denoise_cond_int8(x, t_embs[step], img_emb, kv,
+                                               q, cfg.num_heads,
+                                               attn_int8=attn_int8)
         return -p.float() / sde.std(t)[:, None, None], p
 
     return _run(sde, score_fn, run, sampler)

@@ -61,7 +61,8 @@ L = -4^7 ... -4^-1 (the reference's `match_cost`).
     dist = sqrt(max(d, 1e-20))); on a CUDA tensor it launches the kernel or
     raises. `approx_match_cost.launches` counts both modes,
     `.otf_launches` the K7 ones, `.cluster_launches` those of the cluster
-    schedule.
+    schedule. The d build in front of K6 (and of the twin) is an
+    `emd.distances` span (`tools.profiling`).
 The twin takes the JAX form's matrix-vector products with `torch.matmul`:
 on a card they are full f32 only under torch's default matmul precision
 ("highest", `torch.backends.cuda.matmul.allow_tf32` False), which
@@ -84,6 +85,7 @@ from ldt_torch.ops.geometry import (
     square_distance,
     sum_square_diff,
 )
+from ldt_torch.tools import profiling
 
 
 # The compact schedule's row block and the unassigned count below which it
@@ -293,14 +295,18 @@ def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
     x1, x2 = _eval_kernels.pairs(
         name, x1, x2,
         lambda n, m: _eval_kernels.emd_smem_bytes(n, m, otf))
-    if x1.device.type == "cpu":
+    on_cpu = x1.device.type == "cpu"
+    # K6 (and the plain twin) takes the distances of `square_distance`
+    # (clamped at 0, a no-op in the direct form); K7 builds them itself
+    d = None
+    if on_cpu or not otf:
+        with profiling.span("emd.distances"):
+            d = torch.clamp(square_distance(x1, x2), min=0.0)
+    if on_cpu:
         _build.count_shape(_build.PLAIN_SHAPES, name, x1)
-        return approx_match_cost_plain(x1, x2)
+        return approx_match_cost_plain(x1, x2, d)
     p, n, _ = x1.shape
     m = x2.shape[1]
-    # K6 streams the distances of `square_distance` (clamped at 0, a no-op
-    # in the direct form); K7 builds them itself
-    d = None if otf else torch.clamp(square_distance(x1, x2), min=0.0)
     out = torch.empty(p, dtype=torch.float32, device=x1.device)
     cluster = ctypes.c_int(0)
     with torch.cuda.device(x1.device):

@@ -13,6 +13,9 @@ One `update(batch)`:
      * weight), p 2 (`loss_type` l2) or 1, in f32;
   4. backward: K1 forward, K3 backward in every block;
   5. clip by global norm, Adam, EMA (`training.state`).
+The step is a `train.step` span (`tools.profiling`) of the iteration,
+holding `train.batch` (build, the clouds to the device), `train.encode`
+(1), `train.loss` (2-3), `train.backward` (4) and `train.optimizer` (5).
 Sampling and the validation loss use the EMA params.
 
 With several categories (`data.num_categorys` > 1) each batch's `cate_idx`
@@ -93,6 +96,7 @@ from ldt_torch.models import Compressor, Score
 from ldt_torch.nn.layers import DropoutMasks
 from ldt_torch.parallel import tp as tp_rules
 from ldt_torch.serving import int8 as int8_serving
+from ldt_torch.tools import profiling
 from ldt_torch.tools.utils import train_dtype
 from ldt_torch.tools.vis_utils import render_3D
 from ldt_torch.training.base import BaseTrainer, to_numpy
@@ -326,16 +330,21 @@ class Trainer(BaseTrainer):
         the data size): the draws are made, or pinned, at the global batch
         and cut to the rows; the loss is the global batch's."""
         batch = eps.shape[0] * self.data_size() if batch is None else batch
-        t, var, e2int, weight, eta = self.local(self.draws(
-            (batch,) + tuple(eps.shape[1:]), self.discrete, t_idx, rho, eta))
-        self.score.zero_grad(set_to_none=True)
-        loss = score_objective(self.score, eps, t, var, e2int, weight, eta,
-                               self.cfg.opt.loss_type, label, train=True,
-                               dropout=self.step_masks(dropout, batch))
-        loss.backward()
-        self.sync_grads(self.state.params, self.sharded_names())
-        grads = {k: p.grad for k, p in self.state.params.items()}
-        apply_update(self.state, grads, self.tx, lr, self.ema_decay)
+        with profiling.span("train.loss"):
+            t, var, e2int, weight, eta = self.local(self.draws(
+                (batch,) + tuple(eps.shape[1:]), self.discrete, t_idx, rho,
+                eta))
+            self.score.zero_grad(set_to_none=True)
+            loss = score_objective(self.score, eps, t, var, e2int, weight,
+                                   eta, self.cfg.opt.loss_type, label,
+                                   train=True,
+                                   dropout=self.step_masks(dropout, batch))
+        with profiling.span("train.backward"):
+            loss.backward()
+        with profiling.span("train.optimizer"):
+            self.sync_grads(self.state.params, self.sharded_names())
+            grads = {k: p.grad for k, p in self.state.params.items()}
+            apply_update(self.state, grads, self.tx, lr, self.ema_decay)
         return self.global_mean(loss.detach())
 
     def update(self, data, *, t_idx: Optional[torch.Tensor] = None,
@@ -344,12 +353,16 @@ class Trainer(BaseTrainer):
                dropout=None) -> torch.Tensor:
         """One stage-2 step on `data['tr_points']` [B, N, 3] (and, with
         several categories, the labels `data['cate_idx']`)."""
-        self.maybe_init(data)
-        pts = self._points(data["tr_points"])
-        eps, label = self.encode_batch(pts, enc_noise, self._label_of(data))
-        loss = self.train_step(eps, self.current_lr(), t_idx, eta, label,
-                               dropout=dropout, batch=pts.shape[0])
-        self.itr += 1
+        with profiling.span("train.step", self.itr):
+            with profiling.span("train.batch"):
+                self.maybe_init(data)
+                pts = self._points(data["tr_points"])
+                label = self._label_of(data)
+            with profiling.span("train.encode"):
+                eps, label = self.encode_batch(pts, enc_noise, label)
+            loss = self.train_step(eps, self.current_lr(), t_idx, eta, label,
+                                   dropout=dropout, batch=pts.shape[0])
+            self.itr += 1
         return loss
 
     @contextlib.contextmanager
