@@ -101,18 +101,20 @@ Evaluation (`ldt_torch.eval.metrics`, the trainers' `valsample` and
      levels, no consumption clamp, the cost on d); K5 on its split schedule
      (the cluster size the library reports against the rule), a pair alone
      equal to it in its tile, its block schedule (unaligned y) within the
-     limit too; K6 == K7 bit for bit, each repeating itself; one pair against
+     limit too; K6 == K7 bit for bit (and the default route, K7 at 2048
+     points), each repeating itself; one pair against
      the exact optimum (scipy's linear_sum_assignment); times, bounds and
      twin times at a full eval tile (64 pairs), K5's split and block
      schedules in both units.
  19. (after 16) The eval path at full width on 64 references and 64
      samples of 2048 points: `compute_all_metrics(smp, ref, 128)` (pairs/s),
-     `compute_CD_metrics(smp, ref, 256)`, `EMD_CD` through K7, the JSD, the
-     phase-16 stage-1 trainer's `reconstruction` and `valsample` on a test
-     loader of 4 batches of 16, and a stage-2 `valsample` (one batch, 32
-     steps); K5/K6/K7 launch counts against those `_tile_shape` predicts
+     `compute_CD_metrics(smp, ref, 256)`, `EMD_CD` through K6 (forced), the
+     JSD, the phase-16 stage-1 trainer's `reconstruction` and `valsample` on
+     a test loader of 4 batches of 16, and a stage-2 `valsample` (one batch,
+     32 steps); K5/K6/K7 launch counts against those `_tile_shape` predicts
      (every K5 launch on its split schedule, every K6/K7 one on the cluster
-     schedule); one matrix's tiles under torch.profiler.
+     schedule, and K7 by the default route but in the forced run); one
+     matrix's tiles under torch.profiler.
  20. (after 17) 8 x 8 pairs, card against CPU: the CD and EMD matrices of
      `compute_all_metrics` (and against a card run with wrong kernels), the
      metric dicts on sets with margin, and the JSD.
@@ -130,8 +132,8 @@ The training entries (`ldt_torch.entries`), from config files:
      `val_sample` on the saved samples. The restored tensors must equal the
      state at the save (the moments their bf16 rounding) with the counters
      continuing, training.csv must gain the leg's row, every loss and
-     metric must be finite and K1-K6 must have run; prints seconds per
-     epoch and the checkpoint's save and load seconds and GB. The tree and
+     metric must be finite and K1-K5 and K6/K7 must have run; prints seconds
+     per epoch and the checkpoint's save and load seconds and GB. The tree and
      the checkpoints are deleted at the end, pass or fail.
 
 The reference's head merge and the 55-category configs:
@@ -2543,11 +2545,13 @@ def phase_eval_kernels() -> dict:
          {"twin": rel_errs(old, chamfer.pairwise_cd_means_plain(x, y))},
          K5_TOL, right=("twin",), wrong=())
     # K6 / K7
-    k6 = emd.approx_match_cost(x, y)
+    k6 = emd.approx_match_cost(x, y, otf=False)
     k7 = emd.approx_match_cost(x, y, otf=True)
-    same = torch.equal(k6, k7)
-    repeat = torch.equal(k6, emd.approx_match_cost(x, y)) and torch.equal(
-        k7, emd.approx_match_cost(x, y, otf=True))
+    # the default route is K7 at 2048 points (`_eval_kernels.emd_route`)
+    same = torch.equal(k6, k7) and torch.equal(emd.approx_match_cost(x, y),
+                                               k7)
+    repeat = torch.equal(k6, emd.approx_match_cost(x, y, otf=False)) and \
+        torch.equal(k7, emd.approx_match_cost(x, y, otf=True))
     t0 = time.perf_counter()
     cpu_twin = emd.approx_match_cost_plain(xc, yc)
     cpu_s = time.perf_counter() - t0
@@ -2569,7 +2573,7 @@ def phase_eval_kernels() -> dict:
         fail("phase 18: K6 and K7 differ, or a run did not repeat its bits")
     # the cluster schedule: a pair's cost does not depend on its tile (one
     # pair alone runs in a cluster of 8)
-    alone = emd.approx_match_cost(x[:1], y[:1])
+    alone = emd.approx_match_cost(x[:1], y[:1], otf=False)
     print(f"[18] K6/K7 cluster size at {p} pairs: "
           f"{emd_cluster_launched(x, y)}, at 1 pair: "
           f"{emd_cluster_launched(x[:1], y[:1])}; pair 0 alone == "
@@ -2662,13 +2666,14 @@ def phase_eval_kernels() -> dict:
         "approx_match_cost_otf": (cuda_ms(
             lambda: emd.approx_match_cost(x, y, otf=True), 5, 1),
             emd_twin_ms)}
-    wrapper_ms = cuda_ms(lambda: emd.approx_match_cost(x, y), 5, 1)
+    wrapper_ms = cuda_ms(lambda: emd.approx_match_cost(x, y, otf=False), 5,
+                         1)
     twin = emd.approx_match_cost_plain(x, y)
     max_err = {
         "pairwise_cd_means": (chamfer.pairwise_cd_means(x, y)
                               - chamfer.pairwise_cd_means_plain(x, y)
                               ).abs().max().item(),
-        "approx_match_cost": (emd.approx_match_cost(x, y)
+        "approx_match_cost": (emd.approx_match_cost(x, y, otf=False)
                               - twin).abs().max().item(),
         "approx_match_cost_otf": (emd.approx_match_cost(x, y, otf=True)
                                   - twin).abs().max().item()}
@@ -2775,10 +2780,9 @@ def phase_eval(stage1) -> dict:
             lambda: metrics.compute_CD_metrics(smp, ref, 256, verbose=False),
             dict(pairwise_cd_means=tile_launches(count, count, 256, n)
                  + 2 * tile_launches(count, count, 256, n, True))),
-        "EMD_CD(smp, ref, 64, emd_otf=True)": (
-            lambda: metrics.EMD_CD(smp, ref, 64, emd_otf=True),
-            dict(pairwise_cd_means=1, approx_match_cost=1,
-                 approx_match_cost_otf=1)),
+        "EMD_CD(smp, ref, 64, emd_otf=False)": (
+            lambda: metrics.EMD_CD(smp, ref, 64, emd_otf=False),
+            dict(pairwise_cd_means=1, approx_match_cost=1)),
         "jsd_between_point_cloud_sets(smp / 2, ref / 2)": (
             lambda: {"jsd": metrics.jsd_between_point_cloud_sets(
                 smp / 2, ref / 2)}, {}),
@@ -2811,9 +2815,12 @@ def phase_eval(stage1) -> dict:
             res, dt, launches = counted(fn)
         expect = per_step_launches(**expect)
         # every cloud has 2048 points: K5 takes the split schedule, K6/K7
-        # the cluster one
+        # the cluster one, and the default route K7 (`emd_route`) but where
+        # a run forces K6
         expect["pairwise_cd_means_split"] = expect["pairwise_cd_means"]
         expect["approx_match_cost_cluster"] = expect["approx_match_cost"]
+        if "emd_otf=False" not in what:
+            expect["approx_match_cost_otf"] = expect["approx_match_cost"]
         values = {k: float(v) for k, v in res.items()}
         rate = (f", {pairs / dt:.1f} pairs/s" if what.startswith(
             "compute_all") else "")
@@ -2845,9 +2852,9 @@ def phase_eval(stage1) -> dict:
     wall = (time.perf_counter() - t0) * 1e3
     by_kernel = device_time_by_kernel(prof)
     busy = sum(by_kernel.values()) / 1e3
-    classes = {"K6 (approx_match_cost_kernel)": "approx_match",
+    classes = {"K7 (approx_match_cluster_kernel)": "approx_match",
                "K5 (pairwise_cd_split_kernel)": "pairwise_cd",
-               "other (the d build's elementwise passes, copies)": ""}
+               "other (copies)": ""}
     shares = dict.fromkeys(classes, 0.0)
     for key, us in by_kernel.items():
         for cname, tag in classes.items():
@@ -2881,7 +2888,7 @@ def knn_margin(mxx, mxy, myy) -> float:
 
 
 def phase_eval_reference() -> None:
-    """Phase 20: `compute_all_metrics` on 8 x 8 clouds on the card (K5, K6)
+    """Phase 20: `compute_all_metrics` on 8 x 8 clouds on the card (K5, K7)
     and on the CPU (the twins the CPU tests hold against ldt_tpu), and on
     the card with wrong kernels (K5 one direction, K6 without its last
     level): the matrices under K5_TOL / K6_TOL, the metric dicts on sets
@@ -2911,7 +2918,7 @@ def phase_eval_reference() -> None:
                     lambda x, y: cd_variant(x, y, one_direction=True)))
                 stack.enter_context(mock.patch.object(
                     metrics, "approx_match_cost",
-                    lambda x, y, otf=False: emd_variant(x, y, levels=8)))
+                    lambda x, y, otf=None: emd_variant(x, y, levels=8)))
             t0 = time.perf_counter()
             res = metrics.compute_all_metrics(smp, ref, 128, verbose=False,
                                               device=dev)
@@ -3105,8 +3112,9 @@ def phase_entries(then=None) -> None:
     save and one `valsample`, a `--resume` leg that trains epoch 3, and
     `val_sample` on the saved samples. Every restored tensor must equal the
     state at its save, the counters must continue, every loss and metric
-    must be finite, and K1-K6 must have run; prints each stage's seconds per
-    epoch and the stage-2 checkpoint's save and load seconds and size.
+    must be finite, and K1-K5 and K6/K7 must have run; prints each stage's
+    seconds per epoch and the stage-2 checkpoint's save and load seconds and
+    size.
     `then(stage-2 experiment dir, workspace)` runs last, on the tree and
     the checkpoints, before they are deleted (phase 26c)."""
     import gc
@@ -3341,12 +3349,12 @@ def phase_entries(then=None) -> None:
         print(f"[21] training.csv rows: stage 1 {len(rows['stage1'])}, "
               f"stage 2 {len(rows['stage2'])} then {len(rows['resumed'])}; "
               f"val_sample: {res}")
-        k6 = launches["approx_match_cost"] - launches["approx_match_cost_otf"]
         ran = {"K1": launches["packed_self_attention"],
                "K2": launches["cross_attention"],
                "K3": launches["packed_self_attention_bwd"],
                "K4": launches["cross_attention_bwd"],
-               "K5": launches["pairwise_cd_means"], "K6": k6}
+               "K5": launches["pairwise_cd_means"],
+               "K6/K7": launches["approx_match_cost"]}
         print(f"[21] the entries' run: {dt:.2f} s, launches {ran}")
         if not all(ran.values()):
             fail(f"phase 21: a kernel of the path did not run: {ran}")
@@ -3616,12 +3624,12 @@ def phase_all_configs():
         print(f"[22b] checkpoints: stage 1 {sizes['Compressor_Trainer']} "
               f"bytes, stage 2 {sizes['Latent_Diffusion_Trainer'] / 1e9:.3f}"
               f" GB")
-        k6 = launches["approx_match_cost"] - launches["approx_match_cost_otf"]
         ran = {"K1": launches["packed_self_attention"],
                "K2": launches["cross_attention"],
                "K3": launches["packed_self_attention_bwd"],
                "K4": launches["cross_attention_bwd"],
-               "K5": launches["pairwise_cd_means"], "K6": k6}
+               "K5": launches["pairwise_cd_means"],
+               "K6/K7": launches["approx_match_cost"]}
         print(f"[22b] the all configs' run: {dt:.2f} s, launches {ran}")
         if not all(ran[k] for k in ("K1", "K2", "K3", "K4", "K5")):
             fail(f"phase 22b: a kernel of the path did not run: {ran}")
@@ -5082,12 +5090,12 @@ def phase_hybrid_entry() -> None:
             finite_rows(os.path.join(save_path, name), name, phase="24b")
         if not all(np.isfinite(v) for v in res.values()):
             fail(f"phase 24b: valrecon gave {res}")
-        k6 = launches["approx_match_cost"] - launches["approx_match_cost_otf"]
         ran = {"K1": launches["packed_self_attention"],
                "K2": launches["cross_attention"],
                "K3": launches["packed_self_attention_bwd"],
                "K4": launches["cross_attention_bwd"],
-               "K5": launches["pairwise_cd_means"], "K6": k6}
+               "K5": launches["pairwise_cd_means"],
+               "K6/K7": launches["approx_match_cost"]}
         print(f"[24b] training.csv rows {len(rows['trained'])} then "
               f"{len(rows['resumed'])}: {rows['resumed']}; valrecon {res}; "
               f"the entry's run {dt:.2f} s, launches {ran}")

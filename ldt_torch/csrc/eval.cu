@@ -60,7 +60,14 @@
 //    K7 (otf = 1) builds each d_ij from the two clouds held in shared memory;
 //    it replaces _approx_match_cost_otf_kernel. Each schedule below is one
 //    template in which only the source of d differs, so on the same d K6 and
-//    K7 return the same bits.
+//    K7 return the same bits. The port's default differs from the JAX
+//    package's here: ldt_torch/ops/emd.py::approx_match_cost takes K7
+//    wherever its shared memory fits (emd_smem_bytes(n, m, true) <=
+//    kMaxSmem: up to ~5,280 points a cloud, the eval's 2048 included) and
+//    K6 only past that, where the JAX package takes K6 unless
+//    LDT_EMD_PALLAS_OTF asks. K6's route builds, writes and reads back the
+//    [P, N, M] d in front of the kernel, more than the kernel's own time at
+//    the eval tile; K7 alone is also the faster kernel.
 //    Bound on an H100 at the eval tile (64 pairs of 2048-point clouds): the
 //    9 N M exponentials of the function on the special-function units (16
 //    per SM per clock: 0.58 ms at 1980 MHz), above K6's one read of d (16.8

@@ -4,18 +4,22 @@ results and dict keys).
 
 The pair matrices are built tile by tile: each (sample block x ref block)
 tile flattens its S * R pairs into one batch for K5 (`ops.chamfer.
-pairwise_cd_means`) and K6 (`ops.emd.approx_match_cost`; K7 with
-`emd_otf=True`, the JAX package's `LDT_EMD_PALLAS_OTF`), one block per pair
-on the card, so a pair's value does not depend on the tile it lies in. The
-tiles keep the JAX package's `_PAIR_TILE_BYTES` budget: K6 streams a
-[P, N, M] f32 distance tensor, 16.8 MB a pair at 2048 points. The last tile
+pairwise_cd_means`) and K6/K7 (`ops.emd.approx_match_cost`), so a pair's
+value does not depend on the tile it lies in. `emd_otf` is
+`approx_match_cost`'s `otf`, the JAX package's `LDT_EMD_PALLAS_OTF`, but
+with another default: None, the port's rule, takes K7 (d built inside the
+kernel) on a card wherever its shared memory fits, the eval's 2048-point
+clouds included, and K6 behind a [P, N, M] d build only past that (the
+JAX package takes K6 unless asked); True or False forces K7 or K6, which
+give the same bits. The tiles keep the JAX package's `_PAIR_TILE_BYTES`
+budget, sized for K6's d, 16.8 MB a pair at 2048 points. The last tile
 of a row or column is ragged (the JAX package pads it to one shape to avoid
 TPU recompiles; nothing here recompiles).
 
 Under a registered mesh (`set_eval_mesh`, the trainers' mesh) a tile's
 flattened pair axis is split over every rank, as the JAX package's: pairs
 are independent, so even a model axis serves as data parallelism here.
-Each rank runs K5 and K6 (or K7) on its pairs and one all_gather per matrix
+Each rank runs K5 and K6/K7 on its pairs and one all_gather per matrix
 joins them (where the world does not divide the tile's pairs, every rank
 computes the whole tile, as the JAX package then replicates). The JAX
 package takes XLA's chamfer under a mesh; the port keeps K5: the same
@@ -68,7 +72,7 @@ def _clouds(pcs, dev: torch.device) -> torch.Tensor:
 
 
 def _pair_block(sample_block: torch.Tensor, ref_block: torch.Tensor,
-                with_emd: bool = False, emd_otf: bool = False):
+                with_emd: bool = False, emd_otf: Optional[bool] = None):
     """All-pairs CD (and EMD) of two blocks of clouds [S, N, 3], [R, M, 3]:
     cd [S, R] (= mean_n dl + mean_m dr, squared distances) and emd [S, R]
     (approx-match cost / M) when asked."""
@@ -158,7 +162,8 @@ def pairwise_CD(sample_pcs, ref_pcs, batch_size: int = 32,
 
 
 def pairwise_EMD_CD(sample_pcs, ref_pcs, batch_size: int = 32,
-                    block: Optional[int] = None, *, emd_otf: bool = False,
+                    block: Optional[int] = None, *,
+                    emd_otf: Optional[bool] = None,
                     device="cuda"):
     """[N_sample, N_ref] CD and EMD matrices."""
     dev = resolve_device(device)
@@ -234,7 +239,7 @@ def knn(mxx: np.ndarray, mxy: np.ndarray, myy: np.ndarray, k: int,
 
 
 def EMD_CD(sample_pcs, ref_pcs, batch_size: int, reduced: bool = True, *,
-           emd_otf: bool = False, device="cuda",
+           emd_otf: Optional[bool] = None, device="cuda",
            **_ignored) -> Dict[str, float]:
     """Paired (same-index) CD and EMD, keys 'mmd-CD' and 'mmd-EMD'."""
     dev = resolve_device(device)
@@ -258,7 +263,8 @@ def EMD_CD(sample_pcs, ref_pcs, batch_size: int, reduced: bool = True, *,
 
 
 def compute_all_metrics(sample_pcs, ref_pcs, batch_size: int,
-                        verbose: bool = True, *, emd_otf: bool = False,
+                        verbose: bool = True, *,
+                        emd_otf: Optional[bool] = None,
                         device="cuda", **_ignored) -> Dict[str, float]:
     """MMD/COV/1-NNA over CD and EMD. The ref-vs-sample matrices are taken
     as `pairwise_EMD_CD(ref, sample)` and transposed, as the JAX package
@@ -290,7 +296,7 @@ def compute_all_metrics(sample_pcs, ref_pcs, batch_size: int,
 
 def compute_MMD_metrics(sample_pcs, ref_pcs, batch_size: int,
                         verbose: bool = True, *, device="cuda",
-                        emd_otf: bool = False,
+                        emd_otf: Optional[bool] = None,
                         **_ignored) -> Dict[str, float]:
     """MMD/COV only. `emd_otf` as in `compute_all_metrics`."""
     results: Dict[str, float] = {}

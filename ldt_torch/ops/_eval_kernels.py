@@ -1,7 +1,8 @@
 """ctypes binding of `csrc/eval.cu` (K5 `ldt_pairwise_cd_means`, K6/K7
 `ldt_approx_match_cost`), K5's schedule rule as the library decides it
-(`cd_schedule`), the Python mirror of K6/K7's, and the checks the wrappers
-in `ops.chamfer` and `ops.emd` share."""
+(`cd_schedule`), the Python mirror of K6/K7's, the default route between
+K6 and K7 (`emd_route`), and the checks the wrappers in `ops.chamfer` and
+`ops.emd` share."""
 
 from __future__ import annotations
 
@@ -36,6 +37,14 @@ def emd_smem_bytes(n: int, m: int, otf: bool) -> int:
     [2, n], the column state [3, m] and one float per warp; K7 holds both
     clouds beside them."""
     return 4 * (2 * n + 3 * m + _EMD_WARPS + (3 * n + 3 * m if otf else 0))
+
+
+def emd_route(n: int, m: int) -> bool:
+    """The `otf` that `ops.emd.approx_match_cost(otf=None)` takes on a card:
+    True (K7, d built inside the kernel) where K7's shared memory fits, up
+    to ~5,280 points a cloud; False (K6 behind the d build) past that, for
+    the clouds that only K6 takes."""
+    return emd_smem_bytes(n, m, True) <= SMEM_LIMIT
 
 
 def emd_cluster(p: int, sms: int) -> int:

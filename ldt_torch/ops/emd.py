@@ -30,14 +30,22 @@ owners and prices exactly (assigned rows never bid; once at most `tile`
 rows are unassigned the count cannot grow), so the assignment is the dense
 one. Off by default, as in the JAX package.
 
-K6/K7 `approx_match_cost(x1, x2, otf=False)` — the annealed approx-match
+K6/K7 `approx_match_cost(x1, x2, otf=None)` — the annealed approx-match
 transport cost sum(match * |x1 - x2|) of each pair, 9 levels
 L = -4^7 ... -4^-1 (the reference's `match_cost`).
   * Replaces `ldt_tpu/ops/emd.py::_approx_match_cost_kernel` (K6, with
     `_emd_pair_step`: the squared distances d [P, N, M] computed first and
     streamed) and `_approx_match_cost_otf_kernel` (K7, `otf=True`: each d_ij
     built from the two clouds inside the kernel). The JAX package's
-    `LDT_EMD_PALLAS_OTF` is the `otf` argument, off by default as there.
+    `LDT_EMD_PALLAS_OTF` is the `otf` argument, but the defaults differ: the
+    JAX package takes K6 unless asked, the port on a card takes K7 wherever
+    K7's shared memory fits (`otf=None`, the rule
+    `_eval_kernels.emd_route(n, m)`: up to ~5,280 points a cloud, the
+    eval's 2048 included) and K6 with its d build only past that. The two
+    give the same bits, and K6's route writes and reads back a [P, N, M]
+    f32 d (1.07 GB for the eval's 64-pair tile), more than half the eval's
+    device time; K7 alone is also the faster kernel. `otf=True` / `False`
+    still forces a route.
   * Bound on an H100: the 9 N M exponentials on the special-function units
     (16 per SM per clock), ~9 us a pair at 2048 points; then the f32 FMAs,
     and K6's one read of d (16.8 MB a pair).
@@ -62,7 +70,8 @@ L = -4^7 ... -4^-1 (the reference's `match_cost`).
     raises. `approx_match_cost.launches` counts both modes,
     `.otf_launches` the K7 ones, `.cluster_launches` those of the cluster
     schedule. The d build in front of K6 (and of the twin) is an
-    `emd.distances` span (`tools.profiling`).
+    `emd.distances` span (`tools.profiling`): on a card it is entered only
+    on K6's route.
 The twin takes the JAX form's matrix-vector products with `torch.matmul`:
 on a card they are full f32 only under torch's default matmul precision
 ("highest", `torch.backends.cuda.matmul.allow_tf32` False), which
@@ -287,14 +296,22 @@ def approx_match_plain(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
-                      otf: bool = False) -> torch.Tensor:
-    """K6 (or K7 with `otf`): [P] float32 transport costs
-    sum(match * |x1 - x2|) of x1 [P, N, 3] against x2 [P, M, 3] (divide by
-    N for the reference's `emd_approx_cuda`); forward only."""
+                      otf: Optional[bool] = None) -> torch.Tensor:
+    """K6/K7: [P] float32 transport costs sum(match * |x1 - x2|) of
+    x1 [P, N, 3] against x2 [P, M, 3] (divide by N for the reference's
+    `emd_approx_cuda`); forward only. `otf` None takes the route by the rule
+    (`_eval_kernels.emd_route`: K7 wherever its shared memory fits, else K6
+    behind the d build); True or False forces K7 or K6."""
     name = "approx_match_cost"
+    # None is checked against K6's shared memory, the least: the rule falls
+    # back to K6 where K7's does not fit
     x1, x2 = _eval_kernels.pairs(
         name, x1, x2,
-        lambda n, m: _eval_kernels.emd_smem_bytes(n, m, otf))
+        lambda n, m: _eval_kernels.emd_smem_bytes(n, m, bool(otf)))
+    p, n, _ = x1.shape
+    m = x2.shape[1]
+    if otf is None:
+        otf = _eval_kernels.emd_route(n, m)
     on_cpu = x1.device.type == "cpu"
     # K6 (and the plain twin) takes the distances of `square_distance`
     # (clamped at 0, a no-op in the direct form); K7 builds them itself
@@ -305,8 +322,6 @@ def approx_match_cost(x1: torch.Tensor, x2: torch.Tensor,
     if on_cpu:
         _build.count_shape(_build.PLAIN_SHAPES, name, x1)
         return approx_match_cost_plain(x1, x2, d)
-    p, n, _ = x1.shape
-    m = x2.shape[1]
     out = torch.empty(p, dtype=torch.float32, device=x1.device)
     cluster = ctypes.c_int(0)
     with torch.cuda.device(x1.device):

@@ -795,8 +795,9 @@ def test_k5_split_and_block_schedules_agree(card):
                                    (2, 1500, 2600)])  # M > 2048: block
 def test_approx_match_cost_kernels(card, p, n, m):
     """K6 and K7 against the twin, equal to each other bit for bit, and
-    each repeating itself; the cluster schedule's first pair alone (a
-    cluster of 8) has the bits it has in the tile."""
+    each repeating itself; the default route is K7 at every one of these
+    shapes (`emd_route`), its bits and its count; the cluster schedule's
+    first pair alone (a cluster of 8) has the bits it has in the tile."""
     from ldt_torch.ops import _eval_kernels, emd
 
     x, y = _eval_clouds(p, n, m)
@@ -804,23 +805,100 @@ def test_approx_match_cost_kernels(card, p, n, m):
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     schedule = _eval_kernels.emd_schedule(p, n, m, False, sms)[0]
     assert schedule == ("block" if m > 2048 else "cluster")
+    assert _eval_kernels.emd_route(n, m)
     before = (fn.launches, fn.otf_launches, fn.cluster_launches)
-    k6 = fn(x, y)
+    k6 = fn(x, y, otf=False)
     k7 = fn(x, y, otf=True)
     torch.cuda.synchronize()
     assert (fn.launches, fn.otf_launches, fn.cluster_launches) == (
         before[0] + 2, before[1] + 1,
         before[2] + (2 if schedule == "cluster" else 0))
+    before = (fn.launches, fn.otf_launches)
+    default = fn(x, y)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.otf_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(default, k7)
     assert torch.equal(k6, k7)
-    assert torch.equal(k6, fn(x, y)) and torch.equal(k7, fn(x, y, otf=True))
-    names = _launched(lambda: fn(x, y))
+    assert torch.equal(k6, fn(x, y, otf=False)) and torch.equal(
+        k7, fn(x, y, otf=True))
+    names = _launched(lambda: fn(x, y, otf=False))
     assert ("approx_match_cluster_kernel" in names) == (
         schedule == "cluster"), names
     if schedule == "cluster":
-        assert torch.equal(fn(x[:1], y[:1]), k6[:1])
+        assert torch.equal(fn(x[:1], y[:1], otf=False), k6[:1])
     _rel_within(k6, emd.approx_match_cost_plain(x, y), K6_TOL)
     _rel_within(k6.cpu(), emd.approx_match_cost_plain(x.cpu(), y.cpu()),
                 K6_TOL)
+
+
+def test_the_default_route_falls_back_to_k6_past_k7s_shared_memory(card):
+    """At 2048 x 8192 points K7's shared memory does not fit: the default
+    takes K6 behind the d build (the block schedule, M > 2048), with K6's
+    bits, and a forced K7 refuses the shape."""
+    from ldt_torch.ops import _eval_kernels, emd
+
+    x, y = _eval_clouds(2, 2048, 8192)
+    fn = emd.approx_match_cost
+    assert not _eval_kernels.emd_route(2048, 8192)
+    before = (fn.launches, fn.otf_launches)
+    default = fn(x, y)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.otf_launches) == (before[0] + 1, before[1])
+    assert torch.equal(default, fn(x, y, otf=False))
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(x, y, otf=True)
+    _rel_within(default, emd.approx_match_cost_plain(x, y), K6_TOL)
+
+
+def test_compute_all_metrics_builds_its_distances_in_the_kernel(card):
+    """compute_all_metrics at a 64-pair tile of 2048-point clouds (8 x 8
+    sets, batch 16: one tile a matrix): every EMD launch takes K7 by the
+    rule, the cluster schedule, no `emd.distances` span is entered, and the
+    six matrices and the metrics equal an `emd_otf=False` run (K6 behind
+    the d build) bit for bit."""
+    import numpy as np
+
+    from ldt_torch.eval import metrics
+    from ldt_torch.ops import emd
+    from ldt_torch.tools import profiling
+
+    x, y = _eval_clouds(8, 2048, 2048, seed=2)
+    smp, ref = x.cpu().numpy(), y.cpu().numpy()
+    fn = emd.approx_match_cost
+    inner = metrics.pairwise_EMD_CD
+    runs = {}
+    try:
+        for otf in (None, False):
+            mats = []
+
+            def recorder(*a, **kw):
+                out = inner(*a, **kw)
+                mats.extend(out)
+                return out
+
+            metrics.pairwise_EMD_CD = recorder
+            before = (fn.launches, fn.otf_launches, fn.cluster_launches)
+            profiling.start()
+            try:
+                res = metrics.compute_all_metrics(smp, ref, 16,
+                                                  verbose=False,
+                                                  emd_otf=otf)
+                torch.cuda.synchronize()
+            finally:
+                spans = profiling.stop()
+            counts = tuple(a - b for a, b in zip(
+                (fn.launches, fn.otf_launches, fn.cluster_launches), before))
+            names = [sp.name for sp in spans]
+            runs[otf] = (mats, res, counts, names.count("emd.distances"))
+    finally:
+        metrics.pairwise_EMD_CD = inner
+    assert runs[None][2] == (3, 3, 3) and runs[None][3] == 0, runs[None][2:]
+    assert runs[False][2] == (3, 0, 3) and runs[False][3] == 3, \
+        runs[False][2:]
+    assert len(runs[None][0]) == len(runs[False][0]) == 6
+    for got, want in zip(runs[None][0], runs[False][0]):
+        assert np.array_equal(got, want)
+    assert runs[None][1] == runs[False][1]
 
 
 def test_eval_metrics_on_the_card_match_the_cpu(card):

@@ -1,5 +1,6 @@
 """K6/K7's cluster schedule on the CPU: which schedule and cluster size a
-tile takes (`ops._eval_kernels.emd_schedule`), the constants it mirrors
+tile takes (`ops._eval_kernels.emd_schedule`), which of K6 and K7 the
+wrapper takes by default (`emd_route`), the constants they mirror
 from `ldt_torch/csrc/eval.cu`, and the schedule's order of operations as a
 plain-PyTorch emulation held against the plain twin and against the JAX
 package's approx-match EMD (the Pallas kernel in interpret mode where it
@@ -221,3 +222,43 @@ def test_constants_mirror_the_source():
     # the eval's tile fits, K7 beside K6
     assert _eval_kernels.emd_cluster_smem_bytes(2048, 2048, True, 2) \
         <= _eval_kernels.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,m,otf", [
+    (2048, 2048, True),    # the eval's clouds: d built inside the kernel
+    (700, 300, True), (8192, 2048, True),
+    (5281, 5281, True),    # the largest square shape K7 takes
+    (5282, 5282, False),   # past it: K6 behind the d build
+    (8192, 8192, False),   # only K6's 163,904 B fit
+    (2048, 8192, False)])
+def test_route_rule(n, m, otf):
+    assert _eval_kernels.emd_route(n, m) is otf
+    # the rule is K7's shared memory against the limit, and where it falls
+    # back to K6, K6 takes the shape
+    assert (_eval_kernels.emd_smem_bytes(n, m, True)
+            <= _eval_kernels.SMEM_LIMIT) is otf
+    assert _eval_kernels.emd_smem_bytes(n, m, False) \
+        <= _eval_kernels.SMEM_LIMIT
+    if (n, m) == (8192, 8192):
+        assert _eval_kernels.emd_smem_bytes(n, m, False) == 163904
+
+
+def test_route_rule_mirrors_the_source():
+    """`emd_smem_bytes` and the limit the route reads against are the C
+    entry's: its `emd_smem_bytes` and `kMaxSmem` (csrc/rules.h)."""
+    body = re.search(r"size_t emd_smem_bytes\(int n, int m, bool otf\) "
+                     r"{.*?\n}", SOURCE, re.S).group(0)
+    base = re.search(r"size_t f = (.+?);", body).group(1)
+    extra = re.search(r"if \(otf\) f \+= (.+?);", body).group(1)
+    rules = (_build.CSRC / "rules.h").read_text()
+    limit = int(re.search(r"constexpr size_t kMaxSmem = (\d+);",
+                          rules).group(1))
+    assert limit == _eval_kernels.SMEM_LIMIT
+    for n, m in [(2048, 2048), (5281, 5281), (5282, 5282), (8192, 8192),
+                 (1, 10000), (130, 67)]:
+        env = dict(n=n, m=m, kEmdWarps=_eval_kernels._EMD_WARPS)
+        for otf in (False, True):
+            want = 4 * (eval(base.replace("(size_t)", ""), {}, env)
+                        + (eval(extra.replace("(size_t)", ""), {}, env)
+                           if otf else 0))
+            assert want == _eval_kernels.emd_smem_bytes(n, m, otf)

@@ -16,7 +16,7 @@ from chip_smoke import synthetic_shapes
 from ldt_tpu.ops import chamfer as jchamfer
 from ldt_tpu.ops import emd as jemd
 from ldt_tpu.ops.geometry import square_distance as jax_square_distance
-from ldt_torch.ops import chamfer, emd
+from ldt_torch.ops import _eval_kernels, chamfer, emd
 
 # The algorithm on JAX's own distances: the same f32 arithmetic, the sums in
 # another order (the tolerance the JAX package holds its Pallas EMD kernel to
@@ -148,13 +148,25 @@ def test_cpu_tensors_take_the_plain_twins_and_count_nothing():
     assert torch.equal(chamfer.pairwise_cd_means(x, y),
                        chamfer.pairwise_cd_means_plain(x, y))
     plain = emd.approx_match_cost_plain(x, y)
-    for otf in (False, True):
+    for otf in (None, False, True):
         assert torch.equal(emd.approx_match_cost(x, y, otf=otf), plain)
     # other dtypes are taken as float32, as the JAX package casts them
     assert torch.equal(emd.approx_match_cost(x.double(), y.double()), plain)
     assert (chamfer.pairwise_cd_means.launches,
             emd.approx_match_cost.launches,
             emd.approx_match_cost.otf_launches) == before
+
+
+def test_the_default_route_takes_clouds_only_k6_takes():
+    """Past K7's shared memory the rule falls back to K6 (on the CPU, the
+    plain twin on the same d), where a forced K7 refuses the shape."""
+    x, y = _t(_rand((1, 1, 3), 12)), _t(_rand((1, 10000, 3), 13))
+    assert not _eval_kernels.emd_route(1, 10000)
+    plain = emd.approx_match_cost_plain(x, y)
+    assert torch.equal(emd.approx_match_cost(x, y), plain)
+    assert torch.equal(emd.approx_match_cost(x, y, otf=False), plain)
+    with pytest.raises(ValueError, match="shared memory"):
+        emd.approx_match_cost(x, y, otf=True)
 
 
 @pytest.mark.parametrize("fn", [chamfer.pairwise_cd_means,

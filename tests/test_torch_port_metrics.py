@@ -143,10 +143,10 @@ def test_compute_all_metrics_matches_jax(sets):
                                  device="cpu")
     assert_metrics_match(got, want, {"CD": CD_TOL, "EMD": EMD_TOL})
     assert 0 < got["cov-CD"] < 1 and 0 < got["1-NN-CD-acc"] < 1
-    # the K7 mode gives the same metrics
-    otf = tm.compute_all_metrics(smp, ref, batch_size=4, verbose=False,
-                                 emd_otf=True, device="cpu")
-    assert otf == got
+    # either forced route (K7, K6) gives the default's metrics
+    for otf in (True, False):
+        assert tm.compute_all_metrics(smp, ref, batch_size=4, verbose=False,
+                                      emd_otf=otf, device="cpu") == got
 
 
 def test_compute_mmd_and_cd_metrics_match_jax(sets):

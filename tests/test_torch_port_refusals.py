@@ -87,7 +87,7 @@ def test_stage1_trainer_refuses_bf16_moments():
     compressor_trainer.Trainer(compressor_trainer_cfg(), device="cpu")
 
 
-@pytest.mark.parametrize("emd_otf", [False, True])
+@pytest.mark.parametrize("emd_otf", [None, False, True])
 def test_compute_mmd_metrics_passes_emd_otf(emd_otf, monkeypatch):
     seen = {}
     real = metrics.pairwise_EMD_CD
