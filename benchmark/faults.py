@@ -2,18 +2,23 @@
 could go wrong unseen: a step that leaves the state unchanged, half of the
 batch left out, an answer altered where it is produced. The comparison
 that decides `correct` has to fail each (the CPU tests plant them at a
-tiny size; `control.py --fault` reads them on the card)."""
+tiny size; `control.py --fault` reads them on the card).
+
+Each runner module names its own faults: `faults()` returns
+{fault: (object, attribute, make the replacement)}, built from the
+wrappers here, and imports the program only when called. A cell on a new
+runner brings its faults in its own file."""
 
 from __future__ import annotations
 
 
-def _scaled(fn, factor: float):
+def scaled(fn, factor: float):
     def wrapped(*a, **kw):
         return fn(*a, **kw) * factor
     return wrapped
 
 
-def _half_objective(fn):
+def half_objective(fn):
     """The stage-2 objective of the first half of the batch."""
     def wrapped(score, eps, t, var, e2int, weight, eta, *a, **kw):
         h = eps.shape[0] // 2
@@ -22,7 +27,7 @@ def _half_objective(fn):
     return wrapped
 
 
-def _half_sampled(fn):
+def half_sampled(fn):
     """The first half of the batch sampled, then repeated."""
     import torch
 
@@ -34,54 +39,27 @@ def _half_sampled(fn):
     return wrapped
 
 
-def _metrics_scaled(fn, factor: float):
+def metrics_scaled(fn, factor: float):
     def wrapped(*a, **kw):
         return {k: v * factor for k, v in fn(*a, **kw).items()}
     return wrapped
 
 
-def _unchanged(state, *a, **kw):
+def unchanged(state, *a, **kw):
     return state
 
 
-def _table() -> dict:
-    """{runner: {fault: (object, attribute, make the replacement)}}."""
-    from ldt_torch.eval import metrics
-    from ldt_torch.models import compressor
-    from ldt_torch.training import latent_sde_trainer as lst
+def _table(kind: str) -> dict:
+    from benchmark import harness
 
-    return {
-        "train_stage2": {
-            "state unchanged": (lst, "apply_update", lambda: _unchanged),
-            "half the batch": (lst, "score_objective",
-                               lambda: _half_objective(lst.score_objective)),
-            "loss altered": (lst, "score_objective",
-                             lambda: _scaled(lst.score_objective, 1.01))},
-        "sample": {
-            "latents altered": (lst, "sample_latents",
-                                lambda: _scaled(lst.sample_latents, 1.01)),
-            "half the batch": (lst, "sample_latents",
-                               lambda: _half_sampled(lst.sample_latents)),
-            "clouds altered": (compressor.Compressor, "sample",
-                               lambda: _scaled(compressor.Compressor.sample,
-                                               1.01))},
-        "evaluate": {
-            "emd altered": (metrics, "approx_match_cost",
-                            lambda: _scaled(metrics.approx_match_cost,
-                                            1.01)),
-            "cd altered": (metrics, "pairwise_cd_means",
-                           lambda: _scaled(metrics.pairwise_cd_means, 1.01)),
-            "metrics altered": (metrics, "lgan_mmd_cov",
-                                lambda: _metrics_scaled(metrics.lgan_mmd_cov,
-                                                        1.001))},
-    }
+    return harness.runner_module(kind).faults()
 
 
 def plant(kind: str, name: str):
     """(object, attribute, replacement) of fault `name` of runner `kind`."""
-    obj, attr, make = _table()[kind][name]
+    obj, attr, make = _table(kind)[name]
     return obj, attr, make()
 
 
 def names(kind: str) -> list:
-    return list(_table()[kind])
+    return list(_table(kind))

@@ -5,14 +5,20 @@ print the result line.
 A cell (`BENCHMARK.json` `workloads`) names a configuration
 (`configs/<config>.json`) and a traffic mix (`traffic/<traffic>.json`); the
 mix names its runner (`runners/<runner>.py`, class `Runner`) and holds the
-runner's parameters and the limits of its comparison. A per-layer metric
+runner's parameters and the limits of its comparison. The runner's module
+also holds its faults (`faults()`, see `faults.py`) and its parameters at
+the CPU tests' tiny size (`TINY`, see `tests/tiny.py`). A per-layer metric
 is `metrics/<name>.json`, which names a reader (`readers/<reader>.py`,
 function `read`) and its parameters; a reader that needs a count (model
 FLOPs, a function's least time) takes it from the module the metric file
-names under `count` (`counts/<count>.py`). Adding a cell, a mix, a
-configuration or a metric adds files; no file here changes. A listed
+names under `count` (`counts/<count>.py`). Adding a cell, a mix, a runner,
+a configuration or a metric adds files; no file here changes. A listed
 per-layer metric whose reader finds nothing to read is left out of the
 result line, named on standard error and under the line's `silent` key.
+
+The traced stretch records the program's spans beside the device activity
+(`readers/program_spans.py`), so a reader may credit device or idle time
+to the span that launched it; the measured window runs with spans off.
 
 A runner has:
   setup()          build the program's objects from the seed, warm every
@@ -81,8 +87,12 @@ def cell(name: str) -> dict:
             "end_to_end": e2e, "per_layer": per_layer}
 
 
+def runner_module(kind: str):
+    return importlib.import_module(f"benchmark.runners.{kind}")
+
+
 def runner_class(kind: str):
-    return importlib.import_module(f"benchmark.runners.{kind}").Runner
+    return runner_module(kind).Runner
 
 
 def reader(name: str):
@@ -148,13 +158,15 @@ def device_info(device: str) -> dict:
 def run(name: str, seed: int, seconds: float, trace: bool, *,
         device: str = "cuda", t0: float | None = None,
         config_over: dict | None = None,
-        params_over: dict | None = None) -> dict:
+        params_over: dict | None = None, stretch=None) -> dict:
     """One run of cell `name`; returns the result object. The CPU (with
-    `config_over` / `params_over` shrinking the cell) is for the tests."""
+    `config_over` / `params_over` shrinking the cell) is for the tests.
+    A traced run traces with `stretch`, by default a new
+    `program_spans.Stretch`."""
     t0 = time.perf_counter() if t0 is None else t0
     import torch
 
-    from benchmark.readers import trace as trace_reader
+    from benchmark.readers import program_spans
 
     c = cell(name)
     for key, over in (config_over or {}).items():
@@ -170,7 +182,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
         torch.cuda.reset_peak_memory_stats()
     metrics, silent = {}, []
     if trace:
-        stretch = trace_reader.Stretch(device)
+        if stretch is None:
+            stretch = program_spans.Stretch(device)
         work = dict(runner.traced(stretch), config=c["config"])
         summary = stretch.summary()
         print(f"trace: window {summary['window_s']!r} s, busy "
@@ -183,8 +196,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
             else:
                 silent.append(m["name"])
                 print(f"per-layer metric {m['name']} read nothing: its "
-                      f"kernels are off the path or off their name "
-                      f"patterns", file=sys.stderr)
+                      f"kernels or spans are off the path or off their "
+                      f"names", file=sys.stderr)
         dev = device_info(device)
         dev.update(busy_s=summary["busy_s"], window_s=summary["window_s"])
     else:

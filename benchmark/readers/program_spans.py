@@ -146,6 +146,11 @@ def per_count(summary: dict, per: str) -> int:
     return sum(1 for s in summary.get("spans", ()) if s[0] == per)
 
 
+def recorded(summary: dict, names) -> bool:
+    """Whether a span of one of `names` was recorded in the stretch."""
+    return any(s[0] in names for s in summary.get("spans", ()))
+
+
 def credited(summary: dict, names, children: bool = False) -> set:
     """The ids of the spans whose time a metric of `names` takes: the spans
     of those names, and with `children` every span inside one of them."""

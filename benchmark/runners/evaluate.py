@@ -21,9 +21,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from benchmark import faults as f
 from benchmark import shapes
 from benchmark.reference import evaluation as ref_eval
 from benchmark.reference.models import Precision
+
+# the traffic's parameters at the CPU tests' tiny size
+TINY = {"clouds": 6, "batch_size": 4, "check_pairs": 16, "check_block": 8,
+        "sample_sets": 2}
+
+
+def faults() -> dict:
+    """{fault: (object, attribute, make the replacement)} (`faults.py`)."""
+    from ldt_torch.eval import metrics
+
+    return {
+        "emd altered": (metrics, "approx_match_cost",
+                        lambda: f.scaled(metrics.approx_match_cost, 1.01)),
+        "cd altered": (metrics, "pairwise_cd_means",
+                       lambda: f.scaled(metrics.pairwise_cd_means, 1.01)),
+        "metrics altered": (metrics, "lgan_mmd_cov",
+                            lambda: f.metrics_scaled(metrics.lgan_mmd_cov,
+                                                     1.001))}
 
 
 class Runner:

@@ -21,10 +21,30 @@ from __future__ import annotations
 
 import torch
 
+from benchmark import faults as f
 from benchmark import weights
 from benchmark.runners import common
 from benchmark.reference import diffusion as ref_diff
 from benchmark.reference.models import Precision
+
+# the traffic's parameters at the CPU tests' tiny size
+TINY = {"batch": 4, "warmup_steps": 4, "traced_steps": 4, "traced_from": 2,
+        "check_rows": 2}
+
+
+def faults() -> dict:
+    """{fault: (object, attribute, make the replacement)} (`faults.py`)."""
+    from ldt_torch.models import compressor
+    from ldt_torch.training import latent_sde_trainer as lst
+
+    return {
+        "latents altered": (lst, "sample_latents",
+                            lambda: f.scaled(lst.sample_latents, 1.01)),
+        "half the batch": (lst, "sample_latents",
+                           lambda: f.half_sampled(lst.sample_latents)),
+        "clouds altered": (compressor.Compressor, "sample",
+                           lambda: f.scaled(compressor.Compressor.sample,
+                                            1.01))}
 
 
 class Runner:

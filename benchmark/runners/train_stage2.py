@@ -21,11 +21,27 @@ from __future__ import annotations
 
 import torch
 
+from benchmark import faults as f
 from benchmark import shapes, weights
 from benchmark.runners import common
 from benchmark.reference import diffusion as ref_diff
 from benchmark.reference import optim as ref_optim
 from benchmark.reference.models import Precision
+
+# the traffic's parameters at the CPU tests' tiny size
+TINY = {"batches": 2, "steps_per_epoch": 2, "traced_steps": 2}
+
+
+def faults() -> dict:
+    """{fault: (object, attribute, make the replacement)} (`faults.py`)."""
+    from ldt_torch.training import latent_sde_trainer as lst
+
+    return {
+        "state unchanged": (lst, "apply_update", lambda: f.unchanged),
+        "half the batch": (lst, "score_objective",
+                           lambda: f.half_objective(lst.score_objective)),
+        "loss altered": (lst, "score_objective",
+                         lambda: f.scaled(lst.score_objective, 1.01))}
 
 
 class Runner:

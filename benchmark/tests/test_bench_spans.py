@@ -1,6 +1,10 @@
 """The program's spans laid over a traced stretch (`readers.program_spans`)
-and the span readers, on planted kineto events; the span-recording run of
-each cell at the tiny size on the CPU."""
+and the span readers, on planted kineto events; the span metrics listed in
+`BENCHMARK.json`, each on spans the program opens; the traced run of each
+cell, which records the spans, at the tiny size on the CPU."""
+
+import re
+from pathlib import Path
 
 import pytest
 
@@ -8,6 +12,9 @@ from benchmark import harness, trace_spans
 from benchmark.readers import program_spans, span_idle, span_ms, trace
 from benchmark.tests import tiny
 from ldt_torch.tools.profiling import Span
+
+REPO = Path(__file__).resolve().parents[2]
+SPAN_READERS = trace_spans.SPAN_READERS
 
 LO = 1_792_000_000_000_000_000  # ns since the epoch, as kineto's
 
@@ -127,6 +134,16 @@ def test_idle_gaps_are_labelled_span_then_call(summary):
         f"(no span) / {LAUNCH}": 1700e-9})
 
 
+def test_a_span_off_the_path_reads_nothing(summary):
+    """A metric whose spans were not recorded in the stretch is silent, not
+    0, though its `per` spans were: the span has left the path."""
+    for read in (span_ms.read, span_idle.read):
+        m = {"spans": ["emd.distances"], "per": "train.step"}
+        assert read(m, summary, {}) is None
+        m = {"spans": ["emd.distances", "train.loss"], "per": "train.step"}
+        assert read(m, summary, {}) is not None
+
+
 def test_readers_find_nothing_without_spans_or_device():
     plain = trace.summarize(EVENTS, 2e-5)
     m = {"spans": ["train.encode"], "per": "train.step"}
@@ -164,40 +181,57 @@ def test_existing_readers_read_the_same(name):
     assert sum(s for _, s in spans["breakdown"]["idle_gaps"]) == \
         pytest.approx(sum(s for _, s in plain["breakdown"]["idle_gaps"]))
     for m in c["per_layer"]:
+        if m["reader"] in SPAN_READERS:  # nothing to read without spans
+            continue
         read = harness.reader(m["reader"])
         assert read(m, spans, work) == read(m, plain, work), m["name"]
         assert read(m, plain, work) is not None, m["name"]
 
 
-def test_span_metrics_are_new_entries_with_their_files():
-    bench = harness.spec()
-    listed = {m["name"] for m in bench["per_layer"]}
-    layers = {m["layer"] for m in bench["per_layer"]}
-    e2e = {m["name"]: m for m in bench["end_to_end"]}
-    cells = {w["name"] for w in bench["workloads"]}
-    entries = harness.load_json(harness.ROOT / "span_metrics.json")
-    assert len(entries) == 8
-    for m in entries:
-        assert m["name"] not in listed
-        assert set(m) == {"name", "unit", "better", "source", "layer",
-                          "moves", "workloads"}
-        assert m["source"] == "program_span" and m["layer"] in layers \
-            | {"models.compressor", "eval.metrics", "ops"}
-        for w in m["workloads"]:
-            assert w in cells and w in e2e[m["moves"]]["workloads"]
-        assert harness.reader(harness.load_json(
-            harness.ROOT / "metrics" / f"{m['name']}.json")["reader"])
+def program_span_names() -> set:
+    """The names of the spans `ldt_torch` opens (`profiling.span("...")`
+    in its sources)."""
+    pattern = re.compile(r"profiling\.span\(\s*\"([^\"]+)\"")
+    return {n for p in (REPO / "ldt_torch").rglob("*.py")
+            for n in pattern.findall(p.read_text())}
+
+
+def test_span_metrics_have_their_files_and_the_programs_spans():
+    """Every per-layer metric that reads spans has its metric file, and its
+    `spans` and `per` are spans the program opens."""
+    opened = program_span_names()
+    assert {"train.step", "sample.step", "eval.call"} <= opened
+    listed = [m for w in harness.spec()["workloads"]
+              for m in harness.cell(w["name"])["per_layer"]
+              if m["reader"] in SPAN_READERS]
+    assert len(listed) >= 7
+    for m in listed:
+        assert m["source"] == "device_trace" and len(m["workloads"]) == 1
+        assert set(m["spans"]) <= opened, m["name"]
+        assert m["per"] in opened, m["name"]
+    assert not (harness.ROOT / "span_metrics.json").exists()
 
 
 @pytest.mark.parametrize("name", list(WORK))
 def test_span_run_on_the_cpu(name):
-    """The span-recording run of a cell, tiny on the CPU: correct, the
-    program's spans recorded, the span metrics silent (no device)."""
-    kind = harness.cell(name)["traffic"]["runner"]
-    r = trace_spans.run(name, tiny.SEED, device="cpu",
-                        config_over=tiny.TINY,
-                        params_over=tiny.PARAMS[kind])
-    assert r["correct"] and r["spans"] > 0
-    assert r["span_silent"] == [m["name"] for m in
-                                trace_spans.span_metrics(name)]
+    """A cell's traced run through the harness, tiny on the CPU: correct,
+    the program's spans recorded in the stretch, the span metrics silent
+    (no device)."""
+    stretch = program_spans.Stretch("cpu")
+    r = tiny.run(name, True, stretch=stretch)
+    assert r["correct"] and stretch.spans
+    span_metrics = {m["name"] for m in harness.cell(name)["per_layer"]
+                    if m["reader"] in SPAN_READERS}
+    assert span_metrics and span_metrics <= set(r["silent"])
     assert all(" / " in label for label, _ in r["breakdown"]["idle_gaps"])
+
+
+def test_trace_spans_on_the_cpu():
+    """`trace_spans.py`'s run: the result line with the coverage keys, the
+    compared numbers last; on the CPU no device time to cover."""
+    name = "airplane.eval"
+    config, params = tiny.cut(harness.cell(name)["traffic"]["runner"])
+    r = trace_spans.run(name, tiny.SEED, device="cpu", config_over=config,
+                        params_over=params)
+    assert r["correct"] and r["span_coverage"] is None
+    assert list(r)[-1] == "checks"

@@ -85,12 +85,73 @@ def _digests(root: Path) -> dict:
             if p.is_file() and "__pycache__" not in p.parts}
 
 
+# A runner of a cell added by files alone: a thin twin of the sample
+# runner, with its own tiny size (one Score block fewer) and its own faults.
+TWIN_RUNNER = """
+from benchmark import faults as f
+from benchmark.runners import sample
+
+TINY = dict(sample.TINY, check_rows=1, config={"score": {"num_blocks": 1}})
+
+
+def faults():
+    from ldt_torch.training import latent_sde_trainer as lst
+
+    return {"latents altered": (lst, "sample_latents",
+                                lambda: f.scaled(lst.sample_latents, 1.02))}
+
+
+class Runner(sample.Runner):
+    pass
+"""
+
+# In the copy: the tiny rehearsals of both new cells untraced and traced,
+# the new runner's one fault planted, and its control. The CPU has no
+# device kernels, so the traced summaries get a planted kernel, launched
+# inside the first `sample.score` span where the stretch recorded one.
+NEW_CELLS_SCRIPT = """
+import json, sys
+sys.path[:0] = [{copy!r}, {repo!r}]
+import benchmark
+assert benchmark.__file__.startswith({copy!r})
+from benchmark import faults, harness
+from benchmark.control import readings
+from benchmark.readers import program_spans as ps
+from benchmark.tests import tiny
+plain = ps.Stretch.summary
+def planted(self):
+    out = plain(self)
+    score = [s[1] for s in out['spans'] if s[0] == 'sample.score']
+    out['kernels'].append(('pairwise_cd_kernel', 0.0, 1e-3, True))
+    out['kernel_spans'].append(score[0] if score else None)
+    out['busy_s'] = max(out['busy_s'], 1e-3)
+    return out
+ps.Stretch.summary = planted
+for name in ('airplane_b32.eval_small', 'all55.sample_twin'):
+    for trace in (False, True):
+        print(json.dumps(tiny.run(name, trace)))
+obj, attr, broken = faults.plant('sample_twin', 'latents altered')
+sound = getattr(obj, attr)
+setattr(obj, attr, broken)
+print(json.dumps(tiny.run('all55.sample_twin')))
+setattr(obj, attr, sound)
+c = tiny.shrink(harness.cell('all55.sample_twin'))
+runner, program = readings(c, tiny.SEED, 1, 'cpu')
+lim = c['traffic']['limits']
+print(json.dumps({{'program': {{n: [v, lim[n]] for n, v in program.items()}},
+    'control': {{
+    n: [v, lim] for n, v, lim in runner.control('bf16')}},
+    'blocks': c['config']['score']['num_blocks']}}))
+"""
+
+
 def test_a_new_cell_is_only_new_files(tmp_path):
-    """In a copy: a new configuration, traffic mix, cell and per-layer
-    metrics (one with a new reader; a roofline of a function no metric
-    counted before, with its count module) run with no existing file
-    edited. The CPU has no device kernels, so the roofline reads a kernel
-    planted in the traced stretch's summary."""
+    """In a copy: new configurations, traffic mixes, cells, a runner with
+    its own tiny size and faults, and per-layer metrics (one with a new
+    reader; a roofline of a function no metric counted before, with its
+    count module; one on a span the program opens) run with no existing
+    file edited: untraced and traced, with the new runner's fault planted
+    (not correct) and with its control (not correct)."""
     shutil.copytree(REPO / "benchmark", tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -119,6 +180,13 @@ def test_a_new_cell_is_only_new_files(tmp_path):
     (b / "metrics" / "cd_roofline.eval_small.json").write_text(
         json.dumps({"reader": "roofline", "count": "chamfer_eval",
                     "kernels": ["pairwise_cd"]}))
+    (b / "runners" / "sample_twin.py").write_text(TWIN_RUNNER)
+    mix = json.loads((b / "traffic" / "sample_label.json").read_text())
+    mix["runner"] = "sample_twin"
+    (b / "traffic" / "sample_twin.json").write_text(json.dumps(mix))
+    (b / "metrics" / "score_ms.sample_twin.json").write_text(
+        json.dumps({"reader": "span_ms", "spans": ["sample.score"],
+                    "per": "sample.step"}))
     bench["configs"].append({"name": "airplane_b32", "source": "x",
                              "file": "benchmark/configs/airplane_b32.json",
                              "reduced": [], "why": "x"})
@@ -126,7 +194,12 @@ def test_a_new_cell_is_only_new_files(tmp_path):
                                "config": "airplane_b32",
                                "traffic": "eval_small", "chips": 1,
                                "why": "x"})
-    bench["end_to_end"][2]["workloads"].append("airplane_b32.eval_small")
+    bench["workloads"].append({"name": "all55.sample_twin",
+                               "config": "all55", "traffic": "sample_twin",
+                               "chips": 1, "why": "x"})
+    e2e = {m["name"]: m for m in bench["end_to_end"]}
+    e2e["eval_pairs_per_s"]["workloads"].append("airplane_b32.eval_small")
+    e2e["gen_clouds_per_min"]["workloads"].append("all55.sample_twin")
     bench["per_layer"].append({"name": "stretch_ms.eval_small", "unit": "ms",
                                "better": "lower", "source": "device_trace",
                                "layer": "device",
@@ -137,36 +210,39 @@ def test_a_new_cell_is_only_new_files(tmp_path):
                                "layer": "csrc (kernels)",
                                "moves": "eval_pairs_per_s",
                                "workloads": ["airplane_b32.eval_small"]})
+    bench["per_layer"].append({"name": "score_ms.sample_twin", "unit": "ms",
+                               "better": "lower", "source": "device_trace",
+                               "layer": "models.score / nn.layers",
+                               "moves": "gen_clouds_per_min",
+                               "workloads": ["all55.sample_twin"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    script = (
-        "import json, sys\n"
-        f"sys.path[:0] = [{str(tmp_path)!r}, {str(REPO)!r}]\n"
-        "import benchmark\n"
-        f"assert benchmark.__file__.startswith({str(tmp_path)!r})\n"
-        "from benchmark.tests import tiny\n"
-        "from benchmark.readers import trace as tr\n"
-        "plain = tr.Stretch.summary\n"
-        "def planted(self):\n"
-        "    out = plain(self)\n"
-        "    out['kernels'].append(('pairwise_cd_kernel', 0.0, 1e-3, True))\n"
-        "    return out\n"
-        "tr.Stretch.summary = planted\n"
-        "for trace in (False, True):\n"
-        "    r = tiny.run('airplane_b32.eval_small', trace)\n"
-        "    print(json.dumps(r))\n")
+    script = NEW_CELLS_SCRIPT.format(copy=str(tmp_path), repo=str(REPO))
     out = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
                          capture_output=True, text=True, timeout=600,
                          env=dict(os.environ, PYTHONPATH=""))
     assert out.returncode == 0, out.stderr[-3000:]
     lines = [json.loads(x) for x in out.stdout.splitlines()
              if x.startswith("{")]
-    assert lines[0]["correct"] and "eval_pairs_per_s" in lines[0]["metrics"]
-    assert lines[1]["metrics"]["stretch_ms.eval_small"]["value"] > 0
+    assert len(lines) == 6
+    eval_plain, eval_traced, twin_plain, twin_traced, fault, ctl = lines
+    assert eval_plain["correct"] and "eval_pairs_per_s" in \
+        eval_plain["metrics"]
+    assert eval_traced["metrics"]["stretch_ms.eval_small"]["value"] > 0
     # tiny's eval: 6 clouds of 128 points, one call in the stretch
     pairs = 3 * 6 * 6
     least = max(pairs * (2 * 128 * 12 + 4) / 3.35e12,
                 pairs * 8 * 128 * 128 / 33.45e12)
-    assert lines[1]["metrics"]["cd_roofline.eval_small"]["value"] == \
+    assert eval_traced["metrics"]["cd_roofline.eval_small"]["value"] == \
         pytest.approx(100.0 * least / 1e-3)
+    assert twin_plain["correct"] and twin_traced["correct"]
+    assert set(twin_plain["metrics"]) == {"gen_clouds_per_min", "setup_s"}
+    # the planted kernel's 1 ms over the stretch's sampler steps
+    assert set(twin_traced["metrics"]) == {"score_ms.sample_twin"}
+    assert twin_traced["silent"] == []
+    assert 0 < twin_traced["metrics"]["score_ms.sample_twin"]["value"] <= 1
+    assert not fault["correct"], fault["checks"]
+    assert ctl["blocks"] == 1
+    assert all(v <= lim for v, lim in ctl["program"].values()), ctl
+    assert any(not (v <= lim) for v, lim in ctl["control"].values()), ctl
     after = _digests(tmp_path / "benchmark")
     assert {k: v for k, v in after.items() if k in before} == before

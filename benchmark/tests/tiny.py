@@ -1,5 +1,9 @@
 """The cells cut to a size the CPU runs in seconds: the same runners, the
-program's plain twins in place of the CUDA kernels."""
+program's plain twins in place of the CUDA kernels.
+
+`TINY` cuts the configuration's sections; each runner's module holds its
+traffic parameters at the tiny size (`runners/<runner>.py::TINY`), and
+may cut sections of its own there under the key "config"."""
 
 TINY = {"score": {"z_dim": 8, "z_scale": 8, "hidden_size": 64,
                   "num_heads": 4, "num_blocks": 2, "t_dim": 64},
@@ -11,28 +15,35 @@ TINY = {"score": {"z_dim": 8, "z_scale": 8, "hidden_size": 64,
         "data": {"batch_size": 4, "tr_max_sample_points": 128,
                  "te_max_sample_points": 128}}
 
-PARAMS = {"train_stage2": {"batches": 2, "steps_per_epoch": 2,
-                           "traced_steps": 2},
-          "sample": {"batch": 4, "warmup_steps": 4, "traced_steps": 4,
-                       "traced_from": 2, "check_rows": 2},
-          "evaluate": {"clouds": 6, "batch_size": 4, "check_pairs": 16,
-                       "check_block": 8, "sample_sets": 2}}
-
 SEED = 2 ** 31 + 7
+
+
+def cut(kind: str) -> tuple:
+    """(config sections, traffic parameters) of runner `kind` at the tiny
+    size."""
+    from benchmark import harness
+
+    params = dict(harness.runner_module(kind).TINY)
+    config = dict(TINY)
+    for key, over in params.pop("config", {}).items():
+        config[key] = {**config.get(key, {}), **over}
+    return config, params
 
 
 def shrink(c: dict) -> dict:
     """A loaded cell (`harness.cell`) cut to the tiny size, in place."""
-    for key, over in TINY.items():
+    config, params = cut(c["traffic"]["runner"])
+    for key, over in config.items():
         c["config"][key] = {**c["config"][key], **over}
-    c["traffic"]["params"].update(PARAMS[c["traffic"]["runner"]])
+    c["traffic"]["params"].update(params)
     return c
 
 
-def run(name: str, trace: bool = False) -> dict:
-    """One CPU run of cell `name` at the tiny size."""
+def run(name: str, trace: bool = False, **kw) -> dict:
+    """One CPU run of cell `name` at the tiny size (`kw` to
+    `harness.run`)."""
     from benchmark import harness
 
-    kind = harness.cell(name)["traffic"]["runner"]
+    config, params = cut(harness.cell(name)["traffic"]["runner"])
     return harness.run(name, SEED, 0.5, trace, device="cpu",
-                       config_over=TINY, params_over=PARAMS[kind])
+                       config_over=config, params_over=params, **kw)
